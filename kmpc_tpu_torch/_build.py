@@ -2,9 +2,9 @@
 
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface, built at first use into ``kmpc_tpu_torch/_build/`` and keyed by
-a hash of the source and the flags, so an edited source rebuilds and an
-unchanged one loads at once. ``build_all`` starts one nvcc per source,
-all at the same time. Nothing here runs at import.
+a hash of the source, the headers beside it and the flags, so an edited
+source rebuilds and an unchanged one loads at once. ``build_all`` starts
+one nvcc per source, all at the same time. Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -33,6 +33,8 @@ NVCC_FLAGS = [
 
 SOURCES = {
     "pdhg_log_utility": "pdhg_log_utility.cu",
+    "pdhg_log_utility_scenarios": "pdhg_log_utility_scenarios.cu",
+    "pdhg_mean_variance": "pdhg_mean_variance.cu",
 }
 
 
@@ -55,8 +57,9 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / SOURCES[name]
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 

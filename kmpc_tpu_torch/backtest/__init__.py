@@ -1,8 +1,11 @@
-"""Jacobi backtest and metrics."""
+"""Jacobi backtest, its strategies and metrics."""
 
 from kmpc_tpu_torch.backtest.engine import (
     BuyAndHoldStrategy,
+    DMDStrategy,
     KoopmanMPCStrategy,
+    MarkowitzStrategy,
+    ScenarioKoopmanMPCStrategy,
     calculate_metrics,
     make_parallel_backtester,
     run_backtest_parallel,
@@ -10,7 +13,10 @@ from kmpc_tpu_torch.backtest.engine import (
 
 __all__ = [
     "BuyAndHoldStrategy",
+    "DMDStrategy",
     "KoopmanMPCStrategy",
+    "MarkowitzStrategy",
+    "ScenarioKoopmanMPCStrategy",
     "calculate_metrics",
     "make_parallel_backtester",
     "run_backtest_parallel",

@@ -9,8 +9,10 @@ sort-free iteration
 
 Newton's method on a convex piecewise-linear function, so it converges
 from a cold start theta_0 = (sum v - radius) / n or from a warm theta
-carried over from the previous solver iteration. Plain tensor code; the
-reference version of the CUDA kernel uses it.
+carried over from the previous solver iteration. On top of the thresholds
+stand the closed-form projections and proxes of the eager solvers
+(simplex, l1 ball, soft threshold, box, hyperplane). Plain tensor code; the
+plain versions of the CUDA kernels use the thresholds.
 """
 
 from __future__ import annotations
@@ -91,3 +93,78 @@ def simplex_threshold(
         theta = michelot_sweep(vc, radius, theta)
     return theta + vmax
 
+
+def project_simplex_warm(
+    v: torch.Tensor, radius: float, theta0: torch.Tensor, num_iters: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Simplex projection from a carried threshold: (w, theta), so an outer
+    loop can carry theta and run only a few sweeps per projection."""
+    theta = simplex_threshold(v, radius, num_iters=num_iters, theta0=theta0)
+    return torch.clamp(v - theta, min=0.0), theta
+
+
+def soft_threshold(v: torch.Tensor, threshold) -> torch.Tensor:
+    """prox of t*||.||_1: sign(v) * max(|v| - t, 0)."""
+    return torch.sign(v) * torch.clamp(v.abs() - threshold, min=0.0)
+
+
+def prox_l1_in_ball_warm(
+    v: torch.Tensor, shrink_t, radius: float, theta0: torch.Tensor,
+    num_iters: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """prox of t*c*||u||_1 + indicator(||u||_1 <= radius) from a carried
+    ball threshold: (u, theta), theta unclamped for the next warm start."""
+    s = soft_threshold(v, shrink_t)
+    a = s.abs()
+    l1 = a.sum(dim=-1, keepdim=True)
+    theta = simplex_threshold(a, radius, num_iters=num_iters, theta0=theta0)
+    projected = torch.sign(s) * torch.clamp(a - torch.clamp(theta, min=0.0),
+                                            min=0.0)
+    return torch.where(l1 <= radius, s, projected), theta
+
+
+def project_simplex(v: torch.Tensor, radius: float = 1.0) -> torch.Tensor:
+    """Projection onto {w >= 0, sum(w) = radius} over the last axis. A last
+    exact-sum correction spreads the float32 cancellation residual over the
+    active set, so the sum is exact to about one ulp for any input."""
+    theta = simplex_threshold(v, radius)
+    w = torch.clamp(v - theta, min=0.0)
+    active = w > 0
+    count = active.sum(dim=-1, keepdim=True).to(v.dtype)
+    s = w.sum(dim=-1, keepdim=True)
+    corr = (radius - s) / torch.clamp(count, min=1.0)
+    return torch.clamp(torch.where(active, w + corr, torch.zeros_like(w)),
+                       min=0.0)
+
+
+def project_l1_ball(v: torch.Tensor, radius: float) -> torch.Tensor:
+    """Projection onto {||u||_1 <= radius}: identity inside, else a soft
+    threshold by the simplex threshold of |v| (Duchi et al. 2008), with a
+    multiplicative exact-radius correction. radius <= 0 gives zeros."""
+    if radius <= 0.0:
+        return torch.zeros_like(v)
+    a = v.abs()
+    l1 = a.sum(dim=-1, keepdim=True)
+    theta = torch.clamp(simplex_threshold(a, radius), min=0.0)
+    projected = torch.sign(v) * torch.clamp(a - theta, min=0.0)
+    s = projected.abs().sum(dim=-1, keepdim=True)
+    projected = projected * torch.clamp(radius / torch.clamp(s, min=1e-30),
+                                        max=1.0)
+    return torch.where(l1 <= radius, v, projected)
+
+
+def prox_l1_in_ball(v: torch.Tensor, shrink_t, radius: float) -> torch.Tensor:
+    """prox of t*c*||u||_1 + indicator(||u||_1 <= radius): soft threshold,
+    then the l1-ball projection (exact for this separable-sign pair)."""
+    return project_l1_ball(soft_threshold(v, shrink_t), radius)
+
+
+def project_box(v: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """Clip to [lo, hi]."""
+    return torch.clamp(v, lo, hi)
+
+
+def project_hyperplane_sum(v: torch.Tensor, total: float = 1.0) -> torch.Tensor:
+    """Projection onto {sum(w) = total} (no sign constraint)."""
+    n = v.shape[-1]
+    return v - (v.sum(dim=-1, keepdim=True) - total) / n

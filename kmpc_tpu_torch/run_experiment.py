@@ -1,4 +1,5 @@
-"""Backtest experiment: Koopman-MPC against buy-and-hold, by Jacobi sweeps.
+"""Backtest experiment: Koopman-MPC against buy-and-hold, Markowitz and DMD
+(and the scenario-Kelly variant), by Jacobi sweeps.
 
 Port of the repository's ``run_experiment.py --parallel``. With ``--path``
 it loads a kmpc_tpu run directory (config.json and its npz checkpoint);
@@ -7,11 +8,12 @@ from ``--init_seed``. It prints the metrics table and writes
 ``full_comparison_metrics.csv`` and ``experiment_results.json``.
 
     python -m kmpc_tpu_torch.run_experiment [--path RUN_DIR | --init_seed S]
-        [--sweeps 8] [--mpc_iters N] [--cpu] [--output DIR]
+        [--scenarios 16] [--risk_aversion 1.0] [--sweeps 8] [--mpc_iters N]
+        [--eager] [--cpu] [--output DIR]
 
-Runs on the CUDA device (the MPC solves go through the fused kernel) unless
-``--cpu`` asks for the plain-PyTorch path. Not ported yet: the Markowitz,
-DMD and ScenarioKelly strategies of the JAX CLI.
+Runs on the CUDA device, every batched solve through its fused kernel
+(``--eager`` takes the eager solvers instead), unless ``--cpu`` asks for
+the CPU, where the kernels' plain PyTorch versions run.
 """
 
 from __future__ import annotations
@@ -25,8 +27,6 @@ import torch
 
 from kmpc_tpu_torch.config import BacktestConfig, Config, get_config
 from kmpc_tpu_torch.ops.mpc import MPCParams, mpc_params_from_config
-
-NOT_PORTED = ("Markowitz", "DMD", "ScenarioKelly")
 
 
 def backtest_settings(cfg: Config, horizon=None, cost_coeff=None,
@@ -52,6 +52,46 @@ def backtest_settings(cfg: Config, horizon=None, cost_coeff=None,
     return bt, mpc
 
 
+def markowitz_settings(cfg: Config, risk_aversion: float = 1.0,
+                       cost_coeff=None, mpc_iters=None) -> MPCParams:
+    """MPCParams of the Markowitz baseline: horizon 1, gamma the risk
+    aversion, the experiment's cost and iteration budget."""
+    cost_coeff = cfg.MPC.COST_COEFF if cost_coeff is None else cost_coeff
+    mpc_iters = cfg.MPC.SOLVER.MAX_ITERS if mpc_iters is None else mpc_iters
+    return mpc_params_from_config(
+        cfg, horizon=1, gamma=risk_aversion, cost_coeff=cost_coeff,
+        max_iters=mpc_iters,
+    )
+
+
+def build_strategies(model, mpc: MPCParams, mv_mpc: MPCParams,
+                     lookback_window: int, scenarios: int = 0,
+                     fused: bool = True) -> dict:
+    """The comparison's strategies by name, in the order they are run."""
+    from kmpc_tpu_torch.backtest.engine import (
+        BuyAndHoldStrategy,
+        DMDStrategy,
+        KoopmanMPCStrategy,
+        MarkowitzStrategy,
+        ScenarioKoopmanMPCStrategy,
+    )
+
+    strategies = {
+        "BuyAndHold": BuyAndHoldStrategy(),
+        "Markowitz": MarkowitzStrategy(
+            mpc=mv_mpc, lookback_window=lookback_window,
+            use_fused_kernel=fused),
+        "DMD": DMDStrategy(mpc=mpc, use_fused_kernel=fused),
+        "KoopmanMPC": KoopmanMPCStrategy(model=model, mpc=mpc,
+                                         use_fused_kernel=fused),
+    }
+    if scenarios > 0:
+        strategies["ScenarioKelly"] = ScenarioKoopmanMPCStrategy(
+            model=model, mpc=mpc, num_scenarios=scenarios,
+            use_fused_kernel=fused)
+    return strategies
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     src = parser.add_mutually_exclusive_group()
@@ -62,8 +102,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("--horizon", type=int, default=None)
     parser.add_argument("--cost_coeff", type=float, default=None)
     parser.add_argument("--max_turnover", type=float, default=None)
+    parser.add_argument("--risk_aversion", type=float, default=1.0,
+                        help="gamma of the Markowitz baseline")
     parser.add_argument("--mpc_iters", type=int, default=None,
                         help="default: the config's MPC.SOLVER.MAX_ITERS")
+    parser.add_argument("--scenarios", type=int, default=0,
+                        help="also run the stochastic-Kelly strategy with "
+                             "this many Monte-Carlo scenarios")
+    parser.add_argument("--eager", action="store_true",
+                        help="solve with the eager solvers instead of the "
+                             "fused kernels")
     parser.add_argument("--sweeps", type=int, default=8,
                         help="Jacobi sweeps (as many as dates is exact)")
     parser.add_argument("--cpu", action="store_true",
@@ -75,8 +123,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     from kmpc_tpu_torch import default_device
     from kmpc_tpu_torch.backtest.engine import (
-        BuyAndHoldStrategy,
-        KoopmanMPCStrategy,
         calculate_metrics,
         run_backtest_parallel,
     )
@@ -104,11 +150,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
 
     bt, mpc = backtest_settings(cfg, args.horizon, args.cost_coeff,
                                 args.max_turnover, args.mpc_iters)
-    strategies = {
-        "BuyAndHold": BuyAndHoldStrategy(),
-        "KoopmanMPC": KoopmanMPCStrategy(model=model, mpc=mpc),
-    }
-    print(f"Not ported yet, skipped: {', '.join(NOT_PORTED)}")
+    mv_mpc = markowitz_settings(cfg, args.risk_aversion, args.cost_coeff,
+                                args.mpc_iters)
+    strategies = build_strategies(model, mpc, mv_mpc, bt.LOOKBACK_WINDOW,
+                                  scenarios=args.scenarios,
+                                  fused=not args.eager)
     results = {}
     for name, strat in strategies.items():
         print(f"Backtesting {name} ({args.sweeps} sweeps on {device})...")

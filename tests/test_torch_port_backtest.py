@@ -243,7 +243,7 @@ def test_run_experiment_cli_on_the_cpu(tmp_path, monkeypatch, from_run_dir):
         save_checkpoint(run / "checkpoint", state, 5, cfg.to_dict())
         argv += ["--path", str(run)]
     results = main(argv)
-    assert set(results) == {"BuyAndHold", "KoopmanMPC"}
+    assert list(results) == ["BuyAndHold", "Markowitz", "DMD", "KoopmanMPC"]
     for metrics in results.values():
         assert np.isfinite(metrics["Final Value"])
     saved = json.loads((tmp_path / "out" / "experiment_results.json")

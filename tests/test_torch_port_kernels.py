@@ -1,0 +1,487 @@
+"""The plain PyTorch versions of kmpc_tpu_torch's CUDA kernels against
+kmpc_tpu's Pallas kernels: the log-utility kernel with warm inputs and the
+dual output, the scenario kernel, and the mean-variance kernel.
+
+The JAX reference is the Pallas wrapper in interpret mode on the CPU, as
+tests/test_mpc_pallas.py runs it; the port runs each kernel's plain version
+through its CPU entry point (on the CPU a wrapper takes the plain version
+only because the tensor lies there). Every interpret-mode reference is
+computed once per module.
+
+Bars (the repository's kernel-vs-XLA bars): log-utility and scenario
+weights and duals <= 5e-4, objective <= 1e-5 (scenario: 5e-5);
+mean-variance weights <= 5e-5, objective <= 1e-6 (a real QP, no flat
+faces). Measured differences are about 1e-6.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kmpc_tpu.ops import mpc_pallas as JP
+from kmpc_tpu.ops.mpc import MPCParams as JParams
+from kmpc_tpu_torch.ops import mpc_cuda as M
+from kmpc_tpu_torch.ops import mv_cuda as V
+from kmpc_tpu_torch.ops.mpc import MPCParams
+
+W_TOL, OBJ_TOL, SCEN_OBJ_TOL = 5e-4, 1e-5, 5e-5
+MV_W_TOL, MV_OBJ_TOL = 5e-5, 1e-6
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a))
+
+
+def _params(kw, cls=MPCParams):
+    return cls(**{"sigma_scale": 2.0, **kw})
+
+
+def _log_inputs(B, H, N, seed, S=None):
+    rng = np.random.default_rng(seed)
+    cw = rng.dirichlet(np.ones(N), size=B).astype(np.float32)
+    shape = (B, H, N) if S is None else (B, S, H, N)
+    ys = (rng.standard_normal(shape) * 0.01
+          + (0.0005 if S is None else 0.0)).astype(np.float32)
+    return cw, ys
+
+
+def _np_info(info):
+    return {k: np.asarray(v) for k, v in info.items()}
+
+
+def _check_log(w, info, w_ref, info_ref, cw, p, obj_tol):
+    w, info = w.numpy(), {k: (v.numpy() if torch.is_tensor(v) else v)
+                          for k, v in info.items()}
+    assert set(info) == set(info_ref)
+    np.testing.assert_allclose(w, w_ref, atol=W_TOL, rtol=0)
+    np.testing.assert_allclose(info["objective"], info_ref["objective"],
+                               atol=obj_tol, rtol=0)
+    np.testing.assert_allclose(info["fixed_point_residual"],
+                               info_ref["fixed_point_residual"], atol=W_TOL,
+                               rtol=0)
+    if "dual" in info_ref:
+        np.testing.assert_allclose(info["dual"], info_ref["dual"],
+                                   atol=W_TOL, rtol=0)
+    near = np.abs(info_ref["fixed_point_residual"] - p.feas_tol) \
+        <= 0.1 * p.feas_tol
+    assert np.array_equal(info["status_code"][~near],
+                          info_ref["status_code"][~near])
+    w64 = w.astype(np.float64)
+    assert np.all(np.abs(w64.sum(-1) - 1.0) <= 1e-5) and np.all(w64 >= 0)
+    if p.max_turnover > 0:
+        prev = np.concatenate([cw.astype(np.float64)[:, None], w64[:, :-1]], 1)
+        assert np.all(np.abs(w64 - prev).sum(-1) <= p.max_turnover + 1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Kernel A: warm inputs and the dual output
+# ---------------------------------------------------------------------------
+
+# name: (B, H, N, params of the first solve). The continuation runs a
+# quarter of the budget from the first solve's (primal, dual).
+WARM_CASES = {
+    "body_H5N20": (6, 5, 20, dict(max_iters=400)),
+    "cond_H5N30_precond": (7, 5, 30, dict(max_iters=400, precond=True,
+                                          proj_refresh_every=16)),
+    "body_H1N12_over_relax": (8, 1, 12, dict(max_iters=300, over_relax=1.5)),
+    "cold_proj_H5N33": (5, 5, 33, dict(max_iters=200, proj_warm_iters=0)),
+}
+
+
+@pytest.fixture(scope="module")
+def warm_ref():
+    cache = {}
+
+    def get(name, S=None):
+        key = (name, S)
+        if key not in cache:
+            B, H, N, kw = WARM_CASES[name]
+            cw, ys = _log_inputs(B, H, N, seed=17 + B + N, S=S)
+            solve = (JP.solve_mpc_log_utility_pallas_packed if S is None
+                     else JP.solve_mpc_log_utility_scenarios_packed)
+            w1, i1 = solve(jnp.asarray(cw), jnp.asarray(ys),
+                           _params(kw, JParams), interpret=True,
+                           return_dual=True)
+            kw2 = dict(kw, max_iters=kw["max_iters"] // 4)
+            w2, i2 = solve(jnp.asarray(cw), jnp.asarray(ys),
+                           _params(kw2, JParams), interpret=True,
+                           w_warm=w1, p_warm=i1["dual"], return_dual=True)
+            cache[key] = (cw, ys, kw, kw2, np.asarray(w1), _np_info(i1),
+                          np.asarray(w2), _np_info(i2))
+        return cache[key]
+
+    return get
+
+
+@pytest.mark.parametrize("name", list(WARM_CASES))
+def test_log_utility_dual_output_matches_pallas(name, warm_ref):
+    cw, ys, kw, _, w1, i1, _, _ = warm_ref(name)
+    p = _params(kw)
+    w, info = M.solve_mpc_log_utility_packed(_t(cw), _t(ys), p, device="cpu",
+                                             return_dual=True)
+    assert info["dual"].shape == ys.shape
+    _check_log(w, info, w1, i1, cw, p, OBJ_TOL)
+
+
+@pytest.mark.parametrize("name", list(WARM_CASES))
+def test_log_utility_warm_continuation_matches_pallas(name, warm_ref):
+    """Both sides continue from the same numpy iterates (the Pallas first
+    solve's)."""
+    cw, ys, _, kw2, w1, i1, w2, i2 = warm_ref(name)
+    p = _params(kw2)
+    w, info = M.solve_mpc_log_utility_packed(
+        _t(cw), _t(ys), p, device="cpu", w_warm=_t(w1),
+        p_warm=_t(i1["dual"]), return_dual=True)
+    _check_log(w, info, w2, i2, cw, p, OBJ_TOL)
+
+
+def test_log_utility_warm_primal_alone_starts_from_a_zero_dual():
+    cw, ys = _log_inputs(5, 5, 20, seed=3)
+    rng = np.random.default_rng(3)
+    w0 = rng.dirichlet(np.ones(20), size=(5, 5)).astype(np.float32)
+    kw = dict(max_iters=150)
+    wj, ij = JP.solve_mpc_log_utility_pallas_packed(
+        jnp.asarray(cw), jnp.asarray(ys), _params(kw, JParams),
+        interpret=True, w_warm=jnp.asarray(w0))
+    p = _params(kw)
+    w, info = M.solve_mpc_log_utility_packed(_t(cw), _t(ys), p, device="cpu",
+                                             w_warm=_t(w0))
+    assert "dual" not in info
+    _check_log(w, info, np.asarray(wj), _np_info(ij), cw, p, OBJ_TOL)
+    zero, _ = M.solve_mpc_log_utility_packed(
+        _t(cw), _t(ys), p, device="cpu", w_warm=_t(w0),
+        p_warm=torch.zeros(5, 5, 20))
+    assert torch.equal(w, zero)
+
+
+def test_plain_version_takes_a_cold_threshold_on_the_warm_primal():
+    """With zero iterations the output is the final half-step from the warm
+    iterates as given: the warm primal is not projected first."""
+    cw, ys = _log_inputs(4, 3, 9, seed=4)
+    r = torch.exp(_t(ys))
+    rng = np.random.default_rng(4)
+    w0 = _t(rng.dirichlet(np.ones(9), size=(4, 3)).astype(np.float32))
+    p0 = _t((rng.standard_normal((4, 3, 9)) * 1e-3).astype(np.float32))
+    p = _params(dict(max_iters=0))
+    w_last, fp, dual = M.pdhg_log_utility_plain(_t(cw), r, p, w0, p0, True)
+    assert torch.equal(dual, p0)
+    np.testing.assert_allclose(fp.numpy(),
+                               (w_last - w0).abs().amax(dim=(1, 2)).numpy())
+
+
+# ---------------------------------------------------------------------------
+# Kernel B: scenario Kelly
+# ---------------------------------------------------------------------------
+
+SCEN_CASES = {
+    "S4_H5N30": (6, 4, 5, 30, dict(max_iters=400)),
+    "S4_H5N30_cond_precond": (6, 4, 5, 30, dict(
+        max_iters=400, proj_refresh_every=16, precond=True)),
+    "S4_H5N20_precond": (6, 4, 5, 20, dict(max_iters=400, precond=True)),
+    "S3_H1N12": (7, 3, 1, 12, dict(max_iters=400)),
+    "S4_H5N33_ridge": (5, 4, 5, 33, dict(max_iters=400, ridge=1e-3,
+                                         feas_tol=3e-4)),
+    "S4_no_ball": (6, 4, 5, 20, dict(max_iters=400, max_turnover=0.0)),
+    "S4_over_relax": (6, 4, 5, 30, dict(max_iters=400, over_relax=1.5)),
+    "S4_cold_proj": (6, 4, 5, 12, dict(max_iters=300, proj_warm_iters=0)),
+}
+
+
+@pytest.fixture(scope="module")
+def scen_ref():
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            B, S, H, N, kw = SCEN_CASES[name]
+            cw, scen = _log_inputs(B, H, N, seed=31 + len(cache), S=S)
+            w, info = JP.solve_mpc_log_utility_scenarios_packed(
+                jnp.asarray(cw), jnp.asarray(scen), _params(kw, JParams),
+                tile_b=128, interpret=True)
+            cache[name] = (cw, scen, np.asarray(w), _np_info(info))
+        return cache[name]
+
+    return get
+
+
+@pytest.mark.parametrize("name", list(SCEN_CASES))
+def test_scenario_solve_cpu_matches_pallas_kernel(name, scen_ref):
+    cw, scen, w_ref, info_ref = scen_ref(name)
+    p = _params(SCEN_CASES[name][4])
+    w, info = M.solve_mpc_log_utility_scenarios_packed(
+        _t(cw), _t(scen), p, device="cpu")
+    assert info["num_scenarios"] == SCEN_CASES[name][1]
+    _check_log(w, info, w_ref, info_ref, cw, p, SCEN_OBJ_TOL)
+
+
+@pytest.mark.parametrize("name", ["body_H5N20", "cond_H5N30_precond"])
+def test_scenario_warm_continuation_matches_pallas(name, warm_ref):
+    cw, scen, kw, kw2, w1, i1, w2, i2 = warm_ref(name, S=3)
+    p = _params(kw)
+    w, info = M.solve_mpc_log_utility_scenarios_packed(
+        _t(cw), _t(scen), p, device="cpu", return_dual=True)
+    _check_log(w, info, w1, i1, cw, p, SCEN_OBJ_TOL)
+    p = _params(kw2)
+    w, info = M.solve_mpc_log_utility_scenarios_packed(
+        _t(cw), _t(scen), p, device="cpu", w_warm=_t(w1),
+        p_warm=_t(i1["dual"]), return_dual=True)
+    _check_log(w, info, w2, i2, cw, p, SCEN_OBJ_TOL)
+
+
+def test_one_scenario_is_the_deterministic_program():
+    cw, ys = _log_inputs(5, 5, 20, seed=5)
+    p = _params(dict(max_iters=200, precond=True))
+    w1, i1 = M.solve_mpc_log_utility_packed(_t(cw), _t(ys), p, device="cpu")
+    ws, i_s = M.solve_mpc_log_utility_scenarios_packed(
+        _t(cw), _t(ys[:, None]), p, device="cpu")
+    np.testing.assert_allclose(ws.numpy(), w1.numpy(), atol=1e-6)
+    np.testing.assert_allclose(i_s["objective"].numpy(),
+                               i1["objective"].numpy(), atol=1e-6)
+
+
+def test_scenario_wrapper_wants_four_axes():
+    cw, ys = _log_inputs(3, 5, 20, seed=0)
+    with pytest.raises(ValueError, match=r"\[B, S, H, N\]"):
+        M.solve_mpc_log_utility_scenarios_packed(_t(cw), _t(ys), MPCParams(),
+                                                 device="cpu")
+
+
+@pytest.mark.parametrize("S,H,N,ok", [
+    (16, 5, 20, True), (32, 5, 30, True), (16, 4, 128, True),
+    (64, 8, 64, True),          # 128 KB: one warp per block
+    (256, 5, 30, True),         # 160 KB
+    (512, 5, 30, False),        # 320 KB > a block's shared memory
+    (64, 8, 128, False),        # beyond the register budget
+    (0, 5, 20, False),
+])
+def test_scenario_kernel_budget(S, H, N, ok):
+    assert M.scenario_kernel_supports(S, H, N) is ok
+    if ok:
+        assert M.scenario_smem_bytes(S, H, N) == S * H * 32 * -(-N // 32) * 4
+
+
+# ---------------------------------------------------------------------------
+# Kernel C: mean-variance
+# ---------------------------------------------------------------------------
+
+
+def _mv_inputs(B, H, N, seed, shared):
+    rng = np.random.default_rng(seed)
+    cw = rng.dirichlet(np.ones(N), size=B).astype(np.float32)
+    mu = (rng.standard_normal((B, H, N)) * 0.01).astype(np.float32)
+    A = rng.standard_normal((N, N) if shared else (B, N, N)) * 0.05
+    sig = A @ np.swapaxes(A, -1, -2) + np.eye(N) * 1e-4
+    # A slightly asymmetric input: the wrappers symmetrise it first.
+    sig = sig + 1e-5 * np.triu(np.ones((N, N)), 1)
+    return cw, mu, sig.astype(np.float32)
+
+
+# name: (B, H, N, shared Sigma, params)
+MV_CASES = {
+    "H4N10": (6, 4, 10, False, dict(max_iters=600, gamma=5.0)),
+    "H1N10_refresh": (6, 1, 10, False, dict(max_iters=600, gamma=5.0,
+                                            proj_refresh_every=16)),
+    "H3N12_shared": (5, 3, 12, True, dict(max_iters=600, gamma=5.0)),
+    "H1N33_sigma_scale_1": (6, 1, 33, False, dict(
+        max_iters=400, gamma=1.0, sigma_scale=1.0)),
+    "H4N10_over_relax": (6, 4, 10, False, dict(max_iters=400, gamma=5.0,
+                                               over_relax=1.5)),
+    "H4N10_cold_proj": (6, 4, 10, False, dict(max_iters=300, gamma=5.0,
+                                              proj_warm_iters=0)),
+}
+
+
+@pytest.fixture(scope="module")
+def mv_ref():
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            B, H, N, shared, kw = MV_CASES[name]
+            cw, mu, sig = _mv_inputs(B, H, N, 41 + len(cache), shared)
+            w, info = JP.solve_mpc_mean_variance_pallas_packed(
+                jnp.asarray(cw), jnp.asarray(mu), jnp.asarray(sig),
+                _params(kw, JParams), interpret=True)
+            cache[name] = (cw, mu, sig, np.asarray(w), _np_info(info))
+        return cache[name]
+
+    return get
+
+
+def _check_mv(w, info, w_ref, info_ref):
+    assert set(info) == set(info_ref)
+    np.testing.assert_allclose(w.numpy(), w_ref, atol=MV_W_TOL, rtol=0)
+    np.testing.assert_allclose(info["objective"].numpy(),
+                               info_ref["objective"], atol=MV_OBJ_TOL, rtol=0)
+    np.testing.assert_allclose(info["fixed_point_residual"].numpy(),
+                               info_ref["fixed_point_residual"],
+                               atol=MV_W_TOL, rtol=0)
+    assert np.array_equal(info["converged"].numpy(), info_ref["converged"])
+    w64 = w.double().numpy()
+    assert np.all(np.abs(w64.sum(-1) - 1.0) <= 1e-5) and np.all(w64 >= 0)
+
+
+@pytest.mark.parametrize("name", list(MV_CASES))
+def test_mean_variance_solve_cpu_matches_pallas_kernel(name, mv_ref):
+    cw, mu, sig, w_ref, info_ref = mv_ref(name)
+    w, info = V.solve_mpc_mean_variance_packed(
+        _t(cw), _t(mu), _t(sig), _params(MV_CASES[name][4]), device="cpu")
+    _check_mv(w, info, w_ref, info_ref)
+
+
+def test_mean_variance_size_one_batch_sigma_is_shared(mv_ref):
+    cw, mu, sig, w_ref, info_ref = mv_ref("H3N12_shared")
+    w, info = V.solve_mpc_mean_variance_packed(
+        _t(cw), _t(mu), _t(sig[None]), _params(MV_CASES["H3N12_shared"][4]),
+        device="cpu")
+    _check_mv(w, info, w_ref, info_ref)
+
+
+def test_mean_variance_plain_version_against_the_eager_solver():
+    """The kernel's arithmetic (multiply-and-sum Sigma w, clip-form dual,
+    cold-start thresholds) against the eager solver's (matmul, zero-start
+    thresholds) at the JAX kernel-vs-XLA bars."""
+    from kmpc_tpu_torch.ops.mpc import solve_mpc_mean_variance_batch
+
+    cw, mu, sig = _mv_inputs(6, 4, 10, 51, False)
+    p = _params(dict(max_iters=1200, gamma=5.0))
+    w_e, i_e = solve_mpc_mean_variance_batch(_t(cw), _t(mu), _t(sig), p)
+    w_k, i_k = V.solve_mpc_mean_variance_packed(_t(cw), _t(mu), _t(sig), p,
+                                                device="cpu")
+    np.testing.assert_allclose(w_k.numpy(), w_e.numpy(), atol=MV_W_TOL)
+    np.testing.assert_allclose(i_k["objective"].numpy(),
+                               i_e["objective"].numpy(), atol=MV_OBJ_TOL)
+
+
+def test_mean_variance_nan_forecast_holds_current_weights():
+    from kmpc_tpu_torch.ops.mpc import STATUS_FAILURE
+
+    cw, mu, sig = _mv_inputs(4, 2, 8, 52, False)
+    mu[1, 0, 3] = np.nan
+    w, info = V.solve_mpc_mean_variance_packed(
+        _t(cw), _t(mu), _t(sig), _params(dict(max_iters=50, gamma=5.0)),
+        device="cpu")
+    assert not info["converged"][1] and info["converged"][[0, 2, 3]].all()
+    assert info["status_code"][1].item() == STATUS_FAILURE
+    assert torch.equal(w[1], _t(cw[1]).expand(2, 8))
+    assert torch.isfinite(w).all()
+
+
+@pytest.mark.parametrize("H,N,ok", [(1, 20, True), (1, 30, True),
+                                    (4, 128, True), (16, 32, True),
+                                    (5, 129, False), (8, 96, False)])
+def test_mean_variance_kernel_budget(H, N, ok):
+    assert V.mv_kernel_supports(H, N) is ok
+    assert V.mv_smem_bytes(N) == N * 32 * -(-N // 32) * 4
+    assert V.mv_smem_bytes(128) == 65536
+
+
+# ---------------------------------------------------------------------------
+# What the wrappers refuse
+# ---------------------------------------------------------------------------
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    cw, scen = _log_inputs(3, 5, 20, seed=0, S=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        M.pdhg_log_utility_cuda(_t(cw), torch.exp(_t(scen)), MPCParams())
+    cw, mu, sig = _mv_inputs(3, 1, 20, 0, False)
+    with pytest.raises(ValueError, match="CUDA"):
+        V.pdhg_mean_variance_cuda(_t(cw), _t(mu), _t(sig), MPCParams())
+
+
+@pytest.mark.parametrize("bad", ["weights", "sigma", "warm"])
+def test_cuda_wrappers_check_shapes_before_launch(bad):
+    with pytest.raises(ValueError, match="expected"):
+        if bad == "weights":
+            V.pdhg_mean_variance_cuda(torch.ones(3, 21), torch.ones(3, 1, 20),
+                                      torch.ones(3, 20, 20), MPCParams())
+        elif bad == "sigma":
+            V.pdhg_mean_variance_cuda(torch.ones(3, 20), torch.ones(3, 1, 20),
+                                      torch.ones(2, 20, 20), MPCParams())
+        else:
+            M.pdhg_log_utility_cuda(torch.ones(3, 20), torch.ones(3, 5, 20),
+                                    MPCParams(), w_warm=torch.ones(3, 4, 20))
+
+
+@pytest.mark.parametrize("field,value,exc", [
+    ("allow_short", True, NotImplementedError),
+    ("adaptive", True, NotImplementedError),
+    ("polish", True, ValueError),
+])
+@pytest.mark.parametrize("solver", ["scenarios", "mean_variance"])
+def test_unported_parameters_raise(solver, field, value, exc):
+    p = dataclasses.replace(MPCParams(max_iters=10), **{field: value})
+    with pytest.raises(exc):
+        if solver == "scenarios":
+            cw, scen = _log_inputs(3, 5, 20, seed=0, S=2)
+            M.solve_mpc_log_utility_scenarios_packed(_t(cw), _t(scen), p,
+                                                     device="cpu")
+        else:
+            cw, mu, sig = _mv_inputs(3, 1, 20, 0, False)
+            V.solve_mpc_mean_variance_packed(_t(cw), _t(mu), _t(sig), p,
+                                             device="cpu")
+
+
+@pytest.mark.parametrize("solver", ["log", "scenarios", "mean_variance"])
+def test_allow_short_raises_and_names_the_eager_solver(solver):
+    """The kernels project on the simplex only: the packed wrappers raise
+    on ``allow_short``, with warm inputs and the dual output too, instead
+    of returning a long-only solution or another solver's; the eager
+    solver named in the message does take shorts on the same inputs."""
+    from kmpc_tpu_torch.ops.mpc import (
+        solve_mpc_log_utility_batch, solve_mpc_mean_variance_batch,
+    )
+    from kmpc_tpu_torch.ops.scenario import solve_mpc_log_utility_scenarios
+
+    p = _params(dict(max_iters=200, allow_short=True, gamma=5.0))
+    if solver == "log":
+        cw, ys = _log_inputs(4, 5, 10, seed=6)
+        w_e, _ = solve_mpc_log_utility_batch(_t(cw), _t(ys), p)
+        with pytest.raises(NotImplementedError,
+                           match="solve_mpc_log_utility_batch"):
+            M.solve_mpc_log_utility_packed(_t(cw), _t(ys), p, device="cpu",
+                                           w_warm=w_e, return_dual=True)
+    elif solver == "scenarios":
+        cw, scen = _log_inputs(4, 5, 10, seed=6, S=3)
+        w_e, _ = solve_mpc_log_utility_scenarios(_t(cw), _t(scen), p)
+        with pytest.raises(NotImplementedError,
+                           match="solve_mpc_log_utility_scenarios"):
+            M.solve_mpc_log_utility_scenarios_packed(_t(cw), _t(scen), p,
+                                                     device="cpu")
+    else:
+        cw, mu, sig = _mv_inputs(4, 3, 8, 6, False)
+        w_e, _ = solve_mpc_mean_variance_batch(_t(cw), _t(mu), _t(sig), p)
+        with pytest.raises(NotImplementedError,
+                           match="solve_mpc_mean_variance_batch"):
+            V.solve_mpc_mean_variance_packed(_t(cw), _t(mu), _t(sig), p,
+                                             device="cpu")
+    assert w_e.min().item() < -1e-6       # shorts do occur
+    assert torch.allclose(w_e.sum(-1), torch.ones(()), atol=1e-5)
+
+
+def test_direct_kernel_entry_points_refuse_allow_short():
+    cw, ys = _log_inputs(3, 5, 10, seed=0)
+    p = MPCParams(max_iters=5, allow_short=True)
+    with pytest.raises(NotImplementedError, match="simplex"):
+        M.pdhg_log_utility_plain(_t(cw), torch.exp(_t(ys)), p)
+    cw, mu, sig = _mv_inputs(3, 1, 10, 0, False)
+    with pytest.raises(NotImplementedError, match="simplex"):
+        V.pdhg_mean_variance_plain(_t(cw), _t(mu), _t(sig), p)
+
+
+def test_every_kernel_has_a_source_and_a_launch_counter():
+    from kmpc_tpu_torch._build import CSRC, SOURCES, library_path
+
+    kernels = (M.PDHG_LOG_UTILITY, M.PDHG_LOG_UTILITY_SCENARIOS,
+               V.PDHG_MEAN_VARIANCE)
+    assert {k.name for k in kernels} == set(SOURCES)
+    for k in kernels:
+        assert k.launches == 0          # nothing launches on the CPU
+        src = (CSRC / SOURCES[k.name]).read_text()
+        assert f'extern "C" int {k.symbol}(' in src
+        assert library_path(k.name).name.startswith(f"lib{k.name}_")
+    assert len({library_path(k.name) for k in kernels}) == 3

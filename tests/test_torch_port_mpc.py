@@ -200,6 +200,33 @@ def test_kernel_register_budget(H, N, ok):
     assert M.kernel_supports(H, N) is ok
 
 
+def test_allow_short_is_solved_by_the_eager_solver_by_name():
+    """allow_short needs the hyperplane projection, which the kernel lacks:
+    the packed wrapper raises, and the eager solver, called by name, gives
+    the solution that kmpc_tpu's wrapper returns for the parameter (it
+    hands the solve to its own eager solver). Weights atol 2e-5, objective
+    atol 1e-5."""
+    from kmpc_tpu.ops.mpc_pallas import solve_mpc_log_utility_pallas_packed
+    from kmpc_tpu_torch.ops.mpc import solve_mpc_log_utility_batch
+
+    cw, ys = _instance(6, 5, 10, seed=3)
+    kw = dict(max_iters=400, allow_short=True)
+    with pytest.raises(NotImplementedError, match="eager"):
+        M.solve_mpc_log_utility_packed(
+            torch.as_tensor(cw), torch.as_tensor(ys), _params(kw),
+            device="cpu")
+    w, info = solve_mpc_log_utility_batch(torch.as_tensor(cw),
+                                          torch.as_tensor(ys), _params(kw))
+    assert w.min().item() < -1e-6
+    w_j, info_j = solve_mpc_log_utility_pallas_packed(
+        jnp.asarray(cw), jnp.asarray(ys), _params(kw, JParams))
+    assert set(info_j) <= set(info)
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_j), atol=2e-5, rtol=0)
+    np.testing.assert_allclose(info["objective"].numpy(),
+                               np.asarray(info_j["objective"]), atol=OBJ_TOL,
+                               rtol=0)
+
+
 @pytest.mark.parametrize("field,value,exc", [
     ("allow_short", True, NotImplementedError),
     ("adaptive", True, NotImplementedError),
