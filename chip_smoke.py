@@ -5,18 +5,22 @@
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
-1. ``build``: the card, torch and CUDA versions, the build of the three
-   kernels (one nvcc per source, started together, from the sources in
-   this checkout) with each build's seconds, registers and spills;
+1. ``build``: the card, torch and CUDA versions, the build of the seven
+   kernel sources (one nvcc per source, started together, from the sources
+   in this checkout) with each build's seconds, registers and spills;
 2. ``kernels``: every CUDA kernel against its plain PyTorch version on the
    card: the log-utility kernel over the parametrised cases of the CPU
    tests, the edges of its register budget and the main-path and bench
    shapes; the same kernel with warm inputs and the dual output; the
    scenario kernel; the mean-variance kernel with a per-problem and a
-   shared covariance;
-3. ``nan_row``, ``probe``: a NaN forecast holds the weights; accuracy on
-   the 64 bench probe instances against the float64 oracle objectives in
-   bench_probe_cache.json;
+   shared covariance; the adaptive body of all three (``adapt_every`` 1
+   and 2, ``precond`` off and on, ridge, over-relaxation, no ball, cold
+   projections, warm inputs, an odd iteration count, the budget's edges);
+   every rung of the MV ladder;
+3. ``nan_row``, ``probe``, ``probe_accurate``: a NaN forecast holds the
+   weights; accuracy on the 64 bench probe instances against the float64
+   oracle objectives in bench_probe_cache.json, at the bench setting and
+   at the accurate one (adaptive steps, 800 iterations);
 4. ``main_path``: finance_sparse at full width (observation 400, latent
    1024) with seeded random weights on the synthetic panel, the H=5
    forecast for every test date, and the Jacobi backtest, 4 sweeps of the
@@ -34,9 +38,40 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    warm budget (the line also reports how far the sweeps are from
    converged: the last sweep's largest move of a pre-trade guess, and a
    cold run of twice the sweeps);
-6. ``headline``: the solve at B=65536, H=5, N=30 and 1000 iterations;
-7. the ``kernels`` line, the card's name and power limit, and last
+6. ``accurate_path``: the same comparison with the configuration's solver
+   set to the accurate configuration (``ADAPTIVE``, ``ADAPT_EVERY=2``,
+   ``PRECOND``, 800 iterations), 4 sweeps: every solve through an adaptive
+   kernel, launches counted per kernel, every weight row feasible, the
+   first sweep's solves held against the plain versions;
+7. ``scan_path``: the exact backtest, one solve of one problem per date,
+   at the accurate configuration: buy-and-hold and Koopman-MPC over all
+   dates (as many launches as dates), Markowitz, DMD and scenario Kelly on
+   a test split cut to 64 dates; on the cut split the Jacobi backtest with
+   as many sweeps as dates must give the scan's portfolio values;
+8. ``mv_ladder``: the rungs of the MV ladder at B=4096, N=30, 1000
+   iterations;
+9. ``headline``, ``accurate_headline``: the solve at B=65536, H=5, N=30, at
+   the bench setting (1000 iterations) and at the accurate one (800);
+10. the ``kernels`` line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
+
+Adaptive steps and discrete decisions. The adaptive body grows or shrinks
+its steps when one residual exceeds 1.5 times the other. The kernel sums
+over assets by a warp butterfly and fuses multiply-adds, the plain version
+uses ``torch.sum``, so their iterates differ in the last bits, and where a
+decision falls within rounding of a tie the two take different branches:
+from there on they are two valid runs of the same solver whose step
+histories differ, and they end apart by about the solver's own accuracy at
+that budget, not by rounding. So for an adaptive case both sides also
+return the steps they ended on and the signed sum of the iterations that
+moved them, which two equal step histories share. Every problem whose
+histories are equal must meet the bars of the fixed-step kernels. One that
+ends apart must have parted histories; the script bounds the share of such
+problems and their objective difference, and requires the objective
+difference over all problems of a large batch to be unbiased. That the
+partings are ties is shown by ``python -m kmpc_tpu_torch.ops.adaptive_parting``,
+which traces the problems that end apart to their first differing decision;
+it is no part of this script.
 
 Exits non-zero, printing no result, when CUDA is unavailable.
 """
@@ -68,6 +103,19 @@ MV_OBJ_TOL = 1e-6  # objective, mean-variance kernel vs plain
 MV_W_TOL = 5e-5    # weights, mean-variance kernel vs plain
 FEAS_TOL = 1e-5    # simplex sum and turnover cap after restoration
 BAND = 0.1         # status codes may differ within 10% of feas_tol
+# Adaptive cases (see the module docstring). On an H100 step histories
+# parted in 5-11% of 1028 problems at 800 iterations, and in most problems
+# of a case that converges early, where the residuals are rounding noise:
+# that alone is no fault. Problems that end apart (beyond the weight, dual
+# or objective bar of the fixed-step kernels) may be at most BEYOND_SHARE of
+# a large case (0-1.0% there) and two of a small one; their objectives may
+# differ by FLIP_OBJ_TOL (2.5e-5 there; the accurate setting's own p90 gap
+# to the oracle is 2.2e-4), and the mean signed objective difference of a
+# large case by FLIP_MEAN_OBJ_TOL (6e-8 there).
+BEYOND_SHARE = 0.05
+FLIP_OBJ_TOL = 3e-4
+FLIP_MEAN_OBJ_TOL = 2e-6
+ACCURATE_PROBE_GAP = 1.5e-4  # median gap to the oracle, accurate setting
 # A warm sweep's solution (500 iterations) against a cold full-budget solve
 # from the same pre-trade weights: the largest objective deficit over the
 # dates relative to the median size of the objective (about 5e-3 on this
@@ -136,7 +184,8 @@ def _sweeps(params, N):
     from kmpc_tpu_torch.ops.mpc_cuda import _sweep_budgets
 
     warm, warm_iters, cold = _sweep_budgets(params, N)
-    refresh = params.proj_refresh_every
+    # The adaptive body runs the full budget every iteration.
+    refresh = 0 if params.adaptive else params.proj_refresh_every
     per_iter = []
     for i in range(params.max_iters):
         if not warm:
@@ -146,6 +195,13 @@ def _sweeps(params, N):
         else:
             per_iter.append(warm_iters)
     return per_iter, cold
+
+
+def _balancings(params) -> int:
+    """Iterations on which the adaptive body takes its residuals."""
+    if not params.adaptive:
+        return 0
+    return params.max_iters // max(params.adapt_every, 1)
 
 
 def pdhg_ops(B, H, N, params, S=None) -> float:
@@ -160,13 +216,20 @@ def pdhg_ops(B, H, N, params, S=None) -> float:
     over-relaxation. With S scenarios the primal step's portfolio sum and
     gradient are taken per scenario and averaged: 4 S + 5 instead of 7.
     Once: the initial cold projection 3 + 4 * cold, the final half-step
-    12 + 4 * cold (4 S + 10 + 4 * cold with scenarios)."""
+    12 + 4 * cold (4 S + 10 + 4 * cold with scenarios). The adaptive body
+    runs the full sweep budget every iteration, takes the dual prox on the
+    a-scale (5 more: the two scalings by 1 / sigma, the difference to the
+    clip, the scaling back and the subtraction) and, on each balancing
+    iteration, 14 for the two residuals (the moves of w and p, their
+    neighbours' differences, two divisions, two squares and sums)."""
     per_iter, cold = _sweeps(params, N)
     ball = params.max_turnover > 0
     primal = 7 if S is None else 4 * S + 5
     base = primal + 14 + (1 if params.ridge else 0) \
-        + (4 if params.over_relax != 1.0 else 0)
+        + (4 if params.over_relax != 1.0 else 0) \
+        + (5 if params.adaptive else 0)
     total = sum(base + 4 * n + (1 + 4 * n if ball else 0) for n in per_iter)
+    total += 14 * _balancings(params)
     total += (3 + 4 * cold) + (primal + 5 + 4 * cold)
     return float(B) * H * N * total
 
@@ -189,10 +252,12 @@ def mv_ops(B, H, N, params) -> float:
     (gradient, D'p, step), 2 for the projection output, 7 for the
     extrapolation, the dual input and the clip, 4 per Michelot sweep, 4 for
     over-relaxation. Once: the initial cold projection 3 + 4 * cold, the
-    final half-step 2 N + 10 + 4 * cold, and the Frobenius norm 2 N."""
+    final half-step 2 N + 10 + 4 * cold, and the Frobenius norm 2 N. On
+    each balancing iteration of the adaptive body 14 for the residuals."""
     per_iter, cold = _sweeps(params, N)
     base = 2 * N + 15 + (4 if params.over_relax != 1.0 else 0)
     total = sum(base + 4 * n for n in per_iter)
+    total += 14 * _balancings(params)
     total += (3 + 4 * cold) + (2 * N + 10 + 4 * cold)
     return float(B) * H * N * total + 2.0 * B * N * N
 
@@ -238,7 +303,8 @@ def compare_case(label, B, H, N, params, seed, S=None, warm=False,
 def compare_tensors(label, cw, r, params, warm=False, dual=False,
                     time_reps=3, time_plain=True):
     """``compare_case`` on given card tensors: current weights [B, N] and
-    gross returns [B, H, N] or [B, S, H, N]."""
+    gross returns [B, H, N] or [B, S, H, N]. With ``params.adaptive`` the
+    bars are applied as ``adaptive_agreement`` says."""
     from dataclasses import replace
 
     from kmpc_tpu_torch.ops import mpc_cuda as M
@@ -250,39 +316,92 @@ def compare_tensors(label, cw, r, params, warm=False, dual=False,
         w0, _, p0 = M.pdhg_log_utility_plain(cw, r, params, return_dual=True)
         params = replace(params, max_iters=max(params.max_iters // 4, 1))
         kw = dict(w_warm=w0.contiguous(), p_warm=p0.contiguous())
-    dual = dual or warm
-    out_k = M.pdhg_log_utility_cuda(cw, r, params, return_dual=dual, **kw)
-    out_p = M.pdhg_log_utility_plain(cw, r, params, return_dual=dual, **kw)
+    dual = dual or warm or params.adaptive
+    steps = params.adaptive
+    out_k = M.pdhg_log_utility_cuda(cw, r, params, return_dual=dual,
+                                    return_steps=steps, **kw)
+    out_p = M.pdhg_log_utility_plain(cw, r, params, return_dual=dual,
+                                     return_steps=steps, **kw)
     torch.cuda.synchronize()
     wk_f, ik = M._finalize_packed(out_k[0], r, cw, params, out_k[1])
     wp_f, ip = M._finalize_packed(out_p[0], r, cw, params, out_p[1])
-    dw = (wk_f - wp_f).abs().max().item()
-    dobj = (ik["objective"] - ip["objective"]).abs().max().item()
+    dw = (wk_f - wp_f).abs().amax(dim=(1, 2))
+    dobj = ik["objective"] - ip["objective"]
+    dp = (out_k[2] - out_p[2]).abs().amax(dim=(1, 2)) if dual \
+        else torch.zeros_like(dw)
     near = ((out_p[1] - params.feas_tol).abs() <= BAND * params.feas_tol)
-    flips = (ik["status_code"] != ip["status_code"]) & ~near
+    differ = ik["status_code"] != ip["status_code"]
     obj_tol = OBJ_TOL if S is None else SCEN_OBJ_TOL
-    assert dw <= W_TOL, f"{label}: weights differ by {dw}"
-    assert dobj <= obj_tol, f"{label}: objectives differ by {dobj}"
-    assert not flips.any().item(), f"{label}: status codes differ"
+    res = {"case": label, "B": B, "H": H, "N": N, "iters": params.max_iters}
+    if steps:
+        held = adaptive_agreement(label, out_k[3], out_p[3], dw, dp, dobj,
+                                  W_TOL, obj_tol, FLIP_OBJ_TOL, res)
+    else:
+        held = torch.ones_like(near)
+    assert not (held & (dobj.abs() > obj_tol)).any().item(), \
+        f"{label}: objectives differ by {dobj[held].abs().max().item()}"
+    assert not (differ & ~near & held).any().item(), \
+        f"{label}: status codes differ"
+    if not steps:
+        assert dw.max().item() <= W_TOL, \
+            f"{label}: weights differ by {dw.max().item()}"
+        assert dp.max().item() <= W_TOL, \
+            f"{label}: duals differ by {dp.max().item()}"
     check_feasible(wk_f, cw, params, label)
-    res = {"case": label, "B": B, "H": H, "N": N, "iters": params.max_iters,
-           "max_abs_dw": dw, "max_abs_dobj": dobj,
-           "status_band_exempt": int((near & (ik["status_code"]
-                                      != ip["status_code"])).sum().item())}
+    res.update({"max_abs_dw": dw.max().item(),
+                "max_abs_dobj": dobj.abs().max().item(),
+                "status_band_exempt": int((near & differ).sum().item())})
     res["bound_ms"], res["bound_by"] = pdhg_bound(B, H, N, params, S, warm,
                                                   dual)
     if S is not None:
         res["S"] = S
     if dual:
-        dp = (out_k[2] - out_p[2]).abs().max().item()
-        assert dp <= W_TOL, f"{label}: duals differ by {dp}"
-        res["max_abs_ddual"] = dp
+        res["max_abs_ddual"] = dp.max().item()
     res["kernel_ms"] = cuda_ms(lambda: M.pdhg_log_utility_cuda(
         cw, r, params, return_dual=dual, **kw), time_reps)
     if time_plain:
         res["plain_ms"] = cuda_ms(lambda: M.pdhg_log_utility_plain(
             cw, r, params, return_dual=dual, **kw), 1)
     return res
+
+
+def adaptive_agreement(label, steps_k, steps_p, dw, dp, dobj, w_tol,
+                       obj_tol, flip_obj_tol, res):
+    """The bars of an adaptive case (see the module docstring). Returns the
+    mask of the problems that meet the fixed-step bars (weights, duals,
+    objective): every problem whose step histories are equal must. The
+    others, which ended apart, must be few and within the solver's own
+    accuracy in objective. ``dw``, ``dp`` and ``dobj`` are per-problem
+    differences, kernel minus plain; the steps' last column is the signed
+    sum of the iterations that moved them. Fills ``res`` with the counts
+    and the differences over all problems and over the held ones."""
+    B = dw.shape[0]
+    parted = steps_k[:, -1] != steps_p[:, -1]
+    beyond = (dw > w_tol) | (dp > w_tol)
+    apart = beyond | (dobj.abs() > obj_tol)
+    held = ~apart
+    res.update({"decisions_parted": int(parted.sum().item()),
+                "ended_apart": int(apart.sum().item()),
+                "beyond_weight_bar": int(beyond.sum().item()),
+                "max_abs_dw_held": dw[held].max().item() if held.any() else 0.0,
+                "max_abs_dobj_held":
+                    dobj[held].abs().max().item() if held.any() else 0.0,
+                "mean_dobj_all": dobj.mean().item()})
+    assert not (apart & ~parted).any().item(), \
+        f"{label}: with equal step histories weights differ by " \
+        f"{dw[~parted].max().item()}, duals by {dp[~parted].max().item()}, " \
+        f"objectives by {dobj[~parted].abs().max().item()}"
+    assert dobj.abs().max().item() <= flip_obj_tol, \
+        f"{label}: objectives differ by {dobj.abs().max().item()}"
+    if B >= 100:
+        assert abs(dobj.mean().item()) <= FLIP_MEAN_OBJ_TOL, \
+            f"{label}: objective differences are biased: {dobj.mean().item()}"
+        assert apart.float().mean().item() <= BEYOND_SHARE, \
+            f"{label}: {res['ended_apart']} of {B} ended apart"
+    else:
+        assert res["ended_apart"] <= 2, \
+            f"{label}: {res['ended_apart']} of {B} ended apart"
+    return held
 
 
 def compare_mv_case(label, B, H, N, params, seed, shared=False,
@@ -306,22 +425,38 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
     B, H, N = mu.shape
     shared = sig.dim() == 2
     sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
-    wk, fpk = V.pdhg_mean_variance_cuda(cw, mu, sig, params)
-    wp, fpp = V.pdhg_mean_variance_plain(cw, mu, sig, params)
+    steps = params.adaptive
+    out_k = V.pdhg_mean_variance_cuda(cw, mu, sig, params, return_steps=steps)
+    out_p = V.pdhg_mean_variance_plain(cw, mu, sig, params,
+                                       return_steps=steps)
+    (wk, fpk), (wp, fpp) = out_k[:2], out_p[:2]
     torch.cuda.synchronize()
     wk_f, ik = V._finalize_mv(wk, fpk, mu, sig, cw, params)
     wp_f, ip = V._finalize_mv(wp, fpp, mu, sig, cw, params)
-    dw = (wk_f - wp_f).abs().max().item()
-    dobj = (ik["objective"] - ip["objective"]).abs().max().item()
+    dw_all = (wk_f - wp_f).abs().amax(dim=(1, 2))
+    dobj_all = ik["objective"] - ip["objective"]
+    res = {"case": label, "B": B, "H": H, "N": N, "iters": params.max_iters,
+           "shared_sigma": shared}
+    if steps:
+        # As the log-utility kernels' adaptive cases, but the objective bar
+        # holds for every problem: where decisions part, the two runs of
+        # this program keep the same objective and differ in the weights
+        # along directions in which the covariance is nearly flat.
+        held = adaptive_agreement(
+            label, out_k[2], out_p[2], dw_all, torch.zeros_like(dw_all),
+            dobj_all, MV_W_TOL, MV_OBJ_TOL, MV_OBJ_TOL, res)
+    else:
+        held = torch.ones_like(dw_all, dtype=torch.bool)
+    dw = dw_all[held].max().item() if held.any() else 0.0
+    dobj = dobj_all.abs().max().item()
+    res.update({"max_abs_dw": dw_all.max().item(), "max_abs_dobj": dobj,
+                "max_fp": fpk.max().item()})
     assert dw <= MV_W_TOL, f"{label}: weights differ by {dw}"
     assert dobj <= MV_OBJ_TOL, f"{label}: objectives differ by {dobj}"
     assert bool(ik["converged"].all()), f"{label}: not converged"
     w64 = wk_f.double()
     assert torch.all((w64.sum(-1) - 1.0).abs() <= FEAS_TOL), label
     assert torch.all(w64 >= 0), label
-    res = {"case": label, "B": B, "H": H, "N": N, "iters": params.max_iters,
-           "shared_sigma": shared, "max_abs_dw": dw, "max_abs_dobj": dobj,
-           "max_fp": fpk.max().item()}
     res["bound_ms"], res["bound_by"] = mv_bound(B, H, N, params, shared)
     res["kernel_ms"] = cuda_ms(lambda: V.pdhg_mean_variance_cuda(
         cw, mu, sig, params), time_reps)
@@ -333,15 +468,17 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
 
 def _ptxas_report(name):
     """{instantiation: registers}, {instantiation: spill bytes} from the
-    build log of ``name``."""
+    build log of ``name``; an instantiation is named by its template
+    arguments (HM_K[_SCEN]_ADAPT, or K_VARIANT_UNROLL_CHAINS for the
+    ladder)."""
     from kmpc_tpu_torch._build import build_log
 
     regs, spills = {}, {}
     inst = None
     for line in build_log(name).splitlines():
-        m = re.search(r"kernelILi(\d+)ELi(\d+)E", line)
+        m = re.search(r"kernelI((?:L[ib]\d+E)+)", line)
         if "Compiling entry function" in line and m:
-            inst = f"HM{m.group(1)}_K{m.group(2)}"
+            inst = "_".join(re.findall(r"L[ib](\d+)E", m.group(1)))
         elif inst and "spill stores" in line:
             spills[inst] = int(re.search(r"(\d+) bytes spill stores", line).group(1))
         elif inst and "registers" in line:
@@ -361,6 +498,9 @@ def phase_build():
     secs = build_all()
     for name in SOURCES:
         regs, spills = _ptxas_report(name)
+        assert regs, f"{name}: no ptxas report in the build log"
+        if len(regs) > 20:      # the ladder's 72 rungs: the extremes only
+            regs = {"instantiations": len(regs), "max": max(regs.values())}
         emit("build", kernel=name, seconds=secs[name], registers=regs,
              spill_store_bytes={k: v for k, v in spills.items() if v})
 
@@ -378,6 +518,7 @@ def phase_kernel_vs_plain():
 
     cases = []
     seed = 0
+    quick = dict(time_plain=False)
     for H, N in ((1, 12), (1, 33), (5, 12), (5, 20), (5, 30), (5, 33)):
         for refresh in (0, 16):
             for precond in (False, True):
@@ -426,15 +567,55 @@ def phase_kernel_vs_plain():
         ("warm_main_path", 1028, 5, 20, _params(max_iters=2000), 208,
          dict(warm=True)),
     ]
-    out = {"pdhg_log_utility": [], "pdhg_log_utility_scenarios": [],
-           "pdhg_mean_variance": []}
+    # The adaptive body, in the kernel of its own.
+    acc = dict(adaptive=True, adapt_every=2, precond=True)
+    for H, N in ((1, 12), (5, 20), (5, 30), (5, 33)):
+        for k in (1, 2):
+            for precond in (False, True):
+                seed += 1
+                cases.append((f"adaptive_H{H}N{N}k{k}p{int(precond)}", 7, H, N,
+                              _params(max_iters=400, adaptive=True,
+                                      adapt_every=k, precond=precond),
+                              seed, quick))
+    for label, H, N in (("H12N20", 12, 20), ("H16N32", 16, 32),
+                        ("H8N64", 8, 64), ("H3N90", 3, 90),
+                        ("H4N128", 4, 128)):
+        seed += 1
+        cases.append((f"adaptive_{label}", 7, H, N,
+                      _params(max_iters=400, **acc), seed, quick))
+    cases += [
+        ("adaptive_ridge", 8, 5, 20, _params(
+            max_iters=400, ridge=1e-3, feas_tol=3e-4, **acc), 501, quick),
+        ("adaptive_over_relax", 8, 5, 30, _params(
+            max_iters=400, over_relax=1.5, **acc), 502, quick),
+        ("adaptive_no_ball", 8, 5, 20, _params(
+            max_iters=400, max_turnover=0.0, **acc), 503, quick),
+        ("adaptive_cold", 8, 5, 33, _params(
+            max_iters=400, proj_warm_iters=0, **acc), 504, quick),
+        ("adaptive_warm_dual", 6, 5, 20, _params(max_iters=400, **acc), 505,
+         warm),
+        ("adaptive_odd_iters", 7, 5, 20, _params(max_iters=801, **acc), 506,
+         quick),
+        ("adaptive_path_shape", 1028, 5, 20, _params(max_iters=800, **acc),
+         507, {}),
+        # The scan's shape: one problem a launch.
+        ("adaptive_scan_shape", 1, 5, 20, _params(max_iters=800, **acc),
+         508, quick),
+    ]
+    names = ("pdhg_log_utility", "pdhg_log_utility_scenarios",
+             "pdhg_mean_variance")
+    out = {n + a: [] for n in names for a in ("", "_adaptive")}
+    out["mv_ladder"] = []
+
+    def record(kernel, res, params):
+        kernel += "_adaptive" if params.adaptive else ""
+        emit("kernel_vs_plain", kernel=kernel, **res)
+        out[kernel].append(res)
+
     for label, B, H, N, p, s, kw in cases:
-        res = compare_case(label, B, H, N, p, s, **kw)
-        emit("kernel_vs_plain", kernel="pdhg_log_utility", **res)
-        out["pdhg_log_utility"].append(res)
+        record("pdhg_log_utility", compare_case(label, B, H, N, p, s, **kw), p)
 
     # The scenario kernel.
-    quick = dict(time_plain=False)
     scen_cases = [
         ("S4_H5N30", 6, 4, 5, 30, _params(max_iters=400), 301, quick),
         ("S4_H5N30_cond_precond", 6, 4, 5, 30, _params(
@@ -467,11 +648,22 @@ def phase_kernel_vs_plain():
          315, dict(warm=True)),
         ("bench_scenario", 4096, 16, 5, 30, _params(
             max_iters=1000, proj_refresh_every=16), 316, {}),
+        ("adaptive_S16_H5N20", 7, 16, 5, 20, _params(max_iters=400, **acc),
+         601, quick),
+        ("adaptive_S16_H5N30_k1", 7, 16, 5, 30, _params(
+            max_iters=400, adaptive=True), 602, quick),
+        ("adaptive_S4_warm", 6, 4, 5, 30, _params(max_iters=400, **acc), 603,
+         dict(warm=True, time_plain=False)),
+        ("adaptive_S64_H8N64", 3, 64, 8, 64, _params(max_iters=50, **acc),
+         604, quick),
+        ("adaptive_path_shape", 1028, 16, 5, 20, _params(
+            max_iters=800, **acc), 605, {}),
+        ("adaptive_scan_shape", 1, 16, 5, 20, _params(
+            max_iters=800, **acc), 606, quick),
     ]
     for label, B, S, H, N, p, s, kw in scen_cases:
-        res = compare_case(label, B, H, N, p, s, S=S, **kw)
-        emit("kernel_vs_plain", kernel="pdhg_log_utility_scenarios", **res)
-        out["pdhg_log_utility_scenarios"].append(res)
+        record("pdhg_log_utility_scenarios",
+               compare_case(label, B, H, N, p, s, S=S, **kw), p)
 
     # The mean-variance kernel (sigma_scale 1 on the comparison path, as
     # the experiment builds the Markowitz settings).
@@ -499,10 +691,58 @@ def phase_kernel_vs_plain():
             max_iters=1000, gamma=5.0, proj_refresh_every=16), 412,
          dict(scale=0.01)),
     ]
+    seed = 700
+    for H, N in ((1, 20), (4, 10)):
+        for shared in (False, True):
+            for k in (1, 2):
+                seed += 1
+                mv_cases.append((
+                    f"adaptive_H{H}N{N}k{k}{'_shared' if shared else ''}", 6,
+                    H, N, _params(max_iters=1200, gamma=5.0, adaptive=True,
+                                  adapt_every=k), seed,
+                    dict(shared=shared, time_plain=False)))
+    mv_cases += [
+        ("adaptive_H4N128", 4, 4, 128, _params(
+            max_iters=300, gamma=5.0, adaptive=True, adapt_every=2), 721,
+         quick),
+        ("adaptive_H16N20_over_relax", 4, 16, 20, _params(
+            max_iters=401, gamma=5.0, adaptive=True, adapt_every=2,
+            over_relax=1.5), 722, quick),
+        ("adaptive_path_shape", 1028, 1, 20, MPCParams(
+            max_iters=800, gamma=1.0, horizon=1, adaptive=True,
+            adapt_every=2, precond=True), 723, dict(scale=0.01)),
+        ("adaptive_scan_shape", 1, 1, 20, MPCParams(
+            max_iters=800, gamma=1.0, horizon=1, adaptive=True,
+            adapt_every=2, precond=True), 724,
+         dict(scale=0.01, time_plain=False)),
+    ]
     for label, B, H, N, p, s, kw in mv_cases:
-        res = compare_mv_case(label, B, H, N, p, s, **kw)
-        emit("kernel_vs_plain", kernel="pdhg_mean_variance", **res)
-        out["pdhg_mean_variance"].append(res)
+        record("pdhg_mean_variance",
+               compare_mv_case(label, B, H, N, p, s, **kw), p)
+
+    # The MV ladder: every variant, chains and unroll, on a batch that is no
+    # multiple of the chains; two and four slots per lane.
+    from kmpc_tpu_torch.ops import mv_ladder as D
+
+    rungs = [(v, u, c, 4, 61, 30, 203) for v in D.VARIANTS
+             for c in D.CHAINS for u in D.UNROLLS]
+    rungs += [("proj", 4, 4, 1, 9, 33, 100), ("proj", 1, 2, 2, 7, 100, 60),
+              ("sigma", 4, 1, 8, 70, 64, 60)]
+    for variant, unroll, chains, warps, B, N, iters in rungs:
+        cw, mu, sig = (torch.as_tensor(x, device="cuda").contiguous()
+                       for x in D.ladder_inputs(B, N))
+        wk = D.mv_ladder_cuda(cw, mu, sig, variant, iters, unroll, chains,
+                              warps)
+        wp = D.mv_ladder_plain(cw, mu, sig, variant, iters, unroll)
+        torch.cuda.synchronize()
+        dw = (wk - wp).abs().max().item()
+        label = f"{variant}_u{unroll}c{chains}w{warps}_B{B}N{N}"
+        assert dw <= MV_W_TOL, f"mv_ladder {label}: weights differ by {dw}"
+        assert torch.isfinite(wk).all(), label
+        res = {"case": label, "B": B, "N": N, "iters": iters,
+               "max_abs_dw": dw}
+        emit("kernel_vs_plain", kernel="mv_ladder", **res)
+        out["mv_ladder"].append(res)
     return out
 
 
@@ -525,8 +765,10 @@ def phase_nan_row():
 
 
 def phase_probe():
-    """Bench probe: 64 instances (seed 1234, H=5, N=30) at the bench
-    setting, min-form objective gap against the cached float64 oracle."""
+    """Bench probe: 64 instances (seed 1234, H=5, N=30), min-form objective
+    gap against the cached float64 oracle, at the bench setting (fixed
+    steps, 1000 iterations) and at the accurate one (adaptive steps, 800
+    iterations)."""
     from kmpc_tpu_torch.ops.mpc import MPCParams
     from kmpc_tpu_torch.ops.mpc_cuda import solve_mpc_log_utility_packed
 
@@ -535,8 +777,14 @@ def phase_probe():
     ys = (rng.standard_normal((64, 5, 30)) * 0.01 + 0.0005).astype(np.float32)
     oracle = np.asarray(json.loads((ROOT / "bench_probe_cache.json")
                                    .read_text())["log_H5_N30_n64_seed1234"])
-    p = MPCParams(max_iters=1000, sigma_scale=2.0, feas_tol=2e-4,
-                  proj_refresh_every=16, precond=True)
+    common = dict(sigma_scale=2.0, feas_tol=2e-4, precond=True)
+    settings = {
+        "probe": (MPCParams(max_iters=1000, proj_refresh_every=16, **common),
+                  2e-3),
+        "probe_accurate": (MPCParams(max_iters=800, adaptive=True,
+                                     adapt_every=2, **common),
+                           ACCURATE_PROBE_GAP),
+    }
 
     def min_objective(w):
         w = np.asarray(w, np.float64)
@@ -545,19 +793,25 @@ def phase_probe():
         prev = np.concatenate([cw.astype(np.float64)[:, None], w[:, :-1]], 1)
         return -np.log(port).sum(-1) + 0.001 * np.abs(w - prev).sum((-2, -1))
 
-    w_k, _ = solve_mpc_log_utility_packed(torch.as_tensor(cw),
-                                          torch.as_tensor(ys), p, device="cuda")
-    w_p, _ = _plain_solve(cw, ys, p)
-    objs = {"cuda": min_objective(w_k.cpu().numpy()),
-            "plain": min_objective(w_p.cpu().numpy())}
-    gap = objs["cuda"] - oracle
-    d = float(np.max(np.abs(objs["cuda"] - objs["plain"])))
-    res = {"median_gap": float(np.median(gap)),
-           "p90_gap": float(np.quantile(gap, 0.9)),
-           "max_gap": float(np.max(gap)), "max_kernel_vs_plain": d}
-    emit("probe", **res)
-    assert res["median_gap"] <= 2e-3, res
-    assert d <= OBJ_TOL, res
+    out = {}
+    for phase, (p, bar) in settings.items():
+        w_k, _ = solve_mpc_log_utility_packed(
+            torch.as_tensor(cw), torch.as_tensor(ys), p, device="cuda")
+        w_p, _ = _plain_solve(cw, ys, p)
+        objs = {"cuda": min_objective(w_k.cpu().numpy()),
+                "plain": min_objective(w_p.cpu().numpy())}
+        gap = objs["cuda"] - oracle
+        d = float(np.max(np.abs(objs["cuda"] - objs["plain"])))
+        res = {"iters": p.max_iters, "adaptive": p.adaptive,
+               "median_gap": float(np.median(gap)),
+               "p90_gap": float(np.quantile(gap, 0.9)),
+               "max_gap": float(np.max(gap)), "max_kernel_vs_plain": d,
+               "median_gap_bar": bar}
+        emit(phase, **res)
+        assert res["median_gap"] <= bar, res
+        assert d <= OBJ_TOL, res
+        out[phase] = res
+    return out
 
 
 def _plain_solve(cw, ys, p):
@@ -571,22 +825,24 @@ def _plain_solve(cw, ys, p):
 
 
 def buy_and_hold_jacobi_f64(rets, n_dates, sweeps, bt):
-    """Final value of the buy-and-hold Jacobi backtest in float64 numpy:
-    the same sweeps (targets = the guess, equal weights on the first
-    date) and the same wealth/drift recursion as the port."""
+    """Final value of the buy-and-hold backtest in float64 numpy, with the
+    wealth/drift recursion of the port: by Jacobi sweeps (targets = the
+    guess, equal weights on the first date), or, with ``sweeps`` None, by
+    the exact scan (each date holds what the market left)."""
     n = rets.shape[1]
     guess = np.full((n_dates, n), 1.0 / n)
-    for _ in range(sweeps):
+    for _ in range(1 if sweeps is None else sweeps):
         targets = guess.copy()
         targets[0] = 1.0 / n
         v, w = bt.INITIAL_CAPITAL, np.full(n, 1.0 / n)
         for t in range(n_dates):
             guess[t] = w
-            v -= bt.COST_COEFF * np.abs(targets[t] - w).sum() * v
+            target = w if sweeps is None and t > 0 else targets[t]
+            v -= bt.COST_COEFF * np.abs(target - w).sum() * v
             g = np.exp(rets[t + 1]) - 1.0
-            pr = float(targets[t] @ g)
+            pr = float(target @ g)
             v *= 1.0 + pr
-            w = targets[t] * (1.0 + g) / (1.0 + pr)
+            w = target * (1.0 + g) / (1.0 + pr)
     return v
 
 
@@ -679,7 +935,8 @@ def phase_main_path(seed: int):
          dates_per_s=n_dates / total_s,
          metrics={k: {m: float(x) for m, x in row.items()}
                   for k, row in table.iterrows()})
-    return {"fd": fd, "model": model, "cfg": cfg, "pdhg_log_utility": first}
+    return {"fd": fd, "model": model, "cfg": cfg, "n_dates": n_dates,
+            "pdhg_log_utility": first}
 
 
 class Timed:
@@ -729,44 +986,50 @@ class Timed:
                            max_iters=max_iters)
 
 
-def phase_comparison(ctx):
-    """The full strategy comparison at full width, every batched solve
-    through its kernel; then Koopman-MPC with warm sweeps. Returns the
-    launches per kernel on the comparison path."""
-    import pandas as pd
+USES = {"Markowitz": "pdhg_mean_variance", "DMD": "pdhg_log_utility",
+        "KoopmanMPC": "pdhg_log_utility",
+        "ScenarioKelly": "pdhg_log_utility_scenarios"}
+CAPPED = {"DMD", "KoopmanMPC", "ScenarioKelly"}
+SCENARIOS = 16
 
-    from kmpc_tpu_torch.backtest.engine import (
-        calculate_metrics, run_backtest_parallel,
-    )
-    from kmpc_tpu_torch.ops.mpc_cuda import (
-        PDHG_LOG_UTILITY, PDHG_LOG_UTILITY_SCENARIOS,
-    )
-    from kmpc_tpu_torch.ops.mv_cuda import PDHG_MEAN_VARIANCE
+
+def kernel_counters():
+    """Every kernel's launch counter by name."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+    from kmpc_tpu_torch.ops import mv_cuda as V
+    from kmpc_tpu_torch.ops.mv_ladder import MV_LADDER
+
+    return {k.name: k for k in (
+        M.PDHG_LOG_UTILITY, M.PDHG_LOG_UTILITY_SCENARIOS,
+        V.PDHG_MEAN_VARIANCE, M.PDHG_LOG_UTILITY_ADAPTIVE,
+        M.PDHG_LOG_UTILITY_SCENARIOS_ADAPTIVE,
+        V.PDHG_MEAN_VARIANCE_ADAPTIVE, MV_LADDER)}
+
+
+def run_strategies(ctx, cfg, sweeps):
+    """The five-strategy Jacobi comparison under ``cfg``'s solver settings,
+    every batched solve through its kernel and every returned weight row
+    checked. Counts are set to 0 just before and read just after. Returns
+    (strategies, frames, timing, launches, KoopmanMPC's ``Timed``, (mpc,
+    mv_mpc, bt))."""
+    from kmpc_tpu_torch.backtest.engine import run_backtest_parallel
     from kmpc_tpu_torch.run_experiment import (
         backtest_settings, build_strategies, markowitz_settings,
     )
 
-    sweeps, scenarios, warm_iters = 8, 16, 500
-    fd, model, cfg = ctx["fd"], ctx["model"], ctx["cfg"]
+    fd, model = ctx["fd"], ctx["model"]
     bt, mpc = backtest_settings(cfg)
     mv_mpc = markowitz_settings(cfg)
     n_dates = fd.test.shape[0] - fd.sequence_length - bt.HORIZON
     strategies = build_strategies(model, mpc, mv_mpc, bt.LOOKBACK_WINDOW,
-                                  scenarios=scenarios, fused=True)
-    uses = {"Markowitz": "pdhg_mean_variance", "DMD": "pdhg_log_utility",
-            "KoopmanMPC": "pdhg_log_utility",
-            "ScenarioKelly": "pdhg_log_utility_scenarios"}
-    kernels = {"pdhg_log_utility": PDHG_LOG_UTILITY,
-               "pdhg_log_utility_scenarios": PDHG_LOG_UTILITY_SCENARIOS,
-               "pdhg_mean_variance": PDHG_MEAN_VARIANCE}
-    capped = {"DMD", "KoopmanMPC", "ScenarioKelly"}
-
+                                  scenarios=SCENARIOS, fused=True)
+    kernels = kernel_counters()
     for k in kernels.values():
         k.launches = 0
-    frames, timing = {}, {}
+    frames, timing, koopman = {}, {}, None
     for name, strat in strategies.items():
         timed = Timed(name, strat,
-                      mpc.max_turnover if name in capped else None)
+                      mpc.max_turnover if name in CAPPED else None)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         frames[name] = run_backtest_parallel(strat, fd, bt, num_sweeps=sweeps)
@@ -779,17 +1042,66 @@ def phase_comparison(ctx):
             "recursion_ms": 1e3 * (total_s - sum(timed.solve_s)) / sweeps,
         }
         if name == "KoopmanMPC":
-            # How far the pre-trade guesses still moved into the last sweep.
-            guess_move = (timed.guesses[-1] - timed.guesses[-2]) \
-                .abs().sum(-1).max().item()
+            koopman = timed
         df = frames[name]
         assert len(df) == n_dates, name
         assert np.all(np.isfinite(df[["portfolio_value", "return",
                                       "turnover", "cost"]].to_numpy())), name
     launches = {k: v.launches for k, v in kernels.items()}
-    want = {k: sweeps * sum(1 for u in uses.values() if u == k)
-            for k in kernels}
+    suffix = "_adaptive" if mpc.adaptive else ""
+    want = {k: 0 for k in kernels}
+    for kernel in USES.values():
+        want[kernel + suffix] += sweeps
     assert launches == want, f"launches {launches}, expected {want}"
+    return strategies, frames, timing, launches, koopman, (mpc, mv_mpc, bt)
+
+
+def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label):
+    """The path's first solves (pre-trade guess 1/N on every date) of the
+    named strategies, by each kernel and by its plain version on the same
+    card inputs: {kernel name: the case}."""
+    fd = ctx["fd"]
+    n = fd.n_assets
+    n_dates = fd.test.shape[0] - fd.sequence_length - bt.HORIZON
+    cw = torch.full((n_dates, n), 1.0 / n, device=fd.device)
+    suffix = "_adaptive" if mpc.adaptive else ""
+    first = {}
+    for name in names:
+        aux = strategies[name].precompute(fd, bt.HORIZON)
+        if name == "Markowitz":
+            mu = aux["mu"][:n_dates, None, :].contiguous()
+            res = compare_mv_tensors(label, cw, mu, aux["sigma"][:n_dates],
+                                     mv_mpc, time_reps=5)
+        else:
+            key = ("scenario_log_returns" if name == "ScenarioKelly"
+                   else "pred_log_returns")
+            r = torch.exp(aux[key][:n_dates]).contiguous()
+            res = compare_tensors(label, cw, r, mpc, time_reps=5)
+        first[USES[name] + suffix] = res
+    return first
+
+
+def phase_comparison(ctx):
+    """The full strategy comparison at full width, every batched solve
+    through its kernel; then Koopman-MPC with warm sweeps. Returns the
+    launches per kernel on the comparison path, the first solves' cases
+    and the final values."""
+    import pandas as pd
+
+    from kmpc_tpu_torch.backtest.engine import (
+        calculate_metrics, run_backtest_parallel,
+    )
+    from kmpc_tpu_torch.ops.mpc_cuda import PDHG_LOG_UTILITY
+    from kmpc_tpu_torch.run_experiment import build_strategies
+
+    sweeps, warm_iters = 8, 500
+    fd, model, cfg = ctx["fd"], ctx["model"], ctx["cfg"]
+    strategies, frames, timing, launches, koopman, (mpc, mv_mpc, bt) = \
+        run_strategies(ctx, cfg, sweeps)
+    n_dates = len(frames["KoopmanMPC"])
+    # How far the pre-trade guesses still moved into the last sweep.
+    guess_move = (koopman.guesses[-1] - koopman.guesses[-2]) \
+        .abs().sum(-1).max().item()
 
     # Koopman-MPC again, later sweeps warm at a quarter of the budget: by
     # the kernel, and by the eager solver (an independent implementation of
@@ -863,20 +1175,8 @@ def phase_comparison(ctx):
                                      num_sweeps=2 * sweeps)
     cold2_rel = abs(df_cold2["portfolio_value"].iloc[-1] / cold_v - 1.0)
 
-    # The comparison path's first solves (pre-trade guess 1/N on every
-    # date) of the scenario and Markowitz strategies, by each kernel and by
-    # its plain version on the same card inputs.
-    n = fd.n_assets
-    cw = torch.full((n_dates, n), 1.0 / n, device=fd.device)
-    aux = strategies["ScenarioKelly"].precompute(fd, bt.HORIZON)
-    r = torch.exp(aux["scenario_log_returns"][:n_dates]).contiguous()
-    first = {"pdhg_log_utility_scenarios": compare_tensors(
-        "comparison_path", cw, r, mpc, time_reps=5)}
-    aux = strategies["Markowitz"].precompute(fd, bt.HORIZON)
-    mu = aux["mu"][:n_dates, None, :].contiguous()
-    first["pdhg_mean_variance"] = compare_mv_tensors(
-        "comparison_path", cw, mu, aux["sigma"][:n_dates], mv_mpc,
-        time_reps=5)
+    first = first_solves(ctx, strategies, mpc, mv_mpc, bt,
+                         ("ScenarioKelly", "Markowitz"), "comparison_path")
     for name, res in first.items():
         emit("comparison_first_solve", kernel=name, **res)
 
@@ -885,7 +1185,7 @@ def phase_comparison(ctx):
     print(table.to_string(), flush=True)
     assert len(table) == 5
     emit("comparison", config="finance_sparse", dates=n_dates, sweeps=sweeps,
-         scenarios=scenarios, mpc_iters=mpc.max_iters, launches=launches,
+         scenarios=SCENARIOS, mpc_iters=mpc.max_iters, launches=launches,
          per_strategy=timing,
          warm_sweeps_iters=warm_iters, warm_total_s=warm_s,
          warm_solve_ms=[1e3 * x for x in timed.solve_s],
@@ -897,36 +1197,264 @@ def phase_comparison(ctx):
          total_s=sum(t["total_s"] for t in timing.values()),
          metrics={k: {m: float(x) for m, x in row.items()}
                   for k, row in table.iterrows()})
+    return launches, first, {k: float(v["portfolio_value"].iloc[-1])
+                             for k, v in frames.items()}
+
+
+def accurate_config(cfg):
+    """A copy of ``cfg`` with the solver at the accurate configuration."""
+    import copy
+
+    acc = copy.deepcopy(cfg)
+    acc.MPC.SOLVER.ADAPTIVE = True
+    acc.MPC.SOLVER.ADAPT_EVERY = 2
+    acc.MPC.SOLVER.PRECOND = True
+    acc.MPC.SOLVER.MAX_ITERS = 800
+    return acc
+
+
+def phase_accurate_path(ctx, fixed_values):
+    """The comparison with the configuration's solver at the accurate
+    configuration: every batched solve through an adaptive kernel. Returns
+    the launches per kernel and the first solves' cases."""
+    import pandas as pd
+
+    from kmpc_tpu_torch.backtest.engine import calculate_metrics
+
+    sweeps = 4
+    cfg = accurate_config(ctx["cfg"])
+    strategies, frames, timing, launches, _, (mpc, mv_mpc, bt) = \
+        run_strategies(ctx, cfg, sweeps)
+    assert mpc.adaptive and mpc.adapt_every == 2 and mpc.precond \
+        and mpc.max_iters == 800 and mv_mpc.adaptive
+    first = first_solves(ctx, strategies, mpc, mv_mpc, bt,
+                         ("KoopmanMPC", "ScenarioKelly", "Markowitz"),
+                         "accurate_path")
+    for name, res in first.items():
+        emit("accurate_first_solve", kernel=name, **res)
+    table = pd.DataFrame({k: calculate_metrics(v)
+                          for k, v in frames.items()}).T
+    print(table.to_string(), flush=True)
+    assert len(table) == 5
+    values = {k: float(v["portfolio_value"].iloc[-1])
+              for k, v in frames.items()}
+    emit("accurate_path", config="finance_sparse", dates=len(frames["DMD"]),
+         sweeps=sweeps, scenarios=SCENARIOS, mpc_iters=mpc.max_iters,
+         adapt_every=mpc.adapt_every, precond=mpc.precond, launches=launches,
+         per_strategy=timing, final_values=values,
+         fixed_step_final_values_8_sweeps=fixed_values,
+         total_s=sum(t["total_s"] for t in timing.values()))
     return launches, first
 
 
+class TimedScan:
+    """Wraps a strategy's per-date solve: each call's seconds
+    (synchronised), and each target checked."""
+
+    def __init__(self, name, strategy, max_turnover):
+        self.name, self.max_turnover = name, max_turnover
+        self.solve_s = []
+        self._rebalance = strategy.rebalance
+        strategy.rebalance = self.rebalance
+
+    def rebalance(self, aux, t, current, warm):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        target, warm = self._rebalance(aux, t, current, warm)
+        torch.cuda.synchronize()
+        self.solve_s.append(time.perf_counter() - t0)
+        t64 = target.double()
+        assert torch.isfinite(t64).all(), f"{self.name}: non-finite weights"
+        assert abs(t64.sum().item() - 1.0) <= FEAS_TOL \
+            and t64.min().item() >= -FEAS_TOL, \
+            f"{self.name}: date {t} is off the simplex"
+        if self.max_turnover is not None:
+            to = (t64 - current.double()).abs().sum().item()
+            assert to <= self.max_turnover + FEAS_TOL, \
+                f"{self.name}: date {t} turns over {to}"
+        return target, warm
+
+
+def phase_scan_path(ctx):
+    """The exact backtest at the accurate configuration, one solve of one
+    problem per date: over all dates for buy-and-hold and Koopman-MPC, on a
+    test split cut to 64 dates for all five, where the Jacobi backtest with
+    as many sweeps as dates must give the same portfolio values."""
+    from dataclasses import replace
+
+    from kmpc_tpu_torch.backtest.engine import (
+        run_backtest, run_backtest_parallel,
+    )
+    from kmpc_tpu_torch.run_experiment import (
+        backtest_settings, build_strategies, markowitz_settings,
+    )
+
+    fd, model = ctx["fd"], ctx["model"]
+    cfg = accurate_config(ctx["cfg"])
+    bt, mpc = backtest_settings(cfg)
+    mv_mpc = markowitz_settings(cfg)
+    kernels = kernel_counters()
+    n_dates = fd.test.shape[0] - fd.sequence_length - bt.HORIZON
+
+    def scan(name, data):
+        """(frame, launches by kernel, seconds, per-date solve seconds)."""
+        strat = build_strategies(model, mpc, mv_mpc, bt.LOOKBACK_WINDOW,
+                                 scenarios=SCENARIOS, fused=True)[name]
+        timed = TimedScan(name, strat,
+                          mpc.max_turnover if name in CAPPED else None)
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        df = run_backtest(strat, data, bt)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launched = {k: v.launches for k, v in kernels.items() if v.launches}
+        assert np.all(np.isfinite(df[["portfolio_value", "return",
+                                      "turnover", "cost"]].to_numpy())), name
+        return df, launched, total_s, timed.solve_s
+
+    full = {}
+    for name in ("BuyAndHold", "KoopmanMPC"):
+        df, launched, total_s, solve_s = scan(name, fd)
+        assert len(df) == n_dates, name
+        want = {} if name == "BuyAndHold" else \
+            {"pdhg_log_utility_adaptive": n_dates}
+        assert launched == want, f"{name}: launches {launched}, not {want}"
+        full[name] = {
+            "dates": n_dates, "total_s": total_s, "launches": launched,
+            "solve_ms_per_date": 1e3 * float(np.median(solve_s)),
+            "recursion_ms_per_date": 1e3 * (total_s - sum(solve_s)) / n_dates,
+            "final_value": float(df["portfolio_value"].iloc[-1])}
+    rets = (fd.destandardize_returns(fd.extract_current_returns(fd.test))
+            .double().cpu().numpy())
+    bh_ref = buy_and_hold_jacobi_f64(rets, n_dates, None, bt)
+    bh_err = abs(full["BuyAndHold"]["final_value"] / bh_ref - 1.0)
+    assert bh_err <= 1e-4, bh_err
+
+    # The cut split: every strategy by the scan and by as many Jacobi
+    # sweeps as dates, which is exact: the same kernel on the same problems.
+    cut_dates = min(64, n_dates)
+    rows = cut_dates + fd.sequence_length + bt.HORIZON
+    cut = replace(fd, test=fd.test[:rows].contiguous(),
+                  test_dates=fd.test_dates[:rows])
+    per_strategy = {}
+    for name in ("BuyAndHold", "Markowitz", "DMD", "KoopmanMPC",
+                 "ScenarioKelly"):
+        df, launched, total_s, solve_s = scan(name, cut)
+        assert len(df) == cut_dates, name
+        want = {} if name == "BuyAndHold" else \
+            {USES[name] + "_adaptive": cut_dates}
+        assert launched == want, f"{name}: launches {launched}, not {want}"
+        strat = build_strategies(model, mpc, mv_mpc, bt.LOOKBACK_WINDOW,
+                                 scenarios=SCENARIOS, fused=True)[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        par = run_backtest_parallel(strat, cut, bt, num_sweeps=cut_dates)
+        torch.cuda.synchronize()
+        par_s = time.perf_counter() - t0
+        a, b = (x["portfolio_value"].to_numpy() for x in (par, df))
+        rel = float(np.max(np.abs(a / b - 1.0)))
+        assert rel <= 1e-5, \
+            f"{name}: scan and {cut_dates} Jacobi sweeps differ by {rel}"
+        per_strategy[name] = {
+            "scan_s": total_s, "launches": launched,
+            "solve_ms_per_date": 1e3 * float(np.median(solve_s)),
+            "recursion_ms_per_date":
+                1e3 * (total_s - sum(solve_s)) / cut_dates,
+            "jacobi_sweeps": cut_dates, "jacobi_s": par_s,
+            "scan_vs_jacobi_value_rel_diff": rel,
+            "final_value": float(b[-1])}
+    emit("scan_path", config="finance_sparse", mpc_iters=mpc.max_iters,
+         adaptive=mpc.adaptive, adapt_every=mpc.adapt_every, all_dates=full,
+         buy_and_hold_rel_err_f64=bh_err, cut_dates=cut_dates,
+         cut_split=per_strategy)
+    return full["KoopmanMPC"]["launches"]
+
+
+def ladder_ops(B, N, iters, variant) -> float:
+    """FP32 operations of one ladder rung: per element and iteration 4 for
+    ``carry``; else 2 N for Sigma w, 5 for the step, 7 for the clamp, the
+    extrapolation and the clipped dual, and 5 for ``proj``'s sweep and
+    threshold; once 2 N per element for the Frobenius norm."""
+    per = {"carry": 4, "sigma": 2 * N + 12, "proj": 2 * N + 17}[variant]
+    return float(B) * N * (iters * per + 2 * N)
+
+
+def phase_mv_ladder():
+    """The MV ladder's rungs through its entry point; returns the launch
+    count and the ``proj`` rung's case for the kernels line."""
+    from kmpc_tpu_torch.ops import mv_ladder as D
+
+    B, N, iters = 4096, 30, 1000
+    D.MV_LADDER.launches = 0
+    rows = D.run_ladder(B, N, iters, reps=5)
+    launches = D.MV_LADDER.launches
+    assert len(rows) == len(D.RUNGS) and launches == 6 * len(D.RUNGS)
+    assert all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows)
+    for r in rows:
+        bytes_ms = 4.0 * B * (3 * N + N * N) / PEAK_HBM_BYTES * 1e3
+        ops_ms = ladder_ops(B, N, iters, r["variant"]) / PEAK_FP32_FLOPS * 1e3
+        r["bound_ms"] = max(bytes_ms, ops_ms)
+        r["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+    emit("mv_ladder", B=B, N=N, iters=iters, launches=launches, rungs=rows)
+
+    rung = next(r for r in rows if (r["variant"], r["unroll"], r["chains"],
+                                    r["warps"]) == ("proj", 4, 1, 4))
+    cw, mu, sig = (torch.as_tensor(x, device="cuda").contiguous()
+                   for x in D.ladder_inputs(B, N))
+    wk = D.mv_ladder_cuda(cw, mu, sig, "proj", iters)
+    wp = D.mv_ladder_plain(cw, mu, sig, "proj", iters)
+    dw = (wk - wp).abs().max().item()
+    assert dw <= MV_W_TOL, f"mv_ladder at the ladder's shape: {dw}"
+    plain_ms = cuda_ms(lambda: D.mv_ladder_plain(cw, mu, sig, "proj", iters),
+                       1)
+    return launches, {"max_abs_dw": dw, "kernel_ms": rung["ms"],
+                      "plain_ms": plain_ms, "bound_ms": rung["bound_ms"],
+                      "bound_by": rung["bound_by"]}
+
+
 def phase_headline():
+    """The batched solve at B=65536, H=5, N=30: the bench setting (fixed
+    steps, refresh 16, 1000 iterations) and the accurate one (adaptive
+    steps, 800 iterations)."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
     from kmpc_tpu_torch.ops.mpc import MPCParams
 
     B, H, N = 65536, 5, 30
-    p = MPCParams(max_iters=1000, sigma_scale=2.0, feas_tol=2e-4,
-                  proj_refresh_every=16, precond=True)
+    common = dict(sigma_scale=2.0, feas_tol=2e-4, precond=True)
     cw_np, ys_np = instance(B, H, N, 0)
     cw = torch.as_tensor(cw_np, device="cuda")
     r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
-    ms = cuda_ms(lambda: M.pdhg_log_utility_cuda(cw, r, p), 5)
-    plain_ms = cuda_ms(lambda: M.pdhg_log_utility_plain(cw, r, p), 1)
-    bound_ms, bound_by = pdhg_bound(B, H, N, p)
-    emit("headline", B=B, H=H, N=N, iters=p.max_iters, kernel_ms=ms,
-         solves_per_s=B / (ms / 1e3), plain_ms=plain_ms, bound_ms=bound_ms,
-         bound_by=bound_by, fp32_ops=pdhg_ops(B, H, N, p),
-         bound_share=bound_ms / ms)
+    for phase, p in (
+            ("headline", MPCParams(max_iters=1000, proj_refresh_every=16,
+                                   **common)),
+            ("accurate_headline", MPCParams(max_iters=800, adaptive=True,
+                                            adapt_every=2, **common))):
+        ms = cuda_ms(lambda: M.pdhg_log_utility_cuda(cw, r, p), 5)
+        plain_ms = cuda_ms(lambda: M.pdhg_log_utility_plain(cw, r, p), 1)
+        bound_ms, bound_by = pdhg_bound(B, H, N, p)
+        emit(phase, B=B, H=H, N=N, iters=p.max_iters, adaptive=p.adaptive,
+             kernel_ms=ms, solves_per_s=B / (ms / 1e3), plain_ms=plain_ms,
+             bound_ms=bound_ms, bound_by=bound_by,
+             fp32_ops=pdhg_ops(B, H, N, p), bound_share=bound_ms / ms)
 
 
+_LOG, _MV = "kmpc_tpu_torch/csrc/pdhg_log_utility", \
+    "kmpc_tpu_torch/csrc/pdhg_mean_variance"
 KERNELS = {
-    "pdhg_log_utility": ("kmpc_tpu_torch/csrc/pdhg_log_utility.cu",
-                         "kmpc_tpu/ops/mpc_pallas.py:226"),
-    "pdhg_log_utility_scenarios": (
-        "kmpc_tpu_torch/csrc/pdhg_log_utility_scenarios.cu",
-        "kmpc_tpu/ops/mpc_pallas.py:226"),
-    "pdhg_mean_variance": ("kmpc_tpu_torch/csrc/pdhg_mean_variance.cu",
-                           "kmpc_tpu/ops/mpc_pallas.py:1089"),
+    "pdhg_log_utility": (_LOG + ".cu", "kmpc_tpu/ops/mpc_pallas.py:226"),
+    "pdhg_log_utility_scenarios": (_LOG + "_scenarios.cu",
+                                   "kmpc_tpu/ops/mpc_pallas.py:226"),
+    "pdhg_mean_variance": (_MV + ".cu", "kmpc_tpu/ops/mpc_pallas.py:1089"),
+    "pdhg_log_utility_adaptive": (_LOG + "_adaptive.cu",
+                                  "kmpc_tpu/ops/mpc_pallas.py:593"),
+    "pdhg_log_utility_scenarios_adaptive": (
+        _LOG + "_scenarios_adaptive.cu", "kmpc_tpu/ops/mpc_pallas.py:593"),
+    "pdhg_mean_variance_adaptive": (_MV + "_adaptive.cu",
+                                    "kmpc_tpu/ops/mpc_pallas.py:1196"),
+    "mv_ladder": ("kmpc_tpu_torch/csrc/mv_ladder.cu",
+                  "scripts/mv_ladder.py:55"),
 }
 
 
@@ -944,25 +1472,50 @@ def main():
     phase_nan_row()
     phase_probe()
     ctx = phase_main_path(args.seed)
-    launches, path = phase_comparison(ctx)
+    launches, path, fixed_values = phase_comparison(ctx)
     path["pdhg_log_utility"] = ctx["pdhg_log_utility"]
+    accurate_launches, accurate_first = phase_accurate_path(ctx, fixed_values)
+    path.update(accurate_first)
+    scan_launches = phase_scan_path(ctx)
+    ladder_launches, path["mv_ladder"] = phase_mv_ladder()
     phase_headline()
 
-    # One entry per kernel: launches on the comparison path, the largest
-    # kernel-vs-plain weight difference over all of its cases, and its
-    # times and bound at the shape the path gives it.
+    # One entry per kernel: launches on the path that runs it (the
+    # comparison path for the fixed-step kernels, the accurate path for the
+    # adaptive ones, the ladder's entry point for the ladder; each counted
+    # from 0 over that path alone), the largest kernel-vs-plain weight
+    # difference over every problem of all of its cases (for an adaptive
+    # kernel the problems that ended apart included, with their count, the
+    # count of parted step histories and the largest objective difference
+    # beside it), and its times and bound at the shape the path gives it.
+    for name in KERNELS:
+        if name.endswith("_adaptive"):
+            launches[name] = accurate_launches[name]
+    launches["mv_ladder"] = ladder_launches
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         at_path = path[name]
-        errs = [c["max_abs_dw"] for c in cases[name]] + [at_path["max_abs_dw"]]
-        kernels.append({
+        every = cases[name] + [at_path]
+        entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(errs), "ms": at_path["kernel_ms"],
+            "cases": len(every),
+            "max_abs_err": max(c["max_abs_dw"] for c in every),
+            "ms": at_path["kernel_ms"],
             "plain_ms": at_path["plain_ms"], "bound_ms": at_path["bound_ms"],
             "bound_by": at_path["bound_by"], "library_ms": None,
-        })
+        }
+        if name.endswith("_adaptive"):
+            entry.update({
+                "problems": sum(c["B"] for c in every),
+                "ended_apart": sum(c["ended_apart"] for c in every),
+                "decisions_parted": sum(c["decisions_parted"] for c in every),
+                "max_abs_err_held": max(c["max_abs_dw_held"] for c in every),
+                "max_abs_dobj_all": max(c["max_abs_dobj"] for c in every)})
+        kernels.append(entry)
         assert launches[name] > 0, f"{name} was never launched"
+    assert scan_launches == {"pdhg_log_utility_adaptive":
+                             ctx["n_dates"]}, scan_launches
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

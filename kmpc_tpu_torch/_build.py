@@ -35,6 +35,11 @@ SOURCES = {
     "pdhg_log_utility": "pdhg_log_utility.cu",
     "pdhg_log_utility_scenarios": "pdhg_log_utility_scenarios.cu",
     "pdhg_mean_variance": "pdhg_mean_variance.cu",
+    "pdhg_log_utility_adaptive": "pdhg_log_utility_adaptive.cu",
+    "pdhg_log_utility_scenarios_adaptive":
+        "pdhg_log_utility_scenarios_adaptive.cu",
+    "pdhg_mean_variance_adaptive": "pdhg_mean_variance_adaptive.cu",
+    "mv_ladder": "mv_ladder.cu",
 }
 
 

@@ -1,18 +1,24 @@
-"""Jacobi (parallel) backtest and the strategies it compares.
+"""The backtests (exact scan over dates, Jacobi sweeps) and the strategies
+they compare.
 
-Port of the parallel path of kmpc_tpu/backtest/engine.py. Each strategy
-has a ``precompute`` pass that runs once, batched over every test date
-(Koopman forecasts, DMD linear rollouts, scenario paths, Markowitz rolling
-moments), and a ``rebalance_all`` that solves every rebalance date at once
-from guessed pre-trade weights: one launch of a fused kernel on a CUDA
-device with ``use_fused_kernel``, else the eager solver. Each sweep then
-reruns the wealth/drift recursion over the dates to update the guesses.
-The date coupling is weak (pre-trade weights enter only the cost term and
-the first step's turnover cap), so a handful of sweeps converges; as many
-sweeps as dates is exact. ``warm_sweeps_iters`` carries the (primal, dual)
-iterates from sweep to sweep and cuts the later sweeps' iteration budget.
-The recursion is a Python loop of [N]-sized tensor steps. Not here yet:
-the per-date ``rebalance`` with the exact scan path, and the device mesh.
+Port of kmpc_tpu/backtest/engine.py. Each strategy has a ``precompute``
+pass that runs once, batched over every test date (Koopman forecasts, DMD
+linear rollouts, scenario paths, Markowitz rolling moments), a per-date
+``rebalance`` and a ``rebalance_all`` that solves every rebalance date at
+once from guessed pre-trade weights. With ``use_fused_kernel`` a solve on a
+CUDA device is one launch of a fused kernel (a batch of one problem per
+date on the scan path), else the eager solver runs.
+
+``run_backtest`` is the exact path: a loop over the dates, each date's
+solve starting from the weights the previous date left (``lax.scan`` in the
+JAX package). ``run_backtest_parallel`` solves all dates at once and reruns
+the wealth/drift recursion over the dates to update the guessed pre-trade
+weights, sweep after sweep. The date coupling is weak (pre-trade weights
+enter only the cost term and the first step's turnover cap), so a handful
+of sweeps converges; as many sweeps as dates is exact and equals the scan.
+``warm_sweeps_iters`` carries the (primal, dual) iterates from sweep to
+sweep and cuts the later sweeps' iteration budget. Both recursions are
+Python loops of [N]-sized tensor steps. Not here yet: the device mesh.
 """
 
 from __future__ import annotations
@@ -61,6 +67,12 @@ class BuyAndHoldStrategy:
     def precompute(self, fd: FinanceData, horizon: int) -> Dict[str, Any]:
         return {"n_assets": fd.n_assets}
 
+    def rebalance(self, aux, t: int, current_weights: torch.Tensor, warm):
+        if t == 0:
+            return torch.full_like(current_weights,
+                                   1.0 / current_weights.shape[-1]), warm
+        return current_weights, warm
+
     def rebalance_all(self, aux, current_weights: torch.Tensor) -> torch.Tensor:
         # [T, N] guessed pre-trade weights -> [T, N] targets
         out = current_weights.clone()
@@ -88,7 +100,21 @@ class LogUtilityMPCRebalanceMixin:
     """Rebalance logic of the strategies that forecast per-date log-returns
     (``aux['pred_log_returns']`` [T, H, N]) and solve the log-utility MPC:
     the Koopman strategy and the DMD baseline differ only in the forecast.
-    Host classes provide ``mpc`` and ``use_fused_kernel``."""
+    Host classes provide ``mpc``, ``use_fused_kernel`` and
+    ``use_warm_start``."""
+
+    def rebalance(self, aux, t: int, current_weights: torch.Tensor, warm):
+        """One date's solve from the pre-trade weights [N]: (target [N],
+        warm). With ``use_warm_start`` the solve starts from the previous
+        date's (primal, dual) [H, N] and hands its own on."""
+        preds = aux["pred_log_returns"][t]                   # [H, N]
+        warm_in = (warm[0][None], warm[1][None]) if self.use_warm_start \
+            else None
+        target, (w, dual) = _warm_solve(
+            solve_mpc_log_utility_packed, solve_mpc_log_utility_batch,
+            self.use_fused_kernel, current_weights[None], preds[None],
+            self.mpc, warm_in, None)
+        return target[0], ((w[0], dual[0]) if self.use_warm_start else warm)
 
     def rebalance_all(self, aux, current_weights: torch.Tensor) -> torch.Tensor:
         if self.use_fused_kernel:
@@ -120,6 +146,10 @@ class KoopmanMPCStrategy(LogUtilityMPCRebalanceMixin):
     model: KoopmanModel
     mpc: MPCParams
     use_fused_kernel: bool = True
+    use_warm_start: bool = False  # scan path: start each date's solve from
+    # the previous date's iterates. Warm and cold starts can land on
+    # different, equally good points of the program's near-flat faces, so
+    # the scan then no longer equals the cold Jacobi path exactly.
 
     def precompute(self, fd: FinanceData, horizon: int) -> Dict[str, Any]:
         """One batched H-step forecast for every test date: [T, H, N]."""
@@ -152,6 +182,11 @@ class ScenarioKoopmanMPCStrategy:
         scen = generate_return_scenarios(preds, rstd, self.num_scenarios, gen)
         return {"scenario_log_returns": scen}                # [T, S, H, N]
 
+    def rebalance(self, aux, t: int, current_weights: torch.Tensor, warm):
+        scen = aux["scenario_log_returns"][t][None]          # [1, S, H, N]
+        return self.rebalance_all({"scenario_log_returns": scen},
+                                  current_weights[None])[0], warm
+
     def rebalance_all(self, aux, current_weights: torch.Tensor) -> torch.Tensor:
         if self.use_fused_kernel:
             w, _ = solve_mpc_log_utility_scenarios_packed(
@@ -179,6 +214,7 @@ class DMDStrategy(LogUtilityMPCRebalanceMixin):
     mpc: MPCParams
     K: Optional[torch.Tensor] = None  # [obs, obs], x_{t+1} = K x_t
     use_fused_kernel: bool = True
+    use_warm_start: bool = False      # as KoopmanMPCStrategy's
 
     def fit(self, train_data: torch.Tensor) -> "DMDStrategy":
         X = train_data[:-1].T                                # [obs, T-1]
@@ -230,6 +266,10 @@ class MarkowitzStrategy:
         return {"mu": mu, "sigma": sigma,
                 "has_data": count[:, 0] >= self.min_samples}
 
+    def rebalance(self, aux, t: int, current_weights: torch.Tensor, warm):
+        one = {k: aux[k][t][None] for k in ("mu", "sigma", "has_data")}
+        return self.rebalance_all(one, current_weights[None])[0], warm
+
     def rebalance_all(self, aux, current_weights: torch.Tensor) -> torch.Tensor:
         if self.use_fused_kernel:
             w, _ = solve_mpc_mean_variance_packed(
@@ -265,6 +305,63 @@ def _market_step(portfolio_value, current_weights, target_weights, gross,
     return value, drifted, port_ret, turnover, cost
 
 
+def _dated_returns(fd: FinanceData):
+    """(gross returns exp(r) - 1 of every test row, their count)."""
+    all_returns = fd.destandardize_returns(fd.extract_current_returns(fd.test))
+    return torch.exp(all_returns) - 1.0, all_returns.shape[0]
+
+
+def make_backtester(strategy, fd: FinanceData, config: BacktestConfig):
+    """Returns ``(run, ts)``: ``run()`` walks the rebalance dates ``ts`` in
+    order, solving each date from the weights the market left after the
+    previous one, and returns the history (a dict of tensors over the
+    dates). The forecasts are computed here, once.
+
+    The number of dates is that of the parallel path; with
+    ``REBALANCE_FREQ`` > 1 the loop advances by it and applies only the
+    return at t + 1 (the returns of the days between are skipped, as in
+    the JAX package)."""
+    n_steps = fd.test.shape[0] - fd.sequence_length - config.HORIZON
+    ts = np.arange(0, n_steps, config.REBALANCE_FREQ)
+    aux = strategy.precompute(fd, config.HORIZON)
+    gross_all, t_len = _dated_returns(fd)
+    dev = fd.device
+    n, H = fd.n_assets, config.HORIZON
+
+    def run() -> Dict[str, torch.Tensor]:
+        value = torch.tensor(config.INITIAL_CAPITAL, dtype=torch.float32,
+                             device=dev)
+        weights = torch.full((n,), 1.0 / n, dtype=torch.float32, device=dev)
+        warm = (weights[None, :].repeat(H, 1),
+                torch.zeros((H, n), dtype=torch.float32, device=dev))
+        keys = ("portfolio_value", "return", "turnover", "cost", "weights")
+        hist = {k: [] for k in keys}
+        for t in ts.tolist():
+            target, warm = strategy.rebalance(aux, t, weights, warm)
+            has_next = t + 1 < t_len
+            gross = gross_all[min(t + 1, t_len - 1)]
+            value, weights, port_ret, turnover, cost = _market_step(
+                value, weights, target, gross, has_next, config.COST_COEFF)
+            for k, v in zip(keys, (value, port_ret, turnover, cost, target)):
+                hist[k].append(v)
+        return {k: torch.stack(v) for k, v in hist.items()}
+
+    return run, ts
+
+
+def run_backtest(strategy, fd: FinanceData, config: BacktestConfig,
+                 return_dataframe: bool = True):
+    """Backtest with exact sequential semantics, one solve per date; a
+    DataFrame (date, portfolio_value, return, turnover, cost) or the
+    history as numpy arrays."""
+    run, ts = make_backtester(strategy, fd, config)
+    history = {k: v.detach().cpu().numpy() for k, v in run().items()}
+    history["t"] = ts
+    if not return_dataframe:
+        return history
+    return _history_to_dataframe(history, fd, ts)
+
+
 def make_parallel_backtester(
     strategy,
     fd: FinanceData,
@@ -291,9 +388,7 @@ def make_parallel_backtester(
         for k, v in aux.items()
     }
 
-    all_returns = fd.destandardize_returns(fd.extract_current_returns(fd.test))
-    t_len = all_returns.shape[0]
-    gross_all = torch.exp(all_returns) - 1.0
+    gross_all, t_len = _dated_returns(fd)
     n = fd.n_assets
 
     use_warm = warm_sweeps_iters is not None

@@ -17,5 +17,5 @@ extern "C" int kmpc_pdhg_log_utility(
                            H, N, max_iters, refresh, warm_iters, cold_iters,
                            c, tau_to, ridge, rho, step_scale, sigma_scale,
                            precond, use_ball, warm);
-  return dispatch<false>(a, stream);
+  return dispatch<false, false>(a, AdaptArgs{nullptr, 0}, stream);
 }

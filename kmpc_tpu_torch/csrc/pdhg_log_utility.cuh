@@ -13,7 +13,18 @@
 // every `refresh`-th), with uniform or per-row (`precond`) steps, ridge,
 // over-relaxation, with or without the l1 turnover ball, optional warm
 // primal/dual iterates, an optional dual output, and the extra primal
-// half-step with the fixed-point residual at the end.
+// half-step with the fixed-point residual at the end. With ADAPT = true the
+// loop is `body_adaptive` instead: residual-balancing steps carried through
+// the loop (per horizon row under precond, one factor per problem), the
+// smooth gradient with tau outside the portfolio reciprocal, the dual prox
+// on the a-scale (v = q / sigma, ball radius tau_to), the full projection
+// budget every iteration, and on every `adapt_every`-th iteration the
+// primal and dual residuals, one butterfly each over the per-lane partial
+// sums of all rows, which decide warp-uniformly how the steps move. The
+// TPU kernel block-unrolls that schedule to avoid a conditional; here the
+// predicate is warp-uniform and a plain branch. ADAPT is a template flag,
+// instantiated in sources of its own, so the fixed-step instantiations keep
+// their registers.
 //
 // Design. One warp owns one problem for the whole solve. Asset i of a row
 // sits on lane i % 32, slot i / 32 (K = ceil(N/32) slots); the H rows of
@@ -39,8 +50,10 @@
 // per warp, which sets the warps per block of the scenario kernel.
 //
 // Arithmetic follows the TPU kernel operation for operation (no fast-math
-// intrinsics). tau is folded into the portfolio reciprocal per scenario,
-// before the scenario mean, as there.
+// intrinsics). In the fixed-step bodies tau is folded into the portfolio
+// reciprocal per scenario, before the scenario mean, as there; the adaptive
+// body recomputes 1 / sigma and c / sigma every iteration and divides the
+// residuals' terms by the carried steps, as there.
 
 #pragma once
 
@@ -60,6 +73,17 @@ struct Args {
   int max_iters, refresh, warm_iters, cold_iters;
   float c, tau_to, ridge, rho, step_scale, sigma_scale;
   int precond, use_ball, warm;
+};
+
+// What only the adaptive body reads, apart from Args so that the fixed-step
+// instantiations keep the argument block they had.
+struct AdaptArgs {
+  float* steps_out;  // [B, 2 H + 4]: the last tau and sigma of every row,
+                     // alpha, the primal and dual residual of the last
+                     // balancing, and the signed sum of the iterations that
+                     // moved the steps (+it grew tau, -it shrank it), which
+                     // two equal step histories share; or null
+  int adapt_every;   // balance when it % k == k - 1
 };
 
 // g[t][k] = r[t][k] * scale[t] / max(w_t . r_t, 1e-12); with SCEN the mean
@@ -162,9 +186,62 @@ __device__ __forceinline__ void curvature_ratio(const float (&x)[HM][K],
   }
 }
 
-template <int HM, int K, bool SCEN>
+// The l1 ball's share of the dual bound, per row: 0 where the masked
+// magnitudes am lie inside the ball (their l1 <= rad), else max(theta, 0)
+// with theta the ball's threshold after n_sw sweeps: from a cold start, or
+// (warm) from the carried theta, the l1 riding the first sweep's reductions.
+template <int HM, int K>
+__device__ __forceinline__ void ball_excess(
+    const float (&am)[HM][K], const bool (&valid)[K], float (&thp)[HM],
+    const float (&rad)[HM], int H, int N, bool warm, int n_sw,
+    float (&excess)[HM]) {
+  float l1[HM];
+  if (!warm) {
+#pragma unroll
+    for (int t = 0; t < HM; ++t) {
+      l1[t] = 0.f;
+      if (t < H) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) l1[t] += valid[k] ? am[t][k] : 0.f;
+      }
+    }
+    warp_sum<HM>(l1, H);
+    threshold<HM, K>(am, thp, rad, H, N, true, n_sw);
+  } else {
+    float cnt[HM], s[HM];
+#pragma unroll
+    for (int t = 0; t < HM; ++t) {
+      cnt[t] = 0.f;
+      s[t] = 0.f;
+      l1[t] = 0.f;
+      if (t < H) {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          const bool act = am[t][k] > thp[t];
+          cnt[t] += act ? 1.f : 0.f;
+          s[t] += act ? am[t][k] : 0.f;
+          l1[t] += valid[k] ? am[t][k] : 0.f;
+        }
+      }
+    }
+    warp_sum<HM>(cnt, H);
+    warp_sum<HM>(s, H);
+    warp_sum<HM>(l1, H);
+#pragma unroll
+    for (int t = 0; t < HM; ++t)
+      if (t < H) thp[t] = (s[t] - rad[t]) / jmax(cnt[t], 1.f);
+    threshold<HM, K>(am, thp, rad, H, N, false, n_sw - 1);
+  }
+#pragma unroll
+  for (int t = 0; t < HM; ++t) {
+    excess[t] = 0.f;
+    if (t < H) excess[t] = l1[t] <= rad[t] ? 0.f : jmax(thp[t], 0.f);
+  }
+}
+
+template <int HM, int K, bool SCEN, bool ADAPT>
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
-pdhg_log_utility_kernel(Args a) {
+pdhg_log_utility_kernel(Args a, AdaptArgs ad) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -331,136 +408,264 @@ pdhg_log_utility_kernel(Args a) {
   }
 
   const bool warm = a.warm != 0;
-  const bool cond = warm && a.refresh > 1;  // make_body_cond
   const bool ridge0 = a.ridge == 0.f;
   const bool relax = a.rho != 1.f;
-  for (int it = 0; it < a.max_iters; ++it) {
-    int n_sw;
-    if (!warm)
-      n_sw = a.cold_iters;
-    else if (cond)
-      n_sw = (it % a.refresh) == 0 ? a.warm_iters : 1;
-    else
-      n_sw = a.warm_iters;
+  if constexpr (!ADAPT) {
+    const bool cond = warm && a.refresh > 1;  // make_body_cond
+    for (int it = 0; it < a.max_iters; ++it) {
+      int n_sw;
+      if (!warm)
+        n_sw = a.cold_iters;
+      else if (cond)
+        n_sw = (it % a.refresh) == 0 ? a.warm_iters : 1;
+      else
+        n_sw = a.warm_iters;
 
-    // Primal step: w - tau (grad g(w) + ridge w + D'p), tau folded into the
-    // portfolio reciprocal and the ridge into c1.
-    {
-      float g[HM][K];
-      scaled_returns<HM, K, SCEN>(w, r, rs, tau, S, H, lane, g);
-#pragma unroll
-      for (int t = 0; t < HM; ++t) {
-        if (t < H) {
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const float nxt = (t + 1 < H) ? p[t + 1][k] : 0.f;
-            const float base = ridge0 ? w[t][k] : c1[t] * w[t][k];
-            const float v = base + (g[t][k] - tau[t] * (p[t][k] - nxt));
-            vm[t][k] = valid[k] ? v : kNeg;
-          }
-        }
-      }
-    }
-    threshold<HM, K>(vm, thw, one, H, N, !warm, n_sw);
-
-    // w_new, the extrapolation 2 w_new - w, and q = p + sigma D(w_bar).
-    float wn[HM][K], q[HM][K];
-#pragma unroll
-    for (int t = 0; t < HM; ++t) {
-      if (t < H) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) wn[t][k] = jmax(vm[t][k] - thw[t], 0.f);
-      }
-    }
-#pragma unroll
-    for (int t = 0; t < HM; ++t) {
-      if (t < H) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float wb = 2.f * wn[t][k] - w[t][k];
-          const float wbp = t == 0 ? cw[k] : 2.f * wn[t - 1][k] - w[t - 1][k];
-          q[t][k] = p[t][k] + sig[t] * (wb - wbp);
-        }
-      }
-    }
-
-    // Dual prox on the q scale, clip form: clip(q, -bound, bound) with
-    // bound = c inside the ball, c + max(theta, 0) outside.
-    float bound[HM];
-    if (a.use_ball) {
-      float aq[HM][K];
-#pragma unroll
-      for (int t = 0; t < HM; ++t) {
-        if (t < H) {
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            const float x = jmax(fabsf(q[t][k]) - a.c, 0.f);
-            aq[t][k] = valid[k] ? x : kNeg;
-          }
-        }
-      }
-      float l1[HM];
-      if (!warm) {
+      // Primal step: w - tau (grad g(w) + ridge w + D'p), tau folded into the
+      // portfolio reciprocal and the ridge into c1.
+      {
+        float g[HM][K];
+        scaled_returns<HM, K, SCEN>(w, r, rs, tau, S, H, lane, g);
 #pragma unroll
         for (int t = 0; t < HM; ++t) {
-          l1[t] = 0.f;
-          if (t < H) {
-#pragma unroll
-            for (int k = 0; k < K; ++k) l1[t] += valid[k] ? aq[t][k] : 0.f;
-          }
-        }
-        warp_sum<HM>(l1, H);
-        threshold<HM, K>(aq, thp, sig_tau, H, N, true, n_sw);
-      } else {
-        // Warm: l1 rides the first sweep's reductions.
-        float cnt[HM], s[HM];
-#pragma unroll
-        for (int t = 0; t < HM; ++t) {
-          cnt[t] = 0.f;
-          s[t] = 0.f;
-          l1[t] = 0.f;
           if (t < H) {
 #pragma unroll
             for (int k = 0; k < K; ++k) {
-              const bool act = aq[t][k] > thp[t];
-              cnt[t] += act ? 1.f : 0.f;
-              s[t] += act ? aq[t][k] : 0.f;
-              l1[t] += valid[k] ? aq[t][k] : 0.f;
+              const float nxt = (t + 1 < H) ? p[t + 1][k] : 0.f;
+              const float base = ridge0 ? w[t][k] : c1[t] * w[t][k];
+              const float v = base + (g[t][k] - tau[t] * (p[t][k] - nxt));
+              vm[t][k] = valid[k] ? v : kNeg;
             }
           }
         }
-        warp_sum<HM>(cnt, H);
-        warp_sum<HM>(s, H);
-        warp_sum<HM>(l1, H);
+      }
+      threshold<HM, K>(vm, thw, one, H, N, !warm, n_sw);
+
+      // w_new, the extrapolation 2 w_new - w, and q = p + sigma D(w_bar).
+      float wn[HM][K], q[HM][K];
 #pragma unroll
-        for (int t = 0; t < HM; ++t)
-          if (t < H) thp[t] = (s[t] - sig_tau[t]) / jmax(cnt[t], 1.f);
-        threshold<HM, K>(aq, thp, sig_tau, H, N, false, n_sw - 1);
+      for (int t = 0; t < HM; ++t) {
+        if (t < H) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) wn[t][k] = jmax(vm[t][k] - thw[t], 0.f);
+        }
       }
 #pragma unroll
-      for (int t = 0; t < HM; ++t)
-        if (t < H)
-          bound[t] = a.c + (l1[t] <= sig_tau[t] ? 0.f : jmax(thp[t], 0.f));
-    } else {
+      for (int t = 0; t < HM; ++t) {
+        if (t < H) {
 #pragma unroll
-      for (int t = 0; t < HM; ++t) bound[t] = a.c;
-    }
-
-#pragma unroll
-    for (int t = 0; t < HM; ++t) {
-      if (t < H) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const float pn = jmin(jmax(q[t][k], -bound[t]), bound[t]);
-          if (relax) {
-            w[t][k] = w[t][k] + a.rho * (wn[t][k] - w[t][k]);
-            p[t][k] = p[t][k] + a.rho * (pn - p[t][k]);
-          } else {
-            w[t][k] = wn[t][k];
-            p[t][k] = pn;
+          for (int k = 0; k < K; ++k) {
+            const float wb = 2.f * wn[t][k] - w[t][k];
+            const float wbp = t == 0 ? cw[k] : 2.f * wn[t - 1][k] - w[t - 1][k];
+            q[t][k] = p[t][k] + sig[t] * (wb - wbp);
           }
         }
       }
+
+      // Dual prox on the q scale, clip form: clip(q, -bound, bound) with
+      // bound = c inside the ball, c + max(theta, 0) outside.
+      float bound[HM];
+      if (a.use_ball) {
+        float aq[HM][K];
+#pragma unroll
+        for (int t = 0; t < HM; ++t) {
+          if (t < H) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              const float x = jmax(fabsf(q[t][k]) - a.c, 0.f);
+              aq[t][k] = valid[k] ? x : kNeg;
+            }
+          }
+        }
+        float excess[HM];
+        ball_excess<HM, K>(aq, valid, thp, sig_tau, H, N, warm, n_sw, excess);
+#pragma unroll
+        for (int t = 0; t < HM; ++t) bound[t] = a.c + excess[t];
+      } else {
+#pragma unroll
+        for (int t = 0; t < HM; ++t) bound[t] = a.c;
+      }
+
+#pragma unroll
+      for (int t = 0; t < HM; ++t) {
+        if (t < H) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float pn = jmin(jmax(q[t][k], -bound[t]), bound[t]);
+            if (relax) {
+              w[t][k] = w[t][k] + a.rho * (wn[t][k] - w[t][k]);
+              p[t][k] = p[t][k] + a.rho * (pn - p[t][k]);
+            } else {
+              w[t][k] = wn[t][k];
+              p[t][k] = pn;
+            }
+          }
+        }
+      }
+    }
+  } else {
+    // body_adaptive. tau and sig are the carried steps from here on (the
+    // tail then steps by the last tau); alpha is one scalar per problem.
+    float alpha = 0.5f, pr_last = 0.f, dr_last = 0.f, moved = 0.f;
+    float rad[HM];
+#pragma unroll
+    for (int t = 0; t < HM; ++t) rad[t] = a.tau_to;
+    const int n_sw = warm ? a.warm_iters : a.cold_iters;
+    for (int it = 0; it < a.max_iters; ++it) {
+      // Primal step: w - tau (grad g(w) + ridge w + D'p).
+      {
+        float g[HM][K];
+        scaled_returns<HM, K, SCEN>(w, r, rs, minus_one, S, H, lane, g);
+#pragma unroll
+        for (int t = 0; t < HM; ++t) {
+          if (t < H) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              float gg = g[t][k];
+              if (!ridge0) gg = gg + a.ridge * w[t][k];
+              const float nxt = (t + 1 < H) ? p[t + 1][k] : 0.f;
+              const float v = w[t][k] - tau[t] * (gg + (p[t][k] - nxt));
+              vm[t][k] = valid[k] ? v : kNeg;
+            }
+          }
+        }
+      }
+      threshold<HM, K>(vm, thw, one, H, N, !warm, n_sw);
+
+      // w_new, and q = p + sigma D(2 w_new - w).
+      float wn[HM][K], q[HM][K];
+#pragma unroll
+      for (int t = 0; t < HM; ++t) {
+        if (t < H) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) wn[t][k] = jmax(vm[t][k] - thw[t], 0.f);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < HM; ++t) {
+        if (t < H) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float wb = 2.f * wn[t][k] - w[t][k];
+            const float wbp = t == 0 ? cw[k] : 2.f * wn[t - 1][k] - w[t - 1][k];
+            q[t][k] = p[t][k] + sig[t] * (wb - wbp);
+          }
+        }
+      }
+
+      // Dual prox on the a-scale: v = q / sigma, a = max(|v| - c / sigma, 0),
+      // the ball of radius tau_to, p_new = q - sigma (v - clip(v, +-bound)).
+      float inv_s[HM], bound[HM];
+#pragma unroll
+      for (int t = 0; t < HM; ++t) {
+        inv_s[t] = t < H ? 1.f / sig[t] : 0.f;
+        bound[t] = a.c * inv_s[t];
+      }
+      if (a.use_ball) {
+        float am[HM][K];
+#pragma unroll
+        for (int t = 0; t < HM; ++t) {
+          if (t < H) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              const float x = jmax(fabsf(q[t][k] * inv_s[t]) - bound[t], 0.f);
+              am[t][k] = valid[k] ? x : kNeg;
+            }
+          }
+        }
+        float excess[HM];
+        ball_excess<HM, K>(am, valid, thp, rad, H, N, warm, n_sw, excess);
+#pragma unroll
+        for (int t = 0; t < HM; ++t) bound[t] = bound[t] + excess[t];
+      }
+      // q becomes p_new.
+#pragma unroll
+      for (int t = 0; t < HM; ++t) {
+        if (t < H) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const float v = q[t][k] * inv_s[t];
+            const float inner = v - jmin(jmax(v, -bound[t]), bound[t]);
+            q[t][k] = q[t][k] - sig[t] * inner;
+          }
+        }
+      }
+
+      // Residual balancing (ratio 1.5, alpha *= 0.95), from the moves before
+      // over-relaxation: pr = ||dw / tau - D'dp||, dr = ||dp / sigma - D0 dw||
+      // over all rows and assets of the problem.
+      if (ad.adapt_every <= 1 ||
+          (it % ad.adapt_every) == ad.adapt_every - 1) {
+        float res[2] = {0.f, 0.f};
+#pragma unroll
+        for (int t = 0; t < HM; ++t) {
+          if (t < H) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              const float dw = w[t][k] - wn[t][k];
+              const float dp = p[t][k] - q[t][k];
+              const float dpn = (t + 1 < H) ? p[t + 1][k] - q[t + 1][k] : 0.f;
+              const float dwp = t == 0 ? 0.f : w[t - 1][k] - wn[t - 1][k];
+              const float e1 = dw / tau[t] - (dp - dpn);
+              const float e2 = dp / sig[t] - (dw - dwp);
+              res[0] += e1 * e1;
+              res[1] += e2 * e2;
+            }
+          }
+        }
+        warp_sum<2>(res, 2);
+        const float pr = sqrtf(res[0]), dr = sqrtf(res[1]);
+        pr_last = pr;
+        dr_last = dr;
+        const bool big_p = pr > 1.5f * dr;
+        const bool big_d = dr > 1.5f * pr;
+        const float shrink = 1.f - alpha;
+#pragma unroll
+        for (int t = 0; t < HM; ++t) {
+          if (t < H) {
+            if (big_p) {
+              tau[t] = tau[t] / shrink;
+              sig[t] = sig[t] * shrink;
+            } else if (big_d) {
+              tau[t] = tau[t] * shrink;
+              sig[t] = sig[t] / shrink;
+            }
+          }
+        }
+        if (big_p || big_d) alpha = alpha * 0.95f;
+        if (big_p) moved += (float)(it + 1);
+        if (!big_p && big_d) moved -= (float)(it + 1);
+      }
+
+#pragma unroll
+      for (int t = 0; t < HM; ++t) {
+        if (t < H) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            if (relax) {
+              w[t][k] = w[t][k] + a.rho * (wn[t][k] - w[t][k]);
+              p[t][k] = p[t][k] + a.rho * (q[t][k] - p[t][k]);
+            } else {
+              w[t][k] = wn[t][k];
+              p[t][k] = q[t][k];
+            }
+          }
+        }
+      }
+    }
+    if (ad.steps_out != nullptr && lane == 0) {
+      float* o = ad.steps_out + (size_t)b * (2 * H + 4);
+#pragma unroll
+      for (int t = 0; t < HM; ++t) {
+        if (t < H) {
+          o[t] = tau[t];
+          o[H + t] = sig[t];
+        }
+      }
+      o[2 * H] = alpha;
+      o[2 * H + 1] = pr_last;
+      o[2 * H + 2] = dr_last;
+      o[2 * H + 3] = moved;
     }
   }
 
@@ -509,8 +714,9 @@ pdhg_log_utility_kernel(Args a) {
 
 // Warps per block: four, or as many problems' returns as fit a block's
 // shared memory (at least one; the wrapper refuses shapes beyond that).
-template <int HM, int K, bool SCEN>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <int HM, int K, bool SCEN, bool ADAPT>
+cudaError_t launch(const Args& a, const AdaptArgs& ad,
+                   cudaStream_t stream) {
   int warps = kMaxWarpsPerBlock;
   size_t smem = 0;
   if (SCEN) {
@@ -520,13 +726,13 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
       warps = (int)(kSmemPerBlock / per_warp);
     smem = per_warp * warps;
     cudaError_t e = cudaFuncSetAttribute(
-        pdhg_log_utility_kernel<HM, K, SCEN>,
+        pdhg_log_utility_kernel<HM, K, SCEN, ADAPT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int blocks = (a.B + warps - 1) / warps;
-  pdhg_log_utility_kernel<HM, K, SCEN>
-      <<<blocks, warps * 32, smem, stream>>>(a);
+  pdhg_log_utility_kernel<HM, K, SCEN, ADAPT>
+      <<<blocks, warps * 32, smem, stream>>>(a, ad);
   return cudaGetLastError();
 }
 
@@ -534,8 +740,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 // anything else returns cudaErrorInvalidValue (the wrapper checks first).
 // The cap is measured: at pow2ceil(H) * K = 24 and 32 ptxas runs out of the
 // 255 registers and spills hundreds of bytes to local memory per thread.
-template <bool SCEN>
-int dispatch(const Args& a, void* stream) {
+template <bool SCEN, bool ADAPT>
+int dispatch(const Args& a, const AdaptArgs& ad, void* stream) {
   if (a.B <= 0 || a.H <= 0 || a.N <= 0 || (SCEN && a.S <= 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -544,7 +750,7 @@ int dispatch(const Args& a, void* stream) {
   while (hm < a.H) hm <<= 1;
 
 #define KMPC_CASE(HM_, K_) \
-  if (hm == HM_ && K == K_) return (int)launch<HM_, K_, SCEN>(a, s);
+  if (hm == HM_ && K == K_) return (int)launch<HM_, K_, SCEN, ADAPT>(a, ad, s);
   KMPC_CASE(1, 1) KMPC_CASE(2, 1) KMPC_CASE(4, 1) KMPC_CASE(8, 1)
   KMPC_CASE(16, 1)
   KMPC_CASE(1, 2) KMPC_CASE(2, 2) KMPC_CASE(4, 2) KMPC_CASE(8, 2)

@@ -20,5 +20,5 @@ extern "C" int kmpc_pdhg_log_utility_scenarios(
                            H, N, max_iters, refresh, warm_iters, cold_iters,
                            c, tau_to, ridge, rho, step_scale, sigma_scale,
                            precond, use_ball, warm);
-  return dispatch<true>(a, stream);
+  return dispatch<true, false>(a, AdaptArgs{nullptr, 0}, stream);
 }

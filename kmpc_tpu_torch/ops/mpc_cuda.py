@@ -11,19 +11,24 @@ of the batch: the primal step with tau folded into the portfolio
 reciprocal, the simplex projection with carried Michelot thresholds, the
 clip-form dual prox against the l1 turnover ball on the sigma scale,
 over-relaxation, and a final primal half-step that yields the returned
-iterate and the fixed-point residual. Two loop bodies are ported:
+iterate and the fixed-point residual. Three loop bodies are ported:
 ``make_body`` (full warm budget, or cold thresholds when
-``proj_warm_iters=0``) and ``make_body_cond`` (``proj_refresh_every > 1``:
-one warm sweep per iteration, the full budget every k-th). Both kernels
-take warm primal/dual iterates (the simplex threshold then starts cold on
-the warm primal, the ball threshold from zero) and can write the loop's
-last dual.
+``proj_warm_iters=0``), ``make_body_cond`` (``proj_refresh_every > 1``:
+one warm sweep per iteration, the full budget every k-th) and
+``body_adaptive`` (``adaptive``: residual-balancing steps carried through
+the loop, the dual prox on the a-scale, the full budget every iteration,
+balancing on every ``adapt_every``-th iteration), the last in kernels of
+its own (``csrc/pdhg_log_utility_adaptive.cu``,
+``csrc/pdhg_log_utility_scenarios_adaptive.cu``) so that the fixed-step
+instantiations keep their registers. All kernels take warm primal/dual
+iterates (the simplex threshold then starts cold on the warm primal, the
+ball threshold from zero) and can write the loop's last dual.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``pdhg_log_utility_plain``, the same iteration as plain tensor code.
 ``allow_short`` raises here (the kernels project on the simplex only): a
 caller who wants shorts calls the eager solvers by name. Not in this
-package yet: the adaptive body and the pipelined reductions.
+package yet: the pipelined reductions.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import torch
 from kmpc_tpu_torch._build import CudaKernel
 from kmpc_tpu_torch.ops.mpc import (
     MPCParams,
+    _balance_steps,
     _log_utility_objective,
     _pdhg_steps,
     _prev_rows,
@@ -53,7 +59,9 @@ from kmpc_tpu_torch.ops.scenario import scenario_objective, scenario_steps
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 # (cw, r, w_warm, p_warm, w_out, fp_out, p_out), the sizes and budgets, the
-# scalars, the flags, the stream; the scenario kernel takes S after B.
+# scalars, the flags, the stream; the scenario kernels take S after B. The
+# fourth int of the tail is ``proj_refresh_every`` for the fixed-step
+# kernels and ``adapt_every`` for the adaptive ones.
 _TAIL = [_I] * 6 + [_F] * 6 + [_I] * 3 + [_P]
 PDHG_LOG_UTILITY = CudaKernel(
     "pdhg_log_utility", "kmpc_pdhg_log_utility", [_P] * 7 + [_I] + _TAIL,
@@ -61,6 +69,16 @@ PDHG_LOG_UTILITY = CudaKernel(
 PDHG_LOG_UTILITY_SCENARIOS = CudaKernel(
     "pdhg_log_utility_scenarios", "kmpc_pdhg_log_utility_scenarios",
     [_P] * 7 + [_I, _I] + _TAIL,
+)
+# The adaptive kernels take one more pointer after p_out: steps_out.
+PDHG_LOG_UTILITY_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_adaptive", "kmpc_pdhg_log_utility_adaptive",
+    [_P] * 8 + [_I] + _TAIL,
+)
+PDHG_LOG_UTILITY_SCENARIOS_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_scenarios_adaptive",
+    "kmpc_pdhg_log_utility_scenarios_adaptive",
+    [_P] * 8 + [_I, _I] + _TAIL,
 )
 
 
@@ -103,13 +121,23 @@ def _check_params(params: MPCParams, entry: str) -> None:
             "allow_short is solved by the eager solvers "
             "(solve_mpc_log_utility_batch, solve_mpc_log_utility_scenarios)"
         )
-    if params.adaptive:
-        raise NotImplementedError(f"{entry}: the adaptive body is not ported yet")
-    if params.pipeline_reduces and params.proj_warm_iters >= 1 \
-            and params.proj_refresh_every > 1:
+    if not params.adaptive and params.pipeline_reduces \
+            and params.proj_warm_iters >= 1 and params.proj_refresh_every > 1:
         raise NotImplementedError(
             f"{entry}: the pipelined-reductions body is not ported yet"
         )
+
+
+def _moved(pr: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
+    """+1 where a balancing with these residuals grows tau, -1 where it
+    shrinks it, 0 where the steps stay (``_balance_steps``' decisions)."""
+    return (pr > 1.5 * dr).to(pr.dtype) - (dr > 1.5 * pr).to(pr.dtype)
+
+
+def _check_return_steps(params: MPCParams, return_steps: bool) -> None:
+    if return_steps and not params.adaptive:
+        raise ValueError("return_steps needs params.adaptive: the "
+                         "fixed-step bodies carry no steps")
 
 
 def _sweep_budgets(params: MPCParams, N: int) -> Tuple[bool, int, int]:
@@ -127,15 +155,24 @@ def pdhg_log_utility_plain(
     w_warm: Optional[torch.Tensor] = None,
     p_warm: Optional[torch.Tensor] = None,
     return_dual: bool = False,
+    return_steps: bool = False,
 ):
     """The kernels' computation in plain tensor code.
 
     current_weights [B, N] and gross returns r [B, H, N], or [B, S, H, N]
     for the scenario program; optional warm iterates [B, H, N] (``p_warm``
     alone is ignored). Returns (w_last [B, H, N], fixed-point residual
-    [B]) and, with ``return_dual``, the loop's last dual [B, H, N].
+    [B]), with ``return_dual`` the loop's last dual [B, H, N], and with
+    ``return_steps`` (the adaptive body only) the steps the loop ended on,
+    [B, 2 H + 4]: tau and sigma of every horizon row, alpha, the primal and
+    dual residual (pr, dr) of the last balancing, and the signed sum of the
+    iterations that moved the steps (+(i + 1) where tau grew, -(i + 1) where
+    it shrank). Two runs whose balancing decisions were the same end on the
+    same steps and the same sum; where they part, the residuals show how
+    close to a tie (pr = 1.5 dr or dr = 1.5 pr) the decision was.
     """
     _check_params(params, "pdhg_log_utility_plain")
+    _check_return_steps(params, return_steps)
     scen = r.dim() == 4
     B, H, N = r.shape[0], r.shape[-2], r.shape[-1]
     w_init = current_weights
@@ -146,7 +183,9 @@ def pdhg_log_utility_plain(
     rho = params.over_relax
     warm, warm_iters, cold_iters = _sweep_budgets(params, N)
     refresh = params.proj_refresh_every
-    cond = warm and refresh > 1
+    # Under ``adaptive`` the refresh schedule is off: every iteration runs
+    # the full projection budget.
+    cond = warm and refresh > 1 and not params.adaptive
 
     if scen:
         tau, sigma = scenario_steps(r, params)             # [B, 1 or H, 1]
@@ -192,8 +231,56 @@ def pdhg_log_utility_plain(
         p = torch.zeros_like(w) if p_warm is None else p_warm
         th_w = michelot_threshold(w, 1.0, cold_iters)
     th_p = torch.zeros_like(th_w)
+    zero = torch.zeros_like(w_init)
 
-    for i in range(params.max_iters):
+    def adaptive_iteration(i, w, p, th_w, th_p, tau_c, sig_c, alpha_c, res):
+        """``body_adaptive``: the smooth gradient with the carried tau
+        outside the portfolio reciprocal, the dual prox on the a-scale
+        (v = q / sig_c, ball radius tau_to), and the residual balancing of
+        the steps on every ``adapt_every``-th iteration, from the iterates'
+        moves before over-relaxation."""
+        grad = scaled_returns(w, -1.0)
+        if ridge != 0.0:
+            grad = grad + ridge * w
+        v = w - tau_c * (grad + Dt(p))
+        th_w = michelot_threshold(v, 1.0, warm_iters, th_w if warm else None)
+        w_new = torch.clamp(v - th_w, min=0.0)
+        q = p + sig_c * D(2.0 * w_new - w)
+        inv_s = 1.0 / sig_c
+        v = q * inv_s
+        a = torch.clamp(v.abs() - c * inv_s, min=0.0)
+        if use_ball:
+            if warm:
+                l1, th_p = ball_l1_and_sweep(a, tau_to, th_p)
+                th_p = michelot_threshold(a, tau_to, warm_iters - 1, th_p)
+            else:
+                l1 = a.sum(dim=-1, keepdim=True)
+                th_p = michelot_threshold(a, tau_to, warm_iters)
+            bound = c * inv_s + torch.where(
+                l1 <= tau_to, torch.zeros_like(th_p),
+                torch.clamp(th_p, min=0.0))
+        else:
+            bound = c * inv_s
+        inner = v - torch.minimum(torch.maximum(v, -bound), bound)
+        p_new = q - sig_c * inner
+        k = params.adapt_every
+        if k <= 1 or i % k == k - 1:
+            dw, dp = w - w_new, p - p_new
+            pr = torch.sqrt(((dw / tau_c - Dt(dp)) ** 2).sum(dim=(1, 2)))
+            dr = torch.sqrt(((dp / sig_c - (dw - _prev_rows(dw, zero))) ** 2)
+                            .sum(dim=(1, 2)))
+            tau_c, sig_c, alpha_c = _balance_steps(
+                pr[:, None, None], dr[:, None, None], tau_c, sig_c, alpha_c)
+            res = torch.stack([pr, dr, res[:, 2] + (i + 1) * _moved(pr, dr)],
+                              dim=1)
+        if rho != 1.0:
+            w_new = w + rho * (w_new - w)
+            p_new = p + rho * (p_new - p)
+        return w_new, p_new, th_w, th_p, tau_c, sig_c, alpha_c, res
+
+    def fixed_iteration(i, w, p, th_w, th_p):
+        """``make_body`` / ``make_body_cond``: tau folded into the portfolio
+        reciprocal, the dual prox on the q-scale."""
         if not warm:
             n_sw = cold_iters
         elif cond:
@@ -220,7 +307,21 @@ def pdhg_log_utility_plain(
         if rho != 1.0:
             w_new = w + rho * (w_new - w)
             p_new = p + rho * (p_new - p)
-        w, p = w_new, p_new
+        return w_new, p_new, th_w, th_p
+
+    if params.adaptive:
+        carry = (w, p, th_w, th_p, tau, sigma.expand_as(tau),
+                 torch.full_like(tau[:, :1], 0.5), tau.new_zeros((B, 3)))
+        for i in range(params.max_iters):
+            carry = adaptive_iteration(i, *carry)
+        w, p, tau = carry[0], carry[1], carry[4]   # the tail steps by tau_f
+        steps = torch.cat([x.expand(B, H, 1)[..., 0] for x in carry[4:6]]
+                          + [carry[6][:, :, 0], carry[7]], dim=1)
+    else:
+        carry = (w, p, th_w, th_p)
+        for i in range(params.max_iters):
+            carry = fixed_iteration(i, *carry)
+        w, p = carry[0], carry[1]
 
     grad = scaled_returns(w, -1.0)
     if ridge != 0.0:
@@ -228,7 +329,8 @@ def pdhg_log_utility_plain(
     v = w - tau * (grad + Dt(p))
     w_last = torch.clamp(v - michelot_threshold(v, 1.0, cold_iters), min=0.0)
     fp = (w_last - w).abs().amax(dim=(1, 2))
-    return (w_last, fp, p) if return_dual else (w_last, fp)
+    out = (w_last, fp) + ((p,) if return_dual else ())
+    return out + ((steps,) if return_steps else ())
 
 
 def _require_cuda_f32(**tensors) -> None:
@@ -250,12 +352,15 @@ def pdhg_log_utility_cuda(
     w_warm: Optional[torch.Tensor] = None,
     p_warm: Optional[torch.Tensor] = None,
     return_dual: bool = False,
+    return_steps: bool = False,
 ):
     """One launch of a CUDA kernel on the current stream: the same
     contract as ``pdhg_log_utility_plain``, for CUDA float32 tensors.
     r [B, H, N] launches ``pdhg_log_utility``, r [B, S, H, N]
-    ``pdhg_log_utility_scenarios``."""
+    ``pdhg_log_utility_scenarios``; with ``params.adaptive`` the
+    ``..._adaptive`` kernel of each."""
     _check_params(params, "pdhg_log_utility_cuda")
+    _check_return_steps(params, return_steps)
     scen = r.dim() == 4
     if r.dim() not in (3, 4) or \
             current_weights.shape != (r.shape[0], r.shape[-1]):
@@ -291,10 +396,18 @@ def pdhg_log_utility_cuda(
             f"{scenario_smem_bytes(S, H, N)} bytes of a block's "
             f"{SMEM_PER_BLOCK}"
         )
-    kernel = PDHG_LOG_UTILITY_SCENARIOS if scen else PDHG_LOG_UTILITY
+    if params.adaptive:
+        kernel = (PDHG_LOG_UTILITY_SCENARIOS_ADAPTIVE if scen
+                  else PDHG_LOG_UTILITY_ADAPTIVE)
+        schedule = params.adapt_every
+    else:
+        kernel = PDHG_LOG_UTILITY_SCENARIOS if scen else PDHG_LOG_UTILITY
+        schedule = params.proj_refresh_every
     w = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
     fp = torch.empty(B, dtype=torch.float32, device=r.device)
     dual = torch.empty_like(w) if return_dual else None
+    steps = torch.empty((B, 2 * H + 4), dtype=torch.float32,
+                        device=r.device) if return_steps else None
     if B > 0:
         warm, warm_iters, cold_iters = _sweep_budgets(params, N)
         fn = kernel.function()
@@ -307,8 +420,9 @@ def pdhg_log_utility_cuda(
             err = fn(
                 current_weights.data_ptr(), r.data_ptr(), ptr(w_warm),
                 ptr(p_warm), w.data_ptr(), fp.data_ptr(), ptr(dual),
+                *((ptr(steps),) if params.adaptive else ()),
                 *((B, S) if scen else (B,)), H, N, params.max_iters,
-                params.proj_refresh_every, warm_iters, cold_iters,
+                schedule, warm_iters, cold_iters,
                 params.cost_coeff, params.max_turnover, params.ridge,
                 params.over_relax, params.step_scale, params.sigma_scale,
                 int(params.precond), int(params.max_turnover > 0), int(warm),
@@ -318,7 +432,8 @@ def pdhg_log_utility_cuda(
             raise RuntimeError(
                 f"{kernel.name} kernel launch failed: CUDA error {err}")
         kernel.launches += 1
-    return (w, fp, dual) if return_dual else (w, fp)
+    out = (w, fp) + ((dual,) if return_dual else ())
+    return out + ((steps,) if return_steps else ())
 
 
 def pdhg_log_utility(

@@ -13,13 +13,15 @@ projection with a carried Michelot threshold (full warm budget, the
 refresh schedule of ``proj_refresh_every``, or cold projections), the dual
 prox as a clip to [-c, c] (the program has no turnover ball), and
 over-relaxation; a final primal half-step gives the returned iterate and
-the fixed-point residual. The covariance is per problem ([B, N, N]) or one
+the fixed-point residual. With ``adaptive`` the steps are carried per
+problem and balanced by the primal and dual residuals on every
+``adapt_every``-th iteration, the refresh schedule is off, and the launch
+goes to ``csrc/pdhg_mean_variance_adaptive.cu``. The covariance is per problem ([B, N, N]) or one
 matrix shared by the batch ([N, N] or [1, N, N]); it is symmetrised first.
 
 A CUDA tensor launches the kernel or raises; a CPU tensor runs
 ``pdhg_mean_variance_plain``. ``allow_short`` raises here: a caller who
-wants shorts calls ``solve_mpc_mean_variance_batch`` by name. Not ported
-yet: the adaptive branch.
+wants shorts calls ``solve_mpc_mean_variance_batch`` by name.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 from kmpc_tpu_torch._build import CudaKernel
 from kmpc_tpu_torch.ops.mpc import (
     MPCParams,
+    _balance_steps,
     _prev_rows,
     _status_code,
     mean_variance_objective,
@@ -41,6 +44,8 @@ from kmpc_tpu_torch.ops.mpc_cuda import (
     MAX_ROW_ELEMENTS,
     MAX_SLOTS,
     SMEM_PER_BLOCK,
+    _check_return_steps,
+    _moved,
     _require_cuda_f32,
     _sweep_budgets,
     kernel_supports,
@@ -49,10 +54,16 @@ from kmpc_tpu_torch.ops.projections import michelot_threshold
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
+# (cw, mu, sigma, w_out, fp_out), B, H, N, shared, max_iters, the schedule
+# (``proj_refresh_every``; ``adapt_every`` for the adaptive kernel), the
+# sweep budgets, the scalars, warm, the stream.
+# The adaptive kernel takes one more pointer after fp_out: steps_out.
+_ARGTYPES = [_I] * 8 + [_F] * 5 + [_I, _P]
 PDHG_MEAN_VARIANCE = CudaKernel(
-    "pdhg_mean_variance", "kmpc_pdhg_mean_variance",
-    [_P] * 5 + [_I] * 8 + [_F] * 5 + [_I, _P],
-)
+    "pdhg_mean_variance", "kmpc_pdhg_mean_variance", [_P] * 5 + _ARGTYPES)
+PDHG_MEAN_VARIANCE_ADAPTIVE = CudaKernel(
+    "pdhg_mean_variance_adaptive", "kmpc_pdhg_mean_variance_adaptive",
+    [_P] * 6 + _ARGTYPES)
 
 
 def mv_smem_bytes(N: int) -> int:
@@ -77,9 +88,6 @@ def _check_params(params: MPCParams, entry: str) -> None:
             "allow_short is solved by the eager solver "
             "(solve_mpc_mean_variance_batch)"
         )
-    if params.adaptive:
-        raise NotImplementedError(
-            f"{entry}: the adaptive branch is not ported yet")
 
 
 def _is_shared(cov: torch.Tensor) -> bool:
@@ -91,11 +99,17 @@ def pdhg_mean_variance_plain(
     mu: torch.Tensor,
     Sigma: torch.Tensor,
     params: MPCParams,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    return_steps: bool = False,
+):
     """The kernel's computation in plain tensor code: current_weights
     [B, N], mu [B, H, N], a symmetric Sigma [B, N, N] or [N, N]. Returns
-    (w_last [B, H, N], fixed-point residual [B])."""
+    (w_last [B, H, N], fixed-point residual [B]) and, with ``return_steps``
+    (the adaptive body only), the steps the loop ended on, [B, 6]: tau,
+    sigma, alpha, the primal and dual residual of the last balancing and the
+    signed sum of the iterations that moved the steps (as
+    ``pdhg_log_utility_plain``'s)."""
     _check_params(params, "pdhg_mean_variance_plain")
+    _check_return_steps(params, return_steps)
     B, H, N = mu.shape
     w_init = current_weights
     c = params.cost_coeff
@@ -103,7 +117,7 @@ def pdhg_mean_variance_plain(
     rho = params.over_relax
     warm, warm_iters, cold_iters = _sweep_budgets(params, N)
     refresh = params.proj_refresh_every
-    cond = warm and refresh > 1
+    cond = warm and refresh > 1 and not params.adaptive
 
     fro = torch.sqrt((Sigma * Sigma).sum(dim=(-2, -1)))
     L = torch.clamp(2.0 * gamma * fro, min=1e-6)
@@ -125,6 +139,12 @@ def pdhg_mean_variance_plain(
     th_w = michelot_threshold(v0, 1.0, cold_iters)
     w = torch.clamp(v0 - th_w, min=0.0)
     p = torch.zeros_like(w)
+    # The carried steps are per problem, also with a shared covariance.
+    ones = torch.ones((B, 1, 1), dtype=mu.dtype, device=mu.device)
+    tau, sigma, alpha = tau * ones, sigma * ones, 0.5 * ones
+    k = params.adapt_every
+    zero = torch.zeros_like(w_init)
+    res = mu.new_zeros((B, 3))
     for i in range(params.max_iters):
         if not warm:
             n_sw = cold_iters
@@ -138,6 +158,16 @@ def pdhg_mean_variance_plain(
         w_bar = 2.0 * w_new - w
         p_new = torch.clamp(p + sigma * (w_bar - _prev_rows(w_bar, w_init)),
                             -c, c)
+        if params.adaptive and (k <= 1 or i % k == k - 1):
+            # Residual balancing, from the moves before over-relaxation.
+            dw, dp = w - w_new, p - p_new
+            pr = torch.sqrt(((dw / tau - Dt(dp)) ** 2).sum(dim=(1, 2)))
+            dr = torch.sqrt(((dp / sigma - (dw - _prev_rows(dw, zero))) ** 2)
+                            .sum(dim=(1, 2)))
+            tau, sigma, alpha = _balance_steps(
+                pr[:, None, None], dr[:, None, None], tau, sigma, alpha)
+            res = torch.stack([pr, dr, res[:, 2] + (i + 1) * _moved(pr, dr)],
+                              dim=1)
         if rho != 1.0:
             w_new = w + rho * (w_new - w)
             p_new = p + rho * (p_new - p)
@@ -145,7 +175,10 @@ def pdhg_mean_variance_plain(
     v = w - tau * (grad_g(w) + Dt(p))
     w_last = torch.clamp(v - michelot_threshold(v, 1.0, cold_iters), min=0.0)
     fp = (w_last - w).abs().amax(dim=(1, 2))
-    return w_last, fp
+    if not return_steps:
+        return w_last, fp
+    steps = torch.cat([x[:, :, 0] for x in (tau, sigma, alpha)] + [res], dim=1)
+    return w_last, fp, steps
 
 
 def pdhg_mean_variance_cuda(
@@ -153,10 +186,14 @@ def pdhg_mean_variance_cuda(
     mu: torch.Tensor,
     Sigma: torch.Tensor,
     params: MPCParams,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One launch of the CUDA kernel on the current stream: the contract of
-    ``pdhg_mean_variance_plain``, for CUDA float32 tensors."""
+    return_steps: bool = False,
+):
+    """One launch of the CUDA kernel on the current stream
+    (``pdhg_mean_variance``, or ``pdhg_mean_variance_adaptive`` with
+    ``params.adaptive``): the contract of ``pdhg_mean_variance_plain``, for
+    CUDA float32 tensors."""
     _check_params(params, "pdhg_mean_variance_cuda")
+    _check_return_steps(params, return_steps)
     if mu.dim() != 3 or current_weights.shape != (mu.shape[0], mu.shape[2]):
         raise ValueError(
             f"expected current_weights [B, N] and mu [B, H, N], got "
@@ -182,24 +219,34 @@ def pdhg_mean_variance_cuda(
             f"{SMEM_PER_BLOCK}")
     w = torch.empty_like(mu)
     fp = torch.empty(B, dtype=torch.float32, device=mu.device)
+    steps = torch.empty((B, 6), dtype=torch.float32, device=mu.device) \
+        if return_steps else None
+    out = (w, fp, steps) if return_steps else (w, fp)
     if B == 0:
-        return w, fp
+        return out
     warm, warm_iters, cold_iters = _sweep_budgets(params, N)
-    fn = PDHG_MEAN_VARIANCE.function()
+    if params.adaptive:
+        kernel, schedule = PDHG_MEAN_VARIANCE_ADAPTIVE, params.adapt_every
+    else:
+        kernel, schedule = PDHG_MEAN_VARIANCE, params.proj_refresh_every
+    fn = kernel.function()
     with torch.cuda.device(mu.device):
         stream = torch.cuda.current_stream(mu.device).cuda_stream
         err = fn(
             current_weights.data_ptr(), mu.data_ptr(), Sigma.data_ptr(),
-            w.data_ptr(), fp.data_ptr(), B, H, N, int(shared),
-            params.max_iters, params.proj_refresh_every, warm_iters,
+            w.data_ptr(), fp.data_ptr(),
+            *((None if steps is None else steps.data_ptr(),)
+              if params.adaptive else ()),
+            B, H, N, int(shared),
+            params.max_iters, schedule, warm_iters,
             cold_iters, params.cost_coeff, params.gamma, params.over_relax,
             params.step_scale, params.sigma_scale, int(warm), stream,
         )
     if err != 0:
         raise RuntimeError(
-            f"pdhg_mean_variance kernel launch failed: CUDA error {err}")
-    PDHG_MEAN_VARIANCE.launches += 1
-    return w, fp
+            f"{kernel.name} kernel launch failed: CUDA error {err}")
+    kernel.launches += 1
+    return out
 
 
 def pdhg_mean_variance(current_weights, mu, Sigma, params):

@@ -1,15 +1,19 @@
 """Backtest experiment: Koopman-MPC against buy-and-hold, Markowitz and DMD
-(and the scenario-Kelly variant), by Jacobi sweeps.
+(and the scenario-Kelly variant), by Jacobi sweeps or the exact date scan.
 
-Port of the repository's ``run_experiment.py --parallel``. With ``--path``
+Port of the repository's ``run_experiment.py``: its ``--parallel`` mode is
+the default here, its default mode (the exact scan, one solve per date) is
+``--scan``. The solver's configuration, the accurate one included
+(``MPC.SOLVER.ADAPTIVE``, ``ADAPT_EVERY``, ``PRECOND``, ``MAX_ITERS``), comes
+from the run directory's ``config.json``. With ``--path``
 it loads a kmpc_tpu run directory (config.json and its npz checkpoint);
 without it, it builds ``finance_sparse`` at full width with weights drawn
 from ``--init_seed``. It prints the metrics table and writes
 ``full_comparison_metrics.csv`` and ``experiment_results.json``.
 
     python -m kmpc_tpu_torch.run_experiment [--path RUN_DIR | --init_seed S]
-        [--scenarios 16] [--risk_aversion 1.0] [--sweeps 8] [--mpc_iters N]
-        [--eager] [--cpu] [--output DIR]
+        [--scenarios 16] [--risk_aversion 1.0] [--sweeps 8 | --scan]
+        [--mpc_iters N] [--eager] [--cpu] [--output DIR]
 
 Runs on the CUDA device, every batched solve through its fused kernel
 (``--eager`` takes the eager solvers instead), unless ``--cpu`` asks for
@@ -113,7 +117,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
                         help="solve with the eager solvers instead of the "
                              "fused kernels")
     parser.add_argument("--sweeps", type=int, default=8,
-                        help="Jacobi sweeps (as many as dates is exact)")
+                        help="Jacobi sweeps (0: as many as dates, which is "
+                             "exact)")
+    parser.add_argument("--scan", action="store_true",
+                        help="the exact sequential backtest, one solve per "
+                             "date, instead of Jacobi sweeps")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (plain-PyTorch solver)")
     parser.add_argument("--output", type=str, default=None)
@@ -124,6 +132,7 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from kmpc_tpu_torch import default_device
     from kmpc_tpu_torch.backtest.engine import (
         calculate_metrics,
+        run_backtest,
         run_backtest_parallel,
     )
     from kmpc_tpu_torch.data.finance import load_finance_data
@@ -155,10 +164,17 @@ def main(argv: Optional[List[str]] = None) -> dict:
     strategies = build_strategies(model, mpc, mv_mpc, bt.LOOKBACK_WINDOW,
                                   scenarios=args.scenarios,
                                   fused=not args.eager)
+    n_dates = len(range(0, fd.test.shape[0] - fd.sequence_length - bt.HORIZON,
+                        bt.REBALANCE_FREQ))
+    sweeps = args.sweeps if args.sweeps > 0 else n_dates
     results = {}
     for name, strat in strategies.items():
-        print(f"Backtesting {name} ({args.sweeps} sweeps on {device})...")
-        df = run_backtest_parallel(strat, fd, bt, num_sweeps=args.sweeps)
+        if args.scan:
+            print(f"Backtesting {name} (date scan on {device})...")
+            df = run_backtest(strat, fd, bt)
+        else:
+            print(f"Backtesting {name} ({sweeps} sweeps on {device})...")
+            df = run_backtest_parallel(strat, fd, bt, num_sweeps=sweeps)
         results[name] = calculate_metrics(df)
 
     table = pd.DataFrame(results).T

@@ -1,6 +1,7 @@
 """The plain PyTorch versions of kmpc_tpu_torch's CUDA kernels against
 kmpc_tpu's Pallas kernels: the log-utility kernel with warm inputs and the
-dual output, the scenario kernel, and the mean-variance kernel.
+dual output, the scenario kernel, the mean-variance kernel, and the
+residual-balancing adaptive body of all three.
 
 The JAX reference is the Pallas wrapper in interpret mode on the CPU, as
 tests/test_mpc_pallas.py runs it; the port runs each kernel's plain version
@@ -380,6 +381,202 @@ def test_mean_variance_kernel_budget(H, N, ok):
 
 
 # ---------------------------------------------------------------------------
+# The adaptive body (residual-balancing steps) of kernels A, B and C
+# ---------------------------------------------------------------------------
+
+ACCURATE = dict(adaptive=True, adapt_every=2, precond=True)
+
+# name: (B, H, N, params, warm continuation too)
+ADAPTIVE_CASES = {
+    "k1_H5N20": (6, 5, 20, dict(max_iters=400, adaptive=True), False),
+    "k2_H5N20": (6, 5, 20, dict(max_iters=400, adaptive=True,
+                                adapt_every=2), False),
+    "k1_precond_H5N30": (6, 5, 30, dict(max_iters=400, adaptive=True,
+                                        precond=True), False),
+    "k2_precond_H1N12": (7, 1, 12, dict(max_iters=400, **ACCURATE), False),
+    "ridge_H5N33": (5, 5, 33, dict(max_iters=400, ridge=1e-3, feas_tol=3e-4,
+                                   **ACCURATE), False),
+    "over_relax": (6, 5, 30, dict(max_iters=400, over_relax=1.5, **ACCURATE),
+                   False),
+    "no_ball": (6, 5, 20, dict(max_iters=400, max_turnover=0.0, **ACCURATE),
+                False),
+    "cold_proj": (6, 5, 12, dict(max_iters=300, proj_warm_iters=0,
+                                 **ACCURATE), False),
+    "odd_iters_k3": (6, 5, 20, dict(max_iters=301, adaptive=True,
+                                    adapt_every=3), False),
+    "refresh_is_ignored": (6, 5, 20, dict(
+        max_iters=300, proj_refresh_every=16, pipeline_reduces=True,
+        **ACCURATE), False),
+    "warm_and_dual": (6, 5, 20, dict(max_iters=400, **ACCURATE), True),
+    "accurate_setting_800": (4, 5, 30, dict(max_iters=800, feas_tol=2e-4,
+                                            **ACCURATE), False),
+}
+
+
+@pytest.mark.parametrize("name", list(ADAPTIVE_CASES))
+def test_adaptive_log_utility_cpu_matches_pallas_kernel(name):
+    """``body_adaptive`` with its ``adapt_every`` schedule; the warm case
+    continues a quarter of the budget from the Pallas first solve's
+    iterates on both sides."""
+    B, H, N, kw, warm = ADAPTIVE_CASES[name]
+    cw, ys = _log_inputs(B, H, N, seed=61 + B + N)
+    w1, i1 = JP.solve_mpc_log_utility_pallas_packed(
+        jnp.asarray(cw), jnp.asarray(ys), _params(kw, JParams),
+        interpret=True, return_dual=True)
+    p = _params(kw)
+    w, info = M.solve_mpc_log_utility_packed(_t(cw), _t(ys), p, device="cpu",
+                                             return_dual=True)
+    _check_log(w, info, np.asarray(w1), _np_info(i1), cw, p, OBJ_TOL)
+    if warm:
+        kw2 = dict(kw, max_iters=kw["max_iters"] // 4)
+        w2, i2 = JP.solve_mpc_log_utility_pallas_packed(
+            jnp.asarray(cw), jnp.asarray(ys), _params(kw2, JParams),
+            interpret=True, w_warm=w1, p_warm=i1["dual"], return_dual=True)
+        p = _params(kw2)
+        w, info = M.solve_mpc_log_utility_packed(
+            _t(cw), _t(ys), p, device="cpu", w_warm=_t(w1),
+            p_warm=_t(i1["dual"]), return_dual=True)
+        _check_log(w, info, np.asarray(w2), _np_info(i2), cw, p, OBJ_TOL)
+
+
+def test_adaptive_body_ignores_the_refresh_schedule():
+    cw, ys = _log_inputs(5, 5, 20, seed=9)
+    kw = dict(max_iters=120, **ACCURATE)
+    w1, _ = M.solve_mpc_log_utility_packed(_t(cw), _t(ys), _params(kw),
+                                           device="cpu")
+    w2, _ = M.solve_mpc_log_utility_packed(
+        _t(cw), _t(ys), _params(dict(kw, proj_refresh_every=16,
+                                     pipeline_reduces=True)), device="cpu")
+    assert torch.equal(w1, w2)
+
+
+def test_accurate_setting_reaches_the_probe_bar():
+    """The 64 bench probe instances (seed 1234, H=5, N=30) at the accurate
+    setting against the float64 oracle objectives of bench_probe_cache.json:
+    median gap <= 1.5e-4, and several times under the fixed-step bench
+    setting's at a similar budget. The steps do move: the last tau differs
+    from problem to problem and from the initial one."""
+    import json
+    from pathlib import Path
+
+    rng = np.random.default_rng(1234)
+    cw = rng.dirichlet(np.ones(30), size=64).astype(np.float32)
+    ys = (rng.standard_normal((64, 5, 30)) * 0.01 + 0.0005).astype(np.float32)
+    cache = Path(__file__).resolve().parents[1] / "bench_probe_cache.json"
+    oracle = np.asarray(json.loads(cache.read_text())
+                        ["log_H5_N30_n64_seed1234"])
+
+    def gap(kw):
+        w, _ = M.solve_mpc_log_utility_packed(_t(cw), _t(ys), _params(kw),
+                                              device="cpu")
+        w = w.double().numpy()
+        r = np.exp(ys.astype(np.float64))
+        prev = np.concatenate([cw.astype(np.float64)[:, None], w[:, :-1]], 1)
+        obj = -np.log((w * r).sum(-1)).sum(-1) \
+            + 0.001 * np.abs(w - prev).sum((-2, -1))
+        return float(np.median(obj - oracle))
+
+    accurate = gap(dict(max_iters=800, feas_tol=2e-4, **ACCURATE))
+    fixed = gap(dict(max_iters=1000, feas_tol=2e-4, precond=True,
+                     proj_refresh_every=16))
+    assert accurate <= 1.5e-4, accurate
+    assert fixed > 3 * accurate, (fixed, accurate)
+
+    r = torch.exp(_t(ys))
+    p0 = _params(dict(max_iters=0, **ACCURATE))
+    p1 = _params(dict(max_iters=200, **ACCURATE))
+    start = M.pdhg_log_utility_plain(_t(cw), r, p0, return_steps=True)[2]
+    end = M.pdhg_log_utility_plain(_t(cw), r, p1, return_steps=True)[2]
+    assert start.shape == end.shape == (64, 14)
+    assert torch.all(start[:, 10] == 0.5) and torch.all(end[:, 10] < 0.5)
+    assert torch.all(start[:, 11:] == 0) and torch.all(end[:, 11:13] > 0)
+    # The signed sum of the iterations that moved the steps: whole numbers,
+    # no larger than if every balancing (iterations 2, 4, ..., 200) had.
+    moved = end[:, 13]
+    assert torch.all(moved == moved.round()) and torch.all(moved != 0)
+    assert moved.abs().max() <= sum(range(2, 201, 2))
+    assert ((end[:, 0] / start[:, 0] - 1).abs() > 0.05).all()
+    with pytest.raises(ValueError, match="return_steps"):
+        M.pdhg_log_utility_plain(_t(cw), r, _params(dict(max_iters=1)),
+                                 return_steps=True)
+
+
+ADAPTIVE_SCEN_CASES = {
+    "S4_H5N20_k2_precond": (6, 4, 5, 20, dict(max_iters=400, **ACCURATE)),
+    "S3_H1N12_k1": (7, 3, 1, 12, dict(max_iters=400, adaptive=True)),
+    "S4_H5N33_k3_over_relax": (5, 4, 5, 33, dict(
+        max_iters=301, adaptive=True, adapt_every=3, over_relax=1.5)),
+}
+
+
+@pytest.mark.parametrize("name", list(ADAPTIVE_SCEN_CASES))
+def test_adaptive_scenario_solve_cpu_matches_pallas_kernel(name):
+    B, S, H, N, kw = ADAPTIVE_SCEN_CASES[name]
+    cw, scen = _log_inputs(B, H, N, seed=71 + S + N, S=S)
+    w_ref, info_ref = JP.solve_mpc_log_utility_scenarios_packed(
+        jnp.asarray(cw), jnp.asarray(scen), _params(kw, JParams), tile_b=128,
+        interpret=True, return_dual=True)
+    p = _params(kw)
+    w, info = M.solve_mpc_log_utility_scenarios_packed(
+        _t(cw), _t(scen), p, device="cpu", return_dual=True)
+    _check_log(w, info, np.asarray(w_ref), _np_info(info_ref), cw, p,
+               SCEN_OBJ_TOL)
+
+
+ADAPTIVE_MV_CASES = {
+    "H4N10_k2": (6, 4, 10, False, dict(max_iters=600, gamma=5.0,
+                                       adaptive=True, adapt_every=2)),
+    "H1N12_shared_k1": (6, 1, 12, True, dict(max_iters=600, gamma=5.0,
+                                             adaptive=True)),
+    "H3N12_shared_k2_over_relax": (5, 3, 12, True, dict(
+        max_iters=401, gamma=5.0, adaptive=True, adapt_every=2,
+        over_relax=1.5, proj_refresh_every=16)),
+    "H1N33_k3_sigma_scale_1": (6, 1, 33, False, dict(
+        max_iters=400, gamma=1.0, sigma_scale=1.0, adaptive=True,
+        adapt_every=3)),
+}
+
+
+@pytest.mark.parametrize("name", list(ADAPTIVE_MV_CASES))
+def test_adaptive_mean_variance_cpu_matches_pallas_kernel(name):
+    B, H, N, shared, kw = ADAPTIVE_MV_CASES[name]
+    cw, mu, sig = _mv_inputs(B, H, N, 81 + H + N, shared)
+    w_ref, info_ref = JP.solve_mpc_mean_variance_pallas_packed(
+        jnp.asarray(cw), jnp.asarray(mu), jnp.asarray(sig),
+        _params(kw, JParams), interpret=True)
+    w, info = V.solve_mpc_mean_variance_packed(
+        _t(cw), _t(mu), _t(sig), _params(kw), device="cpu")
+    _check_mv(w, info, np.asarray(w_ref), _np_info(info_ref))
+
+
+def test_mean_variance_plain_version_returns_the_steps_it_ended_on():
+    """[B, 6]: tau, sigma, alpha, the last balancing's residuals and the
+    signed sum of the iterations that moved the steps, per problem also
+    under a shared covariance; only the adaptive body has them."""
+    cw, mu, sig = _mv_inputs(5, 2, 8, 90, True)
+    sym = _t(0.5 * (sig + sig.T))
+    p = _params(dict(max_iters=60, gamma=5.0, adaptive=True, adapt_every=2))
+    w, fp, steps = V.pdhg_mean_variance_plain(_t(cw), _t(mu), sym, p,
+                                              return_steps=True)
+    w2, fp2 = V.pdhg_mean_variance_plain(_t(cw), _t(mu), sym, p)
+    assert torch.equal(w, w2) and torch.equal(fp, fp2)
+    assert steps.shape == (5, 6) and torch.all(steps[:, :5] > 0)
+    assert torch.all(steps[:, 5] == steps[:, 5].round())
+    assert torch.all(steps[:, 2] < 0.5)            # every problem adapted
+    assert steps[:, 0].unique().numel() > 1        # and not in step
+    start = V.pdhg_mean_variance_plain(
+        _t(cw), _t(mu), sym, _params(dict(max_iters=0, gamma=5.0,
+                                          adaptive=True)),
+        return_steps=True)[2]
+    assert torch.all(start[:, 2] == 0.5) and torch.all(start[:, 3:] == 0)
+    assert start[:, 0].unique().numel() == 1       # one shared covariance
+    with pytest.raises(ValueError, match="return_steps"):
+        V.pdhg_mean_variance_plain(_t(cw), _t(mu), sym,
+                                   _params(dict(max_iters=1)),
+                                   return_steps=True)
+
+
+# ---------------------------------------------------------------------------
 # What the wrappers refuse
 # ---------------------------------------------------------------------------
 
@@ -409,7 +606,6 @@ def test_cuda_wrappers_check_shapes_before_launch(bad):
 
 @pytest.mark.parametrize("field,value,exc", [
     ("allow_short", True, NotImplementedError),
-    ("adaptive", True, NotImplementedError),
     ("polish", True, ValueError),
 ])
 @pytest.mark.parametrize("solver", ["scenarios", "mean_variance"])
@@ -476,12 +672,98 @@ def test_direct_kernel_entry_points_refuse_allow_short():
 def test_every_kernel_has_a_source_and_a_launch_counter():
     from kmpc_tpu_torch._build import CSRC, SOURCES, library_path
 
+    from kmpc_tpu_torch.ops.mv_ladder import MV_LADDER
+
     kernels = (M.PDHG_LOG_UTILITY, M.PDHG_LOG_UTILITY_SCENARIOS,
-               V.PDHG_MEAN_VARIANCE)
+               V.PDHG_MEAN_VARIANCE, M.PDHG_LOG_UTILITY_ADAPTIVE,
+               M.PDHG_LOG_UTILITY_SCENARIOS_ADAPTIVE,
+               V.PDHG_MEAN_VARIANCE_ADAPTIVE, MV_LADDER)
     assert {k.name for k in kernels} == set(SOURCES)
     for k in kernels:
         assert k.launches == 0          # nothing launches on the CPU
         src = (CSRC / SOURCES[k.name]).read_text()
         assert f'extern "C" int {k.symbol}(' in src
         assert library_path(k.name).name.startswith(f"lib{k.name}_")
-    assert len({library_path(k.name) for k in kernels}) == 3
+    assert len({library_path(k.name) for k in kernels}) == len(kernels)
+
+
+# ---------------------------------------------------------------------------
+# The parting trace (python -m kmpc_tpu_torch.ops.adaptive_parting)
+# ---------------------------------------------------------------------------
+
+
+def _fake_run(parts_at, margin):
+    """Two runs whose step histories differ from iteration ``parts_at`` on,
+    the residuals of the last balancing ``margin`` either side of a tie."""
+    def run(n):
+        a, b = torch.zeros(1, 6), torch.zeros(1, 6)
+        a[0, 3:5] = torch.tensor([1.5 * (1 + margin), 1.0])
+        b[0, 3:5] = torch.tensor([1.5 * (1 - margin), 1.0])
+        if n > parts_at:
+            a[0, 5] = parts_at + 1.0
+        x = torch.zeros(1, 2, 3)
+        return [(a, x), (b, x + 1e-7)]
+    return run
+
+
+@pytest.mark.parametrize("parts_at", [0, 1, 137, 798, 799])
+def test_first_parting_finds_the_first_differing_decision(parts_at):
+    from kmpc_tpu_torch.ops import adaptive_parting as P
+
+    t = P.first_parting(_fake_run(parts_at, 1e-5), 800)
+    assert t["iteration"] == parts_at
+    assert t["tie_margin_kernel"] == pytest.approx(1e-5, rel=1e-2)
+    assert t["tie_margin_plain"] == pytest.approx(1e-5, rel=1e-2)
+    assert t["max_abs_diff_before"] == pytest.approx(1e-7)
+    assert max(t["tie_margin_kernel"], t["tie_margin_plain"]) <= P.TIE_TOL
+
+
+def test_first_parting_is_none_for_equal_histories():
+    from kmpc_tpu_torch.ops import adaptive_parting as P
+
+    assert P.first_parting(_fake_run(800, 1e-5), 800) is None
+    # Two runs of the plain version have one history, and the residuals of
+    # a decision far from a tie are no tie.
+    cw, ys = _log_inputs(4, 5, 20, seed=5)
+    p = _params(dict(max_iters=120, **ACCURATE))
+    r = torch.exp(_t(ys))
+    a = M.pdhg_log_utility_plain(_t(cw), r, p, return_steps=True)[2]
+    b = M.pdhg_log_utility_plain(_t(cw), r.clone(), p, return_steps=True)[2]
+    assert not P.histories_differ(a, b).any()
+    assert torch.all(P.tie_margin(a) >= 0)
+    far = torch.tensor([[0.1, 0.1, 0.5, 3.0, 1.0, 7.0]])   # pr = 3 dr
+    assert P.tie_margin(far).item() == pytest.approx(7.0 / 9.0)
+
+
+def test_parting_script_needs_the_card(capsys):
+    from kmpc_tpu_torch.ops import adaptive_parting as P
+
+    assert not torch.cuda.is_available()
+    assert P.main() == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+    assert set(P.seeded_cases()) >= {
+        "A_path_shape", "B_path_shape", "C_path_shape", "A_scan_shape"}
+
+
+def test_parting_trace_of_a_case_end_to_end(monkeypatch):
+    """``trace_case`` on the CPU, with a stand-in for the kernel: the plain
+    version on returns that differ in the last bit, as a kernel's sums do."""
+    from kmpc_tpu_torch.ops import adaptive_parting as P
+
+    def last_bit(cw, r, p, **kw):
+        return M.pdhg_log_utility_plain(cw, r * (1.0 + 1.2e-7), p, **kw)
+
+    monkeypatch.setattr(M, "pdhg_log_utility_cuda", last_bit)
+    cw, ys = _log_inputs(12, 5, 20, seed=9)
+    p = _params(dict(max_iters=300, **ACCURATE))
+    res, failed = P.trace_case(
+        "stand_in", lambda: P._log_case(_t(cw), torch.exp(_t(ys)), p), 4)
+    assert res["B"] == 12 and res["iters"] == 300
+    for pair in ("kernel_vs_plain", "kernel_vs_float64_plain",
+                 "plain_vs_float64_plain"):
+        assert res[pair]["max_abs_dobj"] <= 3e-4, res[pair]
+        assert res[pair]["ended_apart_with_equal_histories"] == 0, res[pair]
+    assert len(res["traced"]) <= res["kernel_vs_plain"]["ended_apart"]
+    for t in res["traced"]:
+        assert 0 <= t["iteration"] < 300 and t["iteration"] % 2 == 1
+    assert not failed, failed

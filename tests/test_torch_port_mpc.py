@@ -229,7 +229,6 @@ def test_allow_short_is_solved_by_the_eager_solver_by_name():
 
 @pytest.mark.parametrize("field,value,exc", [
     ("allow_short", True, NotImplementedError),
-    ("adaptive", True, NotImplementedError),
     ("polish", True, ValueError),
 ])
 def test_unported_parameters_raise(field, value, exc):
