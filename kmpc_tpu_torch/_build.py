@@ -40,6 +40,13 @@ SOURCES = {
         "pdhg_log_utility_scenarios_adaptive.cu",
     "pdhg_mean_variance_adaptive": "pdhg_mean_variance_adaptive.cu",
     "mv_ladder": "mv_ladder.cu",
+    "pdhg_log_utility_pipe": "pdhg_log_utility_pipe.cu",
+    "pdhg_log_utility_scenarios_pipe": "pdhg_log_utility_scenarios_pipe.cu",
+    "pdhg_log_utility_block": "pdhg_log_utility_block.cu",
+    "pdhg_log_utility_scenarios_block": "pdhg_log_utility_scenarios_block.cu",
+    "pdhg_log_utility_block_adaptive": "pdhg_log_utility_block_adaptive.cu",
+    "pdhg_log_utility_scenarios_block_adaptive":
+        "pdhg_log_utility_scenarios_block_adaptive.cu",
 }
 
 

@@ -22,9 +22,16 @@
 // primal and dual residuals, one butterfly each over the per-lane partial
 // sums of all rows, which decide warp-uniformly how the steps move. The
 // TPU kernel block-unrolls that schedule to avoid a conditional; here the
-// predicate is warp-uniform and a plain branch. ADAPT is a template flag,
-// instantiated in sources of its own, so the fixed-step instantiations keep
-// their registers.
+// predicate is warp-uniform and a plain branch. With PIPE = true the
+// fixed-step loop is `make_trip_pipe` (`pipeline_reduces`): of every
+// min(refresh, 8) iterations all but the last are pipelined (one primal
+// sweep; the dual clipped with the ball threshold and l1 carried from the
+// previous iteration, then this iteration's magnitudes swept against the
+// carried threshold for the next one, the sweep's shuffles free to overlap
+// the clip and the update), the last synchronous with the full budget; the
+// remainder of max_iters runs synchronous iterations. ADAPT and PIPE are
+// template flags, instantiated in sources of their own, so the fixed-step
+// instantiations keep their registers.
 //
 // Design. One warp owns one problem for the whole solve. Asset i of a row
 // sits on lane i % 32, slot i / 32 (K = ceil(N/32) slots); the H rows of
@@ -186,10 +193,53 @@ __device__ __forceinline__ void curvature_ratio(const float (&x)[HM][K],
   }
 }
 
-// The l1 ball's share of the dual bound, per row: 0 where the masked
-// magnitudes am lie inside the ball (their l1 <= rad), else max(theta, 0)
-// with theta the ball's threshold after n_sw sweeps: from a cold start, or
-// (warm) from the carried theta, the l1 riding the first sweep's reductions.
+// The ball's l1 and one warm sweep of its threshold from the carried theta,
+// the three sums over assets taken together.
+template <int HM, int K>
+__device__ __forceinline__ void ball_l1_and_sweep(
+    const float (&am)[HM][K], const bool (&valid)[K], float (&thp)[HM],
+    const float (&rad)[HM], int H, float (&l1)[HM]) {
+  float cnt[HM], s[HM];
+#pragma unroll
+  for (int t = 0; t < HM; ++t) {
+    cnt[t] = 0.f;
+    s[t] = 0.f;
+    l1[t] = 0.f;
+    if (t < H) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const bool act = am[t][k] > thp[t];
+        cnt[t] += act ? 1.f : 0.f;
+        s[t] += act ? am[t][k] : 0.f;
+        l1[t] += valid[k] ? am[t][k] : 0.f;
+      }
+    }
+  }
+  warp_sum<HM>(cnt, H);
+  warp_sum<HM>(s, H);
+  warp_sum<HM>(l1, H);
+#pragma unroll
+  for (int t = 0; t < HM; ++t)
+    if (t < H) thp[t] = (s[t] - rad[t]) / jmax(cnt[t], 1.f);
+}
+
+// The l1 ball's share of the dual bound, per row: 0 where the magnitudes
+// lie inside the ball (their l1 <= rad), else max(theta, 0).
+template <int HM>
+__device__ __forceinline__ void excess_of(const float (&l1)[HM],
+                                          const float (&thp)[HM],
+                                          const float (&rad)[HM], int H,
+                                          float (&excess)[HM]) {
+#pragma unroll
+  for (int t = 0; t < HM; ++t) {
+    excess[t] = 0.f;
+    if (t < H) excess[t] = l1[t] <= rad[t] ? 0.f : jmax(thp[t], 0.f);
+  }
+}
+
+// The ball's excess (excess_of) for the masked magnitudes am, with theta
+// the ball's threshold after n_sw sweeps: from a cold start, or (warm) from
+// the carried theta, the l1 riding the first sweep's reductions.
 template <int HM, int K>
 __device__ __forceinline__ void ball_excess(
     const float (&am)[HM][K], const bool (&valid)[K], float (&thp)[HM],
@@ -208,38 +258,13 @@ __device__ __forceinline__ void ball_excess(
     warp_sum<HM>(l1, H);
     threshold<HM, K>(am, thp, rad, H, N, true, n_sw);
   } else {
-    float cnt[HM], s[HM];
-#pragma unroll
-    for (int t = 0; t < HM; ++t) {
-      cnt[t] = 0.f;
-      s[t] = 0.f;
-      l1[t] = 0.f;
-      if (t < H) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) {
-          const bool act = am[t][k] > thp[t];
-          cnt[t] += act ? 1.f : 0.f;
-          s[t] += act ? am[t][k] : 0.f;
-          l1[t] += valid[k] ? am[t][k] : 0.f;
-        }
-      }
-    }
-    warp_sum<HM>(cnt, H);
-    warp_sum<HM>(s, H);
-    warp_sum<HM>(l1, H);
-#pragma unroll
-    for (int t = 0; t < HM; ++t)
-      if (t < H) thp[t] = (s[t] - rad[t]) / jmax(cnt[t], 1.f);
+    ball_l1_and_sweep<HM, K>(am, valid, thp, rad, H, l1);
     threshold<HM, K>(am, thp, rad, H, N, false, n_sw - 1);
   }
-#pragma unroll
-  for (int t = 0; t < HM; ++t) {
-    excess[t] = 0.f;
-    if (t < H) excess[t] = l1[t] <= rad[t] ? 0.f : jmax(thp[t], 0.f);
-  }
+  excess_of<HM>(l1, thp, rad, H, excess);
 }
 
-template <int HM, int K, bool SCEN, bool ADAPT>
+template <int HM, int K, bool SCEN, bool ADAPT, bool PIPE>
 __global__ void __launch_bounds__(kMaxWarpsPerBlock * 32)
 pdhg_log_utility_kernel(Args a, AdaptArgs ad) {
   extern __shared__ float smem[];
@@ -412,14 +437,27 @@ pdhg_log_utility_kernel(Args a, AdaptArgs ad) {
   const bool relax = a.rho != 1.f;
   if constexpr (!ADAPT) {
     const bool cond = warm && a.refresh > 1;  // make_body_cond
+    // make_trip_pipe (PIPE; warm, refresh > 1): trips of kp - 1 pipelined
+    // iterations and one synchronous one, synchronous iterations for the
+    // remainder. The ball's l1 is carried; it and theta start at 0.
+    const int kp = min(max(a.refresh, 1), 8);
+    const int full = PIPE ? a.max_iters / kp * kp : 0;
+    float l1s[HM];
+#pragma unroll
+    for (int t = 0; t < HM; ++t) l1s[t] = 0.f;
     for (int it = 0; it < a.max_iters; ++it) {
       int n_sw;
-      if (!warm)
+      bool sync = true;
+      if constexpr (PIPE) {
+        sync = it >= full || (it % kp) == kp - 1;
+        n_sw = sync ? a.warm_iters : 1;
+      } else if (!warm) {
         n_sw = a.cold_iters;
-      else if (cond)
+      } else if (cond) {
         n_sw = (it % a.refresh) == 0 ? a.warm_iters : 1;
-      else
+      } else {
         n_sw = a.warm_iters;
+      }
 
       // Primal step: w - tau (grad g(w) + ridge w + D'p), tau folded into the
       // portfolio reciprocal and the ridge into c1.
@@ -478,7 +516,21 @@ pdhg_log_utility_kernel(Args a, AdaptArgs ad) {
           }
         }
         float excess[HM];
-        ball_excess<HM, K>(aq, valid, thp, sig_tau, H, N, warm, n_sw, excess);
+        if constexpr (PIPE) {
+          // A synchronous iteration converges theta from the carried one
+          // (and takes this iteration's l1); a pipelined one clips with the
+          // carried pair, then sweeps this iteration's magnitudes against
+          // the carried theta for the next iteration.
+          if (sync) {
+            ball_l1_and_sweep<HM, K>(aq, valid, thp, sig_tau, H, l1s);
+            threshold<HM, K>(aq, thp, sig_tau, H, N, false, n_sw - 1);
+          }
+          excess_of<HM>(l1s, thp, sig_tau, H, excess);
+          if (!sync) ball_l1_and_sweep<HM, K>(aq, valid, thp, sig_tau, H, l1s);
+        } else {
+          ball_excess<HM, K>(aq, valid, thp, sig_tau, H, N, warm, n_sw,
+                             excess);
+        }
 #pragma unroll
         for (int t = 0; t < HM; ++t) bound[t] = a.c + excess[t];
       } else {
@@ -714,7 +766,7 @@ pdhg_log_utility_kernel(Args a, AdaptArgs ad) {
 
 // Warps per block: four, or as many problems' returns as fit a block's
 // shared memory (at least one; the wrapper refuses shapes beyond that).
-template <int HM, int K, bool SCEN, bool ADAPT>
+template <int HM, int K, bool SCEN, bool ADAPT, bool PIPE>
 cudaError_t launch(const Args& a, const AdaptArgs& ad,
                    cudaStream_t stream) {
   int warps = kMaxWarpsPerBlock;
@@ -726,21 +778,23 @@ cudaError_t launch(const Args& a, const AdaptArgs& ad,
       warps = (int)(kSmemPerBlock / per_warp);
     smem = per_warp * warps;
     cudaError_t e = cudaFuncSetAttribute(
-        pdhg_log_utility_kernel<HM, K, SCEN, ADAPT>,
+        pdhg_log_utility_kernel<HM, K, SCEN, ADAPT, PIPE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
   const int blocks = (a.B + warps - 1) / warps;
-  pdhg_log_utility_kernel<HM, K, SCEN, ADAPT>
+  pdhg_log_utility_kernel<HM, K, SCEN, ADAPT, PIPE>
       <<<blocks, warps * 32, smem, stream>>>(a, ad);
   return cudaGetLastError();
 }
 
 // Shapes with K = ceil(N/32) <= 4 and pow2ceil(H) * K <= 16 are compiled;
-// anything else returns cudaErrorInvalidValue (the wrapper checks first).
-// The cap is measured: at pow2ceil(H) * K = 24 and 32 ptxas runs out of the
-// 255 registers and spills hundreds of bytes to local memory per thread.
-template <bool SCEN, bool ADAPT>
+// anything else returns cudaErrorInvalidValue (the wrapper checks first and
+// sends larger shapes to the block-per-problem kernels of
+// pdhg_log_utility_block.cuh). The cap is measured: at pow2ceil(H) * K = 24
+// and 32 ptxas runs out of the 255 registers and spills hundreds of bytes
+// to local memory per thread.
+template <bool SCEN, bool ADAPT, bool PIPE = false>
 int dispatch(const Args& a, const AdaptArgs& ad, void* stream) {
   if (a.B <= 0 || a.H <= 0 || a.N <= 0 || (SCEN && a.S <= 0))
     return (int)cudaErrorInvalidValue;
@@ -750,7 +804,8 @@ int dispatch(const Args& a, const AdaptArgs& ad, void* stream) {
   while (hm < a.H) hm <<= 1;
 
 #define KMPC_CASE(HM_, K_) \
-  if (hm == HM_ && K == K_) return (int)launch<HM_, K_, SCEN, ADAPT>(a, ad, s);
+  if (hm == HM_ && K == K_) \
+    return (int)launch<HM_, K_, SCEN, ADAPT, PIPE>(a, ad, s);
   KMPC_CASE(1, 1) KMPC_CASE(2, 1) KMPC_CASE(4, 1) KMPC_CASE(8, 1)
   KMPC_CASE(16, 1)
   KMPC_CASE(1, 2) KMPC_CASE(2, 2) KMPC_CASE(4, 2) KMPC_CASE(8, 2)

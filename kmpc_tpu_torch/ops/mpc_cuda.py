@@ -11,24 +11,30 @@ of the batch: the primal step with tau folded into the portfolio
 reciprocal, the simplex projection with carried Michelot thresholds, the
 clip-form dual prox against the l1 turnover ball on the sigma scale,
 over-relaxation, and a final primal half-step that yields the returned
-iterate and the fixed-point residual. Three loop bodies are ported:
+iterate and the fixed-point residual. Four loop bodies are ported:
 ``make_body`` (full warm budget, or cold thresholds when
 ``proj_warm_iters=0``), ``make_body_cond`` (``proj_refresh_every > 1``:
-one warm sweep per iteration, the full budget every k-th) and
-``body_adaptive`` (``adaptive``: residual-balancing steps carried through
-the loop, the dual prox on the a-scale, the full budget every iteration,
-balancing on every ``adapt_every``-th iteration), the last in kernels of
-its own (``csrc/pdhg_log_utility_adaptive.cu``,
-``csrc/pdhg_log_utility_scenarios_adaptive.cu``) so that the fixed-step
-instantiations keep their registers. All kernels take warm primal/dual
-iterates (the simplex threshold then starts cold on the warm primal, the
-ball threshold from zero) and can write the loop's last dual.
+one warm sweep per iteration, the full budget every k-th),
+``make_trip_pipe`` (``pipeline_reduces`` with a refresh schedule: the
+dual's ball threshold and l1 one iteration stale, a synchronous iteration
+every min(k, 8)-th) and ``body_adaptive`` (``adaptive``: residual-balancing
+steps carried through the loop, the dual prox on the a-scale, the full
+budget every iteration, balancing on every ``adapt_every``-th iteration),
+the last two in kernels of their own (``..._pipe.cu``, ``..._adaptive.cu``)
+so that the fixed-step instantiations keep their registers. All kernels
+take warm primal/dual iterates (the simplex threshold then starts cold on
+the warm primal, the ball threshold from zero) and can write the loop's
+last dual.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor runs
-``pdhg_log_utility_plain``, the same iteration as plain tensor code.
-``allow_short`` raises here (the kernels project on the simplex only): a
-caller who wants shorts calls the eager solvers by name. Not in this
-package yet: the pipelined reductions.
+Two layouts: one warp per problem with the iterates in registers
+(``csrc/pdhg_log_utility.cuh``, up to pow2ceil(H) * ceil(N/32) = 16), and
+one block per problem with the iterates in shared memory
+(``csrc/pdhg_log_utility_block.cuh``, every shape whose problem fits a
+block's shared memory: long horizons, hundreds of assets). A CUDA tensor
+launches the warp kernel where it fits, else the block kernel, else
+raises; a CPU tensor runs ``pdhg_log_utility_plain``, the same iteration as
+plain tensor code. ``allow_short`` raises here (the kernels project on the
+simplex only): a caller who wants shorts calls the eager solvers by name.
 """
 
 from __future__ import annotations
@@ -80,21 +86,73 @@ PDHG_LOG_UTILITY_SCENARIOS_ADAPTIVE = CudaKernel(
     "kmpc_pdhg_log_utility_scenarios_adaptive",
     [_P] * 8 + [_I, _I] + _TAIL,
 )
+# The pipelined body (make_trip_pipe) in the warp layout.
+PDHG_LOG_UTILITY_PIPE = CudaKernel(
+    "pdhg_log_utility_pipe", "kmpc_pdhg_log_utility_pipe",
+    [_P] * 7 + [_I] + _TAIL,
+)
+PDHG_LOG_UTILITY_SCENARIOS_PIPE = CudaKernel(
+    "pdhg_log_utility_scenarios_pipe", "kmpc_pdhg_log_utility_scenarios_pipe",
+    [_P] * 7 + [_I, _I] + _TAIL,
+)
+# The block-per-problem layout: the fixed-step kernels take a last int
+# before the stream, 1 for the pipelined body; the adaptive ones take the
+# adaptive kernels' arguments.
+_TAIL_BLOCK = _TAIL[:-1] + [_I, _P]
+PDHG_LOG_UTILITY_BLOCK = CudaKernel(
+    "pdhg_log_utility_block", "kmpc_pdhg_log_utility_block",
+    [_P] * 7 + [_I] + _TAIL_BLOCK,
+)
+PDHG_LOG_UTILITY_SCENARIOS_BLOCK = CudaKernel(
+    "pdhg_log_utility_scenarios_block",
+    "kmpc_pdhg_log_utility_scenarios_block",
+    [_P] * 7 + [_I, _I] + _TAIL_BLOCK,
+)
+PDHG_LOG_UTILITY_BLOCK_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_block_adaptive", "kmpc_pdhg_log_utility_block_adaptive",
+    [_P] * 8 + [_I] + _TAIL,
+)
+PDHG_LOG_UTILITY_SCENARIOS_BLOCK_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_scenarios_block_adaptive",
+    "kmpc_pdhg_log_utility_scenarios_block_adaptive",
+    [_P] * 8 + [_I, _I] + _TAIL,
+)
+# (scenarios, layout, body) -> kernel
+_KERNELS = {
+    (False, "warp", "fixed"): PDHG_LOG_UTILITY,
+    (True, "warp", "fixed"): PDHG_LOG_UTILITY_SCENARIOS,
+    (False, "warp", "adaptive"): PDHG_LOG_UTILITY_ADAPTIVE,
+    (True, "warp", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_ADAPTIVE,
+    (False, "warp", "pipe"): PDHG_LOG_UTILITY_PIPE,
+    (True, "warp", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_PIPE,
+    (False, "block", "fixed"): PDHG_LOG_UTILITY_BLOCK,
+    (True, "block", "fixed"): PDHG_LOG_UTILITY_SCENARIOS_BLOCK,
+    (False, "block", "pipe"): PDHG_LOG_UTILITY_BLOCK,
+    (True, "block", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_BLOCK,
+    (False, "block", "adaptive"): PDHG_LOG_UTILITY_BLOCK_ADAPTIVE,
+    (True, "block", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_BLOCK_ADAPTIVE,
+}
+KERNELS = tuple(dict.fromkeys(_KERNELS.values()))
+# The block layout's fixed-step kernels run the pipelined body by a flag.
+_BLOCK_FIXED = (PDHG_LOG_UTILITY_BLOCK, PDHG_LOG_UTILITY_SCENARIOS_BLOCK)
 
 
-# Register budget of the kernels: one warp per problem keeps
+# Register budget of the warp layout: one warp per problem keeps
 # pow2ceil(H) * ceil(N/32) elements of each iterate per lane.
 MAX_SLOTS = 4          # ceil(N / 32): N <= 128
 MAX_ROW_ELEMENTS = 16  # pow2ceil(H) * ceil(N / 32)
 
 # Shared memory one block can use on Hopper (above 48 KB by opt-in, which
-# the launchers do). The scenario kernel stages each problem's returns in
-# its warp's slice: S * H * ceil32(N) floats.
+# the launchers do). The warp layout's scenario kernel stages each
+# problem's returns in its warp's slice: S * H * ceil32(N) floats; the
+# block layout holds a whole problem (block_smem_bytes).
 SMEM_PER_BLOCK = 232448
+BLOCK_MAX_THREADS = 512
 
 
 def kernel_supports(H: int, N: int) -> bool:
-    """Whether the CUDA kernels are compiled for horizon H and N assets."""
+    """Whether the warp-layout kernels are compiled for horizon H and N
+    assets."""
     k = -(-N // 32)
     hm = 1 << max(H - 1, 0).bit_length()
     return H >= 1 and 1 <= k <= MAX_SLOTS and hm * k <= MAX_ROW_ELEMENTS
@@ -113,6 +171,54 @@ def scenario_kernel_supports(S: int, H: int, N: int) -> bool:
             and scenario_smem_bytes(S, H, N) <= SMEM_PER_BLOCK)
 
 
+def block_threads(N: int) -> int:
+    """Threads of one problem's block in the block layout: a warp per 32
+    assets, at most 512 (beyond, a thread walks several columns)."""
+    return 32 * -(-min(N, BLOCK_MAX_THREADS) // 32)
+
+
+def block_smem_bytes(S: Optional[int], H: int, N: int) -> int:
+    """Shared memory of one problem in the block layout
+    (``block_plan`` in csrc/pdhg_log_utility_block.cuh): r per scenario and
+    w, p, the projection input and the dual input as [H][N]; the current
+    weights; eight per-row values (steps, thresholds, the ball's l1); the
+    portfolio reciprocals and curvature ratios per scenario and row; and
+    each warp's staging of the largest stacked reduce (the portfolio values
+    with the ball's count, sum and l1 of every row)."""
+    s1 = S or 1
+    floats = (s1 + 4) * H * N + N + 8 * H + 2 * s1 * H + 4 \
+        + block_threads(N) // 32 * (s1 * H + 3 * H)
+    return 4 * floats
+
+
+def block_kernel_supports(S: Optional[int], H: int, N: int,
+                          adaptive: bool = False, warm: bool = False,
+                          dual: bool = False) -> bool:
+    """Whether the block-layout kernels take a problem of S scenarios
+    (None: one forecast) at horizon H and N assets: its arrays within a
+    block's shared memory. Warm inputs, the dual output and the adaptive
+    body add nothing there (the warm iterates are read into w and p, the
+    dual written from p, the residuals summed on the fly), so the budget is
+    the same for every (adaptive, warm, dual)."""
+    del adaptive, warm, dual
+    return (H >= 1 and N >= 1 and (S is None or S >= 1)
+            and block_smem_bytes(S, H, N) <= SMEM_PER_BLOCK)
+
+
+def kernel_layout(S: Optional[int], H: int, N: int, adaptive: bool = False,
+                  warm: bool = False, dual: bool = False) -> Optional[str]:
+    """The layout a CUDA solve of this shape runs in: ``"warp"`` (one warp
+    per problem, the iterates in registers) where it fits, else
+    ``"block"`` (one block per problem, the iterates in shared memory),
+    else None."""
+    if kernel_supports(H, N) and (
+            S is None or scenario_kernel_supports(S, H, N)):
+        return "warp"
+    if block_kernel_supports(S, H, N, adaptive, warm, dual):
+        return "block"
+    return None
+
+
 def _check_params(params: MPCParams, entry: str) -> None:
     reject_unhonored_polish(params, entry)
     if params.allow_short:
@@ -121,11 +227,13 @@ def _check_params(params: MPCParams, entry: str) -> None:
             "allow_short is solved by the eager solvers "
             "(solve_mpc_log_utility_batch, solve_mpc_log_utility_scenarios)"
         )
-    if not params.adaptive and params.pipeline_reduces \
-            and params.proj_warm_iters >= 1 and params.proj_refresh_every > 1:
-        raise NotImplementedError(
-            f"{entry}: the pipelined-reductions body is not ported yet"
-        )
+
+
+def _pipelined(params: MPCParams) -> bool:
+    """Whether the solve runs ``make_trip_pipe``: pipelined reductions with
+    a refresh schedule and warm thresholds, never under ``adaptive``."""
+    return (params.pipeline_reduces and not params.adaptive
+            and params.proj_warm_iters >= 1 and params.proj_refresh_every > 1)
 
 
 def _moved(pr: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
@@ -278,15 +386,23 @@ def pdhg_log_utility_plain(
             p_new = p + rho * (p_new - p)
         return w_new, p_new, th_w, th_p, tau_c, sig_c, alpha_c, res
 
-    def fixed_iteration(i, w, p, th_w, th_p):
-        """``make_body`` / ``make_body_cond``: tau folded into the portfolio
-        reciprocal, the dual prox on the q-scale."""
-        if not warm:
-            n_sw = cold_iters
-        elif cond:
-            n_sw = warm_iters if i % refresh == 0 else 1
-        else:
-            n_sw = warm_iters
+    def ball_bound(l1, th_p):
+        """c inside the turnover ball, c + max(theta, 0) outside."""
+        return c + torch.where(l1 <= sig_tau, torch.zeros_like(th_p),
+                               torch.clamp(th_p, min=0.0))
+
+    def fixed_iteration(i, w, p, th_w, th_p, l1s, n_sw=None):
+        """``make_body`` / ``make_body_cond`` (and the synchronous iteration
+        of ``make_trip_pipe``, which passes its ``n_sw``): tau folded into
+        the portfolio reciprocal, the dual prox on the q-scale. ``l1s`` is
+        the ball's l1, carried for the pipelined body."""
+        if n_sw is None:
+            if not warm:
+                n_sw = cold_iters
+            elif cond:
+                n_sw = warm_iters if i % refresh == 0 else 1
+            else:
+                n_sw = warm_iters
         v = primal_pre(w, p)
         th_w = michelot_threshold(v, 1.0, n_sw, th_w if warm else None)
         w_new = torch.clamp(v - th_w, min=0.0)
@@ -294,20 +410,43 @@ def pdhg_log_utility_plain(
         aq = torch.clamp(q.abs() - c, min=0.0)
         if use_ball:
             if warm:
-                l1, th_p = ball_l1_and_sweep(aq, sig_tau, th_p)
+                l1s, th_p = ball_l1_and_sweep(aq, sig_tau, th_p)
                 th_p = michelot_threshold(aq, sig_tau, n_sw - 1, th_p)
             else:
-                l1 = aq.sum(dim=-1, keepdim=True)
+                l1s = aq.sum(dim=-1, keepdim=True)
                 th_p = michelot_threshold(aq, sig_tau, n_sw)
-            bound = c + torch.where(l1 <= sig_tau, torch.zeros_like(th_p),
-                                    torch.clamp(th_p, min=0.0))
+            bound = ball_bound(l1s, th_p)
             p_new = torch.minimum(torch.maximum(q, -bound), bound)
         else:
             p_new = torch.clamp(q, -c, c)
         if rho != 1.0:
             w_new = w + rho * (w_new - w)
             p_new = p + rho * (p_new - p)
-        return w_new, p_new, th_w, th_p
+        return w_new, p_new, th_w, th_p, l1s
+
+    def pipe_iteration(w, p, th_w, th_p, l1s):
+        """``make_trip_pipe``'s pipelined iteration: one synchronous primal
+        sweep from the carried threshold; the dual clipped against the
+        carried ball threshold and l1 (both 0 at the start: the bound is
+        then c); one sweep of this iteration's magnitudes against the
+        carried threshold, with their l1, gives the next iteration's
+        pair."""
+        v = primal_pre(w, p)
+        th_w = michelot_threshold(v, 1.0, 1, th_w)
+        w_new = torch.clamp(v - th_w, min=0.0)
+        q = p + sigma * D(2.0 * w_new - w)
+        if use_ball:
+            bound = ball_bound(l1s, th_p)
+            p_new = torch.minimum(torch.maximum(q, -bound), bound)
+        else:
+            p_new = torch.clamp(q, -c, c)
+        if rho != 1.0:
+            w_new = w + rho * (w_new - w)
+            p_new = p + rho * (p_new - p)
+        if use_ball:
+            l1s, th_p = ball_l1_and_sweep(
+                torch.clamp(q.abs() - c, min=0.0), sig_tau, th_p)
+        return w_new, p_new, th_w, th_p, l1s
 
     if params.adaptive:
         carry = (w, p, th_w, th_p, tau, sigma.expand_as(tau),
@@ -317,8 +456,21 @@ def pdhg_log_utility_plain(
         w, p, tau = carry[0], carry[1], carry[4]   # the tail steps by tau_f
         steps = torch.cat([x.expand(B, H, 1)[..., 0] for x in carry[4:6]]
                           + [carry[6][:, :, 0], carry[7]], dim=1)
+    elif _pipelined(params):
+        # Trips of k - 1 pipelined iterations and one synchronous iteration
+        # with the full warm budget; the remainder of max_iters / k runs
+        # synchronous iterations.
+        k = min(refresh, 8)
+        full = params.max_iters // k * k
+        carry = (w, p, th_w, th_p, torch.zeros_like(th_p))
+        for i in range(params.max_iters):
+            if i >= full or i % k == k - 1:
+                carry = fixed_iteration(i, *carry, n_sw=warm_iters)
+            else:
+                carry = pipe_iteration(*carry)
+        w, p = carry[0], carry[1]
     else:
-        carry = (w, p, th_w, th_p)
+        carry = (w, p, th_w, th_p, torch.zeros_like(th_p))
         for i in range(params.max_iters):
             carry = fixed_iteration(i, *carry)
         w, p = carry[0], carry[1]
@@ -345,6 +497,30 @@ def _require_cuda_f32(**tensors) -> None:
         raise ValueError(f"{', '.join(tensors)} lie on different devices")
 
 
+def _route(S: Optional[int], H: int, N: int, params: MPCParams, warm: bool,
+           dual: bool) -> Tuple[str, str, CudaKernel]:
+    """(layout, body, kernel) of a CUDA solve: the layout ``kernel_layout``
+    gives the shape and the loop body the parameters select; raises
+    ``ValueError`` for a shape beyond both layouts' budgets, naming the
+    eager solver that takes it."""
+    layout = kernel_layout(S, H, N, params.adaptive, warm, dual)
+    if layout is None:
+        eager = ("solve_mpc_log_utility_batch" if S is None
+                 else "solve_mpc_log_utility_scenarios")
+        raise ValueError(
+            f"S={S}, H={H}, N={N} exceeds the kernels' budgets: the warp "
+            f"layout needs ceil(N/32) <= {MAX_SLOTS}, pow2ceil(H) * "
+            f"ceil(N/32) <= {MAX_ROW_ELEMENTS} (and the scenario returns "
+            f"within {SMEM_PER_BLOCK} bytes), the block layout one problem "
+            f"within {SMEM_PER_BLOCK} bytes of shared memory, here "
+            f"{block_smem_bytes(S, H, N)}; the eager solver {eager} takes "
+            "any shape"
+        )
+    body = ("adaptive" if params.adaptive
+            else "pipe" if _pipelined(params) else "fixed")
+    return layout, body, _KERNELS[(S is not None, layout, body)]
+
+
 def pdhg_log_utility_cuda(
     current_weights: torch.Tensor,
     r: torch.Tensor,
@@ -358,7 +534,11 @@ def pdhg_log_utility_cuda(
     contract as ``pdhg_log_utility_plain``, for CUDA float32 tensors.
     r [B, H, N] launches ``pdhg_log_utility``, r [B, S, H, N]
     ``pdhg_log_utility_scenarios``; with ``params.adaptive`` the
-    ``..._adaptive`` kernel of each."""
+    ``..._adaptive`` kernel of each, with the pipelined body
+    (``pipeline_reduces``) the ``..._pipe`` kernel. A shape beyond the
+    warp layout's budgets launches the ``..._block`` kernel of the same
+    body (``kernel_layout``), and a shape beyond both raises
+    ``ValueError``."""
     _check_params(params, "pdhg_log_utility_cuda")
     _check_return_steps(params, return_steps)
     scen = r.dim() == 4
@@ -370,7 +550,6 @@ def pdhg_log_utility_cuda(
             f"{tuple(r.shape)}"
         )
     B, H, N = r.shape[0], r.shape[-2], r.shape[-1]
-    S = r.shape[1] if scen else 0
     tensors = {"current_weights": current_weights, "r": r}
     if w_warm is not None:
         tensors["w_warm"] = w_warm
@@ -383,26 +562,21 @@ def pdhg_log_utility_cuda(
             raise ValueError(f"expected {name} [B, H, N] = {(B, H, N)}, got "
                              f"{tuple(tensors[name].shape)}")
     _require_cuda_f32(**tensors)
-    if not kernel_supports(H, N):
-        raise ValueError(
-            f"H={H}, N={N} exceeds the kernel's register budget: it needs "
-            f"ceil(N/32) <= {MAX_SLOTS} and pow2ceil(H) * ceil(N/32) <= "
-            f"{MAX_ROW_ELEMENTS}"
-        )
-    if scen and not scenario_kernel_supports(S, H, N):
-        raise ValueError(
-            f"S={S}, H={H}, N={N} exceeds the scenario kernel's shared-"
-            f"memory budget: one problem's returns take "
-            f"{scenario_smem_bytes(S, H, N)} bytes of a block's "
-            f"{SMEM_PER_BLOCK}"
-        )
-    if params.adaptive:
-        kernel = (PDHG_LOG_UTILITY_SCENARIOS_ADAPTIVE if scen
-                  else PDHG_LOG_UTILITY_ADAPTIVE)
-        schedule = params.adapt_every
-    else:
-        kernel = PDHG_LOG_UTILITY_SCENARIOS if scen else PDHG_LOG_UTILITY
-        schedule = params.proj_refresh_every
+    _, body, kernel = _route(r.shape[1] if scen else None, H, N, params,
+                             w_warm is not None, return_dual)
+    return _launch(kernel, body, current_weights, r, params, w_warm, p_warm,
+                   return_dual, return_steps)
+
+
+def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
+            w_warm, p_warm, return_dual, return_steps):
+    """Launch ``kernel`` (running ``body``) on checked CUDA tensors and
+    count the launch."""
+    scen = r.dim() == 4
+    B, H, N = r.shape[0], r.shape[-2], r.shape[-1]
+    S = r.shape[1] if scen else 0
+    schedule = (params.adapt_every if params.adaptive
+                else params.proj_refresh_every)
     w = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
     fp = torch.empty(B, dtype=torch.float32, device=r.device)
     dual = torch.empty_like(w) if return_dual else None
@@ -426,6 +600,7 @@ def pdhg_log_utility_cuda(
                 params.cost_coeff, params.max_turnover, params.ridge,
                 params.over_relax, params.step_scale, params.sigma_scale,
                 int(params.precond), int(params.max_turnover > 0), int(warm),
+                *((int(body == "pipe"),) if kernel in _BLOCK_FIXED else ()),
                 stream,
             )
         if err != 0:

@@ -4,16 +4,19 @@
 Port of the repository's ``run_experiment.py``: its ``--parallel`` mode is
 the default here, its default mode (the exact scan, one solve per date) is
 ``--scan``. The solver's configuration, the accurate one included
-(``MPC.SOLVER.ADAPTIVE``, ``ADAPT_EVERY``, ``PRECOND``, ``MAX_ITERS``), comes
+(``MPC.SOLVER.ADAPTIVE``, ``ADAPT_EVERY``, ``PRECOND``, ``MAX_ITERS``, and the
+pipelined body's ``PROJ_REFRESH_EVERY`` and ``PIPELINE_REDUCES``), comes
 from the run directory's ``config.json``. With ``--path``
 it loads a kmpc_tpu run directory (config.json and its npz checkpoint);
 without it, it builds ``finance_sparse`` at full width with weights drawn
-from ``--init_seed``. It prints the metrics table and writes
+from ``--init_seed``, or the model and settings of ``--config`` (a
+``config.json``) with such weights. It prints the metrics table and writes
 ``full_comparison_metrics.csv`` and ``experiment_results.json``.
 
     python -m kmpc_tpu_torch.run_experiment [--path RUN_DIR | --init_seed S]
-        [--scenarios 16] [--risk_aversion 1.0] [--sweeps 8 | --scan]
-        [--mpc_iters N] [--eager] [--cpu] [--output DIR]
+        [--config CONFIG_JSON] [--horizon 20] [--scenarios 16]
+        [--risk_aversion 1.0] [--sweeps 8 | --scan] [--mpc_iters N]
+        [--eager] [--cpu] [--output DIR]
 
 Runs on the CUDA device, every batched solve through its fused kernel
 (``--eager`` takes the eager solvers instead), unless ``--cpu`` asks for
@@ -103,6 +106,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
                      help="kmpc_tpu run directory to load")
     src.add_argument("--init_seed", type=int, default=0,
                      help="seed of fresh finance_sparse weights (no --path)")
+    parser.add_argument("--config", type=str, default=None,
+                        help="config.json of the run (fresh weights; not "
+                             "with --path, whose directory has its own)")
     parser.add_argument("--horizon", type=int, default=None)
     parser.add_argument("--cost_coeff", type=float, default=None)
     parser.add_argument("--max_turnover", type=float, default=None)
@@ -139,6 +145,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from kmpc_tpu_torch.models.koopman import make_model
     from kmpc_tpu_torch.utils.params import load_jax_checkpoint
 
+    if args.path and args.config:
+        parser.error("--config is for fresh weights; a --path run directory "
+                     "holds its own config.json")
     device = torch.device("cpu") if args.cpu else default_device()
     if args.path:
         cfg, model, step = load_jax_checkpoint(args.path, device=device)
@@ -148,14 +157,16 @@ def main(argv: Optional[List[str]] = None) -> dict:
         print(f"Loaded {args.path} at step {step}")
         out_dir = Path(args.output) if args.output else Path(args.path)
     else:
-        cfg = get_config("finance_sparse")
+        cfg = (Config.from_json(args.config) if args.config
+               else get_config("finance_sparse"))
         out_dir = Path(args.output) if args.output else Path("runs/kmpc_tpu_torch")
     fd = load_finance_data(cfg, device=device)
     if not args.path:
         gen = torch.Generator(device=device).manual_seed(args.init_seed)
         model = make_model(cfg, fd.observation_size, device=device)
         model.init_params(gen).eval()
-        print(f"finance_sparse with fresh weights from seed {args.init_seed}")
+        print(f"{args.config or 'finance_sparse'} with fresh weights from "
+              f"seed {args.init_seed}")
 
     bt, mpc = backtest_settings(cfg, args.horizon, args.cost_coeff,
                                 args.max_turnover, args.mpc_iters)

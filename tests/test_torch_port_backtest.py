@@ -71,8 +71,9 @@ def _finance_data(pkg):
     )
 
 
-@pytest.fixture(scope="module")
-def models():
+def build_models():
+    """The narrow GenericKM in both packages, kmpc_tpu's weights carried
+    into the port: (kmpc_tpu model, its params, port model)."""
     from kmpc_tpu.models import make_model as jmake
     from kmpc_tpu_torch.models.koopman import make_model as tmake
     from kmpc_tpu_torch.utils.params import params_from_jax
@@ -93,6 +94,11 @@ def models():
     tm = tmake(cfgs[1], D * N_ASSETS, device="cpu")
     tm.load_state_dict(params_from_jax(jax.tree.map(np.asarray, params)))
     return jm, params, tm.eval()
+
+
+@pytest.fixture(scope="module")
+def models():
+    return build_models()
 
 
 @pytest.fixture(scope="module")

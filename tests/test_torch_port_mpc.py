@@ -191,13 +191,50 @@ def test_cuda_wrapper_checks_shapes_before_launch():
         M.pdhg_log_utility_cuda(torch.ones(3, 21), r, MPCParams())
 
 
-@pytest.mark.parametrize("H,N,ok", [
-    (1, 1, True), (5, 20, True), (5, 30, True), (5, 33, True),
-    (16, 32, True), (8, 64, True), (4, 128, True), (20, 30, False),
-    (5, 129, False), (8, 96, False), (0, 10, False),
+def _budget_case(H, N, warp, block, S=None):
+    """A (S, H, N) case of the kernels' budgets, with the id it had when only
+    the warp layout was checked (its H, N and warp fit)."""
+    label = f"{H}-{N}-{warp}" if S is None and block is None else \
+        f"S{S}-H{H}-N{N}-{warp}-{block}"
+    return pytest.param(S, H, N, warp, block, id=label)
+
+
+# (S, H, N, warp layout, block layout); None: the block layout is not
+# checked (the shape's warp verdict dates from before the block layout).
+@pytest.mark.parametrize("S,H,N,warp,block", [
+    _budget_case(1, 1, True, None), _budget_case(5, 20, True, None),
+    _budget_case(5, 30, True, None), _budget_case(5, 33, True, None),
+    _budget_case(16, 32, True, None), _budget_case(8, 64, True, None),
+    _budget_case(4, 128, True, None), _budget_case(20, 30, False, None),
+    _budget_case(5, 129, False, None), _budget_case(8, 96, False, None),
+    _budget_case(0, 10, False, None),
+    # The block layout: the path's H=20, the bench's long and assets500
+    # shapes, the edges past the warp budget, 16 scenarios at H=20, and
+    # the largest shapes kmpc_tpu's kernel admits at one forecast.
+    _budget_case(20, 20, False, True), _budget_case(20, 30, False, True),
+    _budget_case(5, 500, False, True), _budget_case(17, 20, False, True),
+    _budget_case(5, 129, False, True), _budget_case(3, 150, False, True),
+    _budget_case(20, 20, False, True, S=16),
+    _budget_case(1, 2730, False, True),
+    _budget_case(20, 136, False, True), _budget_case(5, 546, False, True),
+    # Beyond a block's shared memory.
+    _budget_case(20, 600, False, False), _budget_case(1, 12000, False, False),
+    _budget_case(64, 128, False, False, S=16),
+    _budget_case(0, 10, False, False),
 ])
-def test_kernel_register_budget(H, N, ok):
-    assert M.kernel_supports(H, N) is ok
+def test_kernel_register_budget(S, H, N, warp, block):
+    """The warp layout's register budget (``kernel_supports``) and the
+    block layout's shared-memory budget (``block_kernel_supports``); the
+    layout a CUDA solve takes follows from both."""
+    assert M.kernel_supports(H, N) is warp
+    if block is None:
+        return
+    fits = M.block_kernel_supports(S, H, N)
+    assert fits is block
+    assert fits == (M.block_smem_bytes(S, H, N) <= M.SMEM_PER_BLOCK
+                    and H >= 1)
+    want = "warp" if warp else ("block" if block else None)
+    assert M.kernel_layout(S, H, N) == want
 
 
 def test_allow_short_is_solved_by_the_eager_solver_by_name():
@@ -240,11 +277,27 @@ def test_unported_parameters_raise(field, value, exc):
 
 
 def test_pipelined_body_raises():
-    cw, ys = _instance(3, 5, 20, seed=0)
-    p = MPCParams(max_iters=10, proj_refresh_every=16, pipeline_reduces=True)
-    with pytest.raises(NotImplementedError, match="pipelined"):
-        M.solve_mpc_log_utility_packed(torch.as_tensor(cw),
-                                       torch.as_tensor(ys), p, device="cpu")
+    """The pipelined body (``pipeline_reduces`` with a refresh schedule),
+    which raised here until it was ported, raises no more: at H=5, N=20 the
+    packed solve on the CPU meets the bars against kmpc_tpu's Pallas kernel
+    (``make_trip_pipe``) in interpret mode."""
+    from kmpc_tpu.ops.mpc_pallas import solve_mpc_log_utility_pallas_packed
+
+    cw, ys = _instance(6, 5, 20, seed=0)
+    kw = dict(max_iters=300, proj_refresh_every=16, pipeline_reduces=True,
+              precond=True)
+    w_j, info_j = solve_mpc_log_utility_pallas_packed(
+        jnp.asarray(cw), jnp.asarray(ys), _params(kw, JParams), tile_b=128,
+        interpret=True)
+    w, info = M.solve_mpc_log_utility_packed(
+        torch.as_tensor(cw), torch.as_tensor(ys), _params(kw), device="cpu")
+    np.testing.assert_allclose(w.numpy(), np.asarray(w_j), atol=W_TOL, rtol=0)
+    np.testing.assert_allclose(info["objective"].numpy(),
+                               np.asarray(info_j["objective"]), atol=OBJ_TOL,
+                               rtol=0)
+    assert M._pipelined(_params(kw))
+    assert not M._pipelined(_params(dict(kw, adaptive=True)))
+    assert not M._pipelined(_params(dict(kw, proj_warm_iters=0)))
 
 
 # ---------------------------------------------------------------------------
