@@ -5,7 +5,7 @@
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
-1. ``build``: the card, torch and CUDA versions, the build of the thirteen
+1. ``build``: the card, torch and CUDA versions, the build of the fifteen
    kernel sources (one nvcc per source, started together, from the sources
    in this checkout) with each build's seconds, registers and spills;
 2. ``kernels``: every CUDA kernel against its plain PyTorch version on the
@@ -20,10 +20,15 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    (refresh 8 and 16, an odd iteration count, ball on and off, precond,
    ridge, warm inputs and the dual output); the block layout's fixed-step
    and adaptive bodies at H=20 N=30, H=5 N=500, H=3 N=150, N=129, H=17,
-   N=600 (several columns a thread) and S=16 H=20 N=20, every block case
+   N=600 (several columns a thread) and S=16 H=20 N=20; kernel C's block
+   layout (C.2) at the edges of kmpc_tpu's envelope (per-problem
+   covariances at H=17, H=340, N=65, N=112, H=16 N=88; a shared one at
+   N=129, N=1112, N=480 at H=5, N=128 at H=20; adaptive at N=976 shared
+   and H=20 N=64; over-relaxation, cold projections); every block case
    run twice and required to give the same bits; every rung of the MV
    ladder; then ``layouts``: both layouts of kernels A and B timed at the
-   comparison path's shape, which the warp layout takes;
+   comparison path's shape, which the warp layout takes, and of kernel C
+   at the Markowitz path's shape (H=1, N=20) and at H=5, N=30;
 3. ``nan_row``, ``probe``, ``probe_accurate``: a NaN forecast holds the
    weights; accuracy on the 64 bench probe instances against the float64
    oracle objectives in bench_probe_cache.json, at the bench setting and
@@ -64,16 +69,25 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    (the warp layout's pipelined kernels), 2 sweeps each; launches per
    kernel, feasibility and the first solves against the plain versions as
    in ``accurate_path``;
-9. ``mv_ladder``: the rungs of the MV ladder at B=4096, N=30, 1000
+9. ``mv_long_wide``: the mean-variance solve past the warp layout (C.2)
+   at bench.py's Markowitz settings (1000 iterations at refresh 16, and
+   1000 adaptive) on bench.py's problems: per-problem covariances at
+   B=4096, H=20 N=30 and H=5 N=100, one shared covariance at B=1028, H=1
+   N=960, H=5 N=320, H=20 N=64; launches counted through the entry point,
+   every row feasible, the block kernels against their plain version
+   (twice for the same bits), times, bounds, registers, and the objective
+   gap on the shape's 16 probe instances to a float64 adaptive-PDHG run of
+   40000 iterations of the port's eager solver on the card;
+10. ``mv_ladder``: the rungs of the MV ladder at B=4096, N=30, 1000
    iterations;
-10. ``headline``, ``accurate_headline``: the solve at B=65536, H=5, N=30,
+11. ``headline``, ``accurate_headline``: the solve at B=65536, H=5, N=30,
    at the bench setting (1000 iterations) and at the accurate one (800);
    ``large_headline``: bench.py's ``long`` shape (B=16384, H=20, N=30, 1000
    iterations, and 4000 adaptive) and ``assets500`` shape (B=4096, H=5,
    N=500, 1000 pipelined iterations, and 10000), with the gap on the
    shape's 16 probe instances to the float64 references cached in
    bench_probe_cache.json;
-11. the ``kernels`` line, the card's name and power limit, and last
+12. the ``kernels`` line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Adaptive steps and discrete decisions. The adaptive body grows or shrinks
@@ -86,12 +100,18 @@ histories differ, and they end apart by about the solver's own accuracy at
 that budget, not by rounding. So for an adaptive case both sides also
 return the steps they ended on and the signed sum of the iterations that
 moved them, which two equal step histories share. Every problem whose
-histories are equal must meet the bars of the fixed-step kernels, or, for
-a log-utility kernel, lie as close to the plain version run in float64 as
-float32 itself does (``adaptive_agreement``). The script bounds how many
-problems end apart and their objective difference, and requires the
-objective difference over all problems of a large batch to be unbiased.
-That the partings are ties is shown by
+histories are equal must meet the bars of the fixed-step kernels, or lie
+as close to the plain version run in float64 as float32 itself does
+(``adaptive_agreement``). The script bounds how many problems end apart
+and their objective difference, and requires the objective difference
+over all problems of a large batch to be unbiased. The mean-variance
+adaptive body does not settle on a few problems in float32 at N=960 (two
+float32 runs of it, or of kmpc_tpu's, can end 1e-2 apart in objective):
+a problem whose objectives differ beyond the bar where either side's
+fixed-point residual shows it unsettled is held against the float64 run
+on that problem (a settled side within the bar of it, an unsettled kernel
+not above it, and unsettled on no more problems than the plain version);
+the others keep the bars above. That the partings are ties is shown by
 ``python -m kmpc_tpu_torch.ops.adaptive_parting``, which traces the
 problems that end apart to their first differing decision; it is no part
 of this script.
@@ -102,6 +122,7 @@ Exits non-zero, printing no result, when CUDA is unavailable.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import re
 import subprocess
@@ -153,6 +174,16 @@ FLIP_MEAN_OBJ_TOL = 2e-6
 # histories (tests/test_torch_port_large.py::
 # test_adaptive_body_at_500_assets_is_at_float32s_limit).
 REFEREE_FACTOR = 3.0
+# The adaptive mean-variance body at N=960 does not settle on a few
+# problems in float32: once the residuals are rounding noise the balancing
+# grows tau past what the covariance's spectrum allows, and a run leaves
+# the fixed point (residual up to 8e-2 on an H100; tests/
+# test_torch_port_mv_block.py::
+# test_adaptive_mean_variance_body_at_960_assets_is_at_float32s_limit). A
+# problem whose objectives differ beyond the bar where either side's
+# fixed-point residual exceeds MV_UNSETTLED_FP is held against the float64
+# run instead (``hold_unsettled_mv``).
+MV_UNSETTLED_FP = 1e-4
 ACCURATE_PROBE_GAP = 1.5e-4  # median gap to the oracle, accurate setting
 # A warm sweep's solution (500 iterations) against a cold full-budget solve
 # from the same pre-trade weights: the largest objective deficit over the
@@ -179,9 +210,11 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up."""
-    fn()
+def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
+    """Median of ``reps`` CUDA-event timings of ``fn()`` after a warm-up
+    (``warmup=False``: the caller has just run ``fn`` itself)."""
+    if warmup:
+        fn()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -579,44 +612,22 @@ def compare_mv_case(label, B, H, N, params, seed, shared=False,
 def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
                        time_plain=True):
     """``compare_mv_case`` on given card tensors: current weights [B, N],
-    mu [B, H, N] and a covariance [B, N, N] or [N, N]."""
+    mu [B, H, N] and a covariance [B, N, N] or [N, N]. A block-layout
+    kernel runs twice and must give the same bits."""
     from kmpc_tpu_torch.ops import mv_cuda as V
 
     B, H, N = mu.shape
     shared = sig.dim() == 2
     sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
     steps = params.adaptive
-    out_k = V.pdhg_mean_variance_cuda(cw, mu, sig, params, return_steps=steps)
+    layout, kernel = V._mv_route(H, N, params)
+    out_k = mv_kernel_twice(label, layout, cw, mu, sig, params)
     out_p = V.pdhg_mean_variance_plain(cw, mu, sig, params,
                                        return_steps=steps)
-    (wk, fpk), (wp, fpp) = out_k[:2], out_p[:2]
     torch.cuda.synchronize()
-    wk_f, ik = V._finalize_mv(wk, fpk, mu, sig, cw, params)
-    wp_f, ip = V._finalize_mv(wp, fpp, mu, sig, cw, params)
-    dw_all = (wk_f - wp_f).abs().amax(dim=(1, 2))
-    dobj_all = ik["objective"] - ip["objective"]
-    res = {"case": label, "B": B, "H": H, "N": N, "iters": params.max_iters,
-           "shared_sigma": shared}
-    if steps:
-        # As the log-utility kernels' adaptive cases, but the objective bar
-        # holds for every problem: where decisions part, the two runs of
-        # this program keep the same objective and differ in the weights
-        # along directions in which the covariance is nearly flat.
-        held = adaptive_agreement(
-            label, out_k[2], out_p[2], dw_all, torch.zeros_like(dw_all),
-            dobj_all, MV_W_TOL, MV_OBJ_TOL, MV_OBJ_TOL, res)
-    else:
-        held = torch.ones_like(dw_all, dtype=torch.bool)
-    dw = dw_all[held].max().item() if held.any() else 0.0
-    dobj = dobj_all.abs().max().item()
-    res.update({"max_abs_dw": dw_all.max().item(), "max_abs_dobj": dobj,
-                "max_fp": fpk.max().item()})
-    assert dw <= MV_W_TOL, f"{label}: weights differ by {dw}"
-    assert dobj <= MV_OBJ_TOL, f"{label}: objectives differ by {dobj}"
-    assert bool(ik["converged"].all()), f"{label}: not converged"
-    w64 = wk_f.double()
-    assert torch.all((w64.sum(-1) - 1.0).abs() <= FEAS_TOL), label
-    assert torch.all(w64 >= 0), label
+    res = {"case": label, "kernel": kernel.name, "B": B, "H": H, "N": N,
+           "iters": params.max_iters, "shared_sigma": shared}
+    hold_mv(label, cw, mu, sig, params, out_k, out_p, res)
     res["bound_ms"], res["bound_by"] = mv_bound(B, H, N, params, shared)
     res["kernel_ms"] = cuda_ms(lambda: V.pdhg_mean_variance_cuda(
         cw, mu, sig, params), time_reps)
@@ -624,6 +635,120 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
         res["plain_ms"] = cuda_ms(lambda: V.pdhg_mean_variance_plain(
             cw, mu, sig, params), 1)
     return res
+
+
+def mv_kernel_twice(label, layout, cw, mu, sig, params):
+    """The mean-variance kernel's outputs on these card tensors (with the
+    steps under ``params.adaptive``); a block-layout kernel runs a second
+    time and must give the same bits (its reduces stage sums in shared
+    memory: a missing barrier shows as a run-to-run difference)."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    out = V.pdhg_mean_variance_cuda(cw, mu, sig, params,
+                                    return_steps=params.adaptive)
+    if layout == "block":
+        again = V.pdhg_mean_variance_cuda(cw, mu, sig, params,
+                                          return_steps=params.adaptive)
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(out, again)), \
+            f"{label}: two runs of the block kernel differ"
+    return out
+
+
+def hold_mv(label, cw, mu, sig, params, out_k, out_p, res):
+    """The bars of a mean-variance case: the kernel's outputs ``out_k``
+    against the plain version's ``out_p`` on current weights ``cw``, mu and
+    the symmetrised covariance ``sig``, through the same finalisation;
+    adaptive cases as ``adaptive_agreement`` says (without a referee), the
+    problems that one side left unsettled as ``hold_unsettled_mv`` says.
+    Fills ``res`` (``deterministic`` where the kernel is a block-layout
+    one, which ``mv_kernel_twice`` has run twice); raises
+    ``AssertionError`` at the first bar missed."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    (wk, fpk), (wp, fpp) = out_k[:2], out_p[:2]
+    wk_f, ik = V._finalize_mv(wk, fpk, mu, sig, cw, params)
+    wp_f, ip = V._finalize_mv(wp, fpp, mu, sig, cw, params)
+    dw_all = (wk_f - wp_f).abs().amax(dim=(1, 2))
+    dobj_all = ik["objective"] - ip["objective"]
+    if "block" in res.get("kernel", ""):
+        res["deterministic"] = True
+    rest = torch.ones_like(dw_all, dtype=torch.bool)
+    held = rest.clone()
+    if params.adaptive:
+        # Where decisions part, the two runs of this program keep the same
+        # objective and differ in the weights along directions in which the
+        # covariance is nearly flat: the objective bar holds for every
+        # problem, unless one side did not settle on it.
+        astray = (dobj_all.abs() > MV_OBJ_TOL) & (
+            (fpk > MV_UNSETTLED_FP) | (fpp > MV_UNSETTLED_FP))
+        rest = ~astray
+        held = torch.zeros_like(rest)
+        held[rest] = adaptive_agreement(
+            label, out_k[2][rest], out_p[2][rest], dw_all[rest],
+            torch.zeros_like(dw_all[rest]), dobj_all[rest], MV_W_TOL,
+            MV_OBJ_TOL, MV_OBJ_TOL, res)
+        hold_unsettled_mv(label, cw, mu, sig, params, astray, fpk, fpp,
+                          ik["objective"], ip["objective"], res)
+    dw = dw_all[held].max().item() if held.any() else 0.0
+    dobj = dobj_all[rest].abs().max().item() if rest.any() else 0.0
+    res.update({"max_abs_dw": dw_all.max().item(),
+                "max_abs_dobj": dobj_all.abs().max().item(),
+                "max_fp": fpk.max().item()})
+    assert dw <= MV_W_TOL, f"{label}: weights differ by {dw}"
+    assert dobj <= MV_OBJ_TOL, f"{label}: objectives differ by {dobj}"
+    assert bool(ik["converged"].all()), f"{label}: not converged"
+    w64 = wk_f.double()
+    assert torch.all((w64.sum(-1) - 1.0).abs() <= FEAS_TOL), label
+    assert torch.all(w64 >= 0), label
+
+
+def hold_unsettled_mv(label, cw, mu, sig, params, astray, fpk, fpp, obj_k,
+                      obj_p, res):
+    """The bars of the adaptive mean-variance problems whose objectives
+    differ beyond the bar where the kernel's or the plain version's
+    fixed-point residual (``fpk``, ``fpp``) exceeds MV_UNSETTLED_FP (the
+    mask ``astray``): each is held against the plain version run in float64
+    on that problem. A side that
+    settled there must lie within the objective bar of the float64 run; an
+    unsettled kernel, a feasible point, may not lie above it (the objective
+    is in maximisation form), and the kernel may be unsettled on no more of
+    them than the plain version is, plus 3 sqrt(n) + 2. Fills ``res`` with
+    the counts and, for the first eight such problems, the three residuals
+    and both distances to the float64 run."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    idx = torch.nonzero(astray).flatten()
+    res["unsettled_apart"] = int(idx.numel())
+    if idx.numel() == 0:
+        return
+    sig_i = sig.double() if sig.dim() == 2 else sig[idx].double()
+    w64, fp64 = V.pdhg_mean_variance_plain(cw[idx].double(), mu[idx].double(),
+                                           sig_i, params)
+    obj64 = V._finalize_mv(w64, fp64, mu[idx].double(), sig_i,
+                           cw[idx].double(), params)[1]["objective"]
+    ok, uk = obj_k[idx].double() - obj64, fpk[idx] > MV_UNSETTLED_FP
+    op, up = obj_p[idx].double() - obj64, fpp[idx] > MV_UNSETTLED_FP
+    n_k, n_p = int(uk.sum().item()), int(up.sum().item())
+    res.update({"kernel_unsettled_apart": n_k, "plain_unsettled_apart": n_p,
+                "unsettled": [
+                    {"fp_kernel": fpk[i].item(), "fp_plain": fpp[i].item(),
+                     "fp_float64": fp64[j].item(),
+                     "dobj_kernel_vs_float64": ok[j].item(),
+                     "dobj_plain_vs_float64": op[j].item()}
+                    for j, i in enumerate(idx.tolist()[:8])]})
+    assert not (~uk & (ok.abs() > MV_OBJ_TOL)).any().item(), (
+        f"{label}: the kernel settled where the plain version did not, "
+        f"{ok[~uk].abs().max().item()} from the float64 run in objective")
+    assert not (~up & (op.abs() > MV_OBJ_TOL)).any().item(), (
+        f"{label}: the plain version settled, "
+        f"{op[~up].abs().max().item()} from the float64 run in objective")
+    assert not (ok > MV_OBJ_TOL).any().item(), (
+        f"{label}: the unsettled kernel lies {ok.max().item()} above the "
+        "float64 run in objective")
+    assert n_k <= n_p + 3.0 * n_p ** 0.5 + 2, (
+        f"{label}: the kernel is unsettled on {n_k} of the problems ended "
+        f"apart, the float32 plain version on {n_p}")
 
 
 def _ptxas_report(name):
@@ -663,6 +788,31 @@ def phase_build():
             regs = {"instantiations": len(regs), "max": max(regs.values())}
         emit("build", kernel=name, seconds=secs[name], registers=regs,
              spill_store_bytes={k: v for k, v in spills.items() if v})
+    check_mv_block_plan()
+
+
+def check_mv_block_plan():
+    """The wrapper's copy of the block layout's shared-memory plan
+    (``mv_block_smem_bytes``, which routes a shape to the block layout or
+    refuses it) against the plan the built kernel launches with, as its
+    library reports it, over the envelope's edges and the staging
+    boundary."""
+    import ctypes
+
+    from kmpc_tpu_torch._build import library_path
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    plan = ctypes.CDLL(str(library_path("pdhg_mean_variance_block")))
+    plan = plan.kmpc_mv_block_smem_bytes
+    plan.argtypes, plan.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    shapes = [(H, N) for H in (1, 2, 5, 16, 17, 20, 340)
+              for N in (8, 30, 64, 65, 120, 128, 129, 220, 238, 239, 320,
+                        480, 960, 1112)]
+    wrong = [(H, N, V.mv_block_smem_bytes(H, N), plan(H, N))
+             for H, N in shapes if V.mv_block_smem_bytes(H, N) != plan(H, N)]
+    assert not wrong, \
+        f"the wrapper's block plan differs from the kernel's: {wrong}"
+    emit("mv_block_plan", shapes=len(shapes), agree=True)
 
 
 def _params(**kw):
@@ -827,11 +977,7 @@ def phase_kernel_vs_plain():
         ("adaptive_block_odd_over_relax", 6, 17, 20, _params(
             max_iters=401, over_relax=1.5, **acc), 823, quick),
     ]
-    from kmpc_tpu_torch.ops.mpc_cuda import KERNELS as LOG_KERNELS
-
-    out = {k.name: [] for k in LOG_KERNELS}
-    out.update({"pdhg_mean_variance": [], "pdhg_mean_variance_adaptive": [],
-                "mv_ladder": []})
+    out = {name: [] for name in kernel_counters()}
 
     def record(res, kernel=None):
         kernel = kernel or res["kernel"]
@@ -975,9 +1121,45 @@ def phase_kernel_vs_plain():
             adapt_every=2, precond=True), 724,
          dict(scale=0.01, time_plain=False)),
     ]
+    # C.2: the block layout at the edges of kmpc_tpu's envelope (a
+    # per-problem covariance past the warp layout's registers at H=17 and
+    # H=340, N=65 and N=112 at H=5, N=88 at H=16; a shared one at N=129
+    # and N=1112 at H=1, N=480 at H=5, N=128 at H=20; Sigma staged in
+    # shared memory or read from global memory, by size), its adaptive
+    # body, over-relaxation and cold projections; bench.py's covariance
+    # scale.
+    wide = dict(scale=0.01, time_plain=False)
+    seed = 730
+    for label, B, H, N, shared, kw in (
+            ("block_H17N8", 5, 17, 8, False, {}),
+            ("block_H340N8", 3, 340, 8, False, dict(max_iters=300)),
+            ("block_H5N65_refresh", 5, 5, 65, False, dict(
+                proj_refresh_every=16)),
+            ("block_H5N112", 4, 5, 112, False, {}),
+            ("block_H16N88_refresh", 4, 16, 88, False, dict(
+                proj_refresh_every=16)),
+            ("block_H1N129_shared", 5, 1, 129, True, {}),
+            ("block_H1N1112_shared", 4, 1, 1112, True, {}),
+            ("block_H5N480_shared_refresh", 4, 5, 480, True, dict(
+                proj_refresh_every=16)),
+            ("block_H20N128_shared", 4, 20, 128, True, {}),
+            ("adaptive_block_H1N976_shared", 4, 1, 976, True, dict(
+                adaptive=True, adapt_every=2)),
+            ("adaptive_block_H20N64", 4, 20, 64, False, dict(
+                adaptive=True, adapt_every=2)),
+            ("block_H17N20_over_relax", 5, 17, 20, False, dict(
+                over_relax=1.5)),
+            ("adaptive_block_H17N20_over_relax", 5, 17, 20, False, dict(
+                adaptive=True, adapt_every=2, over_relax=1.5)),
+            ("block_H17N20_cold_proj", 5, 17, 20, False, dict(
+                proj_warm_iters=0)),
+    ):
+        seed += 1
+        mv_cases.append((label, B, H, N, _params(
+            **{"max_iters": 600, "gamma": 5.0, **kw}), seed,
+            dict(wide, shared=shared)))
     for label, B, H, N, p, s, kw in mv_cases:
-        record(compare_mv_case(label, B, H, N, p, s, **kw),
-               "pdhg_mean_variance" + ("_adaptive" if p.adaptive else ""))
+        record(routed(compare_mv_case(label, B, H, N, p, s, **kw)))
 
     # The MV ladder: every variant, chains and unroll, on a batch that is no
     # multiple of the chains; two and four slots per lane.
@@ -1005,6 +1187,16 @@ def phase_kernel_vs_plain():
     return out
 
 
+def alternating_ms(kernels, run):
+    """{layout: [ms, ms]}: ``run(kernel)`` for each of ``kernels`` timed in
+    two rounds of 3 (``cuda_ms``), the layouts alternating."""
+    times = {name: [] for name in kernels}
+    for _ in range(2):
+        for name, kernel in kernels.items():
+            times[name].append(cuda_ms(lambda: run(kernel), 3))
+    return times
+
+
 def phase_layouts():
     """Both layouts of kernels A and B at the comparison path's shape,
     which the warp layout takes (B=1028, H=5, N=20; B at S=16): the fixed
@@ -1014,7 +1206,7 @@ def phase_layouts():
     the warp layout, so the block kernel is launched directly. The
     layouts' weights must agree within the fixed-step bar (the adaptive
     body's on all but BEYOND_SHARE of the problems: two runs that may part
-    at a tie)."""
+    at a tie). ``mv_layouts`` does the same for kernel C."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     B, H, N = 1028, 5, 20
@@ -1040,10 +1232,7 @@ def phase_layouts():
                 return M._launch(kernel, body, cw, r, p, None, None, False,
                                  False)
 
-            times = {name: [] for name in kernels}
-            for _ in range(2):
-                for name, kernel in kernels.items():
-                    times[name].append(cuda_ms(lambda: run(kernel), 3))
+            times = alternating_ms(kernels, run)
             (w_warp, _), (w_block, _) = (run(k) for k in kernels.values())
             torch.cuda.synchronize()
             dw = (w_warp - w_block).abs().amax(dim=(1, 2))
@@ -1054,6 +1243,59 @@ def phase_layouts():
             warp_ms, block_ms = (float(np.median(t)) for t in times.values())
             emit("layouts", S=S, B=B, H=H, N=N, body=body,
                  iters=p.max_iters, warp_kernel=warp.name,
+                 block_kernel=kernels["block"].name, warp_ms=times["warp"],
+                 block_ms=times["block"], block_over_warp=block_ms / warp_ms,
+                 max_abs_dw=dw.max().item(), share_beyond_w_tol=beyond)
+
+
+def mv_layouts():
+    """Both layouts of kernel C at B=1028 with per-problem covariances,
+    which the warp layout takes: the Markowitz path's shape (H=1, N=20;
+    2000 iterations at gamma 1, and its accurate configuration, 800
+    adaptive) and H=5, N=30 (bench.py's Markowitz setting, 1000
+    iterations at refresh 16, and 1000 adaptive); timed and held as
+    ``phase_layouts`` holds kernels A and B, at the mean-variance weight
+    bar."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+    from kmpc_tpu_torch.ops.mpc import MPCParams
+
+    B = 1028
+    shapes = {
+        (1, 20, 410): {
+            "fixed": MPCParams(max_iters=2000, gamma=1.0, horizon=1),
+            "adaptive": MPCParams(max_iters=800, gamma=1.0, horizon=1,
+                                  adaptive=True, adapt_every=2,
+                                  precond=True)},
+        (5, 30, 412): {
+            "fixed": _params(max_iters=1000, gamma=5.0,
+                             proj_refresh_every=16),
+            "adaptive": _params(max_iters=1000, gamma=5.0, adaptive=True,
+                                adapt_every=2)},
+    }
+    for (H, N, seed), bodies in shapes.items():
+        cw, mu, sig = (torch.as_tensor(x, device="cuda")
+                       for x in mv_instance(B, H, N, seed, scale=0.01))
+        sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+        for body, p in bodies.items():
+            layout, warp = V._mv_route(H, N, p)
+            assert layout == "warp", (H, N, body, layout)
+            kernels = {"warp": warp,
+                       "block": V._MV_KERNELS[("block", p.adaptive)]}
+
+            def run(kernel):
+                return V._mv_launch(kernel, cw, mu, sig, p)
+
+            times = alternating_ms(kernels, run)
+            (w_warp, _), (w_block, _) = (run(k) for k in kernels.values())
+            torch.cuda.synchronize()
+            dw = (w_warp - w_block).abs().amax(dim=(1, 2))
+            assert torch.isfinite(w_block).all(), (H, N, body)
+            beyond = (dw > MV_W_TOL).float().mean().item()
+            assert beyond <= (BEYOND_SHARE if p.adaptive else 0.0), \
+                f"layouts C H={H} N={N} {body}: {beyond} of the problems apart"
+            warp_ms, block_ms = (float(np.median(t)) for t in times.values())
+            emit("layouts", program="mean_variance", B=B, H=H, N=N,
+                 body=body, iters=p.max_iters, warp_kernel=warp.name,
                  block_kernel=kernels["block"].name, warp_ms=times["warp"],
                  block_ms=times["block"], block_over_warp=block_ms / warp_ms,
                  max_abs_dw=dw.max().item(), share_beyond_w_tol=beyond)
@@ -1323,11 +1565,12 @@ def strategy_kernel(name, mpc, mv_mpc, n_assets):
     these settings (None for buy-and-hold): the mean-variance kernel for
     Markowitz, else the log-utility kernel of the shape and body."""
     from kmpc_tpu_torch.ops.mpc_cuda import _route
+    from kmpc_tpu_torch.ops.mv_cuda import _mv_route
 
     if name == "BuyAndHold":
         return None
-    if name == "Markowitz":
-        return "pdhg_mean_variance" + ("_adaptive" if mv_mpc.adaptive else "")
+    if name == "Markowitz":    # one step ahead, per-date covariances
+        return _mv_route(1, n_assets, mv_mpc)[1].name
     S = SCENARIOS if name == "ScenarioKelly" else None
     return _route(S, mpc.horizon, n_assets, mpc, False, False)[2].name
 
@@ -1346,8 +1589,7 @@ def kernel_counters():
     from kmpc_tpu_torch.ops import mv_cuda as V
     from kmpc_tpu_torch.ops.mv_ladder import MV_LADDER
 
-    return {k.name: k for k in M.KERNELS + (
-        V.PDHG_MEAN_VARIANCE, V.PDHG_MEAN_VARIANCE_ADAPTIVE, MV_LADDER)}
+    return {k.name: k for k in M.KERNELS + V.MV_KERNELS + (MV_LADDER,)}
 
 
 def run_strategies(ctx, cfg, sweeps, reach, horizon=None, names=None):
@@ -1802,6 +2044,271 @@ def phase_long_path(ctx):
     return launches, first
 
 
+# The mean-variance solve past one warp's registers: (label, B, H, N,
+# shared covariance). The Markowitz program at ``bench.py --mode long``'s
+# horizon, past the warp layout's N <= 64 at H=5, and one covariance shared
+# by the batch (as ``sharded_mpc_solver(program="mv")`` passes it) read
+# from L2 at H=1 and H=5 and staged in shared memory at H=20.
+MV_LONG_WIDE = (
+    ("long_H20N30", 4096, 20, 30, False),
+    ("H5N100", 4096, 5, 100, False),
+    ("shared_H1N960", 1028, 1, 960, True),
+    ("shared_H5N320", 1028, 5, 320, True),
+    ("shared_H20N64", 1028, 20, 64, True),
+)
+# The plain version's broadcast temporary Sigma[i, j] * w_t[j] holds
+# B H N^2 floats; its batch is cut to keep that within this many bytes.
+PLAIN_TEMP_BYTES = 1 << 30
+MV_PROBE_SEED = 1241   # bench.py's _small_probe_instances
+MV_REF_GRAPH = 100     # iterations of the float64 reference per graph
+
+
+def mv_settings():
+    """bench.py's Markowitz settings: fixed steps (1000 iterations, refresh
+    16, gamma 5, sigma_scale 2) and adaptive (1000, k=2)."""
+    from kmpc_tpu_torch.ops.mpc import MPCParams
+
+    common = dict(max_iters=1000, sigma_scale=2.0, gamma=5.0)
+    return {"fixed": MPCParams(proj_refresh_every=16, **common),
+            "adaptive": MPCParams(adaptive=True, adapt_every=2, **common)}
+
+
+def mv_probe_instances(H, N, n=16):
+    """bench.py's ``_small_probe_instances("mv", H, N)``: n problems with
+    per-problem covariances, seed 1241."""
+    r = np.random.default_rng(MV_PROBE_SEED)
+    cw = r.dirichlet(np.ones(N), size=n).astype(np.float32)
+    ys = (r.standard_normal((n, H, N)) * 0.01 + 0.0005).astype(np.float32)
+    A = r.standard_normal((n, N, N)) * 0.01
+    sig = (A @ np.swapaxes(A, -1, -2) + np.eye(N) * 1e-4).astype(np.float32)
+    return cw, ys, sig
+
+
+def mv_min_objective(w, mu, sig, cw, gamma=5.0, cost_coeff=0.001):
+    """bench.py's min-form mean-variance objective, in float64 on the
+    host."""
+    w = np.asarray(w, np.float64)
+    mu = np.asarray(mu, np.float64)
+    sig = np.asarray(sig, np.float64)
+    prev = np.concatenate([np.asarray(cw, np.float64)[:, None], w[:, :-1]], 1)
+    quad = np.einsum("btn,bnm,btm->b", w, sig, w)
+    return (gamma * quad - np.einsum("btn,btn->b", w, mu)
+            + cost_coeff * np.abs(w - prev).sum((-2, -1)))
+
+
+def graph_replay(chunk, eager):
+    """An ``ops.mpc._iterate`` (the eager solvers' loop over ``step``) that
+    runs the iterations on CUDA tensors as replays of one CUDA graph of
+    ``chunk`` iterations, captured on the current stream: the kernels of
+    the eager loop in its order on the same values, without the host's cost
+    per operation, and the remainder eagerly. ``chunk`` is a multiple of
+    the solve's ``adapt_every``, so each replay follows the loop's
+    schedule. CPU tensors and solves shorter than ``chunk`` run ``eager``."""
+
+    def iterate(step, state, n):
+        trips = n // chunk
+        if trips == 0 or not state[0].is_cuda:
+            return eager(step, state, n)
+        static = [x.clone(memory_format=torch.contiguous_format)
+                  for x in state]
+        # A warm-up step on a side stream sets up the libraries' handles
+        # and workspaces outside the capture.
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            step(0, *[x.clone() for x in static])
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = tuple(static)
+            for j in range(chunk):
+                out = step(j, *out)
+            for s, o in zip(static, out):
+                s.copy_(o)
+        for _ in range(trips):
+            graph.replay()
+        state = tuple(static)
+        for i in range(trips * chunk, n):
+            state = step(i, *state)
+        return state
+
+    return iterate
+
+
+@contextlib.contextmanager
+def graph_replayed(chunk):
+    """The eager solvers' loop replayed as CUDA graphs (``graph_replay``)
+    within the block."""
+    from kmpc_tpu_torch.ops import mpc as M
+
+    eager = M._iterate
+    M._iterate = graph_replay(chunk, eager)
+    try:
+        yield
+    finally:
+        M._iterate = eager
+
+
+def mv_references(shapes):
+    """Float64 reference objectives of each (H, N)'s probe instances, as
+    bench.py's ``_ref_objectives("mv", ...)`` builds them: adaptive PDHG
+    (k=2, sigma_scale 2, gamma 5) at 40000 iterations, here the port's
+    eager solver in float64 on the card. Its loop replays one CUDA graph of
+    MV_REF_GRAPH iterations (``graph_replayed``), each shape on a stream of
+    its own so that the shapes' small kernels overlap; nothing is timed
+    meanwhile."""
+    from dataclasses import replace
+
+    from kmpc_tpu_torch.ops.mpc import MPCParams, solve_mpc_mean_variance_batch
+
+    p = MPCParams(max_iters=40000, sigma_scale=2.0, gamma=5.0, adaptive=True,
+                  adapt_every=2)
+    # The replays are the eager loop: a short solve (two graphs and a
+    # remainder) gives the same bits both ways.
+    short = replace(p, max_iters=2 * MV_REF_GRAPH + 2)
+    args = [torch.as_tensor(x, dtype=torch.float64, device="cuda")
+            for x in mv_probe_instances(*shapes[0])]
+    eager = solve_mpc_mean_variance_batch(*args, short)[0]
+    pending = {}
+    with graph_replayed(MV_REF_GRAPH):
+        graphed = solve_mpc_mean_variance_batch(*args, short)[0]
+        assert torch.equal(eager, graphed), \
+            "graph replay differs from the loop"
+        for H, N in shapes:
+            cw, ys, sig = mv_probe_instances(H, N)
+            with torch.cuda.stream(torch.cuda.Stream()):
+                w, _ = solve_mpc_mean_variance_batch(
+                    *(torch.as_tensor(x, dtype=torch.float64, device="cuda")
+                      for x in (cw, ys, sig)), p)
+            pending[(H, N)] = (w, cw, ys, sig)
+        torch.cuda.synchronize()
+    return {shape: mv_min_objective(w.cpu().numpy(), ys, sig, cw)
+            for shape, (w, cw, ys, sig) in pending.items()}
+
+
+def phase_mv_long_wide():
+    """The mean-variance solve at the shapes of MV_LONG_WIDE, past the warp
+    layout, at both of bench.py's settings: first the path, every shape and
+    setting through ``solve_mpc_mean_variance_packed`` on bench.py's
+    Markowitz problems (the full batch) and on the shape's 16 probe
+    instances, launches counted from 0 and every row held feasible; then
+    per shape and setting the block kernel against its plain version per
+    problem (the plain version on a batch cut to PLAIN_TEMP_BYTES, timed
+    once), run twice for the same bits, timed (CUDA-event median of 3 after
+    those runs), its bound and registers, and on the probe instances the
+    kernel held against the plain version by the same bars; last the
+    probe's objective gap to the float64 references (median, p90).
+    Returns (launches, the long_H20N30 case of each kernel, every case by
+    kernel)."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    t0 = time.perf_counter()
+    settings = mv_settings()
+    data, probe = {}, {}
+    for seed, (label, B, H, N, shared) in enumerate(MV_LONG_WIDE):
+        data[label] = [torch.as_tensor(x, device="cuda") for x in mv_instance(
+            B, H, N, 900 + seed, shared, scale=0.01)]
+        probe[label] = mv_probe_instances(H, N)
+
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    solved = {}
+    for label, B, H, N, shared in MV_LONG_WIDE:
+        for body, p in settings.items():
+            w, info = V.solve_mpc_mean_variance_packed(*data[label], p)
+            w_probe, _ = V.solve_mpc_mean_variance_packed(
+                *(torch.as_tensor(x) for x in probe[label]), p)
+            solved[(label, body)] = (w, info, w_probe)
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()
+                if k.launches}
+    per_kernel = 2 * len(MV_LONG_WIDE)
+    assert launches == {"pdhg_mean_variance_block": per_kernel,
+                        "pdhg_mean_variance_block_adaptive": per_kernel}, \
+        launches
+    for (label, body), (w, info, _) in solved.items():
+        assert simplex_error(w) <= FEAS_TOL and bool((w >= 0).all()), \
+            (label, body, simplex_error(w))
+        assert bool(info["converged"].all()), (label, body)
+
+    regs = {name: _ptxas_report(name)[0] for name in launches}
+    rows, cases, first = [], {name: [] for name in launches}, {}
+    for label, B, H, N, shared in MV_LONG_WIDE:
+        cw, mu, sig = data[label]
+        sym = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+        for body, p in settings.items():
+            case = f"mv_long_wide_{label}_{body}"
+            layout, kernel = V._mv_route(H, N, p)
+            assert layout == "block", (case, layout)
+            out_k = mv_kernel_twice(case, layout, cw, mu, sym, p)
+            bp = min(B, PLAIN_TEMP_BYTES // (4 * H * N * N))
+            sig_p = sym if shared else sym[:bp]
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out_p = V.pdhg_mean_variance_plain(cw[:bp], mu[:bp], sig_p, p,
+                                               return_steps=p.adaptive)
+            end.record()
+            torch.cuda.synchronize()
+            res = {"case": case, "kernel": kernel.name, "B": B, "H": H,
+                   "N": N, "iters": p.max_iters, "shared_sigma": shared,
+                   "sigma_staged": V.mv_sigma_staged(H, N),
+                   "plain_batch": bp, "plain_ms": start.elapsed_time(end)}
+            hold_mv(case, cw[:bp], mu[:bp], sig_p, p,
+                    tuple(x[:bp] for x in out_k), out_p, res)
+            res["kernel_ms"] = cuda_ms(lambda: V.pdhg_mean_variance_cuda(
+                cw, mu, sym, p), 3, warmup=False)
+            res["bound_ms"], res["bound_by"] = mv_bound(B, H, N, p, shared)
+            res["bound_share"] = res["bound_ms"] / res["kernel_ms"]
+            res["registers"] = regs[kernel.name]
+
+            # The probe: the kernel held against the plain version on the
+            # same instances by the same bars (``hold_mv``, per instance).
+            pcw, pys, psig = (torch.as_tensor(x, device="cuda")
+                              for x in probe[label])
+            psym = (0.5 * (psig + psig.transpose(-1, -2))).contiguous()
+            out_pk = V.pdhg_mean_variance_cuda(pcw, pys, psym, p,
+                                               return_steps=p.adaptive)
+            out_pp = V.pdhg_mean_variance_plain(pcw, pys, psym, p,
+                                                return_steps=p.adaptive)
+            torch.cuda.synchronize()
+            held = {}
+            hold_mv(case + "_probe", pcw, pys, psym, p, out_pk, out_pp, held)
+            res["probe_vs_plain"] = {k: v for k, v in held.items() if k in (
+                "max_abs_dw", "max_abs_dobj", "decisions_parted",
+                "ended_apart", "unsettled_apart", "kernel_unsettled_apart",
+                "plain_unsettled_apart", "unsettled")}
+            w_pp, _ = V._finalize_mv(*out_pp[:2], pys, psym, pcw, p)
+            res["probe_plain"] = mv_min_objective(w_pp.cpu().numpy(),
+                                                  *probe[label][1:],
+                                                  probe[label][0])
+            rows.append(res)
+            cases[kernel.name].append(res)
+            if label == MV_LONG_WIDE[0][0]:
+                first[kernel.name] = res
+
+    refs = mv_references([(H, N) for _, _, H, N, _ in MV_LONG_WIDE])
+    for res in rows:
+        label, body = res["case"][len("mv_long_wide_"):].rsplit("_", 1)
+        cw_np, ys, sig_np = probe[label]
+        obj_k = mv_min_objective(solved[(label, body)][2].cpu().numpy(), ys,
+                                 sig_np, cw_np)
+        gap = obj_k - refs[(res["H"], res["N"])]
+        d = float(np.max(np.abs(obj_k - res.pop("probe_plain"))))
+        res.update({"reference": "f64_adaptive_pdhg_40000",
+                    "probe_instances": len(gap),
+                    "median_gap": float(np.median(gap)),
+                    "p90_gap": float(np.quantile(gap, 0.9)),
+                    "max_gap": float(np.max(gap)),
+                    "max_kernel_vs_plain": d})
+        assert np.all(np.isfinite(gap)), res
+        emit("mv_long_wide", **res)
+    emit("mv_long_wide_path", launches=launches,
+         seconds=time.perf_counter() - t0)
+    return launches, first, cases
+
+
 # The bench's long and assets500 shapes: (label, B, H, N, parameters,
 # median probe gap bar or None, time the plain version and hold it against
 # the kernel on the probe).
@@ -1973,6 +2480,9 @@ KERNELS = {
                                         _PALLAS + ":593"),
     "pdhg_log_utility_scenarios_block_adaptive": (
         _LOG + "_scenarios_block_adaptive.cu", _PALLAS + ":593"),
+    "pdhg_mean_variance_block": (_MV + "_block.cu", _PALLAS + ":1089"),
+    "pdhg_mean_variance_block_adaptive": (_MV + "_block_adaptive.cu",
+                                          _PALLAS + ":1196"),
 }
 
 
@@ -1988,6 +2498,7 @@ def main():
     phase_build()
     cases = phase_kernel_vs_plain()
     phase_layouts()
+    mv_layouts()
     phase_nan_row()
     phase_probe()
     ctx = phase_main_path(args.seed)
@@ -1996,6 +2507,9 @@ def main():
     accurate_launches, accurate_first = phase_accurate_path(ctx, fixed_values)
     scan_launches = phase_scan_path(ctx)
     long_launches, long_first = phase_long_path(ctx)
+    mv_launches, mv_first, mv_cases = phase_mv_long_wide()
+    for name, rows in mv_cases.items():
+        cases[name] += [c for c in rows if c is not mv_first[name]]
     ladder_launches, ladder_case = phase_mv_ladder()
     phase_headline()
     phase_large_headlines()
@@ -2003,7 +2517,9 @@ def main():
     # One entry per kernel: launches on the path that runs it (the
     # comparison path for the fixed-step warp kernels, the accurate path
     # for the adaptive ones, the long path for the pipelined and the block
-    # kernels, the ladder's entry point for the ladder; each counted from 0
+    # kernels of A and B, ``mv_long_wide`` for C's block kernels (its
+    # long_H20N30 case for the times), the ladder's entry point for the
+    # ladder; each counted from 0
     # over that path alone), the largest kernel-vs-plain weight difference
     # over every problem of all of its cases (for an adaptive kernel the
     # problems that ended apart included, with their count, the count of
@@ -2012,7 +2528,7 @@ def main():
     launches = {}
     for phase_launches, phase_first in (
             (comparison_launches, {}), (accurate_launches, accurate_first),
-            (long_launches, long_first),
+            (long_launches, long_first), (mv_launches, mv_first),
             ({"mv_ladder": ladder_launches}, {"mv_ladder": ladder_case})):
         for name, n in phase_launches.items():
             if n:
@@ -2035,7 +2551,8 @@ def main():
         }
         if name.endswith("_adaptive"):
             entry.update({
-                "problems": sum(c["B"] for c in every),
+                "problems": sum(c.get("plain_batch", c["B"])
+                                for c in every),
                 "ended_apart": sum(c["ended_apart"] for c in every),
                 "decisions_parted": sum(c["decisions_parted"] for c in every),
                 "max_abs_err_held": max(c["max_abs_dw_held"] for c in every),
@@ -2044,7 +2561,8 @@ def main():
                     "held_by_float64_referee",
                     "float64_parted_at_equal_histories",
                     "kernel_apart_from_float64",
-                    "plain_apart_from_float64")}})
+                    "plain_apart_from_float64", "unsettled_apart",
+                    "kernel_unsettled_apart", "plain_unsettled_apart")}})
         if "block" in name:
             entry["deterministic_cases"] = sum(
                 1 for c in every if c.get("deterministic"))

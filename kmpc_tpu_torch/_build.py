@@ -47,6 +47,9 @@ SOURCES = {
     "pdhg_log_utility_block_adaptive": "pdhg_log_utility_block_adaptive.cu",
     "pdhg_log_utility_scenarios_block_adaptive":
         "pdhg_log_utility_scenarios_block_adaptive.cu",
+    "pdhg_mean_variance_block": "pdhg_mean_variance_block.cu",
+    "pdhg_mean_variance_block_adaptive":
+        "pdhg_mean_variance_block_adaptive.cu",
 }
 
 

@@ -240,13 +240,7 @@ def _pdhg_loop(params: MPCParams, grad_g, w_init, w0, p0, tau_p, sigma,
     warm = params.proj_warm_iters > 0 and not params.allow_short
     proj_primal = _primal_projection(params)
 
-    w, p = w0, p0
-    th_w = torch.zeros(w0.shape[:-1] + (1,), dtype=w0.dtype, device=w0.device)
-    th_p = th_w
-    tau_c = tau_p
-    sig_c = sigma.expand(tau_p.shape)
-    alpha_c = torch.full_like(tau_c, 0.5)
-    for i in range(params.max_iters):
+    def step(i, w, p, th_w, th_p, tau_c, sig_c, alpha_c):
         v = w - tau_c * (grad_g(w) + _apply_Dt(p))
         if warm:
             w_new, th_w = project_simplex_warm(v, 1.0, th_w,
@@ -272,8 +266,23 @@ def _pdhg_loop(params: MPCParams, grad_g, w_init, w0, p0, tau_p, sigma,
         if rho != 1.0:
             w_new = w + rho * (w_new - w)
             p_new = p + rho * (p_new - p)
-        w, p = w_new, p_new
+        return w_new, p_new, th_w, th_p, tau_c, sig_c, alpha_c
+
+    th_w = torch.zeros(w0.shape[:-1] + (1,), dtype=w0.dtype, device=w0.device)
+    sig_c = sigma.expand(tau_p.shape)
+    state = (w0, p0, th_w, th_w, tau_p, sig_c, torch.full_like(tau_p, 0.5))
+    w, p, _, _, tau_c, _, _ = _iterate(step, state, params.max_iters)
     return w, p, tau_c
+
+
+def _iterate(step, state, n: int):
+    """``state = step(i, *state)`` for i = 0 .. n - 1: the loop of
+    ``_pdhg_loop``. It is looked up at each solve, so that a caller may run
+    the same steps another way (chip_smoke.py replays them as CUDA graphs
+    for its long float64 reference solves)."""
+    for i in range(n):
+        state = step(i, *state)
+    return state
 
 
 def _log_utility_tail(params: MPCParams, w, w_last, w_init):

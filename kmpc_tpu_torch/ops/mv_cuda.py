@@ -1,5 +1,5 @@
 """Fused mean-variance MPC solve (the Markowitz baseline's program): the
-hand-written CUDA kernel, its plain PyTorch version, and the wrapper.
+hand-written CUDA kernels, their plain PyTorch version, and the wrapper.
 
 Port of kmpc_tpu/ops/mpc_pallas.py ``solve_mpc_mean_variance_pallas_packed``
 (the TPU kernel ``_make_packed_mv_kernel``):
@@ -7,19 +7,30 @@ Port of kmpc_tpu/ops/mpc_pallas.py ``solve_mpc_mean_variance_pallas_packed``
     min_w  sum_t [gamma w_t' Sigma w_t - w_t.mu_t] + c sum_t ||u_t||_1
     s.t.   w_t on the simplex.
 
-One launch of ``csrc/pdhg_mean_variance.cu`` runs the whole Condat-Vu
-iteration: the quadratic gradient Sigma w_t in plain float32, the simplex
-projection with a carried Michelot threshold (full warm budget, the
-refresh schedule of ``proj_refresh_every``, or cold projections), the dual
-prox as a clip to [-c, c] (the program has no turnover ball), and
-over-relaxation; a final primal half-step gives the returned iterate and
-the fixed-point residual. With ``adaptive`` the steps are carried per
-problem and balanced by the primal and dual residuals on every
-``adapt_every``-th iteration, the refresh schedule is off, and the launch
-goes to ``csrc/pdhg_mean_variance_adaptive.cu``. The covariance is per problem ([B, N, N]) or one
+One launch runs the whole Condat-Vu iteration: the quadratic gradient
+Sigma w_t in plain float32, the simplex projection with a carried Michelot
+threshold (full warm budget, the refresh schedule of
+``proj_refresh_every``, or cold projections), the dual prox as a clip to
+[-c, c] (the program has no turnover ball), and over-relaxation; a final
+primal half-step gives the returned iterate and the fixed-point residual.
+With ``adaptive`` the steps are carried per problem and balanced by the
+primal and dual residuals on every ``adapt_every``-th iteration, and the
+refresh schedule is off. The covariance is per problem ([B, N, N]) or one
 matrix shared by the batch ([N, N] or [1, N, N]); it is symmetrised first.
 
-A CUDA tensor launches the kernel or raises; a CPU tensor runs
+Two layouts, chosen by shape (``mv_kernel_layout``): one warp per problem
+with the iterates in registers and Sigma in shared memory
+(``csrc/pdhg_mean_variance.cu``, ``..._adaptive.cu``) where
+pow2ceil(H) * ceil(N/32) <= 16 and N <= 128; else one block per problem
+with the iterates in shared memory (``csrc/pdhg_mean_variance_block.cu``,
+``..._block_adaptive.cu``) where they fit a block's 227 KB
+(``mv_block_smem_bytes``: five [H, N] arrays and the reduce staging; Sigma
+is staged beside them where it fits, else read from global memory); else
+``ValueError`` naming ``solve_mpc_mean_variance_batch``. The block layout
+takes every shape kmpc_tpu's wrapper sends to its Pallas kernel (a working
+set within 8 MiB at the 128-lane tile).
+
+A CUDA tensor launches a kernel or raises; a CPU tensor runs
 ``pdhg_mean_variance_plain``. ``allow_short`` raises here: a caller who
 wants shorts calls ``solve_mpc_mean_variance_batch`` by name.
 """
@@ -27,7 +38,7 @@ wants shorts calls ``solve_mpc_mean_variance_batch`` by name.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -48,6 +59,7 @@ from kmpc_tpu_torch.ops.mpc_cuda import (
     _moved,
     _require_cuda_f32,
     _sweep_budgets,
+    block_threads,
     kernel_supports,
 )
 from kmpc_tpu_torch.ops.projections import michelot_threshold
@@ -64,6 +76,21 @@ PDHG_MEAN_VARIANCE = CudaKernel(
 PDHG_MEAN_VARIANCE_ADAPTIVE = CudaKernel(
     "pdhg_mean_variance_adaptive", "kmpc_pdhg_mean_variance_adaptive",
     [_P] * 6 + _ARGTYPES)
+# The block-per-problem layout, with the same C interfaces.
+PDHG_MEAN_VARIANCE_BLOCK = CudaKernel(
+    "pdhg_mean_variance_block", "kmpc_pdhg_mean_variance_block",
+    [_P] * 5 + _ARGTYPES)
+PDHG_MEAN_VARIANCE_BLOCK_ADAPTIVE = CudaKernel(
+    "pdhg_mean_variance_block_adaptive",
+    "kmpc_pdhg_mean_variance_block_adaptive", [_P] * 6 + _ARGTYPES)
+# (layout, adaptive) -> kernel
+_MV_KERNELS = {
+    ("warp", False): PDHG_MEAN_VARIANCE,
+    ("warp", True): PDHG_MEAN_VARIANCE_ADAPTIVE,
+    ("block", False): PDHG_MEAN_VARIANCE_BLOCK,
+    ("block", True): PDHG_MEAN_VARIANCE_BLOCK_ADAPTIVE,
+}
+MV_KERNELS = tuple(_MV_KERNELS.values())
 
 
 def mv_smem_bytes(N: int) -> int:
@@ -74,10 +101,46 @@ def mv_smem_bytes(N: int) -> int:
 
 
 def mv_kernel_supports(H: int, N: int) -> bool:
-    """Whether the mean-variance kernel takes horizon H and N assets: the
+    """Whether the warp-layout kernel takes horizon H and N assets: the
     register budget of the log-utility kernels, and one covariance within
     a block's shared memory."""
     return kernel_supports(H, N) and mv_smem_bytes(N) <= SMEM_PER_BLOCK
+
+
+def _mv_block_iterate_floats(H: int, N: int) -> int:
+    return 5 * H * N + N + H + 4 + block_threads(N) // 32 * 2 * H
+
+
+def mv_sigma_staged(H: int, N: int) -> bool:
+    """Whether the block layout stages the covariance in shared memory
+    beside the iterates (else each iteration reads it from global
+    memory)."""
+    return 4 * (_mv_block_iterate_floats(H, N) + N * N) <= SMEM_PER_BLOCK
+
+
+def mv_block_smem_bytes(H: int, N: int) -> int:
+    """Shared memory of one problem in the block layout (``mv_block_plan``
+    in csrc/pdhg_mean_variance_block.cuh, whose value the built library
+    reports as ``kmpc_mv_block_smem_bytes``): w, p, mu, the projection
+    input and the dual input as [H][N]; the current weights; the per-row
+    thresholds; four residual slots; each warp's staging of the largest
+    stacked reduce (a sweep's count and sum of every row); and the
+    covariance [N][N] where all of it fits a block. A per-problem and a
+    shared covariance take the same plan."""
+    sigma = N * N if mv_sigma_staged(H, N) else 0
+    return 4 * (_mv_block_iterate_floats(H, N) + sigma)
+
+
+def mv_kernel_layout(H: int, N: int) -> Optional[str]:
+    """The layout a CUDA mean-variance solve of this shape runs in:
+    ``"warp"`` where ``mv_kernel_supports`` holds, else ``"block"`` where
+    one problem's iterates fit a block's shared memory, else None. Neither
+    a shared covariance nor the adaptive body changes either budget."""
+    if mv_kernel_supports(H, N):
+        return "warp"
+    if H >= 1 and N >= 1 and mv_block_smem_bytes(H, N) <= SMEM_PER_BLOCK:
+        return "block"
+    return None
 
 
 def _check_params(params: MPCParams, entry: str) -> None:
@@ -181,6 +244,24 @@ def pdhg_mean_variance_plain(
     return w_last, fp, steps
 
 
+def _mv_route(H: int, N: int,
+              params: MPCParams) -> Tuple[str, CudaKernel]:
+    """(layout, kernel) of a CUDA mean-variance solve: the layout
+    ``mv_kernel_layout`` gives the shape, the body the parameters select;
+    raises ``ValueError`` for a shape beyond both layouts' budgets, naming
+    the eager solver."""
+    layout = mv_kernel_layout(H, N)
+    if layout is None:
+        raise ValueError(
+            f"H={H}, N={N} exceeds the mean-variance kernels' budgets: the "
+            f"warp layout needs ceil(N/32) <= {MAX_SLOTS} and pow2ceil(H) * "
+            f"ceil(N/32) <= {MAX_ROW_ELEMENTS}, the block layout one "
+            f"problem's iterates within {SMEM_PER_BLOCK} bytes of shared "
+            f"memory, here {mv_block_smem_bytes(H, N)}; the eager "
+            "solver solve_mpc_mean_variance_batch takes any shape")
+    return layout, _MV_KERNELS[(layout, params.adaptive)]
+
+
 def pdhg_mean_variance_cuda(
     current_weights: torch.Tensor,
     mu: torch.Tensor,
@@ -188,10 +269,11 @@ def pdhg_mean_variance_cuda(
     params: MPCParams,
     return_steps: bool = False,
 ):
-    """One launch of the CUDA kernel on the current stream
-    (``pdhg_mean_variance``, or ``pdhg_mean_variance_adaptive`` with
-    ``params.adaptive``): the contract of ``pdhg_mean_variance_plain``, for
-    CUDA float32 tensors."""
+    """One launch of a CUDA kernel on the current stream: the contract of
+    ``pdhg_mean_variance_plain``, for CUDA float32 tensors.
+    ``pdhg_mean_variance`` (``..._adaptive`` with ``params.adaptive``)
+    where the warp layout takes the shape, else ``..._block`` (or
+    ``..._block_adaptive``), else ``ValueError`` (``mv_kernel_layout``)."""
     _check_params(params, "pdhg_mean_variance_cuda")
     _check_return_steps(params, return_steps)
     if mu.dim() != 3 or current_weights.shape != (mu.shape[0], mu.shape[2]):
@@ -206,17 +288,16 @@ def pdhg_mean_variance_cuda(
             f"expected Sigma [N, N] or [B, N, N] with B={B}, N={N}, got "
             f"{tuple(Sigma.shape)}")
     _require_cuda_f32(current_weights=current_weights, mu=mu, Sigma=Sigma)
-    if not kernel_supports(H, N):
-        raise ValueError(
-            f"H={H}, N={N} exceeds the kernel's register budget: it needs "
-            f"ceil(N/32) <= {MAX_SLOTS} and pow2ceil(H) * ceil(N/32) <= "
-            f"{MAX_ROW_ELEMENTS}"
-        )
-    if not mv_kernel_supports(H, N):
-        raise ValueError(
-            f"N={N} exceeds the kernel's shared-memory budget: one "
-            f"covariance takes {mv_smem_bytes(N)} bytes of a block's "
-            f"{SMEM_PER_BLOCK}")
+    _, kernel = _mv_route(H, N, params)
+    return _mv_launch(kernel, current_weights, mu, Sigma, params,
+                      return_steps)
+
+
+def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
+               return_steps=False):
+    """Launch ``kernel`` (any of ``MV_KERNELS`` whose body matches
+    ``params.adaptive``) on checked CUDA tensors and count the launch."""
+    B, H, N = mu.shape
     w = torch.empty_like(mu)
     fp = torch.empty(B, dtype=torch.float32, device=mu.device)
     steps = torch.empty((B, 6), dtype=torch.float32, device=mu.device) \
@@ -225,10 +306,8 @@ def pdhg_mean_variance_cuda(
     if B == 0:
         return out
     warm, warm_iters, cold_iters = _sweep_budgets(params, N)
-    if params.adaptive:
-        kernel, schedule = PDHG_MEAN_VARIANCE_ADAPTIVE, params.adapt_every
-    else:
-        kernel, schedule = PDHG_MEAN_VARIANCE, params.proj_refresh_every
+    schedule = (params.adapt_every if params.adaptive
+                else params.proj_refresh_every)
     fn = kernel.function()
     with torch.cuda.device(mu.device):
         stream = torch.cuda.current_stream(mu.device).cuda_stream
@@ -237,7 +316,7 @@ def pdhg_mean_variance_cuda(
             w.data_ptr(), fp.data_ptr(),
             *((None if steps is None else steps.data_ptr(),)
               if params.adaptive else ()),
-            B, H, N, int(shared),
+            B, H, N, int(Sigma.dim() == 2),
             params.max_iters, schedule, warm_iters,
             cold_iters, params.cost_coeff, params.gamma, params.over_relax,
             params.step_scale, params.sigma_scale, int(warm), stream,
