@@ -5,9 +5,11 @@
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
-1. ``build``: the card, torch and CUDA versions, the build of the fifteen
+1. ``build``: the card, torch and CUDA versions, the build of the nineteen
    kernel sources (one nvcc per source, started together, from the sources
-   in this checkout) with each build's seconds, registers and spills;
+   in this checkout) with each build's seconds, registers and spills (every
+   instantiation but the ladder's), and the wrappers' copies of the block
+   and row layouts' shared-memory plans against the built kernels';
 2. ``kernels``: every CUDA kernel against its plain PyTorch version on the
    card: the log-utility kernel over the parametrised cases of the CPU
    tests, the edges of its register budget and the main-path and bench
@@ -25,10 +27,18 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    covariances at H=17, H=340, N=65, N=112, H=16 N=88; a shared one at
    N=129, N=1112, N=480 at H=5, N=128 at H=20; adaptive at N=976 shared
    and H=20 N=64; over-relaxation, cold projections); every block case
-   run twice and required to give the same bits; every rung of the MV
-   ladder; then ``layouts``: both layouts of kernels A and B timed at the
-   comparison path's shape, which the warp layout takes, and of kernel C
-   at the Markowitz path's shape (H=1, N=20) and at H=5, N=30;
+   run twice and required to give the same bits; the row layout (one warp
+   per horizon row) beside the warp and block layouts at every case
+   whose shape it takes, run twice for the same bits and compared bit for
+   bit with the warp kernel, and at cases of its own (H in {1, 5, 8, 17,
+   20, 32}, one to four slots, scenario returns past its registers, warm
+   inputs and the dual output); every rung of the MV ladder; then
+   ``layouts``: every layout of kernels A and B that takes the shape, timed
+   at the exact scan's (B=1), the comparison's (B=1028) and the headline's
+   (B=65536) batch at H=5, at H=1, and at the long path's H=20 (B=1013,
+   S=16 too) and bench.py's long shape, the routed layout required to be
+   the fastest; and of kernel C at the Markowitz path's shape (H=1, N=20)
+   and at H=5, N=30;
 3. ``nan_row``, ``probe``, ``probe_accurate``: a NaN forecast holds the
    weights; accuracy on the 64 bench probe instances against the float64
    oracle objectives in bench_probe_cache.json, at the bench setting and
@@ -36,8 +46,8 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
 4. ``main_path``: finance_sparse at full width (observation 400, latent
    1024) with seeded random weights on the synthetic panel, the H=5
    forecast for every test date, and the Jacobi backtest, 4 sweeps of the
-   fused solve, for Koopman-MPC and buy-and-hold; the kernel's launch count
-   must equal the number of sweeps;
+   fused solve (the row kernel), for Koopman-MPC and buy-and-hold; the
+   kernel's launch count must equal the number of sweeps;
 5. ``comparison``: the full strategy comparison on the same data:
    buy-and-hold, Markowitz, DMD, Koopman-MPC and scenario Kelly (S=16), 8
    sweeps each, every batched solve through its kernel; then Koopman-MPC
@@ -62,13 +72,18 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    as many sweeps as dates must give the scan's portfolio values;
 8. ``long_path``: the comparison at H=20 with the pipeline configuration
    (``PROJ_REFRESH_EVERY=16``, ``PIPELINE_REDUCES``, ``PRECOND``), 4
-   sweeps: DMD and Koopman-MPC through kernel A's block layout, scenario
+   sweeps: DMD and Koopman-MPC through kernel A's row layout, scenario
    Kelly through kernel B's, Markowitz through C; then Koopman-MPC and
-   scenario Kelly at the accurate configuration at H=20 (the block
-   layout's adaptive kernels) and with the pipeline configuration at H=5
-   (the warp layout's pipelined kernels), 2 sweeps each; launches per
-   kernel, feasibility and the first solves against the plain versions as
-   in ``accurate_path``;
+   scenario Kelly at the accurate configuration at H=20 and with the
+   pipeline configuration at H=5, 2 sweeps each; launches per kernel,
+   feasibility and the first solves against the plain versions as in
+   ``accurate_path``; then ``warp_path``: the warp layout's six kernels at
+   the three configurations, kernel A's (which routing no longer picks)
+   launched in that layout on the comparison's first-sweep problems, kernel
+   B's through its packed entry point at a shape that routes to it (B=132,
+   S=113, H=8, N=64), and ``block_path``: the block layout's four kernels at
+   a shape past the row layout (B=1028, H=5, N=150, one forecast and
+   S=16), each launch counted and each held against its plain version;
 9. ``mv_long_wide``: the mean-variance solve past the warp layout (C.2)
    at bench.py's Markowitz settings (1000 iterations at refresh 16, and
    1000 adaptive) on bench.py's problems: per-problem covariances at
@@ -184,6 +199,22 @@ REFEREE_FACTOR = 3.0
 # fixed-point residual exceeds MV_UNSETTLED_FP is held against the float64
 # run instead (``hold_unsettled_mv``).
 MV_UNSETTLED_FP = 1e-4
+# The adaptive log-utility body past the row layout (``block_path``, B=1028
+# at N=150, 800 iterations; ``wide`` cases) is at float32's limit as at
+# N=500 (REFEREE_FACTOR): a few problems leave both float32 runs unsettled
+# (fixed-point residual 1.6e-4 to 4.9e-4) and, where their step histories
+# part, 7.9e-4 to 1.3e-3 apart in objective, either one within 2.4e-6 of
+# the float64 run; such a problem is held against the float64 run as
+# ``hold_unsettled`` says. And with S=16 one problem with equal histories
+# ends 1.9e-3 from the float64 run in weights, where the plain version
+# with its assets permuted ends the same 1.9e-3 from it while the plain
+# version as given stays within 2.4e-5 (the two share the float64 run's
+# summation order): so in a wide case the referee holds each problem to
+# the larger of the case's float32 noise and that problem's own distance
+# of the permuted plain version, where the permuted run's step history is
+# the float64 run's too (measured on an H100, PERF.md section 6). Every
+# other case keeps its bars.
+LOG_UNSETTLED_FP = 1e-4
 ACCURATE_PROBE_GAP = 1.5e-4  # median gap to the oracle, accurate setting
 # A warm sweep's solution (500 iterations) against a cold full-budget solve
 # from the same pre-trade weights: the largest objective deficit over the
@@ -195,6 +226,43 @@ WARM_DEFICIT_REL = 0.25
 WARM_DEFICIT_MEAN = 2e-4
 WARM_VS_COLD_MAX_SHARE = 0.5
 WARM_VS_COLD_MEAN_SHARE = 0.25
+
+
+# Where the row kernel parts from the warp kernel's bits: nvcc picks which
+# product of an expression to fuse into an fma per warp-layout
+# instantiation (pow2ceil(H), ceil(N/32)), and the row kernel writes out
+# the warp kernel's choice at the paths' instantiation HM=8, K=1 (PERF.md
+# section 6). The instantiations (scenarios, HM, K, body) at which the two
+# parted on an H100 in the ``kernels`` phase, with the first differing
+# operation as per-phase dumps of both kernels found it; every other
+# instantiation must give the warp kernel's bits. ROWS_BITS_PARTED is how many of the ``kernels`` phase's
+# shared-shape cases parted there (11 of 113).
+_ADAPTIVE_PROX = ("the adaptive dual prox's c / sigma, which the warp "
+                  "kernels fuse into |v| - c / sigma and c / sigma + excess "
+                  "at HM=8 K=1 and into one or the other of them elsewhere")
+ROWS_BITS_TRACED = {
+    (False, 1, 1, "adaptive"): _ADAPTIVE_PROX,
+    (False, 1, 4, "adaptive"): _ADAPTIVE_PROX,
+    (False, 4, 3, "adaptive"): _ADAPTIVE_PROX,
+    (False, 4, 4, "adaptive"): _ADAPTIVE_PROX,
+    (False, 8, 2, "adaptive"): _ADAPTIVE_PROX,
+    (True, 8, 2, "adaptive"): _ADAPTIVE_PROX,
+    (False, 8, 1, "ridge"): (
+        "the primal step c1 w + (g - tau (p - p_next)), three products: no "
+        "fusing of them gave the warp kernel's iteration 0 at HM=8 K=1"),
+}
+ROWS_BITS_PARTED = 11
+
+
+def rows_bits_part(H, N, params, S=None):
+    """Why the row kernel may part from the warp kernel's bits on this case
+    (ROWS_BITS_TRACED: the adaptive body at the traced instantiations, the
+    fixed step with a ridge at HM=8 K=1), or None where it must give
+    them."""
+    hm, k = 1 << max(H - 1, 0).bit_length(), -(-N // 32)
+    body = ("adaptive" if params.adaptive
+            else "ridge" if params.ridge != 0.0 else None)
+    return ROWS_BITS_TRACED.get((S is not None, hm, k, body))
 
 
 def emit(phase: str, **fields) -> None:
@@ -368,35 +436,93 @@ def check_feasible(w, cw, params, label, sum_tol=FEAS_TOL):
 
 
 def compare_case(label, B, H, N, params, seed, S=None, warm=False,
-                 dual=False, time_reps=3, time_plain=True):
+                 dual=False, time_reps=3, time_plain=True, layouts=None):
     """A log-utility kernel and the plain version on the same card inputs,
-    through the same finalisation; returns the case's JSON fields. With S
-    the scenario kernel. ``dual`` also compares the loop's last dual.
-    ``warm`` compares a continuation of a quarter of the budget from the
-    iterates of a cold plain solve (and its dual output)."""
+    through the same finalisation; returns the case's JSON fields by
+    layout (``compare_layouts``). With S the scenario kernel. ``dual``
+    also compares the loop's last dual. ``warm`` compares a continuation of
+    a quarter of the budget from the iterates of a cold plain solve (and
+    its dual output)."""
     if S is None:
         cw_np, ys_np = instance(B, H, N, seed)
     else:
         cw_np, ys_np = scenario_instance(B, S, H, N, seed)
     cw = torch.as_tensor(cw_np, device="cuda")
     r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
-    return compare_tensors(label, cw, r, params, warm, dual, time_reps,
-                           time_plain)
+    return compare_layouts(label, cw, r, params, warm, dual, time_reps,
+                           time_plain, layouts)
 
 
 def compare_tensors(label, cw, r, params, warm=False, dual=False,
-                    time_reps=3, time_plain=True):
-    """``compare_case`` on given card tensors: current weights [B, N] and
-    gross returns [B, H, N] or [B, S, H, N]. With ``params.adaptive`` the
-    bars are applied as ``adaptive_agreement`` says. A block-layout kernel
-    runs twice and must give the same bits (its reduces stage sums in
-    shared memory: a missing barrier shows as a run-to-run difference)."""
+                    time_reps=3, time_plain=True, wide=False):
+    """``compare_layouts`` for the layout the wrapper routes the shape to;
+    returns that layout's case."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    S = r.shape[1] if r.dim() == 4 else None
+    layout = M.kernel_layout(S, r.shape[-2], r.shape[-1])
+    return compare_layouts(label, cw, r, params, warm, dual, time_reps,
+                           time_plain, [layout], wide)[layout]
+
+
+def pinned_kernel(layout, r, params):
+    """The kernel of ``layout`` for a solve of gross returns ``r`` [B, H, N]
+    or [B, S, H, N] with these parameters' body; ``ValueError`` where the
+    layout does not take the shape."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    S = r.shape[1] if r.dim() == 4 else None
+    H, N = r.shape[-2], r.shape[-1]
+    if layout not in M.LAYOUTS:
+        raise ValueError(f"layout must be one of {M.LAYOUTS}, got {layout!r}")
+    if not M.layout_supports(layout, S, H, N):
+        raise ValueError(
+            f"the {layout} layout does not take S={S}, H={H}, N={N}")
+    return M._KERNELS[(S is not None, layout, M._body(params))]
+
+
+def pinned(layout, cw, r, params, w_warm=None, p_warm=None,
+           return_dual=False, return_steps=False):
+    """``pdhg_log_utility_cuda`` in ``layout`` (which must take the shape)
+    instead of the one routing gives: that layout's kernel for the
+    parameters' body, launched and counted as the entry point launches it.
+    For the phases that compare layouts, and for ``warp_path``, which drives
+    the warp layout's kernel A at the paths' shapes, where routing takes the
+    row layout."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    kernel = pinned_kernel(layout, r, params)
+    warm = {k: v for k, v in (("w_warm", w_warm), ("p_warm", p_warm))
+            if v is not None}
+    M._require_cuda_f32(current_weights=cw, r=r, **warm)
+    return M._launch(kernel, M._body(params), cw, r, params, w_warm, p_warm,
+                     return_dual, return_steps)
+
+
+def compare_layouts(label, cw, r, params, warm=False, dual=False,
+                    time_reps=3, time_plain=True, layouts=None,
+                    wide=False):
+    """Each of ``layouts`` (default: the one the wrapper routes to) on given
+    card tensors, launched in that layout (``pinned``), against one
+    run of the plain version: current weights [B, N] and gross returns
+    [B, H, N] or [B, S, H, N]. With ``params.adaptive`` the bars are
+    applied as ``adaptive_agreement`` says. A row or block kernel runs
+    twice and must give the same bits (its rows or its reduces meet in
+    shared memory: a missing barrier shows as a run-to-run difference).
+    Where the warp and the row layout both run, the row kernel's outputs
+    (weights, fixed-point residual, dual, steps) must equal the warp
+    kernel's bit for bit (``bits_equal_warp``, checked by ``check_bits``)
+    unless ``rows_bits_part`` names the first operation at which the two
+    may part; those cases are held to the bars alone. Returns {layout:
+    case}."""
     from dataclasses import replace
 
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     S = r.shape[1] if r.dim() == 4 else None
     B, H, N = r.shape[0], r.shape[-2], r.shape[-1]
+    if layouts is None:
+        layouts = [M.kernel_layout(S, H, N)]
     kw = {}
     if warm:
         w0, _, p0 = M.pdhg_log_utility_plain(cw, r, params, return_dual=True)
@@ -404,43 +530,76 @@ def compare_tensors(label, cw, r, params, warm=False, dual=False,
         kw = dict(w_warm=w0.contiguous(), p_warm=p0.contiguous())
     dual = dual or warm or params.adaptive
     steps = params.adaptive
-    layout, _, kernel = M._route(S, H, N, params, warm, dual)
-    out_k = M.pdhg_log_utility_cuda(cw, r, params, return_dual=dual,
-                                    return_steps=steps, **kw)
-    if layout == "block":
-        again = M.pdhg_log_utility_cuda(cw, r, params, return_dual=dual,
-                                        return_steps=steps, **kw)
-        torch.cuda.synchronize()
-        assert all(torch.equal(x, y) for x, y in zip(out_k, again)), \
-            f"{label}: two runs of the block kernel differ"
     out_p = M.pdhg_log_utility_plain(cw, r, params, return_dual=dual,
                                      return_steps=steps, **kw)
-    torch.cuda.synchronize()
-    res = {"case": label, "kernel": kernel.name, "B": B, "H": H, "N": N,
-           "iters": params.max_iters}
-    if layout == "block":
-        res["deterministic"] = True
-    hold_to_plain(label, cw, r, params, kw, out_k, out_p, res)
-    res["bound_ms"], res["bound_by"] = pdhg_bound(B, H, N, params, S, warm,
-                                                  dual)
-    if S is not None:
-        res["S"] = S
-    res["kernel_ms"] = cuda_ms(lambda: M.pdhg_log_utility_cuda(
-        cw, r, params, return_dual=dual, **kw), time_reps)
-    if time_plain:
-        res["plain_ms"] = cuda_ms(lambda: M.pdhg_log_utility_plain(
-            cw, r, params, return_dual=dual, **kw), 1)
-    return res
+    plain_ms = cuda_ms(lambda: M.pdhg_log_utility_plain(
+        cw, r, params, return_dual=dual, **kw), 1) if time_plain else None
+    bound = pdhg_bound(B, H, N, params, S, warm, dual)
+    results, outs = {}, {}
+    for layout in layouts:
+        kernel = pinned_kernel(layout, r, params)
+        out_k = pinned(layout, cw, r, params, return_dual=dual,
+                       return_steps=steps, **kw)
+        res = {"case": label, "layout": layout, "kernel": kernel.name,
+               "B": B, "H": H, "N": N, "iters": params.max_iters}
+        if layout != "warp":
+            again = pinned(layout, cw, r, params, return_dual=dual,
+                           return_steps=steps, **kw)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(out_k, again)), \
+                f"{label}: two runs of the {layout} kernel differ"
+            res["deterministic"] = True
+        torch.cuda.synchronize()
+        hold_to_plain(label, cw, r, params, kw, out_k, out_p, res, wide)
+        res["bound_ms"], res["bound_by"] = bound
+        if S is not None:
+            res["S"] = S
+        res["kernel_ms"] = cuda_ms(lambda: pinned(
+            layout, cw, r, params, return_dual=dual, **kw), time_reps)
+        if plain_ms is not None:
+            res["plain_ms"] = plain_ms
+        results[layout], outs[layout] = res, out_k
+    if "warp" in outs and "rows" in outs:
+        same = [torch.equal(x, y) for x, y in zip(outs["warp"], outs["rows"])]
+        results["rows"]["bits_equal_warp"] = all(same)
+        if not all(same):
+            results["rows"]["bits_equal_outputs"] = same
+            results["rows"]["bits_part"] = rows_bits_part(H, N, params, S)
+    return results
 
 
-def hold_to_plain(label, cw, r, params, kw, out_k, out_p, res):
+def check_bits(results):
+    """The row cases whose bits part from the warp kernel's with no
+    reason from ``rows_bits_part`` must be none, and those with one no
+    more than ROWS_BITS_PARTED; returns the tally."""
+    rows = [r for r in results if "bits_equal_warp" in r]
+    parted = [r for r in rows if not r["bits_equal_warp"]]
+    unexcused = [(r["case"], r["bits_equal_outputs"]) for r in parted
+                 if not r["bits_part"]]
+    assert not unexcused, \
+        f"the row kernel's bits differ from the warp kernel's (weights, " \
+        f"fp, dual, steps equal) at {unexcused}"
+    assert len(parted) <= ROWS_BITS_PARTED, \
+        f"the row kernel's bits part from the warp kernel's at " \
+        f"{len(parted)} cases, more than the {ROWS_BITS_PARTED} traced: " \
+        f"{[r['case'] for r in parted]}"
+    return {"cases": len(rows), "equal": len(rows) - len(parted),
+            "parted": [r["case"] for r in parted]}
+
+
+def hold_to_plain(label, cw, r, params, kw, out_k, out_p, res, wide=False):
     """The bars of a log-utility case, on any device: the kernel's outputs
     ``out_k`` against the plain version's ``out_p`` (weights, fixed-point
     residuals, the dual where returned, the steps with
     ``params.adaptive``) on current weights ``cw`` and gross returns ``r``,
     both continued from the warm iterates in ``kw`` if any, through the
-    same finalisation. Adaptive cases as ``adaptive_agreement`` says.
-    Fills ``res``; raises ``AssertionError`` at the first bar missed."""
+    same finalisation. Adaptive cases as ``adaptive_agreement`` says; a
+    ``wide`` case (LOG_UNSETTLED_FP) also holds a problem beyond FLIP_OBJ_TOL
+    where either side's fixed-point residual exceeds LOG_UNSETTLED_FP as
+    ``hold_unsettled`` says, and gives the referee, beside the plain
+    version's distances, those of the plain version with its assets
+    permuted, each problem's its own. Fills ``res``;
+    raises ``AssertionError`` at the first bar missed."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     S = r.shape[1] if r.dim() == 4 else None
@@ -458,8 +617,10 @@ def hold_to_plain(label, cw, r, params, kw, out_k, out_p, res):
     def referee():
         """The distances of the kernel and of the plain version to the plain
         version in float64 on the same inputs, per problem: (objective,
-        weights, duals) for each, and where the plain version's step history
-        is the float64 run's."""
+        weights, duals) for each, where the plain version's step history is
+        the float64 run's, and for a ``wide`` case the distances of the
+        plain version run with its assets permuted (0 where its step history
+        is not the float64 run's), else None."""
         plain_kw = {k: v.double() for k, v in kw.items()}
         out64 = M.pdhg_log_utility_plain(cw.double(), r.double(), params,
                                          return_dual=True, return_steps=True,
@@ -473,12 +634,34 @@ def hold_to_plain(label, cw, r, params, kw, out_k, out_p, res):
                     (w.double() - w64).abs().amax(dim=(1, 2)),
                     (dual.double() - out64[2]).abs().amax(dim=(1, 2)))
 
-        return (distances(wk_f, ik, out_k[2]), distances(wp_f, ip, out_p[2]),
-                same)
+        d_perm = None
+        if wide:
+            # The plain version with its assets permuted (no warm inputs
+            # on that path): another float32 summation order.
+            perm = torch.randperm(r.shape[-1], generator=torch.Generator()
+                                  .manual_seed(0)).to(r.device)
+            inv = torch.argsort(perm)
+            o = M.pdhg_log_utility_plain(cw[:, perm].contiguous(),
+                                         r[..., perm].contiguous(), params,
+                                         return_dual=True, return_steps=True)
+            wq, iq = M._finalize_packed(o[0][..., inv], r, cw, params, o[1])
+            also = o[3][:, -1].double() == out64[-1][:, -1]
+            d_perm = tuple(torch.where(also, d, torch.zeros_like(d))
+                           for d in distances(wq, iq, o[2][..., inv]))
+        return (distances(wk_f, ik, out_k[2]),
+                distances(wp_f, ip, out_p[2]), same, d_perm)
 
     if steps:
+        astray = None
+        if wide:
+            astray = (dobj.abs() > FLIP_OBJ_TOL) & (
+                (out_k[1] > LOG_UNSETTLED_FP) | (out_p[1] > LOG_UNSETTLED_FP))
+            hold_unsettled(label, cw, r, params, astray, out_k[1], out_p[1],
+                           ik["objective"], ip["objective"],
+                           LOG_UNSETTLED_FP, res)
         held = adaptive_agreement(label, out_k[3], out_p[3], dw, dp, dobj,
-                                  W_TOL, obj_tol, FLIP_OBJ_TOL, res, referee)
+                                  W_TOL, obj_tol, FLIP_OBJ_TOL, res, referee,
+                                  astray)
     else:
         held = torch.ones_like(near)
     assert not (held & (dobj.abs() > obj_tol)).any().item(), \
@@ -496,8 +679,9 @@ def hold_to_plain(label, cw, r, params, kw, out_k, out_p, res):
     # assets is off by ~1e-5 (tests/test_torch_port_large.py::
     # test_adaptive_body_at_500_assets_is_at_float32s_limit).
     res["simplex_error"] = simplex_error(wk_f)
+    res["plain_simplex_error"] = simplex_error(wp_f)
     check_feasible(wk_f, cw, params, label,
-                   max(FEAS_TOL, 2.0 * simplex_error(wp_f)))
+                   max(FEAS_TOL, 2.0 * res["plain_simplex_error"]))
     res.update({"max_abs_dw": dw.max().item(),
                 "max_abs_dobj": dobj.abs().max().item(),
                 "status_band_exempt": int((near & differ).sum().item())})
@@ -506,7 +690,7 @@ def hold_to_plain(label, cw, r, params, kw, out_k, out_p, res):
 
 
 def adaptive_agreement(label, steps_k, steps_p, dw, dp, dobj, w_tol,
-                       obj_tol, flip_obj_tol, res, referee=None):
+                       obj_tol, flip_obj_tol, res, referee=None, exempt=None):
     """The bars of an adaptive case (see the module docstring). Returns the
     mask of the problems that meet the fixed-step bars (weights, duals,
     objective). ``dw``, ``dp`` and ``dobj`` are per-problem differences,
@@ -516,18 +700,24 @@ def adaptive_agreement(label, steps_k, steps_p, dw, dp, dobj, w_tol,
     A problem whose step histories are equal must meet the bars, unless
     ``referee`` is given (a log-utility case: ``referee()`` gives the
     kernel's and the float32 plain version's distances to the float64
-    plain version per problem, in objective, weights and duals, and where
-    the float32 and float64 histories are equal). Then, where the float32
-    and float64 histories are equal, the kernel may instead lie within
-    REFEREE_FACTOR times the case's float32 noise of the float64 run, plus
-    the bar, in each of the three; the noise is the largest distance of the
-    float32 plain version to it over those problems. Where they differ the
-    float64 run is another trajectory, no referee: the problem counts as
-    ended apart, like one whose kernel and plain histories parted.
+    plain version per problem, in objective, weights and duals, where the
+    float32 and float64 histories are equal, and for a ``wide`` case the
+    permuted plain version's distances, see ``hold_to_plain``). Then, where
+    the float32 and float64 histories are equal, the kernel may instead lie
+    within REFEREE_FACTOR times the float32 noise of the float64 run, plus
+    the bar, in each of the three. The noise is the case's: the largest
+    distance of the float32 plain version to it over those problems; in a
+    ``wide`` case, on a problem where the permuted plain version lies
+    farther, that problem's own permuted distance (one problem's distance
+    never widens another's). Where the histories differ the float64 run is
+    another trajectory, no referee: the problem counts as ended apart, like
+    one whose kernel and plain histories parted.
 
     Every problem that ended apart has its objective within
     ``flip_obj_tol``, and over a large case the objective differences must
-    be unbiased. How many may end apart: with a referee, the kernel may be
+    be unbiased, except the problems of ``exempt``, which the caller holds
+    otherwise (``hold_unsettled``). How many may end apart: with a referee,
+    the kernel may be
     beyond the bars against the float64 run on no more problems than the
     float32 plain version is, plus 3 sqrt(n) + 2; without one, at most
     BEYOND_SHARE of a large case and two of a small one. Fills ``res`` with
@@ -542,14 +732,19 @@ def adaptive_agreement(label, steps_k, steps_p, dw, dp, dobj, w_tol,
     refereed = torch.zeros_like(apart)
     tie64 = torch.zeros_like(apart)
     if referee is not None:
-        d_kernel, d_plain, same = referee()
+        d_kernel, d_plain, same, d_perm = referee()
         refereed = unexplained & same
         tie64 = unexplained & ~same
         n_kernel = n_plain = torch.zeros_like(apart)
-        for what, dk, dpl, tol in zip(("dobj", "dw", "ddual"), d_kernel,
-                                      d_plain, (obj_tol, w_tol, w_tol)):
+        for i, (what, dk, dpl, tol) in enumerate(zip(
+                ("dobj", "dw", "ddual"), d_kernel, d_plain,
+                (obj_tol, w_tol, w_tol))):
             noise = dpl[same].max().item() if same.any() else 0.0
-            refereed &= dk <= REFEREE_FACTOR * noise + tol
+            own = torch.full_like(dk, noise)
+            if d_perm is not None:
+                own = torch.maximum(own, d_perm[i])
+                dpl = torch.maximum(dpl, d_perm[i])
+            refereed &= dk <= REFEREE_FACTOR * own + tol
             n_kernel = n_kernel | (dk > tol)
             n_plain = n_plain | (dpl > tol)
             res[f"float32_noise_vs_float64_{what}"] = noise
@@ -559,6 +754,9 @@ def adaptive_agreement(label, steps_k, steps_p, dw, dp, dobj, w_tol,
                         dk[unexplained].max().item(),
                     f"max_abs_{what}_plain_vs_float64":
                         dpl[unexplained].max().item()})
+                if d_perm is not None:
+                    res[f"max_{what}_noise_of_unexplained"] = \
+                        own[unexplained].max().item()
         n_kernel, n_plain = int(n_kernel.sum().item()), int(n_plain.sum().item())
         res.update({"held_by_float64_referee": int(refereed.sum().item()),
                     "float64_parted_at_equal_histories":
@@ -578,11 +776,12 @@ def adaptive_agreement(label, steps_k, steps_p, dw, dp, dobj, w_tol,
         f"objectives by {dobj[~parted].abs().max().item()}; to the float64 "
         "plain version: " + ", ".join(
             f"{k} {v}" for k, v in res.items() if "float64" in k))
-    assert dobj.abs().max().item() <= flip_obj_tol, \
-        f"{label}: objectives differ by {dobj.abs().max().item()}"
+    kept = dobj if exempt is None else dobj[~exempt]
+    assert kept.numel() == 0 or kept.abs().max().item() <= flip_obj_tol, \
+        f"{label}: objectives differ by {kept.abs().max().item()}"
     if B >= 100:
-        assert abs(dobj.mean().item()) <= FLIP_MEAN_OBJ_TOL, \
-            f"{label}: objective differences are biased: {dobj.mean().item()}"
+        assert abs(kept.mean().item()) <= FLIP_MEAN_OBJ_TOL, \
+            f"{label}: objective differences are biased: {kept.mean().item()}"
     if referee is not None:
         assert n_kernel <= n_plain + 3.0 * n_plain ** 0.5 + 2, (
             f"{label}: the kernel is apart from the float64 run on "
@@ -703,6 +902,50 @@ def hold_mv(label, cw, mu, sig, params, out_k, out_p, res):
     assert torch.all(w64 >= 0), label
 
 
+def hold_unsettled(label, cw, r, params, astray, fpk, fpp, obj_k, obj_p,
+                   unsettled_fp, res):
+    """``hold_unsettled_mv`` for the log-utility program (no warm inputs):
+    each problem of ``astray`` against the plain version run in float64 on
+    it. A side that settled there (fixed-point residual at most
+    ``unsettled_fp``) must lie within OBJ_TOL (scenarios: SCEN_OBJ_TOL) of
+    the float64 run; an unsettled kernel may not lie above it (maximisation
+    form), and the kernel may be unsettled on no more of them than the plain
+    version is, plus 3 sqrt(n) + 2."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    idx = torch.nonzero(astray).flatten()
+    res["unsettled_apart"] = int(idx.numel())
+    if idx.numel() == 0:
+        return
+    tol = OBJ_TOL if r.dim() == 3 else SCEN_OBJ_TOL
+    cw64, r64 = cw[idx].double(), r[idx].double()
+    out64 = M.pdhg_log_utility_plain(cw64, r64, params)
+    obj64 = M._finalize_packed(out64[0], r64, cw64, params,
+                               out64[1])[1]["objective"]
+    ok, uk = obj_k[idx].double() - obj64, fpk[idx] > unsettled_fp
+    op, up = obj_p[idx].double() - obj64, fpp[idx] > unsettled_fp
+    n_k, n_p = int(uk.sum().item()), int(up.sum().item())
+    res.update({"kernel_unsettled_apart": n_k, "plain_unsettled_apart": n_p,
+                "unsettled": [
+                    {"fp_kernel": fpk[i].item(), "fp_plain": fpp[i].item(),
+                     "fp_float64": out64[1][j].item(),
+                     "dobj_kernel_vs_float64": ok[j].item(),
+                     "dobj_plain_vs_float64": op[j].item()}
+                    for j, i in enumerate(idx.tolist()[:8])]})
+    assert not (~uk & (ok.abs() > tol)).any().item(), (
+        f"{label}: the kernel settled where the plain version did not, "
+        f"{ok[~uk].abs().max().item()} from the float64 run in objective")
+    assert not (~up & (op.abs() > tol)).any().item(), (
+        f"{label}: the plain version settled, "
+        f"{op[~up].abs().max().item()} from the float64 run in objective")
+    assert not (ok > tol).any().item(), (
+        f"{label}: the unsettled kernel lies {ok.max().item()} above the "
+        "float64 run in objective")
+    assert n_k <= n_p + 3.0 * n_p ** 0.5 + 2, (
+        f"{label}: the kernel is unsettled on {n_k} of the problems ended "
+        f"apart, the float32 plain version on {n_p}")
+
+
 def hold_unsettled_mv(label, cw, mu, sig, params, astray, fpk, fpp, obj_k,
                       obj_p, res):
     """The bars of the adaptive mean-variance problems whose objectives
@@ -784,11 +1027,37 @@ def phase_build():
     for name in SOURCES:
         regs, spills = _ptxas_report(name)
         assert regs, f"{name}: no ptxas report in the build log"
-        if len(regs) > 20:      # the ladder's 72 rungs: the extremes only
+        if name == "mv_ladder":     # its 72 rungs: the extremes only
             regs = {"instantiations": len(regs), "max": max(regs.values())}
         emit("build", kernel=name, seconds=secs[name], registers=regs,
              spill_store_bytes={k: v for k, v in spills.items() if v})
     check_mv_block_plan()
+    check_rows_plan()
+
+
+def check_rows_plan():
+    """The wrapper's copy of the row layout's shared-memory plan
+    (``rows_smem_bytes``, which decides whether the row layout takes a
+    shape) against the plan the built kernel launches with, over the edges
+    of its envelope: 1 to 32 rows, 1 to 4 slots, scenarios in registers
+    and past them."""
+    import ctypes
+
+    from kmpc_tpu_torch._build import library_path
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    plan = ctypes.CDLL(str(library_path("pdhg_log_utility_rows")))
+    plan = plan.kmpc_rows_smem_bytes
+    plan.argtypes, plan.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    shapes = [(S, H, N, a) for S in (None, 1, 4, 5, 16, 17, 64, 113)
+              for H in (1, 5, 8, 9, 20, 21, 32) for N in (1, 20, 33, 70, 128)
+              for a in (False, True)]
+    wrong = [(S, H, N, a, M.rows_smem_bytes(S, H, N, a), plan(S or 0, H, N, a))
+             for S, H, N, a in shapes
+             if M.rows_smem_bytes(S, H, N, a) != plan(S or 0, H, N, a)]
+    assert not wrong, \
+        f"the wrapper's row plan differs from the kernel's: {wrong[:5]}"
+    emit("rows_plan", shapes=len(shapes), agree=True)
 
 
 def check_mv_block_plan():
@@ -824,6 +1093,7 @@ def _params(**kw):
 def phase_kernel_vs_plain():
     """Every kernel against its plain version; returns the cases by
     kernel name."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
     from kmpc_tpu_torch.ops.mpc import MPCParams
 
     cases = []
@@ -977,6 +1247,27 @@ def phase_kernel_vs_plain():
         ("adaptive_block_odd_over_relax", 6, 17, 20, _params(
             max_iters=401, over_relax=1.5, **acc), 823, quick),
     ]
+    # The row layout (one warp per horizon row) at H in {1, 5, 8, 17, 20,
+    # 32} and one to four slots (N in {20, 33, 70, 128}), each body, warm
+    # inputs with the dual output; where the warp layout also takes the
+    # shape it runs beside, for the bits.
+    for H, N in ((1, 128), (5, 70), (8, 33), (17, 20), (20, 70), (32, 128),
+                 (32, 20), (20, 33)):
+        seed += 1
+        cases.append((f"rows_H{H}N{N}_cond", 4, H, N, _params(
+            max_iters=200, proj_refresh_every=16, precond=True), seed, quick))
+        seed += 1
+        cases.append((f"rows_H{H}N{N}_pipe", 4, H, N, _params(
+            max_iters=201, proj_refresh_every=16, **pipe), seed, quick))
+        seed += 1
+        cases.append((f"rows_H{H}N{N}_adaptive", 4, H, N, _params(
+            max_iters=200, **acc), seed, quick))
+    cases += [
+        ("rows_warm_dual_H20N33", 5, 20, 33, _params(
+            max_iters=300, proj_refresh_every=16, precond=True), 841, warm),
+        ("rows_adaptive_warm_dual_H8N70", 5, 8, 70, _params(
+            max_iters=300, **acc), 842, warm),
+    ]
     out = {name: [] for name in kernel_counters()}
 
     def record(res, kernel=None):
@@ -989,8 +1280,27 @@ def phase_kernel_vs_plain():
             f"{res['case']} ran {res['kernel']}"
         return res
 
+    def layouts_of(label, S, H, N):
+        """The layout a case's label names (block, rows, else warp), and
+        beside it the row layout (the warp layout beside a rows case)
+        wherever that takes the shape."""
+        main = ("block" if "block" in label
+                else "rows" if label.startswith("rows_") else "warp")
+        extra = "warp" if main == "rows" else "rows"
+        return [main] + ([extra] if M.layout_supports(extra, S, H, N)
+                         else [])
+
+    def run(label, B, H, N, p, s, S=None, **kw):
+        for layout, res in compare_case(
+                label, B, H, N, p, s, S=S,
+                layouts=layouts_of(label, S, H, N), **kw).items():
+            k = res["kernel"]
+            assert ("block" in k) == (layout == "block") \
+                and ("rows" in k) == (layout == "rows"), (label, layout, k)
+            record(res)
+
     for label, B, H, N, p, s, kw in cases:
-        record(routed(compare_case(label, B, H, N, p, s, **kw)))
+        run(label, B, H, N, p, s, **kw)
 
     # The scenario kernel.
     scen_cases = [
@@ -1066,9 +1376,21 @@ def phase_kernel_vs_plain():
             max_iters=400, **acc), 910, quick),
         ("adaptive_block_S4_warm", 6, 4, 17, 30, _params(
             max_iters=400, **acc), 911, warm),
+        # The row layout's scenario returns past its registers (S * K > 16:
+        # the CTA's shared memory), and 32 rows of 16 scenarios in registers
+        # under the 64-register bound.
+        ("rows_S17_H5N20", 4, 17, 5, 20, _params(max_iters=300), 921, quick),
+        ("rows_S17_H5N20_adaptive", 4, 17, 5, 20, _params(
+            max_iters=300, **acc), 922, quick),
+        ("rows_S8_H8N128_pipe", 3, 8, 8, 128, _params(
+            max_iters=201, proj_refresh_every=16, **pipe), 923, quick),
+        ("rows_S16_H32N20_adaptive", 3, 16, 32, 20, _params(
+            max_iters=200, **acc), 924, quick),
     ]
     for label, B, S, H, N, p, s, kw in scen_cases:
-        record(routed(compare_case(label, B, H, N, p, s, S=S, **kw)))
+        run(label, B, H, N, p, s, S=S, **kw)
+    emit("rows_vs_warp_bits", **check_bits(
+        [r for rows in out.values() for r in rows]))
 
     # The mean-variance kernel (sigma_scale 1 on the comparison path, as
     # the experiment builds the Markowitz settings).
@@ -1197,55 +1519,81 @@ def alternating_ms(kernels, run):
     return times
 
 
-def phase_layouts():
-    """Both layouts of kernels A and B at the comparison path's shape,
-    which the warp layout takes (B=1028, H=5, N=20; B at S=16): the fixed
-    body (2000 iterations), the pipelined body (2000, refresh 16, precond)
-    and the adaptive body (800, k=2, precond), each timed in two rounds of
-    3 per layout, the layouts alternating. The wrapper routes this shape to
-    the warp layout, so the block kernel is launched directly. The
-    layouts' weights must agree within the fixed-step bar (the adaptive
-    body's on all but BEYOND_SHARE of the problems: two runs that may part
-    at a tie). ``mv_layouts`` does the same for kernel C."""
-    from kmpc_tpu_torch.ops import mpc_cuda as M
+# The shapes ``layouts`` times every layout at: (S, B, H, N, seed). The
+# exact scan (B=1) and the comparison path (B=1028) at H=5, N=20; the
+# headline batch (B=65536, N=30); one horizon row; the long path (B=1013,
+# H=20) and bench.py's ``long`` shape (B=16384, H=20, N=30).
+LAYOUT_SHAPES = (
+    (None, 1, 5, 20, 508), (16, 1, 5, 20, 606),
+    (None, 1028, 5, 20, 105), (16, 1028, 5, 20, 314),
+    (None, 65536, 5, 30, 0), (None, 1028, 1, 20, 7),
+    (None, 1013, 20, 20, 9), (16, 1013, 20, 20, 10),
+    (None, 16384, 20, 30, 0),
+)
 
-    B, H, N = 1028, 5, 20
-    bodies = {
-        "fixed": _params(max_iters=2000),
-        "pipe": _params(max_iters=2000, proj_refresh_every=16, precond=True,
+
+def layout_bodies(B):
+    """The bodies ``layouts`` times: the paths' (2000 iterations fixed and
+    pipelined at refresh 16 with precond, 800 adaptive), or bench.py's
+    settings at B >= 16384 (1000 iterations at refresh 16 with precond,
+    1000 pipelined, 800 adaptive)."""
+    its = 1000 if B >= 16384 else 2000
+    return {
+        "fixed": (_params(max_iters=its) if its == 2000 else _params(
+            max_iters=its, proj_refresh_every=16, precond=True)),
+        "pipe": _params(max_iters=its, proj_refresh_every=16, precond=True,
                         pipeline_reduces=True),
         "adaptive": _params(max_iters=800, adaptive=True, adapt_every=2,
                             precond=True),
     }
-    for S, seed in ((None, 105), (SCENARIOS, 314)):
+
+
+def phase_layouts():
+    """Every layout of kernels A and B that takes the shape, at each of
+    LAYOUT_SHAPES and body, launched in it (``pinned``), each
+    timed in two rounds of 3, the layouts alternating. The layouts'
+    weights must agree within the fixed-step bar (the adaptive body's on
+    all but BEYOND_SHARE of the problems: two runs that may part at a
+    tie), and the layout the wrapper routes the shape to must be the
+    fastest measured there (the routing rule is the measurement).
+    ``mv_layouts`` does the same for kernel C."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    for S, B, H, N, seed in LAYOUT_SHAPES:
         cw_np, ys_np = (instance(B, H, N, seed) if S is None
                         else scenario_instance(B, S, H, N, seed))
         cw = torch.as_tensor(cw_np, device="cuda")
         r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
-        for body, p in bodies.items():
-            layout, routed, warp = M._route(S, H, N, p, False, False)
-            assert (layout, routed) == ("warp", body), (S, body, layout)
-            kernels = {"warp": warp,
-                       "block": M._KERNELS[(S is not None, "block", body)]}
+        taken = [lay for lay in M.LAYOUTS if M.layout_supports(lay, S, H, N)]
+        for body, p in layout_bodies(B).items():
+            routed, routed_body, _ = M._route(S, H, N, p)
+            assert routed_body == body, (S, H, body, routed_body)
 
-            def run(kernel):
-                return M._launch(kernel, body, cw, r, p, None, None, False,
-                                 False)
+            def run(layout):
+                return pinned(layout, cw, r, p)
 
-            times = alternating_ms(kernels, run)
-            (w_warp, _), (w_block, _) = (run(k) for k in kernels.values())
+            times = alternating_ms({lay: lay for lay in taken}, run)
+            w = {lay: run(lay)[0] for lay in taken}
             torch.cuda.synchronize()
-            dw = (w_warp - w_block).abs().amax(dim=(1, 2))
-            assert torch.isfinite(w_block).all(), (S, body)
-            beyond = (dw > W_TOL).float().mean().item()
-            assert beyond <= (BEYOND_SHARE if body == "adaptive" else 0.0), \
-                f"layouts S={S} {body}: {beyond} of the problems apart"
-            warp_ms, block_ms = (float(np.median(t)) for t in times.values())
+            medians = {lay: float(np.median(t)) for lay, t in times.items()}
+            apart = {}
+            for lay in taken:
+                assert torch.isfinite(w[lay]).all(), (S, B, H, body, lay)
+                dw = (w[lay] - w[routed]).abs().amax(dim=(1, 2))
+                apart[lay] = (dw > W_TOL).float().mean().item()
+                assert apart[lay] <= (BEYOND_SHARE if body == "adaptive"
+                                      else 0.0), \
+                    f"layouts S={S} B={B} H={H} {body} {lay}: " \
+                    f"{apart[lay]} of the problems apart"
+            fastest = min(medians, key=medians.get)
             emit("layouts", S=S, B=B, H=H, N=N, body=body,
-                 iters=p.max_iters, warp_kernel=warp.name,
-                 block_kernel=kernels["block"].name, warp_ms=times["warp"],
-                 block_ms=times["block"], block_over_warp=block_ms / warp_ms,
-                 max_abs_dw=dw.max().item(), share_beyond_w_tol=beyond)
+                 iters=p.max_iters, routed=routed, fastest=fastest,
+                 ms=times, over_routed={lay: m / medians[routed]
+                                        for lay, m in medians.items()},
+                 share_beyond_w_tol=apart)
+            assert fastest == routed, \
+                f"S={S} B={B} H={H} N={N} {body}: routed to {routed}, " \
+                f"but {fastest} measured faster: {medians}"
 
 
 def mv_layouts():
@@ -1450,13 +1798,15 @@ def phase_main_path(seed: int):
 
     strat = KoopmanMPCStrategy(model=model, mpc=mpc)
     timed = Timed("KoopmanMPC", strat, mpc.max_turnover)
-    M.PDHG_LOG_UTILITY.launches = 0
+    kernel = M._route(None, bt.HORIZON, fd.n_assets, mpc)[2]
+    assert kernel is M.PDHG_LOG_UTILITY_ROWS, kernel.name
+    kernel.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     df = run_backtest_parallel(strat, fd, bt, num_sweeps=sweeps)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = M.PDHG_LOG_UTILITY.launches
+    launches = kernel.launches
     assert launches == sweeps, f"kernel launched {launches} times, not {sweeps}"
     assert len(df) == n_dates
     assert np.all(np.isfinite(df[["portfolio_value", "return", "turnover",
@@ -1487,7 +1837,7 @@ def phase_main_path(seed: int):
     print(table.to_string(), flush=True)
     emit("main_path", config="finance_sparse", observation_size=400,
          latent=1024, dates=n_dates, sweeps=sweeps, mpc_iters=mpc.max_iters,
-         kernel_launches=launches, load_s=load_s, forecast_ms=fc_ms,
+         kernel=kernel.name, kernel_launches=launches, load_s=load_s, forecast_ms=fc_ms,
          forecast_cpu_max_abs_err=fc_err, sweep_ms=sweep_ms,
          solve_ms=solve_ms, kernel_ms=kernel_ms,
          recursion_ms=sweep_ms - solve_ms, plain_ms=plain_ms,
@@ -1497,7 +1847,7 @@ def phase_main_path(seed: int):
          metrics={k: {m: float(x) for m, x in row.items()}
                   for k, row in table.iterrows()})
     return {"fd": fd, "model": model, "cfg": cfg, "n_dates": n_dates,
-            "pdhg_log_utility": first}
+            "kernel": kernel.name, "first": first}
 
 
 class Timed:
@@ -1555,8 +1905,9 @@ SCENARIOS = 16
 # hold launches none): the comparison (fixed steps, H=5) and the accurate
 # path; the long path's runs name theirs in LONG_RUNS.
 FIXED_REACH = {"Markowitz": "pdhg_mean_variance",
-               "DMD": "pdhg_log_utility", "KoopmanMPC": "pdhg_log_utility",
-               "ScenarioKelly": "pdhg_log_utility_scenarios"}
+               "DMD": "pdhg_log_utility_rows",
+               "KoopmanMPC": "pdhg_log_utility_rows",
+               "ScenarioKelly": "pdhg_log_utility_scenarios_rows"}
 ACCURATE_REACH = {k: v + "_adaptive" for k, v in FIXED_REACH.items()}
 
 
@@ -1572,7 +1923,7 @@ def strategy_kernel(name, mpc, mv_mpc, n_assets):
     if name == "Markowitz":    # one step ahead, per-date covariances
         return _mv_route(1, n_assets, mv_mpc)[1].name
     S = SCENARIOS if name == "ScenarioKelly" else None
-    return _route(S, mpc.horizon, n_assets, mpc, False, False)[2].name
+    return _route(S, mpc.horizon, n_assets, mpc)[2].name
 
 
 def expect_kernel(reach, name, mpc, mv_mpc, n_assets):
@@ -1681,7 +2032,7 @@ def phase_comparison(ctx):
     from kmpc_tpu_torch.backtest.engine import (
         calculate_metrics, run_backtest_parallel,
     )
-    from kmpc_tpu_torch.ops.mpc_cuda import PDHG_LOG_UTILITY
+    from kmpc_tpu_torch.ops.mpc_cuda import _route
     from kmpc_tpu_torch.run_experiment import build_strategies
 
     sweeps, warm_iters = 8, 500
@@ -1722,11 +2073,12 @@ def phase_comparison(ctx):
         torch.cuda.synchronize()
         return df, timed, time.perf_counter() - t0
 
-    PDHG_LOG_UTILITY.launches = 0
+    kernel = _route(None, mpc.horizon, fd.n_assets, mpc)[2]
+    kernel.launches = 0
     df_warm, timed, warm_s = warm_run(fused=True)
-    assert PDHG_LOG_UTILITY.launches == sweeps, PDHG_LOG_UTILITY.launches
+    assert kernel.launches == sweeps, kernel.launches
     df_eager, _, _ = warm_run(fused=False)
-    assert PDHG_LOG_UTILITY.launches == sweeps, PDHG_LOG_UTILITY.launches
+    assert kernel.launches == sweeps, kernel.launches
     warm_v = df_warm["portfolio_value"].iloc[-1]
     eager_rel = abs(warm_v / df_eager["portfolio_value"].iloc[-1] - 1.0)
     assert eager_rel <= 1e-3, \
@@ -1979,16 +2331,16 @@ def pipeline_config(cfg):
 # for all five, {strategy: the kernel its solve must reach}).
 LONG_RUNS = (
     ("pipelined_H20", pipeline_config, 20, 4, None,
-     {"DMD": "pdhg_log_utility_block",
-      "KoopmanMPC": "pdhg_log_utility_block",
-      "ScenarioKelly": "pdhg_log_utility_scenarios_block",
+     {"DMD": "pdhg_log_utility_rows",
+      "KoopmanMPC": "pdhg_log_utility_rows",
+      "ScenarioKelly": "pdhg_log_utility_scenarios_rows",
       "Markowitz": "pdhg_mean_variance"}),
     ("accurate_H20", accurate_config, 20, 2, ("KoopmanMPC", "ScenarioKelly"),
-     {"KoopmanMPC": "pdhg_log_utility_block_adaptive",
-      "ScenarioKelly": "pdhg_log_utility_scenarios_block_adaptive"}),
+     {"KoopmanMPC": "pdhg_log_utility_rows_adaptive",
+      "ScenarioKelly": "pdhg_log_utility_scenarios_rows_adaptive"}),
     ("pipelined_H5", pipeline_config, 5, 2, ("KoopmanMPC", "ScenarioKelly"),
-     {"KoopmanMPC": "pdhg_log_utility_pipe",
-      "ScenarioKelly": "pdhg_log_utility_scenarios_pipe"}),
+     {"KoopmanMPC": "pdhg_log_utility_rows",
+      "ScenarioKelly": "pdhg_log_utility_scenarios_rows"}),
 )
 
 
@@ -2041,6 +2393,166 @@ def phase_long_path(ctx):
             "total_s": sum(t["total_s"] for t in timing.values())}
     emit("long_path", config="finance_sparse", scenarios=SCENARIOS,
          runs=runs, total_s=sum(r["total_s"] for r in runs.values()))
+    return launches, first
+
+
+# Kernel B's warp layout on a shape that routes to it: (B, S, H, N, seed).
+# Each problem's 113 scenarios of 8 rows and 64 assets fill one warp's
+# slice of shared memory (226 KB of the 227 KB), past the row layout's plan
+# and the block layout's; B=132, one problem per SM of an H100 SXM.
+WARP_B_PATH = (132, 113, 8, 64, 1160)
+
+
+def phase_warp_path(ctx):
+    """The warp layout's kernels. Kernel A's (fixed, adaptive, pipelined):
+    routing takes the row layout at every shape they take, so they run
+    pinned (``pinned``, the private launch) on the comparison path's
+    first-sweep Koopman-MPC problems (full width, the pre-trade guess 1/N
+    on every date) at the comparison's fixed steps, the accurate
+    configuration and the pipeline configuration (H=5), through the packed
+    solve's finalisation. Kernel B's: through
+    ``solve_mpc_log_utility_scenarios_packed`` at WARP_B_PATH, a shape
+    that routes to them, at the same three configurations. Counts set to 0
+    before these six solves and read after; then each solve's kernel held
+    against the plain version, every row of the weights feasible (the
+    simplex sum to FEAS_TOL, or to twice the plain version's own error, as
+    ``hold_to_plain`` holds it), and on the comparison's problems of both
+    kernels (scenario Kelly at S=16 too) the warp kernel compared bit for
+    bit with the row kernel. Returns the launches, the cases at the path's
+    shapes by kernel, and the other cases (the row kernels', and kernel B's
+    warp kernels' at S=16) by kernel."""
+    from dataclasses import replace
+
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+    from kmpc_tpu_torch.run_experiment import (
+        backtest_settings, build_strategies, markowitz_settings,
+    )
+
+    fd, model = ctx["fd"], ctx["model"]
+    B, S, H, N, seed = WARP_B_PATH
+    cw_b, ys_b = scenario_instance(B, S, H, N, seed)
+    cw_b = torch.as_tensor(cw_b, device="cuda")
+    y_b = torch.as_tensor(ys_b, device="cuda")
+    kernels = kernel_counters()
+    solves, comparison = [], []
+    for label, make_cfg in (("fixed", lambda c: c),
+                            ("accurate", accurate_config),
+                            ("pipelined", pipeline_config)):
+        bt, mpc = backtest_settings(make_cfg(ctx["cfg"]))
+        strategies = build_strategies(
+            model, mpc, markowitz_settings(ctx["cfg"]), bt.LOOKBACK_WINDOW,
+            scenarios=SCENARIOS, fused=True)
+        n_dates = fd.test.shape[0] - fd.sequence_length - bt.HORIZON
+        cw = torch.full((n_dates, fd.n_assets), 1.0 / fd.n_assets,
+                        device=fd.device)
+        for name, key in (("KoopmanMPC", "pred_log_returns"),
+                          ("ScenarioKelly", "scenario_log_returns")):
+            y = strategies[name].precompute(fd, bt.HORIZON)[key][:n_dates]
+            comparison.append((f"{label}_{name}", cw, y.contiguous(), mpc))
+        solves.append((f"{label}_KoopmanMPC", *comparison[-2][1:]))
+        solves.append((f"{label}_S{S}_H{H}_N{N}", cw_b, y_b,
+                       replace(mpc, horizon=H)))
+    for k in kernels.values():
+        k.launches = 0
+    want, weights = {}, []
+    for label, cw, y, mpc in solves:
+        if y.dim() == 4:
+            layout, _, kernel = M._route(S, H, N, mpc)
+            assert layout == "warp", (label, layout)
+            w = M.solve_mpc_log_utility_scenarios_packed(cw, y, mpc)[0]
+        else:
+            kernel = pinned_kernel("warp", y, mpc)
+            r = torch.exp(y).contiguous()
+            out = pinned("warp", cw, r, mpc)
+            w = M._finalize_packed(out[0], r, cw, mpc, out[1])[0]
+        weights.append(w)
+        want[kernel.name] = want.get(kernel.name, 0) + 1
+    launches = {k: v.launches for k, v in kernels.items() if v.launches}
+    assert launches == want, f"launches {launches}, expected {want}"
+    first, extra = {}, {}
+    for (label, cw, y, mpc), w in zip(solves, weights):
+        if y.dim() == 4:
+            res = compare_tensors(f"warp_path_{label}", cw,
+                                  torch.exp(y).contiguous(), mpc, time_reps=5)
+            check_feasible(w, cw, mpc, f"warp_path {label}", max(
+                FEAS_TOL, 2.0 * res["plain_simplex_error"]))
+            emit("warp_path_solve", **res)
+            first[res["kernel"]] = res
+    for label, cw, y, mpc in comparison:
+        cases = compare_layouts(f"warp_path_{label}", cw,
+                                torch.exp(y).contiguous(), mpc, time_reps=5,
+                                layouts=["warp", "rows"])
+        if y.dim() == 3:
+            w = weights[[s[0] for s in solves].index(label)]
+            check_feasible(w, cw, mpc, f"warp_path {label}", max(
+                FEAS_TOL, 2.0 * cases["warp"]["plain_simplex_error"]))
+            first[cases["warp"]["kernel"]] = cases["warp"]
+        else:
+            extra.setdefault(cases["warp"]["kernel"], []).append(
+                cases["warp"])
+        for res in cases.values():
+            emit("warp_path_solve", **res)
+        extra.setdefault(cases["rows"]["kernel"], []).append(cases["rows"])
+    emit("warp_path", dates=len(solves[0][1]), scenario_shape=WARP_B_PATH[:4],
+         launches=launches, rows_vs_warp_bits=check_bits(
+             [c for cases in extra.values() for c in cases]))
+    return launches, first, extra
+
+
+# The block layout's shapes on its path: past the row layout's four slots.
+BLOCK_PATH = (1028, 5, 150)
+
+
+def phase_block_path():
+    """The block layout's kernels at shapes that still route to them, past
+    the row layout's four slots: B=1028 problems of H=5 and N=150
+    (kmpc_tpu's kernel takes up to N=2730), one forecast and S=16
+    scenarios, at bench.py's settings (1000 iterations at refresh 16 with
+    precond; 1000 pipelined; 800 adaptive), through the packed entry
+    points. Counts set to 0 before these six solves and read after; then
+    each held against its plain version (twice for the same bits; the
+    adaptive body as a ``wide`` case, LOG_UNSETTLED_FP) and
+    every row of the entry point's weights feasible, as in
+    ``phase_warp_path``. Returns the launches and the cases by kernel."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    B, H, N = BLOCK_PATH
+    bodies = {
+        "fixed": _params(max_iters=1000, proj_refresh_every=16, precond=True),
+        "pipe": _params(max_iters=1000, proj_refresh_every=16, precond=True,
+                        pipeline_reduces=True),
+        "adaptive": _params(max_iters=800, adaptive=True, adapt_every=2,
+                            precond=True),
+    }
+    solves = []
+    for S, seed in ((None, 1150), (SCENARIOS, 1151)):
+        cw_np, ys_np = (instance(B, H, N, seed) if S is None
+                        else scenario_instance(B, S, H, N, seed))
+        cw = torch.as_tensor(cw_np, device="cuda")
+        y = torch.as_tensor(ys_np, device="cuda")
+        solves += [(S, body, cw, y, p) for body, p in bodies.items()]
+    kernels = kernel_counters()
+    for k in kernels.values():
+        k.launches = 0
+    want, weights = {}, []
+    for S, body, cw, y, p in solves:
+        layout, _, kernel = M._route(S, H, N, p)
+        assert layout == "block", (S, body, layout)
+        solve = (M.solve_mpc_log_utility_packed if S is None
+                 else M.solve_mpc_log_utility_scenarios_packed)
+        weights.append(solve(cw, y, p)[0])
+        want[kernel.name] = want.get(kernel.name, 0) + 1
+    launches = {k: v.launches for k, v in kernels.items() if v.launches}
+    assert launches == want, f"launches {launches}, expected {want}"
+    first = {}
+    for (S, body, cw, y, p), w in zip(solves, weights):
+        res = compare_tensors(f"block_path_S{S}_{body}", cw,
+                              torch.exp(y).contiguous(), p, wide=True)
+        check_feasible(w, cw, p, f"block_path S={S} {body}", max(
+            FEAS_TOL, 2.0 * res["plain_simplex_error"]))
+        emit("block_path_solve", body=body, **res)
+        first.setdefault(res["kernel"], res)
+    emit("block_path", B=B, H=H, N=N, S=[None, SCENARIOS], launches=launches)
     return launches, first
 
 
@@ -2343,8 +2855,8 @@ def phase_large_headlines():
     cache = json.loads((ROOT / "bench_probe_cache.json").read_text())
     for label, B, H, N, kw, bar, with_plain in LARGE:
         p = MPCParams(sigma_scale=2.0, feas_tol=2e-4, **kw)
-        layout, body, kernel = M._route(None, H, N, p, False, False)
-        assert layout == "block", (label, layout)
+        layout, body, kernel = M._route(None, H, N, p)
+        assert layout == ("block" if N > 128 else "rows"), (label, layout)
         cw_np, ys_np = instance(B, H, N, 0)
         cw = torch.as_tensor(cw_np, device="cuda")
         r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
@@ -2452,7 +2964,7 @@ def phase_headline():
         plain_ms = cuda_ms(lambda: M.pdhg_log_utility_plain(cw, r, p), 1)
         bound_ms, bound_by = pdhg_bound(B, H, N, p)
         emit(phase, B=B, H=H, N=N, iters=p.max_iters, adaptive=p.adaptive,
-             kernel_ms=ms, solves_per_s=B / (ms / 1e3), plain_ms=plain_ms,
+             kernel=M._route(None, H, N, p)[2].name, kernel_ms=ms, solves_per_s=B / (ms / 1e3), plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by,
              fp32_ops=pdhg_ops(B, H, N, p), bound_share=bound_ms / ms)
 
@@ -2483,6 +2995,13 @@ KERNELS = {
     "pdhg_mean_variance_block": (_MV + "_block.cu", _PALLAS + ":1089"),
     "pdhg_mean_variance_block_adaptive": (_MV + "_block_adaptive.cu",
                                           _PALLAS + ":1196"),
+    "pdhg_log_utility_rows": (_LOG + "_rows.cu", _PALLAS + ":226"),
+    "pdhg_log_utility_rows_adaptive": (_LOG + "_rows_adaptive.cu",
+                                       _PALLAS + ":593"),
+    "pdhg_log_utility_scenarios_rows": (_LOG + "_scenarios_rows.cu",
+                                        _PALLAS + ":226"),
+    "pdhg_log_utility_scenarios_rows_adaptive": (
+        _LOG + "_scenarios_rows_adaptive.cu", _PALLAS + ":593"),
 }
 
 
@@ -2495,31 +3014,51 @@ def main():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
 
+    t0 = time.perf_counter()
+    marks = {}
+
+    def done(phase):
+        marks[phase] = time.perf_counter() - t0
+        emit("elapsed_s", **marks)
+
     phase_build()
+    done("build")
     cases = phase_kernel_vs_plain()
+    done("kernels")
     phase_layouts()
     mv_layouts()
+    done("layouts")
     phase_nan_row()
     phase_probe()
     ctx = phase_main_path(args.seed)
+    done("main_path")
     comparison_launches, path, fixed_values = phase_comparison(ctx)
-    path["pdhg_log_utility"] = ctx["pdhg_log_utility"]
+    path[ctx["kernel"]] = ctx["first"]
     accurate_launches, accurate_first = phase_accurate_path(ctx, fixed_values)
     scan_launches = phase_scan_path(ctx)
     long_launches, long_first = phase_long_path(ctx)
+    done("paths")
+    warp_launches, warp_first, warp_extra = phase_warp_path(ctx)
+    for name, extra in warp_extra.items():
+        cases[name] += extra
+    block_launches, block_first = phase_block_path()
+    done("warp_block_paths")
     mv_launches, mv_first, mv_cases = phase_mv_long_wide()
     for name, rows in mv_cases.items():
         cases[name] += [c for c in rows if c is not mv_first[name]]
     ladder_launches, ladder_case = phase_mv_ladder()
+    done("mv")
     phase_headline()
     phase_large_headlines()
+    done("headlines")
 
     # One entry per kernel: launches on the path that runs it (the
-    # comparison path for the fixed-step warp kernels, the accurate path
-    # for the adaptive ones, the long path for the pipelined and the block
-    # kernels of A and B, ``mv_long_wide`` for C's block kernels (its
-    # long_H20N30 case for the times), the ladder's entry point for the
-    # ladder; each counted from 0
+    # comparison path for the fixed-step kernels, A and B in the row
+    # layout, the accurate path for the adaptive ones, the long path for the
+    # row layout's pipelined body, ``warp_path`` for the warp layout's
+    # kernels, ``block_path`` for the block layout's, ``mv_long_wide`` for
+    # C's block kernels (its long_H20N30 case for the times), the ladder's
+    # entry point for the ladder; each counted from 0
     # over that path alone), the largest kernel-vs-plain weight difference
     # over every problem of all of its cases (for an adaptive kernel the
     # problems that ended apart included, with their count, the count of
@@ -2528,7 +3067,8 @@ def main():
     launches = {}
     for phase_launches, phase_first in (
             (comparison_launches, {}), (accurate_launches, accurate_first),
-            (long_launches, long_first), (mv_launches, mv_first),
+            (long_launches, long_first), (warp_launches, warp_first),
+            (block_launches, block_first), (mv_launches, mv_first),
             ({"mv_ladder": ladder_launches}, {"mv_ladder": ladder_case})):
         for name, n in phase_launches.items():
             if n:
@@ -2563,11 +3103,15 @@ def main():
                     "kernel_apart_from_float64",
                     "plain_apart_from_float64", "unsettled_apart",
                     "kernel_unsettled_apart", "plain_unsettled_apart")}})
-        if "block" in name:
+        if "block" in name or "rows" in name:
             entry["deterministic_cases"] = sum(
                 1 for c in every if c.get("deterministic"))
+        if "rows" in name:
+            entry["bits_equal_warp_cases"] = [
+                sum(1 for c in every if c.get("bits_equal_warp")),
+                sum(1 for c in every if "bits_equal_warp" in c)]
         kernels.append(entry)
-    assert scan_launches == {"pdhg_log_utility_adaptive":
+    assert scan_launches == {"pdhg_log_utility_rows_adaptive":
                              ctx["n_dates"]}, scan_launches
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi_line(), flush=True)

@@ -50,6 +50,11 @@ SOURCES = {
     "pdhg_mean_variance_block": "pdhg_mean_variance_block.cu",
     "pdhg_mean_variance_block_adaptive":
         "pdhg_mean_variance_block_adaptive.cu",
+    "pdhg_log_utility_rows": "pdhg_log_utility_rows.cu",
+    "pdhg_log_utility_rows_adaptive": "pdhg_log_utility_rows_adaptive.cu",
+    "pdhg_log_utility_scenarios_rows": "pdhg_log_utility_scenarios_rows.cu",
+    "pdhg_log_utility_scenarios_rows_adaptive":
+        "pdhg_log_utility_scenarios_rows_adaptive.cu",
 }
 
 

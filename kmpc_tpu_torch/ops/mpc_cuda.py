@@ -26,15 +26,20 @@ take warm primal/dual iterates (the simplex threshold then starts cold on
 the warm primal, the ball threshold from zero) and can write the loop's
 last dual.
 
-Two layouts: one warp per problem with the iterates in registers
+Three layouts: one CTA per problem and one warp per horizon row
+(``csrc/pdhg_log_utility_rows.cuh``, up to 32 rows of ceil(N/32) <= 4
+slots), one warp per problem with the iterates in registers
 (``csrc/pdhg_log_utility.cuh``, up to pow2ceil(H) * ceil(N/32) = 16), and
 one block per problem with the iterates in shared memory
 (``csrc/pdhg_log_utility_block.cuh``, every shape whose problem fits a
 block's shared memory: long horizons, hundreds of assets). A CUDA tensor
-launches the warp kernel where it fits, else the block kernel, else
-raises; a CPU tensor runs ``pdhg_log_utility_plain``, the same iteration as
-plain tensor code. ``allow_short`` raises here (the kernels project on the
-simplex only): a caller who wants shorts calls the eager solvers by name.
+launches the row kernel where it fits (the fastest layout at every shape
+measured), else the warp kernel (which the row layout now takes wherever
+both fit, except for scenario returns past the row plan's shared memory),
+else the block kernel, else raises. A CPU tensor runs
+``pdhg_log_utility_plain``, the same iteration as plain tensor code.
+``allow_short`` raises here (the kernels project on the simplex only): a
+caller who wants shorts calls the eager solvers by name.
 """
 
 from __future__ import annotations
@@ -117,6 +122,25 @@ PDHG_LOG_UTILITY_SCENARIOS_BLOCK_ADAPTIVE = CudaKernel(
     "kmpc_pdhg_log_utility_scenarios_block_adaptive",
     [_P] * 8 + [_I, _I] + _TAIL,
 )
+# The row-per-warp layout: the block layout's arguments.
+PDHG_LOG_UTILITY_ROWS = CudaKernel(
+    "pdhg_log_utility_rows", "kmpc_pdhg_log_utility_rows",
+    [_P] * 7 + [_I] + _TAIL_BLOCK,
+)
+PDHG_LOG_UTILITY_SCENARIOS_ROWS = CudaKernel(
+    "pdhg_log_utility_scenarios_rows",
+    "kmpc_pdhg_log_utility_scenarios_rows",
+    [_P] * 7 + [_I, _I] + _TAIL_BLOCK,
+)
+PDHG_LOG_UTILITY_ROWS_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_rows_adaptive", "kmpc_pdhg_log_utility_rows_adaptive",
+    [_P] * 8 + [_I] + _TAIL,
+)
+PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_scenarios_rows_adaptive",
+    "kmpc_pdhg_log_utility_scenarios_rows_adaptive",
+    [_P] * 8 + [_I, _I] + _TAIL,
+)
 # (scenarios, layout, body) -> kernel
 _KERNELS = {
     (False, "warp", "fixed"): PDHG_LOG_UTILITY,
@@ -131,10 +155,19 @@ _KERNELS = {
     (True, "block", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_BLOCK,
     (False, "block", "adaptive"): PDHG_LOG_UTILITY_BLOCK_ADAPTIVE,
     (True, "block", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_BLOCK_ADAPTIVE,
+    (False, "rows", "fixed"): PDHG_LOG_UTILITY_ROWS,
+    (True, "rows", "fixed"): PDHG_LOG_UTILITY_SCENARIOS_ROWS,
+    (False, "rows", "pipe"): PDHG_LOG_UTILITY_ROWS,
+    (True, "rows", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_ROWS,
+    (False, "rows", "adaptive"): PDHG_LOG_UTILITY_ROWS_ADAPTIVE,
+    (True, "rows", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE,
 }
 KERNELS = tuple(dict.fromkeys(_KERNELS.values()))
-# The block layout's fixed-step kernels run the pipelined body by a flag.
-_BLOCK_FIXED = (PDHG_LOG_UTILITY_BLOCK, PDHG_LOG_UTILITY_SCENARIOS_BLOCK)
+LAYOUTS = ("rows", "warp", "block")  # in the order routing prefers them
+# The block and row layouts' fixed-step kernels run the pipelined body by
+# a flag.
+_PIPE_FLAG = (PDHG_LOG_UTILITY_BLOCK, PDHG_LOG_UTILITY_SCENARIOS_BLOCK,
+              PDHG_LOG_UTILITY_ROWS, PDHG_LOG_UTILITY_SCENARIOS_ROWS)
 
 
 # Register budget of the warp layout: one warp per problem keeps
@@ -191,31 +224,82 @@ def block_smem_bytes(S: Optional[int], H: int, N: int) -> int:
     return 4 * floats
 
 
-def block_kernel_supports(S: Optional[int], H: int, N: int,
-                          adaptive: bool = False, warm: bool = False,
-                          dual: bool = False) -> bool:
+def block_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
     """Whether the block-layout kernels take a problem of S scenarios
     (None: one forecast) at horizon H and N assets: its arrays within a
     block's shared memory. Warm inputs, the dual output and the adaptive
     body add nothing there (the warm iterates are read into w and p, the
-    dual written from p, the residuals summed on the fly), so the budget is
-    the same for every (adaptive, warm, dual)."""
-    del adaptive, warm, dual
+    dual written from p, the residuals summed on the fly)."""
     return (H >= 1 and N >= 1 and (S is None or S >= 1)
             and block_smem_bytes(S, H, N) <= SMEM_PER_BLOCK)
 
 
-def kernel_layout(S: Optional[int], H: int, N: int, adaptive: bool = False,
-                  warm: bool = False, dual: bool = False) -> Optional[str]:
-    """The layout a CUDA solve of this shape runs in: ``"warp"`` (one warp
-    per problem, the iterates in registers) where it fits, else
-    ``"block"`` (one block per problem, the iterates in shared memory),
-    else None."""
-    if kernel_supports(H, N) and (
-            S is None or scenario_kernel_supports(S, H, N)):
-        return "warp"
-    if block_kernel_supports(S, H, N, adaptive, warm, dual):
-        return "block"
+# The row-per-warp layout: one CTA per problem, one warp per horizon row
+# (csrc/pdhg_log_utility_rows.cuh), compiled for ceil(N/32) <= 4 and at
+# most 32 rows; a row's S ceil(N/32) scenario returns per lane sit in
+# registers up to ROWS_REG_SLOTS, beyond that in the CTA's shared memory.
+ROWS_MAX_H = 32
+ROWS_REG_SLOTS = 16
+# The kernels' bound on the warps of a CTA, and the registers a thread may
+# take under it (65536 over the threads, as ptxas allots them).
+ROWS_WARP_BOUNDS = (8, 20, 32)
+
+
+def rows_warp_bound(H: int) -> int:
+    """The instantiation's bound on the warps of a CTA for H rows."""
+    return next(hb for hb in ROWS_WARP_BOUNDS if H <= hb)
+
+
+def rows_smem_bytes(S: Optional[int], H: int, N: int,
+                    adaptive: bool = True) -> int:
+    """Shared memory of one problem's CTA in the row layout (``rows_plan``
+    in csrc/pdhg_log_utility_rows.cuh): the dual and wbar of every row
+    exchanged between neighbours, with ``adaptive`` the moves and residual
+    terms of every row (four [H][K * 32] arrays), the curvature ratios per
+    scenario and row, the rows' bounds and fixed-point residuals, and the
+    scenario returns when they exceed the registers, [H][S padded to the
+    chunk 16 / K][K * 32]."""
+    k = -(-N // 32)
+    row = H * 32 * k
+    chunk = ROWS_REG_SLOTS // k
+    s = S or 0
+    floats = (2 + (4 if adaptive else 0)) * row + max(s, 1) * H + 2 * H
+    if s > chunk:
+        floats += row * (-(-s // chunk) * chunk)
+    return 4 * floats
+
+
+def rows_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
+    """Whether the row-layout kernels take a problem of S scenarios (None:
+    one forecast) at horizon H and N assets: at most ROWS_MAX_H rows of
+    ceil(N/32) <= MAX_SLOTS slots, and the adaptive body's plan within a
+    block's shared memory (the budget is the same for every body)."""
+    return (1 <= H <= ROWS_MAX_H and 1 <= N <= 32 * MAX_SLOTS
+            and (S is None or S >= 1)
+            and rows_smem_bytes(S, H, N) <= SMEM_PER_BLOCK)
+
+
+def layout_supports(layout: str, S: Optional[int], H: int, N: int) -> bool:
+    """Whether ``layout``'s kernels take a problem of this shape."""
+    if layout == "warp":
+        return kernel_supports(H, N) and (
+            S is None or scenario_kernel_supports(S, H, N))
+    if layout == "rows":
+        return rows_kernel_supports(S, H, N)
+    return layout == "block" and block_kernel_supports(S, H, N)
+
+
+def kernel_layout(S: Optional[int], H: int, N: int) -> Optional[str]:
+    """The layout a CUDA solve of this shape runs in: ``"rows"`` (one CTA
+    per problem, one warp per horizon row) wherever it fits, else
+    ``"warp"`` (one warp per problem, the iterates in registers) where it
+    fits, else ``"block"`` (one block per problem, the iterates in shared
+    memory), else None. By measurement: the row layout was faster than the
+    warp and block layouts at every shape and batch chip_smoke.py's
+    ``layouts`` phase times (B from 1 to 65536, H from 1 to 20)."""
+    for layout in LAYOUTS:
+        if layout_supports(layout, S, H, N):
+            return layout
     return None
 
 
@@ -497,27 +581,33 @@ def _require_cuda_f32(**tensors) -> None:
         raise ValueError(f"{', '.join(tensors)} lie on different devices")
 
 
-def _route(S: Optional[int], H: int, N: int, params: MPCParams, warm: bool,
-           dual: bool) -> Tuple[str, str, CudaKernel]:
+def _body(params: MPCParams) -> str:
+    """The loop body the parameters select: ``"adaptive"``, ``"pipe"`` (the
+    pipelined body) or ``"fixed"``."""
+    return ("adaptive" if params.adaptive
+            else "pipe" if _pipelined(params) else "fixed")
+
+
+def _route(S: Optional[int], H: int, N: int,
+           params: MPCParams) -> Tuple[str, str, CudaKernel]:
     """(layout, body, kernel) of a CUDA solve: the layout ``kernel_layout``
     gives the shape and the loop body the parameters select; raises
-    ``ValueError`` for a shape beyond both layouts' budgets, naming the
+    ``ValueError`` for a shape beyond every layout's budget, naming the
     eager solver that takes it."""
-    layout = kernel_layout(S, H, N, params.adaptive, warm, dual)
+    layout = kernel_layout(S, H, N)
     if layout is None:
         eager = ("solve_mpc_log_utility_batch" if S is None
                  else "solve_mpc_log_utility_scenarios")
         raise ValueError(
             f"S={S}, H={H}, N={N} exceeds the kernels' budgets: the warp "
-            f"layout needs ceil(N/32) <= {MAX_SLOTS}, pow2ceil(H) * "
-            f"ceil(N/32) <= {MAX_ROW_ELEMENTS} (and the scenario returns "
-            f"within {SMEM_PER_BLOCK} bytes), the block layout one problem "
+            f"and row layouts need ceil(N/32) <= {MAX_SLOTS} (the warp "
+            f"layout pow2ceil(H) * ceil(N/32) <= {MAX_ROW_ELEMENTS}, the "
+            f"row layout H <= {ROWS_MAX_H}), the block layout one problem "
             f"within {SMEM_PER_BLOCK} bytes of shared memory, here "
             f"{block_smem_bytes(S, H, N)}; the eager solver {eager} takes "
             "any shape"
         )
-    body = ("adaptive" if params.adaptive
-            else "pipe" if _pipelined(params) else "fixed")
+    body = _body(params)
     return layout, body, _KERNELS[(S is not None, layout, body)]
 
 
@@ -532,13 +622,14 @@ def pdhg_log_utility_cuda(
 ):
     """One launch of a CUDA kernel on the current stream: the same
     contract as ``pdhg_log_utility_plain``, for CUDA float32 tensors.
-    r [B, H, N] launches ``pdhg_log_utility``, r [B, S, H, N]
-    ``pdhg_log_utility_scenarios``; with ``params.adaptive`` the
-    ``..._adaptive`` kernel of each, with the pipelined body
-    (``pipeline_reduces``) the ``..._pipe`` kernel. A shape beyond the
-    warp layout's budgets launches the ``..._block`` kernel of the same
-    body (``kernel_layout``), and a shape beyond both raises
-    ``ValueError``."""
+    r [B, H, N] launches kernel A, r [B, S, H, N] kernel B (the
+    ``..._scenarios`` sources), in the layout ``kernel_layout`` gives the
+    shape: ``pdhg_log_utility_rows`` where the row layout fits, else the
+    warp layout's ``pdhg_log_utility``, else the ``..._block`` kernel;
+    with ``params.adaptive`` the ``..._adaptive`` kernel of each, with the
+    pipelined body (``pipeline_reduces``) the warp layout's ``..._pipe``
+    kernel or the others' fixed-step kernel. A shape beyond every layout
+    raises ``ValueError``."""
     _check_params(params, "pdhg_log_utility_cuda")
     _check_return_steps(params, return_steps)
     scen = r.dim() == 4
@@ -562,8 +653,7 @@ def pdhg_log_utility_cuda(
             raise ValueError(f"expected {name} [B, H, N] = {(B, H, N)}, got "
                              f"{tuple(tensors[name].shape)}")
     _require_cuda_f32(**tensors)
-    _, body, kernel = _route(r.shape[1] if scen else None, H, N, params,
-                             w_warm is not None, return_dual)
+    _, body, kernel = _route(r.shape[1] if scen else None, H, N, params)
     return _launch(kernel, body, current_weights, r, params, w_warm, p_warm,
                    return_dual, return_steps)
 
@@ -600,7 +690,7 @@ def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
                 params.cost_coeff, params.max_turnover, params.ridge,
                 params.over_relax, params.step_scale, params.sigma_scale,
                 int(params.precond), int(params.max_turnover > 0), int(warm),
-                *((int(body == "pipe"),) if kernel in _BLOCK_FIXED else ()),
+                *((int(body == "pipe"),) if kernel in _PIPE_FLAG else ()),
                 stream,
             )
         if err != 0:
@@ -620,8 +710,11 @@ def pdhg_log_utility(
     return_dual: bool = False,
 ):
     """The kernel for CUDA tensors, its plain version for CPU tensors."""
-    fn = pdhg_log_utility_cuda if r.is_cuda else pdhg_log_utility_plain
-    return fn(current_weights, r, params, w_warm, p_warm, return_dual)
+    if not r.is_cuda:
+        return pdhg_log_utility_plain(current_weights, r, params, w_warm,
+                                      p_warm, return_dual)
+    return pdhg_log_utility_cuda(current_weights, r, params, w_warm, p_warm,
+                                 return_dual)
 
 
 def _finalize_packed(w, r, w_init, params: MPCParams, fp_res):

@@ -675,7 +675,7 @@ def test_every_kernel_has_a_source_and_a_launch_counter():
     from kmpc_tpu_torch.ops.mv_ladder import MV_LADDER
 
     kernels = M.KERNELS + V.MV_KERNELS + (MV_LADDER,)
-    assert len(kernels) == 15
+    assert len(kernels) == 19
     assert {k.name for k in kernels} == set(SOURCES)
     for k in kernels:
         assert k.launches == 0          # nothing launches on the CPU

@@ -197,7 +197,9 @@ BLOCK_CASES = {
 @pytest.mark.parametrize("name", list(BLOCK_CASES))
 def test_block_layout_shapes_match_pallas(name):
     B, H, N, kw = BLOCK_CASES[name]
-    assert M.kernel_layout(None, H, N, kw.get("adaptive", False)) == "block"
+    # Past the warp layout's registers: the row layout takes 20 rows of 12
+    # assets, the block layout 150 assets.
+    assert M.kernel_layout(None, H, N) == ("rows" if N <= 128 else "block")
     cw, ys = _inputs(B, H, N, seed=151 + H + N)
     w_ref, info_ref = _pallas(cw, ys, kw)
     w, info = _port(cw, ys, kw)
@@ -219,12 +221,12 @@ FLAGS = [(a, w, d) for a in (False, True) for w in (False, True)
 def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
     """Over a grid of (H, N) and every (adaptive, warm, dual): where
     kmpc_tpu's ``_default_tile_b_packed`` admits the shape to its Pallas
-    kernel, ``kernel_layout`` names a CUDA kernel (the warp layout where it
-    fits, else the block layout); shapes the warp layout takes never go to
-    the block layout; and the block layout's own budget is its shared
-    memory."""
-    routed = {"warp": 0, "block": 0}
-    Hs = list(range(1, 25)) + [32, 40, 64, 100, 200]
+    kernel, ``kernel_layout`` names a CUDA kernel; the row layout wherever
+    it fits (only at ceil(N/32) <= 4 and H <= 32), else the warp layout
+    where it fits, never the block layout where either does; and the block
+    layout's own budget is its shared memory."""
+    routed = {"warp": 0, "rows": 0, "block": 0}
+    Hs = list(range(1, 25)) + [32, 33, 40, 64, 100, 200]
     Ns = list(range(1, 70, 3)) + [96, 128, 129, 136, 150, 200, 256, 257,
                                   300, 500, 512, 513, 546, 600, 1000, 2730]
     for H in Hs:
@@ -232,39 +234,42 @@ def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
             NP = (N + 7) // 8 * 8
             warp_fits = M.kernel_supports(H, N) and (
                 S is None or M.scenario_kernel_supports(S, H, N))
+            rows_fit = M.rows_kernel_supports(S, H, N)
+            assert not rows_fit or (-(-N // 32) <= 4 and H <= 32), (S, H, N)
+            layout = M.kernel_layout(S, H, N)
+            if rows_fit:
+                assert layout == "rows", (S, H, N)
+            elif warp_fits:
+                assert layout == "warp", (S, H, N)
+            elif M.block_smem_bytes(S, H, N) <= M.SMEM_PER_BLOCK:
+                assert layout == "block", (S, H, N)
             for adaptive, warm, dual in FLAGS:
                 extra = 2 * warm + dual + 3 * adaptive
-                layout = M.kernel_layout(S, H, N, adaptive, warm, dual)
-                if warp_fits:
-                    assert layout == "warp", (S, H, N)
-                elif M.block_smem_bytes(S, H, N) <= M.SMEM_PER_BLOCK:
-                    assert layout == "block", (S, H, N)
                 if JP._default_tile_b_packed(H, NP, S=S,
                                              extra_blocks=extra) is None:
                     continue
-                assert layout in ("warp", "block"), (S, H, N, adaptive,
-                                                     warm, dual)
+                assert layout in ("warp", "rows", "block"), (
+                    S, H, N, adaptive, warm, dual)
                 routed[layout] += 1
-    assert routed["block"] > 0
+    assert routed["block"] > 0 and routed["rows"] > 0
 
 
 @pytest.mark.parametrize("S", [None, 16])
 def test_a_cuda_tensor_beyond_both_layouts_raises(S):
     """The route the CUDA wrapper takes before any launch: a shape beyond
-    both budgets raises ``ValueError`` naming the eager solver."""
+    every layout's budget raises ``ValueError`` naming the eager solver."""
     H, N = 20, 2000
     assert M.kernel_layout(S, H, N) is None
     eager = "scenarios" if S else "batch"
     with pytest.raises(ValueError, match=f"solve_mpc_log_utility_{eager}"):
-        M._route(S, H, N, MPCParams(), warm=False, dual=False)
+        M._route(S, H, N, MPCParams())
     # The shape picks the layout, the parameters the body.
     pipe = _params(dict(proj_refresh_every=16, **PIPE))
-    assert M._route(S, 5, 20, pipe, False, False)[:2] == ("warp", "pipe")
-    assert M._route(S, 17, 20, pipe, False, False)[:2] == ("block", "pipe")
-    assert M._route(S, 17, 20, _params(ACCURATE), False, True)[:2] == (
-        "block", "adaptive")
-    assert M._route(S, 20, 30, MPCParams(), True, True)[:2] == (
-        "block", "fixed")
+    assert M._route(S, 5, 20, pipe)[:2] == ("rows", "pipe")
+    assert M._route(S, 17, 20, pipe)[:2] == ("rows", "pipe")
+    assert M._route(S, 17, 20, _params(ACCURATE))[:2] == (
+        "rows", "adaptive")
+    assert M._route(S, 20, 30, MPCParams())[:2] == ("rows", "fixed")
 
 
 # ---------------------------------------------------------------------------
@@ -348,7 +353,7 @@ def test_cli_takes_a_run_config_and_horizon_20(tmp_path, monkeypatch):
     (mpc, mv_mpc), = seen
     assert mpc.horizon == 20 and M._pipelined(mpc) and mpc.precond
     assert mpc.max_iters == 16 and mv_mpc.horizon == 1
-    assert M.kernel_layout(None, 20, 20) == "block"
+    assert M.kernel_layout(None, 20, 20) == "rows"
     for metrics in results.values():
         assert np.isfinite(metrics["Final Value"])
     assert json.loads((tmp_path / "out" / "experiment_results.json")
@@ -429,12 +434,13 @@ def _chip_smoke():
     return module
 
 
-def _standin_outputs(seed, fault=0.0):
+def _standin_outputs(seed, fault=0.0, problem=None):
     """Plain-version outputs at H=5, N=500 (B=4, 400 iterations, adaptive
     k=2, precond) and a stand-in kernel's: the plain version run with the
     assets permuted (another float32 realisation of the same solver, with
     the same step histories), with ``fault`` of weight moved in every row
-    from its largest holding to its lowest return."""
+    (of ``problem`` only, if given) from its largest holding to its lowest
+    return."""
     B, H, N = 4, 5, 500
     p = _params(dict(max_iters=400, **ACCURATE))
     cw, ys = _inputs(B, H, N, seed)
@@ -446,10 +452,11 @@ def _standin_outputs(seed, fault=0.0):
     w, fp, dual, steps = M.pdhg_log_utility_plain(
         cw[:, perm], r[..., perm], p, return_dual=True, return_steps=True)
     w = w[..., inv].clone()
-    w.scatter_add_(-1, w.argmax(-1, keepdim=True),
-                   torch.full((B, H, 1), -fault))
-    w.scatter_add_(-1, r.argmin(-1, keepdim=True),
-                   torch.full((B, H, 1), fault))
+    move = torch.full((B, H, 1), fault)
+    if problem is not None:
+        move[torch.arange(B) != problem] = 0.0
+    w.scatter_add_(-1, w.argmax(-1, keepdim=True), -move)
+    w.scatter_add_(-1, r.argmin(-1, keepdim=True), move)
     return cw, r, p, (w, fp, dual[..., inv], steps), out_p
 
 
@@ -466,6 +473,59 @@ def test_float64_referee_holds_another_float32_realisation():
     assert res["held_by_float64_referee"] >= 1
     assert res["kernel_apart_from_float64"] <= \
         res["plain_apart_from_float64"] + 2
+
+
+@pytest.mark.parametrize("fault", [0.0, 1e-2])
+def test_wide_referee_holds_each_problem_to_its_own_noise(fault):
+    """chip_smoke.py's bars for a ``wide`` case (the block path's adaptive
+    body), on the CPU, with the stand-in kernel: held as it is; with 1e-2 of
+    weight moved in every row of one problem whose step histories are
+    equal (about twice a typical weight at N=150), refused."""
+    C = _chip_smoke()
+    cw, r, p, out_k, out_p = _standin_outputs(40, fault=fault, problem=1)
+    res = {}
+    if not fault:
+        C.hold_to_plain("standin", cw, r, p, {}, out_k, out_p, res, wide=True)
+        assert res["decisions_parted"] == 0
+        assert res["held_by_float64_referee"] >= 1
+        return
+    with pytest.raises(AssertionError, match="equal step histories"):
+        C.hold_to_plain("planted", cw, r, p, {}, out_k, out_p, res,
+                        wide=True)
+
+
+@pytest.mark.parametrize("fault", [0.0, 1e-2])
+def test_one_problems_float32_noise_does_not_widen_anothers(fault):
+    """The referee of a ``wide`` case on distances as an H100 showed them:
+    one problem (0) whose permuted plain run lies 4.4e-3 from the float64
+    run in weights, as the kernel does, is held; a kernel 1e-2 from it on
+    another problem (1), whose plain runs lie within 2e-5, is refused,
+    where a case-wide noise of 4.4e-3 would have held it (3 x 4.4e-3 plus
+    the bar is 1.4e-2)."""
+    C = _chip_smoke()
+    B = 4
+    steps = torch.zeros(B, 3)
+    d_plain = torch.tensor([2e-5, 1e-5, 1e-5, 1e-5], dtype=torch.float64)
+    d_perm = torch.tensor([4.4e-3, 2e-5, 1e-5, 1e-5], dtype=torch.float64)
+    d_kernel = torch.tensor([4.4e-3, fault or 2e-5, 1e-5, 1e-5],
+                            dtype=torch.float64)
+    small = torch.full((B,), 1e-7, dtype=torch.float64)
+
+    def referee():
+        return ((small, d_kernel, small), (small, d_plain, small),
+                torch.ones(B, dtype=torch.bool), (small, d_perm, small))
+
+    dw = torch.tensor([4.4e-3, fault or 2e-5, 0.0, 0.0])
+    zeros = torch.zeros(B)
+    res = {}
+    args = ("t", steps, steps, dw, zeros, zeros, W_TOL, OBJ_TOL,
+            C.FLIP_OBJ_TOL, res, referee)
+    if not fault:
+        held = C.adaptive_agreement(*args)
+        assert res["held_by_float64_referee"] == 1 and not held[0]
+        return
+    with pytest.raises(AssertionError, match="equal step histories"):
+        C.adaptive_agreement(*args)
 
 
 @pytest.mark.parametrize("seed", [40, 41])

@@ -225,7 +225,9 @@ def _budget_case(H, N, warp, block, S=None):
 def test_kernel_register_budget(S, H, N, warp, block):
     """The warp layout's register budget (``kernel_supports``) and the
     block layout's shared-memory budget (``block_kernel_supports``); the
-    layout a CUDA solve takes follows from both."""
+    layout a CUDA solve takes follows from both and from the row layout's
+    budget (``rows_kernel_supports``), which routing prefers: up to 32 rows
+    of 128 assets."""
     assert M.kernel_supports(H, N) is warp
     if block is None:
         return
@@ -233,7 +235,9 @@ def test_kernel_register_budget(S, H, N, warp, block):
     assert fits is block
     assert fits == (M.block_smem_bytes(S, H, N) <= M.SMEM_PER_BLOCK
                     and H >= 1)
-    want = "warp" if warp else ("block" if block else None)
+    rows = M.rows_kernel_supports(S, H, N)
+    want = "rows" if rows else (
+        "warp" if warp else ("block" if block else None))
     assert M.kernel_layout(S, H, N) == want
 
 
