@@ -5,11 +5,12 @@
 
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
-1. ``build``: the card, torch and CUDA versions, the build of the nineteen
-   kernel sources (one nvcc per source, started together, from the sources
-   in this checkout) with each build's seconds, registers and spills (every
-   instantiation but the ladder's), and the wrappers' copies of the block
-   and row layouts' shared-memory plans against the built kernels';
+1. ``build``: the card, torch and CUDA versions, the build of the
+   twenty-one kernel sources (one nvcc per source, started together, from
+   the sources in this checkout) with each build's seconds, registers and
+   spills (every instantiation but the ladder's), and the wrappers' copies
+   of the block, row and wide-row layouts' shared-memory plans against the
+   built kernels';
 2. ``kernels``: every CUDA kernel against its plain PyTorch version on the
    card: the log-utility kernel over the parametrised cases of the CPU
    tests, the edges of its register budget and the main-path and bench
@@ -32,13 +33,27 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    whose shape it takes, run twice for the same bits and compared bit for
    bit with the warp kernel, and at cases of its own (H in {1, 5, 8, 17,
    20, 32}, one to four slots, scenario returns past its registers, warm
-   inputs and the dual output); every rung of the MV ladder; then
-   ``layouts``: every layout of kernels A and B that takes the shape, timed
-   at the exact scan's (B=1), the comparison's (B=1028) and the headline's
-   (B=65536) batch at H=5, at H=1, and at the long path's H=20 (B=1013,
-   S=16 too) and bench.py's long shape, the routed layout required to be
-   the fastest; and of kernel C at the Markowitz path's shape (H=1, N=20)
-   and at H=5, N=30;
+   inputs and the dual output); the wide-row layout (one forecast past
+   four slots, one warp per horizon row, the row in shared memory) with
+   the block layout beside it, every body and option (refresh 8 and 16,
+   pipelined, adaptive at ``adapt_every`` 1 and 2, precond off and on,
+   ridge, over-relaxation, no ball, cold projections of 12 and 16 sweeps,
+   warm inputs with the dual output) and the edges of its envelope (N=129,
+   32 rows, H=20 N=384, H=5 N=1600, one row of 2730), run twice for the
+   same bits, with its largest weight difference from the block kernel,
+   and its adaptive body past 1000 assets (H=3 N=1000, H=4 N=1600) held
+   by its spread against the float64 run (``hold_spread``);
+   every rung of the MV ladder; then ``layouts``: every layout of kernels
+   A and B that takes the shape, timed at the exact scan's (B=1), the
+   comparison's (B=1028) and the headline's (B=65536) batch at H=5, at
+   H=1, and at the long path's H=20 (B=1013, S=16 too) and bench.py's long
+   shape, the wide-row layout against the block layout at N=150 and N=500
+   (B = 1, 1028, 4096) and on each side of the switch where routing
+   leaves it for the block layout, the layouts' outputs held to one
+   another (``hold_layouts``), the routed layout required to be the
+   fastest or, where ROUTED_SLOWER names the shape and body, within its
+   bound; and of kernel C at the Markowitz path's shape (H=1, N=20) and
+   at H=5, N=30;
 3. ``nan_row``, ``probe``, ``probe_accurate``: a NaN forecast holds the
    weights; accuracy on the 64 bench probe instances against the float64
    oracle objectives in bench_probe_cache.json, at the bench setting and
@@ -81,9 +96,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    the three configurations, kernel A's (which routing no longer picks)
    launched in that layout on the comparison's first-sweep problems, kernel
    B's through its packed entry point at a shape that routes to it (B=132,
-   S=113, H=8, N=64), and ``block_path``: the block layout's four kernels at
-   a shape past the row layout (B=1028, H=5, N=150, one forecast and
-   S=16), each launch counted and each held against its plain version;
+   S=113, H=8, N=64), and ``block_path``: a shape past the row layout
+   (B=1028, H=5, N=150), one forecast through its packed entry point to
+   the wide-row layout's two kernels and the same problems launched in the
+   block layout, S=16 through its entry point to kernel B's block kernels,
+   each launch counted and each held against its plain version;
 9. ``mv_long_wide``: the mean-variance solve past the warp layout (C.2)
    at bench.py's Markowitz settings (1000 iterations at refresh 16, and
    1000 adaptive) on bench.py's problems: per-problem covariances at
@@ -98,9 +115,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
 11. ``headline``, ``accurate_headline``: the solve at B=65536, H=5, N=30,
    at the bench setting (1000 iterations) and at the accurate one (800);
    ``large_headline``: bench.py's ``long`` shape (B=16384, H=20, N=30, 1000
-   iterations, and 4000 adaptive) and ``assets500`` shape (B=4096, H=5,
-   N=500, 1000 pipelined iterations, and 10000), with the gap on the
-   shape's 16 probe instances to the float64 references cached in
+   iterations, and 4000 adaptive; the row layout) and ``assets500`` shape
+   (B=4096, H=5, N=500, 1000 pipelined iterations, and 10000; the wide-row
+   layout, the block layout timed beside it), with the gap on the shape's
+   16 probe instances to the float64 references cached in
    bench_probe_cache.json;
 12. the ``kernels`` line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
@@ -200,8 +218,9 @@ REFEREE_FACTOR = 3.0
 # run instead (``hold_unsettled_mv``).
 MV_UNSETTLED_FP = 1e-4
 # The adaptive log-utility body past the row layout (``block_path``, B=1028
-# at N=150, 800 iterations; ``wide`` cases) is at float32's limit as at
-# N=500 (REFEREE_FACTOR): a few problems leave both float32 runs unsettled
+# at N=150, 800 iterations; the wide-row layout's cold-started cases of the
+# ``kernels`` phase; ``wide`` cases) is at float32's limit as at N=500
+# (REFEREE_FACTOR): a few problems leave both float32 runs unsettled
 # (fixed-point residual 1.6e-4 to 4.9e-4) and, where their step histories
 # part, 7.9e-4 to 1.3e-3 apart in objective, either one within 2.4e-6 of
 # the float64 run; such a problem is held against the float64 run as
@@ -213,8 +232,33 @@ MV_UNSETTLED_FP = 1e-4
 # the larger of the case's float32 noise and that problem's own distance
 # of the permuted plain version, where the permuted run's step history is
 # the float64 run's too (measured on an H100, PERF.md section 6). Every
-# other case keeps its bars.
+# other case keeps its bars. At N=500 and 400 iterations (5 to 16 problems
+# a seed, an H100) the float32 plain version itself took another step
+# history than the float64 run on 1 of 5 problems of one seed (3.2e-3 from
+# it in objective, fixed-point residual 1.1e-3, where the wide kernel kept
+# the float64 run's history and lay within 2.4e-5 of it), and on 1 of 16 of
+# another; the block kernel or the wide kernel did so on others (PERF.md
+# section 6).
 LOG_UNSETTLED_FP = 1e-4
+# Past SPREAD_N assets the adaptive body has not settled after 800
+# iterations at one to four rows (fixed-point residual 3e-4 at H=3 N=1000,
+# 2.6e-3 at H=4 N=1600, in float64 as in float32), and float32 runs part at
+# balancing ties on a third to all of the problems: the plain version as
+# given and with its assets permuted, the wide and the block kernels each
+# lie 1.6-1.7e-2 (median) from the float64 run in weights at H=4 N=1600,
+# above it in objective on half the problems (PERF.md section 6).
+# The float64 run is then one more trajectory, no referee: the bars of
+# ``hold_to_plain`` refuse the block kernel there as they do the wide one
+# (at 60 to 800 iterations). Such a case is held by its spread
+# (``hold_spread``): at each of SPREAD_QUANTILES over the problems the
+# kernel's weight distance to the float64 run at most REFEREE_FACTOR times
+# the larger of the two plain runs' plus the bar, and with SPREAD_MIN_B
+# problems or more its objectives unbiased against the plain version's
+# (mean within SPREAD_SE standard errors).
+SPREAD_N = 1000
+SPREAD_QUANTILES = (0.5, 0.9)
+SPREAD_SE = 4.0
+SPREAD_MIN_B = 16
 ACCURATE_PROBE_GAP = 1.5e-4  # median gap to the oracle, accurate setting
 # A warm sweep's solution (500 iterations) against a cold full-budget solve
 # from the same pre-trade weights: the largest objective deficit over the
@@ -436,13 +480,15 @@ def check_feasible(w, cw, params, label, sum_tol=FEAS_TOL):
 
 
 def compare_case(label, B, H, N, params, seed, S=None, warm=False,
-                 dual=False, time_reps=3, time_plain=True, layouts=None):
+                 dual=False, time_reps=3, time_plain=True, layouts=None,
+                 wide=False, spread=False):
     """A log-utility kernel and the plain version on the same card inputs,
     through the same finalisation; returns the case's JSON fields by
     layout (``compare_layouts``). With S the scenario kernel. ``dual``
     also compares the loop's last dual. ``warm`` compares a continuation of
     a quarter of the budget from the iterates of a cold plain solve (and
-    its dual output)."""
+    its dual output). ``wide`` holds an adaptive case as ``hold_to_plain``
+    says, ``spread`` as ``hold_spread`` says."""
     if S is None:
         cw_np, ys_np = instance(B, H, N, seed)
     else:
@@ -450,7 +496,7 @@ def compare_case(label, B, H, N, params, seed, S=None, warm=False,
     cw = torch.as_tensor(cw_np, device="cuda")
     r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
     return compare_layouts(label, cw, r, params, warm, dual, time_reps,
-                           time_plain, layouts)
+                           time_plain, layouts, wide, spread)
 
 
 def compare_tensors(label, cw, r, params, warm=False, dual=False,
@@ -501,19 +547,23 @@ def pinned(layout, cw, r, params, w_warm=None, p_warm=None,
 
 def compare_layouts(label, cw, r, params, warm=False, dual=False,
                     time_reps=3, time_plain=True, layouts=None,
-                    wide=False):
+                    wide=False, spread=False):
     """Each of ``layouts`` (default: the one the wrapper routes to) on given
     card tensors, launched in that layout (``pinned``), against one
     run of the plain version: current weights [B, N] and gross returns
     [B, H, N] or [B, S, H, N]. With ``params.adaptive`` the bars are
-    applied as ``adaptive_agreement`` says. A row or block kernel runs
-    twice and must give the same bits (its rows or its reduces meet in
-    shared memory: a missing barrier shows as a run-to-run difference).
+    applied as ``adaptive_agreement`` says, or with ``spread`` (a cold
+    case past SPREAD_N assets) as ``hold_spread`` says. A row, wide or
+    block kernel runs twice and must give the same bits (its rows or its
+    reduces meet in shared memory: a missing barrier shows as a run-to-run
+    difference).
     Where the warp and the row layout both run, the row kernel's outputs
     (weights, fixed-point residual, dual, steps) must equal the warp
     kernel's bit for bit (``bits_equal_warp``, checked by ``check_bits``)
     unless ``rows_bits_part`` names the first operation at which the two
-    may part; those cases are held to the bars alone. Returns {layout:
+    may part; those cases are held to the bars alone. Where the wide and
+    the block layout both run, the wide case reports the largest weight
+    difference between the two (``max_abs_dw_block``). Returns {layout:
     case}."""
     from dataclasses import replace
 
@@ -535,7 +585,7 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
     plain_ms = cuda_ms(lambda: M.pdhg_log_utility_plain(
         cw, r, params, return_dual=dual, **kw), 1) if time_plain else None
     bound = pdhg_bound(B, H, N, params, S, warm, dual)
-    results, outs = {}, {}
+    results, outs, refs = {}, {}, None
     for layout in layouts:
         kernel = pinned_kernel(layout, r, params)
         out_k = pinned(layout, cw, r, params, return_dual=dual,
@@ -550,7 +600,11 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
                 f"{label}: two runs of the {layout} kernel differ"
             res["deterministic"] = True
         torch.cuda.synchronize()
-        hold_to_plain(label, cw, r, params, kw, out_k, out_p, res, wide)
+        if spread:
+            refs = refs or spread_refs(cw, r, params, out_p)
+            hold_spread(label, cw, r, params, out_k, out_p, refs, res)
+        else:
+            hold_to_plain(label, cw, r, params, kw, out_k, out_p, res, wide)
         res["bound_ms"], res["bound_by"] = bound
         if S is not None:
             res["S"] = S
@@ -565,6 +619,11 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
         if not all(same):
             results["rows"]["bits_equal_outputs"] = same
             results["rows"]["bits_part"] = rows_bits_part(H, N, params, S)
+    if "wide" in outs and "block" in outs:
+        # Other summation orders, so other bits: each layout meets the
+        # bars against the plain version; how far apart the two are.
+        results["wide"]["max_abs_dw_block"] = (
+            outs["wide"][0] - outs["block"][0]).abs().max().item()
     return results
 
 
@@ -906,7 +965,11 @@ def hold_unsettled(label, cw, r, params, astray, fpk, fpp, obj_k, obj_p,
                    unsettled_fp, res):
     """``hold_unsettled_mv`` for the log-utility program (no warm inputs):
     each problem of ``astray`` against the plain version run in float64 on
-    it. A side that settled there (fixed-point residual at most
+    the case's batch, as ``hold_to_plain``'s referee runs it (run alone, a
+    problem at a balancing tie took the other branch in float64 too, 3.2e-3
+    below the batch's run in objective, where the wide kernel lay within
+    2.4e-5 of the batch's run: PERF.md section 6). A side that
+    settled there (fixed-point residual at most
     ``unsettled_fp``) must lie within OBJ_TOL (scenarios: SCEN_OBJ_TOL) of
     the float64 run; an unsettled kernel may not lie above it (maximisation
     form), and the kernel may be unsettled on no more of them than the plain
@@ -918,17 +981,18 @@ def hold_unsettled(label, cw, r, params, astray, fpk, fpp, obj_k, obj_p,
     if idx.numel() == 0:
         return
     tol = OBJ_TOL if r.dim() == 3 else SCEN_OBJ_TOL
-    cw64, r64 = cw[idx].double(), r[idx].double()
+    cw64, r64 = cw.double(), r.double()
     out64 = M.pdhg_log_utility_plain(cw64, r64, params)
     obj64 = M._finalize_packed(out64[0], r64, cw64, params,
-                               out64[1])[1]["objective"]
+                               out64[1])[1]["objective"][idx]
+    fp64 = out64[1][idx]
     ok, uk = obj_k[idx].double() - obj64, fpk[idx] > unsettled_fp
     op, up = obj_p[idx].double() - obj64, fpp[idx] > unsettled_fp
     n_k, n_p = int(uk.sum().item()), int(up.sum().item())
     res.update({"kernel_unsettled_apart": n_k, "plain_unsettled_apart": n_p,
                 "unsettled": [
                     {"fp_kernel": fpk[i].item(), "fp_plain": fpp[i].item(),
-                     "fp_float64": out64[1][j].item(),
+                     "fp_float64": fp64[j].item(),
                      "dobj_kernel_vs_float64": ok[j].item(),
                      "dobj_plain_vs_float64": op[j].item()}
                     for j, i in enumerate(idx.tolist()[:8])]})
@@ -944,6 +1008,89 @@ def hold_unsettled(label, cw, r, params, astray, fpk, fpp, obj_k, obj_p,
     assert n_k <= n_p + 3.0 * n_p ** 0.5 + 2, (
         f"{label}: the kernel is unsettled on {n_k} of the problems ended "
         f"apart, the float32 plain version on {n_p}")
+
+
+def spread_refs(cw, r, params, out_p):
+    """The runs a SPREAD_N case is held against: the plain version in
+    float64 on the case's inputs, and ``distances(out)``, for a run's
+    outputs (weights, fixed-point residual) after the same finalisation its
+    per-problem weight distance to the float64 run (largest over rows and
+    assets), its objective minus the float64 run's and its finalised
+    weights; with those of the plain version as given (``out_p``) and with
+    its assets permuted (another float32 summation order), in as many
+    permutations as give SPREAD_MIN_B problems (one problem's two runs are
+    no sample of a float32 run's spread), pooled."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    cw64, r64 = cw.double(), r.double()
+    out64 = M.pdhg_log_utility_plain(cw64, r64, params)
+    w64, i64 = M._finalize_packed(out64[0], r64, cw64, params, out64[1])
+
+    def distances(out):
+        w, info = M._finalize_packed(out[0], r, cw, params, out[1])
+        return ((w.double() - w64).abs().amax(dim=(1, 2)),
+                info["objective"].double() - i64["objective"], w)
+
+    permuted = []
+    for seed in range(-(-SPREAD_MIN_B // r.shape[0])):
+        perm = torch.randperm(r.shape[-1], generator=torch.Generator()
+                              .manual_seed(seed)).to(r.device)
+        o = M.pdhg_log_utility_plain(cw[:, perm].contiguous(),
+                                     r[..., perm].contiguous(), params)
+        permuted.append(distances((o[0][..., torch.argsort(perm)], o[1])))
+    return {"distances": distances, "plain": distances(out_p),
+            "permuted": tuple(torch.cat(x) for x in zip(*permuted))}
+
+
+def hold_spread(label, cw, r, params, out_k, out_p, refs, res):
+    """The bars of a SPREAD_N case (see SPREAD_N), on any device: the
+    kernel's outputs ``out_k`` against the float64 run as the float32 plain
+    runs of ``refs`` (``spread_refs``) lie from it. At each of
+    SPREAD_QUANTILES over the problems, its weight distance at most
+    REFEREE_FACTOR times the larger of the plain runs' plus W_TOL; with
+    SPREAD_MIN_B problems or more, the mean of its objective minus the
+    plain version's within SPREAD_SE standard errors of 0 (plus
+    FLIP_MEAN_OBJ_TOL); its weights feasible, the simplex sums within twice
+    the plain runs' error where that exceeds FEAS_TOL. Fills ``res`` with
+    those readings and the differences from the plain version (``out_p``)
+    that ``hold_to_plain`` reports; raises ``AssertionError`` at the first
+    bar missed."""
+    dk, ek, wk = refs["distances"](out_k)
+    dp, ep, wp = refs["plain"]
+    dq, _, wq = refs["permuted"]
+    for q in SPREAD_QUANTILES:
+        kq = torch.quantile(dk, q).item()
+        ref = max(torch.quantile(dp, q).item(), torch.quantile(dq, q).item())
+        res[f"dw_float64_q{round(100 * q)}"] = kq
+        res[f"plain_dw_float64_q{round(100 * q)}"] = ref
+        assert kq <= REFEREE_FACTOR * ref + W_TOL, (
+            f"{label}: at quantile {q} the kernel lies {kq} from the float64 "
+            f"run in weights, the float32 plain runs {ref}")
+    dobj = ek - ep
+    B = dobj.numel()
+    res["mean_dobj_all"] = dobj.mean().item()
+    if B >= SPREAD_MIN_B:
+        se = dobj.std().item() / B ** 0.5
+        res["mean_dobj_se"] = se
+        assert abs(res["mean_dobj_all"]) <= SPREAD_SE * se + \
+            FLIP_MEAN_OBJ_TOL, (
+                f"{label}: objectives biased against the plain version's: "
+                f"mean {res['mean_dobj_all']}, standard error {se}")
+    res["simplex_error"] = simplex_error(wk)
+    res["plain_simplex_error"] = max(simplex_error(wp), simplex_error(wq))
+    check_feasible(wk, cw, params, label,
+                   max(FEAS_TOL, 2.0 * res["plain_simplex_error"]))
+    dw = (wk - wp).abs().amax(dim=(1, 2))
+    apart = (dw > W_TOL) | (dobj.abs() > OBJ_TOL)
+    res.update({"max_abs_dw": dw.max().item(),
+                "max_abs_dobj": dobj.abs().max().item(),
+                "ended_apart": int(apart.sum().item()),
+                "max_abs_dw_held":
+                    dw[~apart].max().item() if (~apart).any() else 0.0,
+                "held_by_spread": True})
+    if len(out_k) > 3 and len(out_p) > 3:
+        res["decisions_parted"] = int(
+            (out_k[3][:, -1] != out_p[3][:, -1]).sum().item())
 
 
 def hold_unsettled_mv(label, cw, mu, sig, params, astray, fpk, fpp, obj_k,
@@ -1033,6 +1180,31 @@ def phase_build():
              spill_store_bytes={k: v for k, v in spills.items() if v})
     check_mv_block_plan()
     check_rows_plan()
+    check_wide_plan()
+
+
+def check_wide_plan():
+    """The wrapper's copy of the wide-row layout's shared-memory plan
+    (``wide_smem_bytes``, which decides whether the wide layout takes a
+    shape) against the plan the built kernel launches with, over the edges
+    of its envelope: 1 to 32 rows, 129 to 2730 assets, both bodies."""
+    import ctypes
+
+    from kmpc_tpu_torch._build import library_path
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    plan = ctypes.CDLL(str(library_path("pdhg_log_utility_wide")))
+    plan = plan.kmpc_wide_smem_bytes
+    plan.argtypes, plan.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    shapes = [(H, N, a) for H in (1, 5, 8, 9, 20, 21, 32)
+              for N in (129, 150, 160, 161, 500, 512, 513, 1600, 2730)
+              for a in (False, True)]
+    wrong = [(H, N, a, M.wide_smem_bytes(H, N, a), plan(H, N, a))
+             for H, N, a in shapes
+             if M.wide_smem_bytes(H, N, a) != plan(H, N, a)]
+    assert not wrong, \
+        f"the wrapper's wide plan differs from the kernel's: {wrong[:5]}"
+    emit("wide_plan", shapes=len(shapes), agree=True)
 
 
 def check_rows_plan():
@@ -1268,6 +1440,83 @@ def phase_kernel_vs_plain():
         ("rows_adaptive_warm_dual_H8N70", 5, 8, 70, _params(
             max_iters=300, **acc), 842, warm),
     ]
+    # The wide-row layout (one forecast past four slots, one warp per
+    # horizon row, the row in shared memory), the block layout beside it:
+    # every body (warm and cold thresholds, the refresh schedule, the
+    # pipelined body at refresh 8 and 16 with an odd iteration count, the
+    # adaptive body at adapt_every 1 and 2, precond off and on), ridge,
+    # over-relaxation, no ball, cold projections past 64 and 256 assets
+    # (12 and 16 sweeps), warm inputs with the dual output, the steps; at
+    # the edges of its envelope (N=129, 32 rows, one row of 2730 assets,
+    # the largest plan at H=5 and at H=20).
+    wide_cases = [
+        ("wide_body_H5N150", 6, 5, 150, _params(max_iters=400)),
+        ("wide_cond_precond_H5N500", 4, 5, 500, _params(
+            max_iters=400, proj_refresh_every=16, precond=True)),
+        ("wide_pipe_r16_H5N500", 4, 5, 500, _params(
+            max_iters=401, proj_refresh_every=16, **pipe)),
+        ("wide_pipe_r8_precond_H3N200", 5, 3, 200, _params(
+            max_iters=403, proj_refresh_every=8, precond=True, **pipe)),
+        ("wide_pipe_no_ball_H5N150", 5, 5, 150, _params(
+            max_iters=400, proj_refresh_every=16, max_turnover=0.0,
+            **pipe)),
+        ("wide_ridge_precond_H5N160", 5, 5, 160, _params(
+            max_iters=400, ridge=1e-3, precond=True, feas_tol=3e-4)),
+        ("wide_over_relax_H5N200", 5, 5, 200, _params(
+            max_iters=400, over_relax=1.5)),
+        ("wide_no_ball_H5N150", 5, 5, 150, _params(
+            max_iters=400, max_turnover=0.0)),
+        ("wide_cold_H5N200", 4, 5, 200, _params(
+            max_iters=300, proj_warm_iters=0)),
+        ("wide_cold_H3N300", 4, 3, 300, _params(
+            max_iters=300, proj_warm_iters=0)),
+        ("wide_H5N129_cond", 5, 5, 129, _params(
+            max_iters=400, proj_refresh_every=16)),
+        ("wide_H32N200_cond", 3, 32, 200, _params(
+            max_iters=300, proj_refresh_every=16, precond=True)),
+        ("wide_H20N384_pipe", 3, 20, 384, _params(
+            max_iters=301, proj_refresh_every=16, **pipe)),
+        ("wide_H5N1600_cond", 3, 5, 1600, _params(
+            max_iters=300, proj_refresh_every=16)),
+        ("wide_H1N2730_cond", 3, 1, 2730, _params(
+            max_iters=300, proj_refresh_every=16)),
+    ]
+    seed = 850
+    for H, N in ((5, 150), (5, 500)):
+        for k in (1, 2):
+            for precond in (False, True):
+                wide_cases.append((
+                    f"wide_adaptive_H{H}N{N}k{k}p{int(precond)}", 5, H, N,
+                    _params(max_iters=400, adaptive=True, adapt_every=k,
+                            precond=precond)))
+    wide_cases += [
+        ("wide_adaptive_ridge_H5N160", 5, 5, 160, _params(
+            max_iters=400, ridge=1e-3, feas_tol=3e-4, **acc)),
+        ("wide_adaptive_over_relax_odd_H5N200", 5, 5, 200, _params(
+            max_iters=401, over_relax=1.5, **acc)),
+        ("wide_adaptive_k1_cold_no_ball_H5N300", 4, 5, 300, _params(
+            max_iters=300, adaptive=True, proj_warm_iters=0,
+            max_turnover=0.0)),
+        ("wide_adaptive_H32N200", 3, 32, 200, _params(max_iters=300, **acc)),
+        ("wide_adaptive_H20N384", 3, 20, 384, _params(max_iters=300, **acc)),
+        # Past SPREAD_N assets, routed to the wide layout: held by their
+        # spread (``hold_spread``), at the paths' 800 iterations.
+        ("wide_adaptive_H3N1000", 64, 3, 1000, _params(max_iters=800, **acc)),
+        ("wide_adaptive_H4N1600", 64, 4, 1600, _params(max_iters=800, **acc)),
+    ]
+    for label, B, H, N, p in wide_cases:
+        seed += 1
+        cases.append((label, B, H, N, p, seed, quick))
+    cases += [
+        ("wide_warm_dual_H5N200", 5, 5, 200, _params(
+            max_iters=400, proj_refresh_every=16, precond=True), 881, warm),
+        ("wide_pipe_warm_dual_H5N500", 4, 5, 500, _params(
+            max_iters=400, proj_refresh_every=16, **pipe), 882, warm),
+        ("wide_adaptive_warm_dual_H5N150", 5, 5, 150, _params(
+            max_iters=400, **acc), 883, warm),
+        ("wide_dual_H5N150", 5, 5, 150, _params(max_iters=400), 884,
+         dict(dual=True, time_plain=False)),
+    ]
     out = {name: [] for name in kernel_counters()}
 
     def record(res, kernel=None):
@@ -1281,22 +1530,34 @@ def phase_kernel_vs_plain():
         return res
 
     def layouts_of(label, S, H, N):
-        """The layout a case's label names (block, rows, else warp), and
-        beside it the row layout (the warp layout beside a rows case)
-        wherever that takes the shape."""
+        """The layout a case's label names (block, rows, wide, else warp),
+        and beside it the row layout (the warp layout beside a rows case)
+        and the wide layout (the block layout beside a wide case) wherever
+        that takes the shape."""
         main = ("block" if "block" in label
-                else "rows" if label.startswith("rows_") else "warp")
-        extra = "warp" if main == "rows" else "rows"
-        return [main] + ([extra] if M.layout_supports(extra, S, H, N)
-                         else [])
+                else "rows" if label.startswith("rows_")
+                else "wide" if label.startswith("wide_") else "warp")
+        extra = (("warp",) if main == "rows" else ("rows", "wide")) \
+            + (("block",) if main == "wide" else ())
+        return [main] + [x for x in extra if x != main
+                         and M.layout_supports(x, S, H, N)]
 
     def run(label, B, H, N, p, s, S=None, **kw):
+        # The plain version is timed on the paths, whose times the kernels
+        # line reports, not here. The wide-row layout's adaptive cases (and
+        # the block layout's beside them) are at float32's limit as
+        # ``block_path``'s are (LOG_UNSETTLED_FP): held as ``wide`` cases
+        # where they start cold, past SPREAD_N assets by their spread.
+        kw["time_plain"] = False
+        kw["wide"] = label.startswith("wide_") and not kw.get("warm")
+        kw["spread"] = p.adaptive and N >= SPREAD_N and not kw.get("warm")
         for layout, res in compare_case(
                 label, B, H, N, p, s, S=S,
                 layouts=layouts_of(label, S, H, N), **kw).items():
             k = res["kernel"]
-            assert ("block" in k) == (layout == "block") \
-                and ("rows" in k) == (layout == "rows"), (label, layout, k)
+            assert all((lay in k) == (layout == lay)
+                       for lay in ("block", "rows", "wide")), \
+                (label, layout, k)
             record(res)
 
     for label, B, H, N, p, s, kw in cases:
@@ -1481,7 +1742,8 @@ def phase_kernel_vs_plain():
             **{"max_iters": 600, "gamma": 5.0, **kw}), seed,
             dict(wide, shared=shared)))
     for label, B, H, N, p, s, kw in mv_cases:
-        record(routed(compare_mv_case(label, B, H, N, p, s, **kw)))
+        record(routed(compare_mv_case(label, B, H, N, p, s,
+                                      **dict(kw, time_plain=False))))
 
     # The MV ladder: every variant, chains and unroll, on a batch that is no
     # multiple of the chains; two and four slots per lane.
@@ -1522,22 +1784,58 @@ def alternating_ms(kernels, run):
 # The shapes ``layouts`` times every layout at: (S, B, H, N, seed). The
 # exact scan (B=1) and the comparison path (B=1028) at H=5, N=20; the
 # headline batch (B=65536, N=30); one horizon row; the long path (B=1013,
-# H=20) and bench.py's ``long`` shape (B=16384, H=20, N=30).
+# H=20) and bench.py's ``long`` shape (B=16384, H=20, N=30). The wide-row
+# layout against the block layout: the block path's N=150 and bench.py's
+# assets500 N=500 at B = 1, 1028 and 4096; one row of 500 assets, three
+# rows of 1000 and four of 1600 (wide); one row of 1056 at B=1 and 1028
+# and three at B=1 (wide, past the 32 slots a lane where an earlier rule
+# stopped); each side of ``wide_preferred``'s switch at B=1028 (one row of
+# 2368 and 2400 assets, two rows of 1888 and 1920); one row of 2730 and
+# two (B=1, block), where the bodies split.
 LAYOUT_SHAPES = (
     (None, 1, 5, 20, 508), (16, 1, 5, 20, 606),
     (None, 1028, 5, 20, 105), (16, 1028, 5, 20, 314),
     (None, 65536, 5, 30, 0), (None, 1028, 1, 20, 7),
     (None, 1013, 20, 20, 9), (16, 1013, 20, 20, 10),
     (None, 16384, 20, 30, 0),
+    (None, 1, 5, 150, 1150), (None, 1028, 5, 150, 1150),
+    (None, 4096, 5, 150, 1152), (None, 1, 5, 500, 0),
+    (None, 1028, 5, 500, 0), (None, 4096, 5, 500, 0),
+    (None, 1, 1, 500, 11), (None, 1028, 3, 1000, 12),
+    (None, 1028, 4, 1600, 15), (None, 1, 1, 1056, 16),
+    (None, 1028, 1, 1056, 17), (None, 1, 3, 1056, 18),
+    (None, 1028, 1, 2368, 19), (None, 1028, 1, 2400, 20),
+    (None, 1028, 2, 1888, 21), (None, 1028, 2, 1920, 22),
+    (None, 1, 1, 2730, 13), (None, 1, 2, 2730, 14),
 )
+# Where routing by shape alone is measured slower than another layout:
+# (S, B, H, N, body) -> the largest routed-over-fastest ratio allowed.
+# Routing takes the layout that is faster at B=1028 for most bodies; these
+# are the bodies and batches that split from it (PERF.md section 6).
+ROUTED_SLOWER = {
+    # One row of 1056 assets alone (B=1): the block layout's pipelined
+    # body 1.22x faster, the adaptive ones alike (1.002).
+    (None, 1, 1, 1056, "pipe"): 1.35, (None, 1, 1, 1056, "adaptive"): 1.05,
+    # Past the switch the fixed-step body stays faster in the wide layout
+    # (its plan is the smaller: 1.65x and 1.77x); at two rows of 1888 and
+    # 1920 the pipelined and adaptive bodies alike (within 2%).
+    (None, 1028, 1, 2400, "fixed"): 1.8,
+    (None, 1028, 2, 1888, "pipe"): 1.05,
+    (None, 1028, 2, 1888, "adaptive"): 1.05,
+    (None, 1028, 2, 1920, "fixed"): 1.95,
+    (None, 1028, 2, 1920, "pipe"): 1.05,
+    # Two rows of 2730 alone: the bodies split, the fixed one 1.13x
+    # faster in the wide layout.
+    (None, 1, 2, 2730, "fixed"): 1.25,
+}
 
 
 def layout_bodies(B):
     """The bodies ``layouts`` times: the paths' (2000 iterations fixed and
     pipelined at refresh 16 with precond, 800 adaptive), or bench.py's
-    settings at B >= 16384 (1000 iterations at refresh 16 with precond,
+    settings at B >= 4096 (1000 iterations at refresh 16 with precond,
     1000 pipelined, 800 adaptive)."""
-    its = 1000 if B >= 16384 else 2000
+    its = 1000 if B >= 4096 else 2000
     return {
         "fixed": (_params(max_iters=its) if its == 2000 else _params(
             max_iters=its, proj_refresh_every=16, precond=True)),
@@ -1548,17 +1846,52 @@ def layout_bodies(B):
     }
 
 
+def hold_layouts(label, cw, r, params, outs, routed, res):
+    """The bar ``phase_layouts`` holds one shape and body to, on any
+    device: the layouts' outputs ``outs`` {layout: (weights, fixed-point
+    residual)}, and the layout the wrapper routes the shape to. Each
+    layout's weights within W_TOL of the routed layout's on every problem,
+    for the adaptive body on all but BEYOND_SHARE of them (two runs that may
+    part at a tie). Past SPREAD_N assets the adaptive body's float32 runs
+    part on most problems, and each layout, the routed one too, is held by
+    its spread (``hold_spread``) instead. Fills ``res``; raises
+    ``AssertionError``."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    share = {}
+    for lay, out in outs.items():
+        assert torch.isfinite(out[0]).all(), f"{label} {lay}: not finite"
+        dw = (out[0] - outs[routed][0]).abs().amax(dim=(1, 2))
+        share[lay] = (dw > W_TOL).float().mean().item()
+    res["share_beyond_w_tol"] = share
+    if params.adaptive and r.shape[-1] >= SPREAD_N:
+        out_p = M.pdhg_log_utility_plain(cw, r, params)
+        refs = spread_refs(cw, r, params, out_p)
+        for lay, out in outs.items():
+            res[lay] = {}
+            hold_spread(f"{label} {lay}", cw, r, params, out, out_p, refs,
+                        res[lay])
+        return
+    bar = BEYOND_SHARE if params.adaptive else 0.0
+    far = {lay: x for lay, x in share.items() if x > bar}
+    assert not far, \
+        f"{label}: layouts whose weights part from the routed layout's " \
+        f"on more than {bar} of the problems: {far}"
+
+
 def phase_layouts():
     """Every layout of kernels A and B that takes the shape, at each of
     LAYOUT_SHAPES and body, launched in it (``pinned``), each
     timed in two rounds of 3, the layouts alternating. The layouts'
-    weights must agree within the fixed-step bar (the adaptive body's on
-    all but BEYOND_SHARE of the problems: two runs that may part at a
-    tie), and the layout the wrapper routes the shape to must be the
-    fastest measured there (the routing rule is the measurement).
-    ``mv_layouts`` does the same for kernel C."""
+    outputs must meet ``hold_layouts``, and the layout the wrapper routes
+    the shape to must be the fastest measured there (the routing rule is
+    the measurement), or within its bound where ROUTED_SLOWER names the
+    shape and body: every shape and body is timed before the phase fails
+    on the list of those where the layouts disagreed or another layout was
+    faster. ``mv_layouts`` does the same for kernel C."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
+    slower, disagree = [], []
     for S, B, H, N, seed in LAYOUT_SHAPES:
         cw_np, ys_np = (instance(B, H, N, seed) if S is None
                         else scenario_instance(B, S, H, N, seed))
@@ -1573,27 +1906,29 @@ def phase_layouts():
                 return pinned(layout, cw, r, p)
 
             times = alternating_ms({lay: lay for lay in taken}, run)
-            w = {lay: run(lay)[0] for lay in taken}
+            outs = {lay: run(lay) for lay in taken}
             torch.cuda.synchronize()
             medians = {lay: float(np.median(t)) for lay, t in times.items()}
-            apart = {}
-            for lay in taken:
-                assert torch.isfinite(w[lay]).all(), (S, B, H, body, lay)
-                dw = (w[lay] - w[routed]).abs().amax(dim=(1, 2))
-                apart[lay] = (dw > W_TOL).float().mean().item()
-                assert apart[lay] <= (BEYOND_SHARE if body == "adaptive"
-                                      else 0.0), \
-                    f"layouts S={S} B={B} H={H} {body} {lay}: " \
-                    f"{apart[lay]} of the problems apart"
+            held = {}
+            try:
+                hold_layouts(f"layouts S={S} B={B} H={H} N={N} {body}", cw,
+                             r, p, outs, routed, held)
+            except AssertionError as e:
+                disagree.append(str(e))
             fastest = min(medians, key=medians.get)
+            over = medians[routed] / medians[fastest]
+            allowed = ROUTED_SLOWER.get((S, B, H, N, body), 1.0)
             emit("layouts", S=S, B=B, H=H, N=N, body=body,
                  iters=p.max_iters, routed=routed, fastest=fastest,
                  ms=times, over_routed={lay: m / medians[routed]
                                         for lay, m in medians.items()},
-                 share_beyond_w_tol=apart)
-            assert fastest == routed, \
-                f"S={S} B={B} H={H} N={N} {body}: routed to {routed}, " \
-                f"but {fastest} measured faster: {medians}"
+                 routed_over_fastest_allowed=allowed, **held)
+            if over > allowed:
+                slower.append((S, B, H, N, body, routed, medians))
+    assert not disagree, f"layouts that disagree: {disagree}"
+    assert not slower, \
+        f"routed layouts measured slower than another (S, B, H, N, body, " \
+        f"routed, medians): {slower}"
 
 
 def mv_layouts():
@@ -2499,20 +2834,26 @@ def phase_warp_path(ctx):
     return launches, first, extra
 
 
-# The block layout's shapes on its path: past the row layout's four slots.
+# The block and wide-row layouts' shapes on their path: past the row
+# layout's four slots.
 BLOCK_PATH = (1028, 5, 150)
 
 
 def phase_block_path():
-    """The block layout's kernels at shapes that still route to them, past
-    the row layout's four slots: B=1028 problems of H=5 and N=150
-    (kmpc_tpu's kernel takes up to N=2730), one forecast and S=16
-    scenarios, at bench.py's settings (1000 iterations at refresh 16 with
-    precond; 1000 pipelined; 800 adaptive), through the packed entry
-    points. Counts set to 0 before these six solves and read after; then
+    """The block and wide-row layouts' kernels past the row layout's four
+    slots: B=1028 problems of H=5 and N=150 (kmpc_tpu's kernel takes up to
+    N=2730) at bench.py's settings (1000 iterations at refresh 16 with
+    precond; 1000 pipelined; 800 adaptive). One forecast through
+    ``solve_mpc_log_utility_packed``, which routes the shape to the wide
+    kernels, and the same problems in the block layout by the private
+    launch (``pinned``, as ``warp_path`` drives kernel A's warp kernels)
+    through the packed solve's finalisation; S=16 scenarios through
+    ``solve_mpc_log_utility_scenarios_packed``, routed to kernel B's block
+    kernels. Counts set to 0 before these nine solves and read after; then
     each held against its plain version (twice for the same bits; the
-    adaptive body as a ``wide`` case, LOG_UNSETTLED_FP) and
-    every row of the entry point's weights feasible, as in
+    adaptive body as a ``wide`` case, LOG_UNSETTLED_FP), the wide and block
+    kernels on the same problems against one plain run, with their largest
+    weight difference, and every row of the weights feasible, as in
     ``phase_warp_path``. Returns the launches and the cases by kernel."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
@@ -2524,35 +2865,48 @@ def phase_block_path():
         "adaptive": _params(max_iters=800, adaptive=True, adapt_every=2,
                             precond=True),
     }
-    solves = []
+    groups = []
     for S, seed in ((None, 1150), (SCENARIOS, 1151)):
         cw_np, ys_np = (instance(B, H, N, seed) if S is None
                         else scenario_instance(B, S, H, N, seed))
         cw = torch.as_tensor(cw_np, device="cuda")
         y = torch.as_tensor(ys_np, device="cuda")
-        solves += [(S, body, cw, y, p) for body, p in bodies.items()]
+        layouts = ["wide", "block"] if S is None else ["block"]
+        groups += [(S, body, layouts, cw, y, p) for body, p in bodies.items()]
     kernels = kernel_counters()
     for k in kernels.values():
         k.launches = 0
-    want, weights = {}, []
-    for S, body, cw, y, p in solves:
-        layout, _, kernel = M._route(S, H, N, p)
-        assert layout == "block", (S, body, layout)
-        solve = (M.solve_mpc_log_utility_packed if S is None
-                 else M.solve_mpc_log_utility_scenarios_packed)
-        weights.append(solve(cw, y, p)[0])
-        want[kernel.name] = want.get(kernel.name, 0) + 1
+    want, weights = {}, {}
+    for S, body, layouts, cw, y, p in groups:
+        routed, _, kernel = M._route(S, H, N, p)
+        assert routed == layouts[0], (S, body, routed)
+        for layout in layouts:
+            if layout == routed:
+                solve = (M.solve_mpc_log_utility_packed if S is None
+                         else M.solve_mpc_log_utility_scenarios_packed)
+                w = solve(cw, y, p)[0]
+            else:
+                r = torch.exp(y).contiguous()
+                kernel = pinned_kernel(layout, r, p)
+                out = pinned(layout, cw, r, p)
+                w = M._finalize_packed(out[0], r, cw, p, out[1])[0]
+            weights[(S, body, layout)] = w
+            want[kernel.name] = want.get(kernel.name, 0) + 1
     launches = {k: v.launches for k, v in kernels.items() if v.launches}
     assert launches == want, f"launches {launches}, expected {want}"
     first = {}
-    for (S, body, cw, y, p), w in zip(solves, weights):
-        res = compare_tensors(f"block_path_S{S}_{body}", cw,
-                              torch.exp(y).contiguous(), p, wide=True)
-        check_feasible(w, cw, p, f"block_path S={S} {body}", max(
-            FEAS_TOL, 2.0 * res["plain_simplex_error"]))
-        emit("block_path_solve", body=body, **res)
-        first.setdefault(res["kernel"], res)
-    emit("block_path", B=B, H=H, N=N, S=[None, SCENARIOS], launches=launches)
+    for S, body, layouts, cw, y, p in groups:
+        cases = compare_layouts(f"block_path_S{S}_{body}", cw,
+                                torch.exp(y).contiguous(), p,
+                                layouts=layouts, wide=True)
+        for layout, res in cases.items():
+            check_feasible(weights[(S, body, layout)], cw, p,
+                           f"block_path S={S} {body} {layout}", max(
+                               FEAS_TOL, 2.0 * res["plain_simplex_error"]))
+            emit("block_path_solve", body=body, **res)
+            first.setdefault(res["kernel"], res)
+    emit("block_path", B=B, H=H, N=N, S=[None, SCENARIOS],
+         layouts=["wide", "block"], launches=launches)
     return launches, first
 
 
@@ -2842,13 +3196,14 @@ LARGE = (
 def phase_large_headlines():
     """The batched solve at bench.py's ``long`` shape (B=16384, H=20,
     N=30: 1000 iterations at refresh 16, and the accurate co-row, 4000
-    adaptive) and ``assets500`` shape (B=4096, H=5, N=500: 1000 iterations
-    pipelined, and the 10000-iteration co-row), all in the block layout:
-    time, solves/s and bound, and the objective gap on bench.py's 16 probe
-    instances of the shape (seed 1241) against the float64 references
-    cached in bench_probe_cache.json (an adaptive PDHG run in float64, as
-    the keys say); at 1000 iterations the kernel's probe objectives are
-    held against the plain version's."""
+    adaptive; the row layout) and ``assets500`` shape (B=4096, H=5, N=500:
+    1000 iterations pipelined, and the 10000-iteration co-row; the
+    wide-row layout, with the block layout's time on the same inputs
+    beside it): time, solves/s and bound, and the objective gap on
+    bench.py's 16 probe instances of the shape (seed 1241) against the
+    float64 references cached in bench_probe_cache.json (an adaptive PDHG
+    run in float64, as the keys say); at 1000 iterations the kernel's
+    probe objectives are held against the plain version's."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
     from kmpc_tpu_torch.ops.mpc import MPCParams
 
@@ -2856,7 +3211,7 @@ def phase_large_headlines():
     for label, B, H, N, kw, bar, with_plain in LARGE:
         p = MPCParams(sigma_scale=2.0, feas_tol=2e-4, **kw)
         layout, body, kernel = M._route(None, H, N, p)
-        assert layout == ("block" if N > 128 else "rows"), (label, layout)
+        assert layout == ("wide" if N > 128 else "rows"), (label, layout)
         cw_np, ys_np = instance(B, H, N, 0)
         cw = torch.as_tensor(cw_np, device="cuda")
         r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
@@ -2872,6 +3227,9 @@ def phase_large_headlines():
         if with_plain:
             res["plain_ms"] = cuda_ms(lambda: M.pdhg_log_utility_plain(
                 cw, r, p), 1)
+        if layout == "wide":
+            res["block_ms"] = cuda_ms(lambda: pinned("block", cw, r, p),
+                                      reps)
 
         # The probe: bench.py's 16 instances of the shape.
         rng = np.random.default_rng(1241)
@@ -3002,6 +3360,9 @@ KERNELS = {
                                         _PALLAS + ":226"),
     "pdhg_log_utility_scenarios_rows_adaptive": (
         _LOG + "_scenarios_rows_adaptive.cu", _PALLAS + ":593"),
+    "pdhg_log_utility_wide": (_LOG + "_wide.cu", _PALLAS + ":226"),
+    "pdhg_log_utility_wide_adaptive": (_LOG + "_wide_adaptive.cu",
+                                       _PALLAS + ":593"),
 }
 
 
@@ -3056,7 +3417,8 @@ def main():
     # comparison path for the fixed-step kernels, A and B in the row
     # layout, the accurate path for the adaptive ones, the long path for the
     # row layout's pipelined body, ``warp_path`` for the warp layout's
-    # kernels, ``block_path`` for the block layout's, ``mv_long_wide`` for
+    # kernels, ``block_path`` for the block and wide-row layouts',
+    # ``mv_long_wide`` for
     # C's block kernels (its long_H20N30 case for the times), the ladder's
     # entry point for the ladder; each counted from 0
     # over that path alone), the largest kernel-vs-plain weight difference
@@ -3103,9 +3465,12 @@ def main():
                     "kernel_apart_from_float64",
                     "plain_apart_from_float64", "unsettled_apart",
                     "kernel_unsettled_apart", "plain_unsettled_apart")}})
-        if "block" in name or "rows" in name:
+        if "block" in name or "rows" in name or "wide" in name:
             entry["deterministic_cases"] = sum(
                 1 for c in every if c.get("deterministic"))
+        if "wide" in name:
+            entry["max_abs_dw_block"] = max(
+                c.get("max_abs_dw_block", 0.0) for c in every)
         if "rows" in name:
             entry["bits_equal_warp_cases"] = [
                 sum(1 for c in every if c.get("bits_equal_warp")),

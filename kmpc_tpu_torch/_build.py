@@ -55,6 +55,8 @@ SOURCES = {
     "pdhg_log_utility_scenarios_rows": "pdhg_log_utility_scenarios_rows.cu",
     "pdhg_log_utility_scenarios_rows_adaptive":
         "pdhg_log_utility_scenarios_rows_adaptive.cu",
+    "pdhg_log_utility_wide": "pdhg_log_utility_wide.cu",
+    "pdhg_log_utility_wide_adaptive": "pdhg_log_utility_wide_adaptive.cu",
 }
 
 

@@ -26,18 +26,23 @@ take warm primal/dual iterates (the simplex threshold then starts cold on
 the warm primal, the ball threshold from zero) and can write the loop's
 last dual.
 
-Three layouts: one CTA per problem and one warp per horizon row
+Four layouts: one CTA per problem and one warp per horizon row
 (``csrc/pdhg_log_utility_rows.cuh``, up to 32 rows of ceil(N/32) <= 4
 slots), one warp per problem with the iterates in registers
-(``csrc/pdhg_log_utility.cuh``, up to pow2ceil(H) * ceil(N/32) = 16), and
-one block per problem with the iterates in shared memory
+(``csrc/pdhg_log_utility.cuh``, up to pow2ceil(H) * ceil(N/32) = 16), the
+wide-row layout for one forecast past 128 assets, one warp per horizon row
+with the row in shared memory (``csrc/pdhg_log_utility_wide.cuh``, up to
+32 rows, as many slots as the shared memory holds), and one block per
+problem with the iterates in shared memory
 (``csrc/pdhg_log_utility_block.cuh``, every shape whose problem fits a
-block's shared memory: long horizons, hundreds of assets). A CUDA tensor
-launches the row kernel where it fits (the fastest layout at every shape
-measured), else the warp kernel (which the row layout now takes wherever
-both fit, except for scenario returns past the row plan's shared memory),
-else the block kernel, else raises. A CPU tensor runs
-``pdhg_log_utility_plain``, the same iteration as plain tensor code.
+block's shared memory: long horizons, hundreds of assets, scenarios). A
+CUDA tensor launches the row kernel where it fits (the fastest layout at
+every shape measured), else the warp kernel (which the row layout now
+takes wherever both fit, except for scenario returns past the row plan's
+shared memory), else the wide kernel where it measured faster than the
+block kernel (``wide_preferred``), else the block kernel, else raises.
+A CPU tensor runs ``pdhg_log_utility_plain``, the same iteration as plain
+tensor code, the plain version of every layout.
 ``allow_short`` raises here (the kernels project on the simplex only): a
 caller who wants shorts calls the eager solvers by name.
 """
@@ -141,6 +146,15 @@ PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE = CudaKernel(
     "kmpc_pdhg_log_utility_scenarios_rows_adaptive",
     [_P] * 8 + [_I, _I] + _TAIL,
 )
+# The wide-row layout (one forecast): the block layout's arguments.
+PDHG_LOG_UTILITY_WIDE = CudaKernel(
+    "pdhg_log_utility_wide", "kmpc_pdhg_log_utility_wide",
+    [_P] * 7 + [_I] + _TAIL_BLOCK,
+)
+PDHG_LOG_UTILITY_WIDE_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_wide_adaptive", "kmpc_pdhg_log_utility_wide_adaptive",
+    [_P] * 8 + [_I] + _TAIL,
+)
 # (scenarios, layout, body) -> kernel
 _KERNELS = {
     (False, "warp", "fixed"): PDHG_LOG_UTILITY,
@@ -161,13 +175,18 @@ _KERNELS = {
     (True, "rows", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_ROWS,
     (False, "rows", "adaptive"): PDHG_LOG_UTILITY_ROWS_ADAPTIVE,
     (True, "rows", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE,
+    (False, "wide", "fixed"): PDHG_LOG_UTILITY_WIDE,
+    (False, "wide", "pipe"): PDHG_LOG_UTILITY_WIDE,
+    (False, "wide", "adaptive"): PDHG_LOG_UTILITY_WIDE_ADAPTIVE,
 }
 KERNELS = tuple(dict.fromkeys(_KERNELS.values()))
-LAYOUTS = ("rows", "warp", "block")  # in the order routing prefers them
-# The block and row layouts' fixed-step kernels run the pipelined body by
-# a flag.
+# In the order routing prefers them.
+LAYOUTS = ("rows", "warp", "wide", "block")
+# The block, row and wide layouts' fixed-step kernels run the pipelined
+# body by a flag.
 _PIPE_FLAG = (PDHG_LOG_UTILITY_BLOCK, PDHG_LOG_UTILITY_SCENARIOS_BLOCK,
-              PDHG_LOG_UTILITY_ROWS, PDHG_LOG_UTILITY_SCENARIOS_ROWS)
+              PDHG_LOG_UTILITY_ROWS, PDHG_LOG_UTILITY_SCENARIOS_ROWS,
+              PDHG_LOG_UTILITY_WIDE)
 
 
 # Register budget of the warp layout: one warp per problem keeps
@@ -279,6 +298,62 @@ def rows_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
             and rows_smem_bytes(S, H, N) <= SMEM_PER_BLOCK)
 
 
+# The wide-row layout: one CTA per problem, one warp per horizon row, the
+# row in shared memory (csrc/pdhg_log_utility_wide.cuh); one forecast, past
+# the row layout's slots.
+WIDE_MAX_H = 32
+
+
+def wide_smem_bytes(H: int, N: int, adaptive: bool = True) -> int:
+    """Shared memory of one problem's CTA in the wide-row layout
+    (``wide_plan`` in csrc/pdhg_log_utility_wide.cuh): five [H][K * 32]
+    arrays (returns, w, p, the projection and dual input, wbar) and one
+    more [K * 32] row of wbar for the current weights; with ``adaptive``
+    the moves dw and dp, [H][K * 32] each, and each lane's two residual
+    partials of every row, [2][H][32]; the rows' curvature ratios and
+    fixed-point residuals."""
+    kw = 32 * -(-N // 32)
+    row = H * kw
+    floats = 5 * row + kw + 2 * H
+    if adaptive:
+        floats += 2 * row + 2 * H * 32
+    return 4 * floats
+
+
+def wide_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
+    """Whether the wide-row kernels take a problem of this shape: one
+    forecast, at most WIDE_MAX_H rows, past the row layout's 32 * MAX_SLOTS
+    assets, and the adaptive body's plan within a block's shared memory
+    (the budget is the same for every body)."""
+    return (S is None and 1 <= H <= WIDE_MAX_H and N > 32 * MAX_SLOTS
+            and wide_smem_bytes(H, N) <= SMEM_PER_BLOCK)
+
+
+# Where the block layout is faster: the wide layout's warps hide one
+# another's latency, so it wants WIDE_MIN_WARPS resident warps an SM (H a
+# CTA, times the CTAs its adaptive plan lets share an SM's SM_SMEM bytes,
+# each reserving 1 KB). By measurement (PERF.md section 6: the layouts at
+# B=1028 over H 1..4 and N 1000..2730): one row past 2368 assets (two CTAs
+# an SM) and two rows past 1888 (one) went faster in the block layout for
+# the pipelined and adaptive bodies; wherever three or more warps share an
+# SM, the wide layout for most bodies, 1.2-8x at B=1028.
+SM_SMEM = 233472
+WIDE_MIN_WARPS = 3
+
+
+def wide_resident_warps(H: int, N: int) -> int:
+    """Warps of wide-layout CTAs an SM holds at once, by the adaptive
+    plan's shared memory (threads and registers bind later at H <= 32)."""
+    return H * (SM_SMEM // (wide_smem_bytes(H, N) + 1024))
+
+
+def wide_preferred(H: int, N: int) -> bool:
+    """Whether routing takes the wide-row layout over the block layout at a
+    shape the wide layout takes (the block layout takes every such shape:
+    its plan is the smaller)."""
+    return wide_resident_warps(H, N) >= WIDE_MIN_WARPS
+
+
 def layout_supports(layout: str, S: Optional[int], H: int, N: int) -> bool:
     """Whether ``layout``'s kernels take a problem of this shape."""
     if layout == "warp":
@@ -286,6 +361,8 @@ def layout_supports(layout: str, S: Optional[int], H: int, N: int) -> bool:
             S is None or scenario_kernel_supports(S, H, N))
     if layout == "rows":
         return rows_kernel_supports(S, H, N)
+    if layout == "wide":
+        return wide_kernel_supports(S, H, N)
     return layout == "block" and block_kernel_supports(S, H, N)
 
 
@@ -293,12 +370,22 @@ def kernel_layout(S: Optional[int], H: int, N: int) -> Optional[str]:
     """The layout a CUDA solve of this shape runs in: ``"rows"`` (one CTA
     per problem, one warp per horizon row) wherever it fits, else
     ``"warp"`` (one warp per problem, the iterates in registers) where it
-    fits, else ``"block"`` (one block per problem, the iterates in shared
-    memory), else None. By measurement: the row layout was faster than the
-    warp and block layouts at every shape and batch chip_smoke.py's
-    ``layouts`` phase times (B from 1 to 65536, H from 1 to 20)."""
+    fits, else ``"wide"`` (one forecast past 128 assets: one CTA per
+    problem, one warp per horizon row, the row in shared memory) where it
+    fits and ``wide_preferred``, else ``"block"`` (one block per problem,
+    the iterates in shared memory), else None. By measurement: the row
+    layout was faster than the warp and block layouts at every shape and
+    batch chip_smoke.py's ``layouts`` phase times (B from 1 to 65536, H
+    from 1 to 20), the wide layout faster than the block layout at N=150
+    and N=500 (B from 1 to 4096), and past 1000 assets for most bodies at
+    B=1028 where ``wide_preferred`` holds (``layouts``; the grid of
+    ``python -m kmpc_tpu_torch.ops.row_slots --wide``). By shape alone, so
+    a batch of one problem at one or two rows past 1000 assets, where the
+    block layout's pipelined and adaptive bodies are faster, runs wide
+    (PERF.md section 6)."""
     for layout in LAYOUTS:
-        if layout_supports(layout, S, H, N):
+        if layout_supports(layout, S, H, N) and (
+                layout != "wide" or wide_preferred(H, N)):
             return layout
     return None
 
@@ -602,10 +689,11 @@ def _route(S: Optional[int], H: int, N: int,
             f"S={S}, H={H}, N={N} exceeds the kernels' budgets: the warp "
             f"and row layouts need ceil(N/32) <= {MAX_SLOTS} (the warp "
             f"layout pow2ceil(H) * ceil(N/32) <= {MAX_ROW_ELEMENTS}, the "
-            f"row layout H <= {ROWS_MAX_H}), the block layout one problem "
-            f"within {SMEM_PER_BLOCK} bytes of shared memory, here "
-            f"{block_smem_bytes(S, H, N)}; the eager solver {eager} takes "
-            "any shape"
+            f"row layout H <= {ROWS_MAX_H}), the wide and block layouts "
+            f"one problem within {SMEM_PER_BLOCK} bytes of shared memory "
+            f"(the wide layout one forecast and H <= {WIDE_MAX_H}), here "
+            f"{block_smem_bytes(S, H, N)} in the block layout; the eager "
+            f"solver {eager} takes any shape"
         )
     body = _body(params)
     return layout, body, _KERNELS[(S is not None, layout, body)]
@@ -625,11 +713,12 @@ def pdhg_log_utility_cuda(
     r [B, H, N] launches kernel A, r [B, S, H, N] kernel B (the
     ``..._scenarios`` sources), in the layout ``kernel_layout`` gives the
     shape: ``pdhg_log_utility_rows`` where the row layout fits, else the
-    warp layout's ``pdhg_log_utility``, else the ``..._block`` kernel;
-    with ``params.adaptive`` the ``..._adaptive`` kernel of each, with the
-    pipelined body (``pipeline_reduces``) the warp layout's ``..._pipe``
-    kernel or the others' fixed-step kernel. A shape beyond every layout
-    raises ``ValueError``."""
+    warp layout's ``pdhg_log_utility``, else ``pdhg_log_utility_wide``,
+    else the ``..._block`` kernel; with ``params.adaptive`` the
+    ``..._adaptive`` kernel of each, with the pipelined body
+    (``pipeline_reduces``) the warp layout's ``..._pipe`` kernel or the
+    others' fixed-step kernel. A shape beyond every layout raises
+    ``ValueError``."""
     _check_params(params, "pdhg_log_utility_cuda")
     _check_return_steps(params, return_steps)
     scen = r.dim() == 4

@@ -18,7 +18,22 @@ kernels built again from a copy of the sources in which ``settled`` never
 holds, against the ones the package ships, at the scan's and the
 comparison path's shapes, in turns, with the same bits required of both.
 
-    python -m kmpc_tpu_torch.ops.row_slots [--layouts warp,rows]
+With ``--wide``, the shapes past the row layout's four slots instead: the
+block and wide layouts of kernel A at H=5 and N = 150, 256, 500 (5, 8 and
+16 warps of the block layout, one asset column a thread; 5 warps of the
+wide layout, 5 to 16 slots a lane), at B=1 (one SM alone) and B=4096,
+at bench.py's settings: 1000 iterations at refresh 16 with precond, the
+same pipelined, 800 adaptive (``adapt_every=2``); each line with the
+layout's warps a CTA, its shared memory, ptxas' registers and the CTAs an
+SM holds by those three; then both layouts over a grid of H (1 to 32) and
+N (129 to 2730) at B=1 and B=1028, 400 iterations fixed and adaptive, for
+where the wide layout stops paying; then the SASS counts of the block and
+wide kernels' loops (barriers, shuffles, shared-memory loads and stores,
+division sequences). ``--boundary H,H:N,N`` times that grid alone, at
+the given H and N (the wide layout's switch: H 1..3 at N 1000 to 1600).
+
+    python -m kmpc_tpu_torch.ops.row_slots [--layouts warp,rows] [--wide]
+        [--boundary 1,2,3:1024,1056]
 
 One JSON line per measurement; needs the card.
 """
@@ -61,6 +76,8 @@ OPCODES = {
     "WARPSYNC": r"\bWARPSYNC\b",
     "BRA": r"\bBRA\b",
     "BAR": r"\bBAR\.",
+    "LDS": r"\bLDS\b",
+    "STS": r"\bSTS\b",
     "MUFU.RCP": r"\bMUFU\.RCP\b",
     "FCHK": r"\bFCHK\b",
     "CALL": r"\bCALL\.",
@@ -232,12 +249,167 @@ def time_sweep_exit():
                 "same_bits": True}), flush=True)
 
 
+# --wide: kernel A past the row layout's four slots, at bench.py's
+# settings (chip_smoke.py's block_path); the kernels' functions for SASS.
+WIDE_H = 5
+WIDE_NS = (150, 256, 500)
+WIDE_BATCHES = (1, 4096)
+WIDE_BODIES = {
+    "fixed": MPCParams(sigma_scale=2.0, max_iters=1000,
+                       proj_refresh_every=16, precond=True),
+    "pipe": MPCParams(sigma_scale=2.0, max_iters=1000, proj_refresh_every=16,
+                      precond=True, pipeline_reduces=True),
+    "adaptive": MPCParams(sigma_scale=2.0, max_iters=800, adaptive=True,
+                          adapt_every=2, precond=True),
+}
+WIDE_SASS = (("pdhg_log_utility_block",
+              r"pdhg_log_utility_block_kernelILb0ELb0E"),
+             ("pdhg_log_utility_block_adaptive",
+              r"pdhg_log_utility_block_kernelILb0ELb1E"),
+             ("pdhg_log_utility_wide",
+              r"pdhg_log_utility_wide_kernelILi8ELb0ELb0E"),
+             ("pdhg_log_utility_wide_adaptive",
+              r"pdhg_log_utility_wide_kernelILi8ELb1ELb0E"))
+# Where the wide layout stops paying: both layouts over H and N at B=1 and
+# B=1028, 400 iterations of the fixed-step body and of the adaptive one.
+BOUNDARY_H = (1, 2, 3, 4, 5, 10, 20, 32)
+BOUNDARY_N = (129, 192, 256, 384, 500, 1000, 1024, 1056, 1600, 2730)
+BOUNDARY_B = (1, 1028)
+BOUNDARY_BODIES = {
+    "fixed": MPCParams(sigma_scale=2.0, max_iters=400,
+                       proj_refresh_every=16, precond=True),
+    "adaptive": MPCParams(sigma_scale=2.0, max_iters=400, adaptive=True,
+                          adapt_every=2, precond=True),
+}
+SM_SMEM = 233472      # shared memory of one SM, bytes (a CTA reserves 1 KB)
+SM_REGS = 65536
+SM_THREADS = 2048
+
+
+def _registers(kernel_name: str, function: str):
+    """ptxas' registers a thread for ``function`` in ``kernel_name``'s build
+    log, or None."""
+    lines = build_log(kernel_name).splitlines()
+    for i, ln in enumerate(lines):
+        if "Compiling entry function" in ln and re.search(function, ln):
+            for nxt in lines[i + 1:i + 6]:
+                m = re.search(r"Used (\d+) registers", nxt)
+                if m:
+                    return int(m.group(1))
+    return None
+
+
+def resident_ctas(threads: int, smem: int, regs: int) -> int:
+    """CTAs of one kernel an SM holds at once, by its threads, shared
+    memory and registers (allotted per warp in units of 256)."""
+    warps = -(-threads // 32)
+    per_warp = -(-regs * 32 // 256) * 256
+    return min(SM_THREADS // threads, SM_SMEM // (smem + 1024),
+               SM_REGS // (per_warp * warps), 32)
+
+
+def time_wide(layouts):
+    """One line per (body, N, B, layout): ms, us per iteration, and at
+    B=4096 the us per iteration of one resident problem (ms over the
+    iterations and the waves the card runs the batch in)."""
+    rng = np.random.default_rng(7)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for N in WIDE_NS:
+        for B in WIDE_BATCHES:
+            cw = torch.as_tensor(rng.dirichlet(np.ones(N), size=B)
+                                 .astype(np.float32), device="cuda")
+            ys = rng.standard_normal((B, WIDE_H, N)) * 0.01 + 0.0005
+            r = torch.exp(torch.as_tensor(ys.astype(np.float32),
+                                          device="cuda")).contiguous()
+            for body, p in WIDE_BODIES.items():
+                for layout in layouts:
+                    kernel = M._KERNELS.get((False, layout, body))
+                    if kernel is None or not M.layout_supports(
+                            layout, None, WIDE_H, N):
+                        continue
+                    ms = cuda_ms(lambda: M._launch(kernel, body, cw, r, p,
+                                                   None, None, False, False))
+                    fn = dict(WIDE_SASS)[kernel.name]
+                    if layout == "block":
+                        threads = M.block_threads(N)
+                        smem = M.block_smem_bytes(None, WIDE_H, N)
+                    else:
+                        threads = 32 * WIDE_H
+                        smem = M.wide_smem_bytes(WIDE_H, N, p.adaptive)
+                    regs = _registers(kernel.name, fn)
+                    line = {
+                        "phase": "wide", "layout": layout, "body": body,
+                        "kernel": kernel.name, "B": B, "H": WIDE_H, "N": N,
+                        "warps": threads // 32, "smem_bytes": smem,
+                        "registers": regs, "iters": p.max_iters, "ms": ms,
+                        "us_per_iter": 1e3 * ms / p.max_iters}
+                    if regs is not None:
+                        per_sm = resident_ctas(threads, smem, regs)
+                        waves = -(-B // (per_sm * sms))
+                        line.update(ctas_per_sm=per_sm, waves=waves,
+                                    us_per_iter_per_wave=1e3 * ms
+                                    / p.max_iters / waves)
+                    print(json.dumps(line), flush=True)
+
+
+def wide_boundary(horizons=BOUNDARY_H, assets=BOUNDARY_N):
+    """One line per (H, N, B, body) that both the wide and the block
+    layout take: each layout's median ms (two rounds of 5, in turns) and
+    block over wide."""
+    rng = np.random.default_rng(9)
+    for H in horizons:
+        for N in assets:
+            if not (M.layout_supports("wide", None, H, N)
+                    and M.layout_supports("block", None, H, N)):
+                continue
+            for B in BOUNDARY_B:
+                cw = torch.as_tensor(rng.dirichlet(np.ones(N), size=B)
+                                     .astype(np.float32), device="cuda")
+                ys = rng.standard_normal((B, H, N)) * 0.01 + 0.0005
+                r = torch.exp(torch.as_tensor(ys.astype(np.float32),
+                                              device="cuda")).contiguous()
+                for body, p in BOUNDARY_BODIES.items():
+                    ms = {"wide": [], "block": []}
+                    for _ in range(2):
+                        for lay in ms:
+                            kernel = M._KERNELS[(False, lay, body)]
+                            ms[lay].append(cuda_ms(lambda: M._launch(
+                                kernel, body, cw, r, p, None, None, False,
+                                False)))
+                    med = {lay: float(np.median(t)) for lay, t in ms.items()}
+                    print(json.dumps({
+                        "phase": "wide_boundary", "H": H, "N": N, "B": B,
+                        "body": body, "iters": p.max_iters, "ms": ms,
+                        "block_over_wide": med["block"] / med["wide"]}),
+                        flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layouts", default="warp,rows")
+    parser.add_argument("--wide", action="store_true",
+                        help="the block and wide layouts past 128 assets")
+    parser.add_argument("--boundary", metavar="H,H:N,N",
+                        help="the wide/block grid alone, at these H and N")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("row_slots: CUDA is not available")
+    if args.wide or args.boundary:
+        print(json.dumps({"phase": "device", "smi": subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True).stdout.strip()}), flush=True)
+    if args.boundary:
+        hs, ns = args.boundary.split(":")
+        wide_boundary(tuple(int(h) for h in hs.split(",")),
+                      tuple(int(n) for n in ns.split(",")))
+        return
+    if args.wide:
+        time_wide(["block", "wide"])
+        wide_boundary()
+        for kernel, function in WIDE_SASS:
+            print(json.dumps(sass_report(kernel, function)), flush=True)
+        return
     time_layouts(args.layouts.split(","))
     for kernel, function in SASS:
         print(json.dumps(sass_report(kernel, function)), flush=True)

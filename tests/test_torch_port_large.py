@@ -191,6 +191,12 @@ BLOCK_CASES = {
     "H3N150_pipe": (4, 3, 150, dict(max_iters=300, proj_refresh_every=8,
                                     precond=True, **PIPE)),
     "H3N150_adaptive": (4, 3, 150, dict(max_iters=300, **ACCURATE)),
+    # One forecast past four slots, each body: the wide-row layout's
+    # shapes.
+    "H3N160_wide_body": (3, 3, 160, dict(max_iters=60)),
+    "H3N160_wide_pipe": (3, 3, 160, dict(max_iters=59, proj_refresh_every=8,
+                                         precond=True, **PIPE)),
+    "H3N160_wide_adaptive": (3, 3, 160, dict(max_iters=60, **ACCURATE)),
 }
 
 
@@ -198,8 +204,8 @@ BLOCK_CASES = {
 def test_block_layout_shapes_match_pallas(name):
     B, H, N, kw = BLOCK_CASES[name]
     # Past the warp layout's registers: the row layout takes 20 rows of 12
-    # assets, the block layout 150 assets.
-    assert M.kernel_layout(None, H, N) == ("rows" if N <= 128 else "block")
+    # assets, the wide-row layout 150 and 160 assets.
+    assert M.kernel_layout(None, H, N) == ("rows" if N <= 128 else "wide")
     cw, ys = _inputs(B, H, N, seed=151 + H + N)
     w_ref, info_ref = _pallas(cw, ys, kw)
     w, info = _port(cw, ys, kw)
@@ -223,9 +229,10 @@ def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
     kmpc_tpu's ``_default_tile_b_packed`` admits the shape to its Pallas
     kernel, ``kernel_layout`` names a CUDA kernel; the row layout wherever
     it fits (only at ceil(N/32) <= 4 and H <= 32), else the warp layout
-    where it fits, never the block layout where either does; and the block
-    layout's own budget is its shared memory."""
-    routed = {"warp": 0, "rows": 0, "block": 0}
+    where it fits, else the wide-row layout where it fits (one forecast),
+    never the block layout where any of them does; and the block layout's
+    own budget is its shared memory."""
+    routed = {"warp": 0, "rows": 0, "wide": 0, "block": 0}
     Hs = list(range(1, 25)) + [32, 33, 40, 64, 100, 200]
     Ns = list(range(1, 70, 3)) + [96, 128, 129, 136, 150, 200, 256, 257,
                                   300, 500, 512, 513, 546, 600, 1000, 2730]
@@ -241,6 +248,8 @@ def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
                 assert layout == "rows", (S, H, N)
             elif warp_fits:
                 assert layout == "warp", (S, H, N)
+            elif M.wide_kernel_supports(S, H, N) and M.wide_preferred(H, N):
+                assert layout == "wide", (S, H, N)
             elif M.block_smem_bytes(S, H, N) <= M.SMEM_PER_BLOCK:
                 assert layout == "block", (S, H, N)
             for adaptive, warm, dual in FLAGS:
@@ -248,10 +257,11 @@ def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
                 if JP._default_tile_b_packed(H, NP, S=S,
                                              extra_blocks=extra) is None:
                     continue
-                assert layout in ("warp", "rows", "block"), (
+                assert layout in ("warp", "rows", "wide", "block"), (
                     S, H, N, adaptive, warm, dual)
                 routed[layout] += 1
     assert routed["block"] > 0 and routed["rows"] > 0
+    assert (routed["wide"] > 0) == (S is None)
 
 
 @pytest.mark.parametrize("S", [None, 16])

@@ -225,9 +225,11 @@ def _budget_case(H, N, warp, block, S=None):
 def test_kernel_register_budget(S, H, N, warp, block):
     """The warp layout's register budget (``kernel_supports``) and the
     block layout's shared-memory budget (``block_kernel_supports``); the
-    layout a CUDA solve takes follows from both and from the row layout's
+    layout a CUDA solve takes follows from both, from the row layout's
     budget (``rows_kernel_supports``), which routing prefers: up to 32 rows
-    of 128 assets."""
+    of 128 assets, and from the wide-row layout's (one forecast past 128
+    assets where ``wide_preferred``), which it prefers to the block
+    layout."""
     assert M.kernel_supports(H, N) is warp
     if block is None:
         return
@@ -236,8 +238,10 @@ def test_kernel_register_budget(S, H, N, warp, block):
     assert fits == (M.block_smem_bytes(S, H, N) <= M.SMEM_PER_BLOCK
                     and H >= 1)
     rows = M.rows_kernel_supports(S, H, N)
+    wide = M.wide_kernel_supports(S, H, N) and M.wide_preferred(H, N)
     want = "rows" if rows else (
-        "warp" if warp else ("block" if block else None))
+        "warp" if warp else ("wide" if wide else (
+            "block" if block else None)))
     assert M.kernel_layout(S, H, N) == want
 
 

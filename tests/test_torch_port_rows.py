@@ -125,9 +125,10 @@ def test_rows_layout_shapes_match_pallas(name):
     # The long path (H=20) and bench.py's long shape, past the warp layout.
     (None, 20, 20, "rows"), (16, 20, 20, "rows"), (None, 20, 30, "rows"),
     # The row layout's edges: 32 rows, four slots; past them the block
-    # layout (33 rows, 129 assets, N=500).
-    (None, 32, 128, "rows"), (None, 33, 20, "block"), (None, 5, 129, "block"),
-    (None, 5, 500, "block"),
+    # layout (33 rows) and, for one forecast past four slots, the wide-row
+    # layout (129 assets, N=500).
+    (None, 32, 128, "rows"), (None, 33, 20, "block"), (None, 5, 129, "wide"),
+    (None, 5, 500, "wide"),
     # Scenario returns past the registers (S * K > 16) in shared memory; a
     # problem whose returns fit one warp's slice but not the row plan
     # (the warp layout); past a block's shared memory.
@@ -151,7 +152,7 @@ def test_rows_layout_takes_only_four_slots_and_32_rows():
     """Over a grid: the row layout's budget is ceil(N/32) <= 4, H <= 32 and
     the adaptive plan within a block's shared memory, and every shape it
     takes routes there; the others go to the warp layout where it fits,
-    else to the block layout."""
+    else to the wide-row layout where it fits, else to the block layout."""
     for S in (None, 1, 16, 64):
         for H in (1, 2, 5, 8, 9, 17, 20, 21, 32, 33):
             for N in (1, 20, 32, 33, 64, 100, 128, 129, 500):
@@ -160,6 +161,8 @@ def test_rows_layout_takes_only_four_slots_and_32_rows():
                     S, H, N) <= M.SMEM_PER_BLOCK), (S, H, N)
                 want = "rows" if fits else (
                     "warp" if M.layout_supports("warp", S, H, N) else
+                    "wide" if M.layout_supports("wide", S, H, N)
+                    and M.wide_preferred(H, N) else
                     "block" if M.block_kernel_supports(S, H, N) else None)
                 assert M.kernel_layout(S, H, N) == want
 
