@@ -6,11 +6,11 @@
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
 1. ``build``: the card, torch and CUDA versions, the build of the
-   twenty-one kernel sources (one nvcc per source, started together, from
+   twenty-three kernel sources (one nvcc per source, started together, from
    the sources in this checkout) with each build's seconds, registers and
    spills (every instantiation but the ladder's), and the wrappers' copies
-   of the block, row and wide-row layouts' shared-memory plans against the
-   built kernels';
+   of the block, tile, row and wide-row layouts' shared-memory plans (and
+   the tile layout's problems a CTA) against the built kernels';
 2. ``kernels``: every CUDA kernel against its plain PyTorch version on the
    card: the log-utility kernel over the parametrised cases of the CPU
    tests, the edges of its register budget and the main-path and bench
@@ -27,8 +27,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    layout (C.2) at the edges of kmpc_tpu's envelope (per-problem
    covariances at H=17, H=340, N=65, N=112, H=16 N=88; a shared one at
    N=129, N=1112, N=480 at H=5, N=128 at H=20; adaptive at N=976 shared
-   and H=20 N=64; over-relaxation, cold projections); every block case
-   run twice and required to give the same bits; the row layout (one warp
+   and H=20 N=64; over-relaxation, cold projections) through its route
+   (the tile layout, the block layout at H > 32) with the block kernel
+   beside it; the warp kernel beside every mean-variance case it takes
+   that routing gives the tile layout; the tile layout at its plan's edges
+   (P > 1 with a ragged last CTA, B=1, N off the multiples of 4 and 32,
+   Sigma resident and streamed, shared and per problem, up to 32 warps,
+   every body and option); every block and tile case run twice and
+   required to give the same bits; the row layout (one warp
    per horizon row) beside the warp and block layouts at every case
    whose shape it takes, run twice for the same bits and compared bit for
    bit with the warp kernel, and at cases of its own (H in {1, 5, 8, 17,
@@ -52,8 +58,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    leaves it for the block layout, the layouts' outputs held to one
    another (``hold_layouts``), the routed layout required to be the
    fastest or, where ROUTED_SLOWER names the shape and body, within its
-   bound; and of kernel C at the Markowitz path's shape (H=1, N=20) and
-   at H=5, N=30;
+   bound; and of kernel C (warp, tile and block layouts) at the Markowitz
+   path's shape (H=1, N=20) and at H=5, N=30, at B=1028 and B=1, and at
+   the five ``mv_long_wide`` shapes at 200 iterations, the routed layout
+   required to be the fastest;
 3. ``nan_row``, ``probe``, ``probe_accurate``: a NaN forecast holds the
    weights; accuracy on the 64 bench probe instances against the float64
    oracle objectives in bench_probe_cache.json, at the bench setting and
@@ -101,13 +109,15 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    the wide-row layout's two kernels and the same problems launched in the
    block layout, S=16 through its entry point to kernel B's block kernels,
    each launch counted and each held against its plain version;
-9. ``mv_long_wide``: the mean-variance solve past the warp layout (C.2)
-   at bench.py's Markowitz settings (1000 iterations at refresh 16, and
-   1000 adaptive) on bench.py's problems: per-problem covariances at
-   B=4096, H=20 N=30 and H=5 N=100, one shared covariance at B=1028, H=1
-   N=960, H=5 N=320, H=20 N=64; launches counted through the entry point,
-   every row feasible, the block kernels against their plain version
-   (twice for the same bits), times, bounds, registers, and the objective
+9. ``mv_long_wide``: the mean-variance solve past the warp layout at
+   bench.py's Markowitz settings (1000 iterations at refresh 16, and 1000
+   adaptive) on bench.py's problems: per-problem covariances at B=4096,
+   H=20 N=30 and H=5 N=100, one shared covariance at B=1028, H=1 N=960,
+   H=5 N=320, H=20 N=64; through the entry point to the tile layout, the
+   block layout's kernels beside it (launched privately), launches
+   counted, every row feasible, both layouts against their plain version
+   (twice for the same bits), times (the tile layout required to be the
+   faster), bounds, registers, the L2 bytes of Sigma, and the objective
    gap on the shape's 16 probe instances to a float64 adaptive-PDHG run of
    40000 iterations of the port's eager solver on the card;
 10. ``mv_ladder``: the rungs of the MV ladder at B=4096, N=30, 1000
@@ -143,8 +153,10 @@ float32 runs of it, or of kmpc_tpu's, can end 1e-2 apart in objective):
 a problem whose objectives differ beyond the bar where either side's
 fixed-point residual shows it unsettled is held against the float64 run
 on that problem (a settled side within the bar of it, an unsettled kernel
-not above it, and unsettled on no more problems than the plain version);
-the others keep the bars above. That the partings are ties is shown by
+not above it, and unsettled on no more problems than the plain version;
+where the float64 adaptive run does not settle either, the float64 run
+with fixed steps, which does, is the referee); the others keep the bars
+above. That the partings are ties is shown by
 ``python -m kmpc_tpu_torch.ops.adaptive_parting``, which traces the
 problems that end apart to their first differing decision; it is no part
 of this script.
@@ -215,8 +227,13 @@ REFEREE_FACTOR = 3.0
 # test_adaptive_mean_variance_body_at_960_assets_is_at_float32s_limit). A
 # problem whose objectives differ beyond the bar where either side's
 # fixed-point residual exceeds MV_UNSETTLED_FP is held against the float64
-# run instead (``hold_unsettled_mv``).
+# run instead (``hold_unsettled_mv``). The float64 adaptive run can fail to
+# settle too (one problem of the N=960 batch: residual 2.9e-3 at 1000, 4000
+# and 20000 iterations); there the float64 run with fixed steps and the
+# full warm budget, which settles within MV_REFEREE_ITERS iterations
+# (residual 2e-19 at 4000 on that problem), is the referee.
 MV_UNSETTLED_FP = 1e-4
+MV_REFEREE_ITERS = 4000
 # The adaptive log-utility body past the row layout (``block_path``, B=1028
 # at N=150, 800 iterations; the wide-row layout's cold-started cases of the
 # ``kernels`` phase; ``wide`` cases) is at float32's limit as at N=500
@@ -856,7 +873,8 @@ def adaptive_agreement(label, steps_k, steps_p, dw, dp, dobj, w_tol,
 
 
 def compare_mv_case(label, B, H, N, params, seed, shared=False,
-                    scale=0.05, time_reps=3, time_plain=True):
+                    scale=0.05, time_reps=3, time_plain=True, layout=None,
+                    problems=None):
     """The mean-variance kernel and its plain version on the same card
     inputs, through the same finalisation."""
     cw_np, mu_np, sig_np = mv_instance(B, H, N, seed, shared, scale)
@@ -864,52 +882,68 @@ def compare_mv_case(label, B, H, N, params, seed, shared=False,
     mu = torch.as_tensor(mu_np, device="cuda")
     sig = torch.as_tensor(sig_np, device="cuda")
     return compare_mv_tensors(label, cw, mu, sig, params, time_reps,
-                              time_plain)
+                              time_plain, layout, problems)
 
 
 def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
-                       time_plain=True):
+                       time_plain=True, layout=None, problems=None):
     """``compare_mv_case`` on given card tensors: current weights [B, N],
-    mu [B, H, N] and a covariance [B, N, N] or [N, N]. A block-layout
-    kernel runs twice and must give the same bits."""
+    mu [B, H, N] and a covariance [B, N, N] or [N, N]. The kernel routing
+    gives the shape, through the entry point; or, with ``layout``, that
+    layout's kernel launched privately (``_mv_launch``: a layout routing
+    does not give this shape, or a tile plan's edge with ``problems``
+    problems a CTA). A block- or tile-layout kernel runs twice and must
+    give the same bits."""
     from kmpc_tpu_torch.ops import mv_cuda as V
 
     B, H, N = mu.shape
     shared = sig.dim() == 2
     sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
     steps = params.adaptive
-    layout, kernel = V._mv_route(H, N, params)
-    out_k = mv_kernel_twice(label, layout, cw, mu, sig, params)
+    routed, kernel = V._mv_route(H, N, params, shared, B)
+    if layout is None:
+        layout = routed
+
+        def run(ret=steps):
+            return V.pdhg_mean_variance_cuda(cw, mu, sig, params,
+                                             return_steps=ret)
+    else:
+        kernel = V._MV_KERNELS[(layout, params.adaptive)]
+
+        def run(ret=steps):
+            return V._mv_launch(kernel, cw, mu, sig, params,
+                                return_steps=ret, problems=problems)
+    out_k = mv_kernel_twice(label, layout, run)
     out_p = V.pdhg_mean_variance_plain(cw, mu, sig, params,
                                        return_steps=steps)
     torch.cuda.synchronize()
     res = {"case": label, "kernel": kernel.name, "B": B, "H": H, "N": N,
            "iters": params.max_iters, "shared_sigma": shared}
+    if layout != routed:
+        res["pinned"] = True
+    if layout == "tile":
+        res["problems_per_cta"] = problems or V.mv_tile_problems(
+            B, H, N, shared, params.adaptive)
     hold_mv(label, cw, mu, sig, params, out_k, out_p, res)
     res["bound_ms"], res["bound_by"] = mv_bound(B, H, N, params, shared)
-    res["kernel_ms"] = cuda_ms(lambda: V.pdhg_mean_variance_cuda(
-        cw, mu, sig, params), time_reps)
+    res["kernel_ms"] = cuda_ms(lambda: run(False), time_reps)
     if time_plain:
         res["plain_ms"] = cuda_ms(lambda: V.pdhg_mean_variance_plain(
             cw, mu, sig, params), 1)
     return res
 
 
-def mv_kernel_twice(label, layout, cw, mu, sig, params):
-    """The mean-variance kernel's outputs on these card tensors (with the
-    steps under ``params.adaptive``); a block-layout kernel runs a second
-    time and must give the same bits (its reduces stage sums in shared
-    memory: a missing barrier shows as a run-to-run difference)."""
-    from kmpc_tpu_torch.ops import mv_cuda as V
-
-    out = V.pdhg_mean_variance_cuda(cw, mu, sig, params,
-                                    return_steps=params.adaptive)
-    if layout == "block":
-        again = V.pdhg_mean_variance_cuda(cw, mu, sig, params,
-                                          return_steps=params.adaptive)
+def mv_kernel_twice(label, layout, run):
+    """The mean-variance kernel's outputs, ``run()``; a block- or
+    tile-layout kernel runs a second time and must give the same bits (they
+    stage sums and the rows' exchanges in shared memory: a missing barrier
+    shows as a run-to-run difference)."""
+    out = run()
+    if layout in ("block", "tile"):
+        again = run()
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(out, again)), \
-            f"{label}: two runs of the block kernel differ"
+            f"{label}: two runs of the {layout} kernel differ"
     return out
 
 
@@ -919,8 +953,8 @@ def hold_mv(label, cw, mu, sig, params, out_k, out_p, res):
     the symmetrised covariance ``sig``, through the same finalisation;
     adaptive cases as ``adaptive_agreement`` says (without a referee), the
     problems that one side left unsettled as ``hold_unsettled_mv`` says.
-    Fills ``res`` (``deterministic`` where the kernel is a block-layout
-    one, which ``mv_kernel_twice`` has run twice); raises
+    Fills ``res`` (``deterministic`` where the kernel is a block- or
+    tile-layout one, which ``mv_kernel_twice`` has run twice); raises
     ``AssertionError`` at the first bar missed."""
     from kmpc_tpu_torch.ops import mv_cuda as V
 
@@ -929,7 +963,7 @@ def hold_mv(label, cw, mu, sig, params, out_k, out_p, res):
     wp_f, ip = V._finalize_mv(wp, fpp, mu, sig, cw, params)
     dw_all = (wk_f - wp_f).abs().amax(dim=(1, 2))
     dobj_all = ik["objective"] - ip["objective"]
-    if "block" in res.get("kernel", ""):
+    if any(x in res.get("kernel", "") for x in ("block", "tile")):
         res["deterministic"] = True
     rest = torch.ones_like(dw_all, dtype=torch.bool)
     held = rest.clone()
@@ -1103,20 +1137,41 @@ def hold_unsettled_mv(label, cw, mu, sig, params, astray, fpk, fpp, obj_k,
     settled there must lie within the objective bar of the float64 run; an
     unsettled kernel, a feasible point, may not lie above it (the objective
     is in maximisation form), and the kernel may be unsettled on no more of
-    them than the plain version is, plus 3 sqrt(n) + 2. Fills ``res`` with
-    the counts and, for the first eight such problems, the three residuals
-    and both distances to the float64 run."""
+    them than the plain version is, plus 3 sqrt(n) + 2. Where the float64
+    run does not settle either, it is no referee (its iterate is no optimum,
+    and a settled side, a fixed point of the program, lies above it): the
+    float64 run with fixed steps and the full warm budget for
+    MV_REFEREE_ITERS iterations takes its place there, and must itself
+    settle. Fills ``res`` with the counts and, for the first eight such
+    problems, the three residuals and both distances to the referee."""
+    from dataclasses import replace
+
     from kmpc_tpu_torch.ops import mv_cuda as V
 
     idx = torch.nonzero(astray).flatten()
     res["unsettled_apart"] = int(idx.numel())
     if idx.numel() == 0:
         return
-    sig_i = sig.double() if sig.dim() == 2 else sig[idx].double()
-    w64, fp64 = V.pdhg_mean_variance_plain(cw[idx].double(), mu[idx].double(),
-                                           sig_i, params)
-    obj64 = V._finalize_mv(w64, fp64, mu[idx].double(), sig_i,
-                           cw[idx].double(), params)[1]["objective"]
+
+    def float64_run(rows, p):
+        sig_i = sig.double() if sig.dim() == 2 else sig[rows].double()
+        w64, fp64 = V.pdhg_mean_variance_plain(
+            cw[rows].double(), mu[rows].double(), sig_i, p)
+        return fp64, V._finalize_mv(w64, fp64, mu[rows].double(), sig_i,
+                                    cw[rows].double(), p)[1]["objective"]
+
+    fp64, obj64 = float64_run(idx, params)
+    loose = fp64 > MV_UNSETTLED_FP
+    res["float64_fixed_step_referee"] = int(loose.sum().item())
+    if loose.any():
+        fixed = replace(params, adaptive=False, proj_refresh_every=0,
+                        max_iters=MV_REFEREE_ITERS)
+        fp_ref, obj_ref = float64_run(idx[loose], fixed)
+        assert bool((fp_ref <= MV_UNSETTLED_FP).all()), (
+            f"{label}: the fixed-step float64 referee did not settle "
+            f"(fixed-point residual {fp_ref.max().item()})")
+        fp64, obj64 = fp64.clone(), obj64.clone()
+        fp64[loose], obj64[loose] = fp_ref, obj_ref
     ok, uk = obj_k[idx].double() - obj64, fpk[idx] > MV_UNSETTLED_FP
     op, up = obj_p[idx].double() - obj64, fpp[idx] > MV_UNSETTLED_FP
     n_k, n_p = int(uk.sum().item()), int(up.sum().item())
@@ -1179,6 +1234,7 @@ def phase_build():
         emit("build", kernel=name, seconds=secs[name], registers=regs,
              spill_store_bytes={k: v for k, v in spills.items() if v})
     check_mv_block_plan()
+    check_mv_tile_plan()
     check_rows_plan()
     check_wide_plan()
 
@@ -1254,6 +1310,52 @@ def check_mv_block_plan():
     assert not wrong, \
         f"the wrapper's block plan differs from the kernel's: {wrong}"
     emit("mv_block_plan", shapes=len(shapes), agree=True)
+
+
+def check_mv_tile_plan():
+    """The wrapper's copy of the tile layout's plan (``mv_tile_plan``: the
+    bytes of a CTA of P problems and the rows of a ring stage, which decide
+    whether the tile layout takes a shape, and ``mv_tile_problems``: the
+    problems a CTA for a batch) against the values the built kernel
+    launches with, over the plan's edges: 1 to 32 rows, P = 1 to 32,
+    Sigma resident and streamed (16, 8 and 4 rows a stage), N off the
+    multiples of 4 and 32, both bodies, batches of 1 to 4096."""
+    import ctypes
+
+    from kmpc_tpu_torch._build import library_path
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    lib = ctypes.CDLL(str(library_path("pdhg_mean_variance_tile")))
+    smem, ring, probs = (lib.kmpc_mv_tile_smem_bytes,
+                         lib.kmpc_mv_tile_ring_rows,
+                         lib.kmpc_mv_tile_problems)
+    smem.argtypes, smem.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    ring.argtypes, ring.restype = [ctypes.c_int] * 4, ctypes.c_int
+    probs.argtypes, probs.restype = [ctypes.c_int] * 5, ctypes.c_int
+    shapes = [(P, H, N, a) for P in (1, 2, 3, 4, 8, 32)
+              for H in (1, 2, 5, 16, 20, 32, 33)
+              for N in (1, 20, 30, 33, 64, 100, 128, 129, 320, 600, 960,
+                        1001, 1112)
+              for a in (False, True)]
+    wrong = []
+    for P, H, N, a in shapes:
+        plan = V.mv_tile_plan(P, H, N, a)
+        want = (-1, None) if plan is None else plan
+        got = (smem(P, H, N, int(a)), ring(P, H, N, int(a)))
+        if got[0] != want[0] or (plan is not None and got[1] != want[1]):
+            wrong.append((P, H, N, a, want, got))
+    batches = [(B, H, N, sh, a) for B in (1, 7, 132, 264, 301, 1028, 4096)
+               for H in (1, 2, 5, 20, 33) for N in (20, 64, 320, 960, 1112)
+               for sh in (False, True) for a in (False, True)]
+    wrong += [(B, H, N, sh, a, V.mv_tile_problems(B, H, N, sh, a),
+               probs(B, H, N, int(sh), int(a)))
+              for B, H, N, sh, a in batches
+              if V.mv_tile_problems(B, H, N, sh, a)
+              != probs(B, H, N, int(sh), int(a))]
+    assert not wrong, \
+        f"the wrapper's tile plan differs from the kernel's: {wrong[:5]}"
+    emit("mv_tile_plan", shapes=len(shapes), batches=len(batches),
+         agree=True)
 
 
 def _params(**kw):
@@ -1704,46 +1806,105 @@ def phase_kernel_vs_plain():
             adapt_every=2, precond=True), 724,
          dict(scale=0.01, time_plain=False)),
     ]
-    # C.2: the block layout at the edges of kmpc_tpu's envelope (a
-    # per-problem covariance past the warp layout's registers at H=17 and
-    # H=340, N=65 and N=112 at H=5, N=88 at H=16; a shared one at N=129
-    # and N=1112 at H=1, N=480 at H=5, N=128 at H=20; Sigma staged in
-    # shared memory or read from global memory, by size), its adaptive
-    # body, over-relaxation and cold projections; bench.py's covariance
-    # scale.
-    wide = dict(scale=0.01, time_plain=False)
-    seed = 730
-    for label, B, H, N, shared, kw in (
-            ("block_H17N8", 5, 17, 8, False, {}),
-            ("block_H340N8", 3, 340, 8, False, dict(max_iters=300)),
-            ("block_H5N65_refresh", 5, 5, 65, False, dict(
-                proj_refresh_every=16)),
-            ("block_H5N112", 4, 5, 112, False, {}),
-            ("block_H16N88_refresh", 4, 16, 88, False, dict(
-                proj_refresh_every=16)),
-            ("block_H1N129_shared", 5, 1, 129, True, {}),
-            ("block_H1N1112_shared", 4, 1, 1112, True, {}),
-            ("block_H5N480_shared_refresh", 4, 5, 480, True, dict(
-                proj_refresh_every=16)),
-            ("block_H20N128_shared", 4, 20, 128, True, {}),
-            ("adaptive_block_H1N976_shared", 4, 1, 976, True, dict(
-                adaptive=True, adapt_every=2)),
-            ("adaptive_block_H20N64", 4, 20, 64, False, dict(
-                adaptive=True, adapt_every=2)),
-            ("block_H17N20_over_relax", 5, 17, 20, False, dict(
-                over_relax=1.5)),
-            ("adaptive_block_H17N20_over_relax", 5, 17, 20, False, dict(
-                adaptive=True, adapt_every=2, over_relax=1.5)),
-            ("block_H17N20_cold_proj", 5, 17, 20, False, dict(
-                proj_warm_iters=0)),
-    ):
-        seed += 1
-        mv_cases.append((label, B, H, N, _params(
-            **{"max_iters": 600, "gamma": 5.0, **kw}), seed,
-            dict(wide, shared=shared)))
+    # Each case through its route.
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
     for label, B, H, N, p, s, kw in mv_cases:
         record(routed(compare_mv_case(label, B, H, N, p, s,
                                       **dict(kw, time_plain=False))))
+
+    # C.2: the shapes past the warp layout at the edges of kmpc_tpu's
+    # envelope (a per-problem covariance past the warp layout's registers
+    # at H=17 and H=340, N=65 and N=112 at H=5, N=88 at H=16; a shared one
+    # at N=129 and N=1112 at H=1, N=480 at H=5, N=128 at H=20), the
+    # adaptive body, over-relaxation and cold projections, bench.py's
+    # covariance scale: each through its route (the tile layout; the block
+    # layout at H > 32), and the block layout's kernel on the same inputs
+    # (pinned: its Sigma staged in shared memory or read from global
+    # memory, by size).
+    seed = 730
+    for name, B, H, N, shared, kw in (
+            ("H17N8", 5, 17, 8, False, {}),
+            ("H340N8", 3, 340, 8, False, dict(max_iters=300)),
+            ("H5N65_refresh", 5, 5, 65, False, dict(proj_refresh_every=16)),
+            ("H5N112", 4, 5, 112, False, {}),
+            ("H16N88_refresh", 4, 16, 88, False, dict(
+                proj_refresh_every=16)),
+            ("H1N129_shared", 5, 1, 129, True, {}),
+            ("H1N1112_shared", 4, 1, 1112, True, {}),
+            ("H5N480_shared_refresh", 4, 5, 480, True, dict(
+                proj_refresh_every=16)),
+            ("H20N128_shared", 4, 20, 128, True, {}),
+            ("adaptive_H1N976_shared", 4, 1, 976, True, dict(
+                adaptive=True, adapt_every=2)),
+            ("adaptive_H20N64", 4, 20, 64, False, dict(
+                adaptive=True, adapt_every=2)),
+            ("H17N20_over_relax", 5, 17, 20, False, dict(over_relax=1.5)),
+            ("adaptive_H17N20_over_relax", 5, 17, 20, False, dict(
+                adaptive=True, adapt_every=2, over_relax=1.5)),
+            ("H17N20_cold_proj", 5, 17, 20, False, dict(
+                proj_warm_iters=0)),
+    ):
+        seed += 1
+        p = _params(**{"max_iters": 600, "gamma": 5.0, **kw})
+        layout = V.mv_kernel_layout(H, N, shared, p.adaptive, B)
+        record(routed(compare_mv_case(
+            f"{layout}_{name}", B, H, N, p, seed, shared=shared, scale=0.01,
+            time_plain=False)))
+        if layout != "block":
+            record(routed(compare_mv_case(
+                f"block_{name}", B, H, N, p, seed, shared=shared, scale=0.01,
+                time_plain=False, layout="block")))
+
+    # The tile layout at its plan's edges, pinned: P > 1 with B not a
+    # multiple of P (a ragged last CTA) and B=1; N off the multiples of 32
+    # and of the ring's rows (4-byte copies where N % 4 != 0); Sigma
+    # resident and streamed (16, 8 and 4 rows a stage), shared and per
+    # problem (a per-problem Sigma streamed at N=250 and 300, each CTA's
+    # ring reading its own); one to 32 warps (P H = 32, H = 21 and 32), one to four
+    # register slots and shared slices; every body and option (refresh 8
+    # and 16, cold projections, over-relaxation, adapt_every 1 and 2).
+    mv_acc = dict(adaptive=True, adapt_every=2)
+    for name, B, H, N, shared, P, kw in (
+            ("H2N20_shared_P3_B7", 7, 2, 20, True, 3, {}),
+            ("H1N20_B1", 1, 1, 20, False, None, {}),
+            ("H5N30_B1_adaptive_k1", 1, 5, 30, False, None, dict(
+                adaptive=True, adapt_every=1)),
+            ("H1N960_shared_P8_B13_refresh8", 13, 1, 960, True, 8, dict(
+                proj_refresh_every=8, max_iters=300)),
+            ("H1N960_shared_P8_B13_adaptive", 13, 1, 960, True, 8, dict(
+                max_iters=300, **mv_acc)),
+            ("H1N1001_shared_P4_B5", 5, 1, 1001, True, 4, dict(
+                max_iters=300)),
+            ("H1N1001_shared_P4_B5_adaptive_k1", 5, 1, 1001, True, 4, dict(
+                max_iters=300, adaptive=True, adapt_every=1)),
+            ("H5N320_shared_P4_B6_refresh16", 6, 5, 320, True, 4, dict(
+                proj_refresh_every=16, max_iters=300)),
+            ("H16N320_shared_P2_B3", 3, 16, 320, True, 2, dict(
+                max_iters=300)),
+            ("H8N33_shared_P4_B9_cold_proj", 9, 8, 33, True, 4, dict(
+                proj_warm_iters=0)),
+            ("H21N100_over_relax", 3, 21, 100, False, None, dict(
+                over_relax=1.5)),
+            ("H32N128_adaptive_over_relax", 3, 32, 128, False, None, dict(
+                over_relax=1.5, **mv_acc)),
+            ("H3N129_shared_P5_B11", 11, 3, 129, True, 5, {}),
+            ("H20N64_shared_adaptive_k1", 3, 20, 64, True, None, dict(
+                adaptive=True, adapt_every=1)),
+            ("H5N300_streamed_refresh16", 5, 5, 300, False, None, dict(
+                proj_refresh_every=16, max_iters=300)),
+            ("H5N300_streamed_adaptive", 5, 5, 300, False, None, dict(
+                max_iters=300, **mv_acc)),
+            ("H1N250_streamed", 5, 1, 250, False, None, dict(
+                max_iters=300)),
+            ("H1N250_streamed_adaptive_k1", 5, 1, 250, False, None, dict(
+                max_iters=300, adaptive=True, adapt_every=1)),
+    ):
+        seed += 1
+        p = _params(**{"max_iters": 600, "gamma": 5.0, **kw})
+        record(routed(compare_mv_case(
+            f"tile_{name}", B, H, N, p, seed, shared=shared, scale=0.01,
+            time_plain=False, layout="tile", problems=P)))
 
     # The MV ladder: every variant, chains and unroll, on a batch that is no
     # multiple of the chains; two and four slots per lane.
@@ -1771,11 +1932,11 @@ def phase_kernel_vs_plain():
     return out
 
 
-def alternating_ms(kernels, run):
-    """{layout: [ms, ms]}: ``run(kernel)`` for each of ``kernels`` timed in
-    two rounds of 3 (``cuda_ms``), the layouts alternating."""
+def alternating_ms(kernels, run, rounds=2):
+    """{layout: [ms, ...]}: ``run(kernel)`` for each of ``kernels`` timed in
+    ``rounds`` rounds of 3 (``cuda_ms``), the layouts alternating."""
     times = {name: [] for name in kernels}
-    for _ in range(2):
+    for _ in range(rounds):
         for name, kernel in kernels.items():
             times[name].append(cuda_ms(lambda: run(kernel), 3))
     return times
@@ -1931,57 +2092,136 @@ def phase_layouts():
         f"routed, medians): {slower}"
 
 
-def mv_layouts():
-    """Both layouts of kernel C at B=1028 with per-problem covariances,
-    which the warp layout takes: the Markowitz path's shape (H=1, N=20;
-    2000 iterations at gamma 1, and its accurate configuration, 800
-    adaptive) and H=5, N=30 (bench.py's Markowitz setting, 1000
-    iterations at refresh 16, and 1000 adaptive); timed and held as
-    ``phase_layouts`` holds kernels A and B, at the mean-variance weight
-    bar."""
-    from kmpc_tpu_torch.ops import mv_cuda as V
+# Kernel C's switches between layouts (``mv_kernel_layout``), each timed at
+# bench.py's settings (1000 iterations; 200 past 128 assets) on each side:
+# (B, H, N, shared). The warp layout at one row of up to 128 assets (per
+# problem at B=1028 and 1, shared at B=5 and 1028), the tile layout past
+# it (two rows at N=30 and 128; one row shared at N=129, per problem at
+# N=200, one-warp CTAs); the tile layout streaming Sigma per problem at
+# H >= 3, the block layout below (N=250 and 300); a shared Sigma streamed
+# at one row for more than 132 problems, the block layout up to 132 (N=960
+# at B=1, 132 and 264), and at H >= 3 for any batch (N=320 at B=5).
+MV_SWITCH_SHAPES = (
+    (1028, 1, 128, False), (1, 1, 128, False), (5, 1, 20, True),
+    (1028, 1, 128, True), (1028, 2, 30, False), (1, 2, 30, False),
+    (1028, 2, 128, False), (1028, 2, 30, True), (5, 1, 129, True),
+    (1028, 1, 200, False), (1, 1, 200, False), (528, 1, 250, False),
+    (264, 2, 300, False), (264, 3, 300, False), (5, 5, 300, False),
+    (1, 1, 960, True), (132, 1, 960, True), (264, 1, 960, True),
+    (5, 5, 320, True))
+# Where the routed layout is measured slower than another, the rule kept
+# for its simplicity: (B, H, N, shared, body) -> the largest routed-over-
+# fastest ratio allowed (PERF.md section 6, PR 8). Two rows per problem
+# streamed at B=264: the tile layout's fixed-step body 1.04x faster. Small
+# batches streamed at H=5: the block layout's adaptive body 1.05-1.08x
+# faster.
+MV_ROUTED_SLOWER = {
+    (264, 2, 300, False, "fixed"): 1.15,
+    (5, 5, 300, False, "adaptive"): 1.2,
+    (5, 5, 320, True, "adaptive"): 1.15,
+}
+
+
+def mv_layout_shapes():
+    """Kernel C's shapes for ``mv_layouts``: (B, H, N, shared, seed,
+    bodies, rounds): the Markowitz path's (H=1, N=20; 2000 iterations at
+    gamma 1, and its accurate configuration, 800 adaptive) at B=1028 and at
+    the exact scan's B=1; bench.py's Markowitz setting at H=5, N=30 (1000
+    iterations at refresh 16, and 1000 adaptive) at B=1028 and B=1; the
+    switches (``MV_SWITCH_SHAPES``, "switch" up to 128 assets, else "wide");
+    the five MV_LONG_WIDE shapes at 200 iterations of bench.py's settings,
+    one round (``mv_long_wide`` times them at 1000)."""
+    return ((1028, 1, 20, False, 410, "path", 2),
+            (1, 1, 20, False, 724, "path", 2),
+            (1028, 5, 30, False, 412, "bench", 2),
+            (1, 5, 30, False, 413, "bench", 2)) + tuple(
+        (B, H, N, shared, 940 + i, "switch" if N <= 128 else "wide", 2)
+        for i, (B, H, N, shared) in enumerate(MV_SWITCH_SHAPES)) + tuple(
+        (B, H, N, shared, 900 + i, "wide", 1)
+        for i, (_, B, H, N, shared) in enumerate(MV_LONG_WIDE))
+
+
+def mv_layout_bodies(which):
+    """The bodies ``mv_layouts`` times a shape at: "path" (the Markowitz
+    path's settings), "bench" and "switch" (bench.py's, 1000 iterations),
+    "wide" (bench.py's at 200 iterations)."""
+    from dataclasses import replace
+
     from kmpc_tpu_torch.ops.mpc import MPCParams
 
-    B = 1028
-    shapes = {
-        (1, 20, 410): {
-            "fixed": MPCParams(max_iters=2000, gamma=1.0, horizon=1),
-            "adaptive": MPCParams(max_iters=800, gamma=1.0, horizon=1,
-                                  adaptive=True, adapt_every=2,
-                                  precond=True)},
-        (5, 30, 412): {
-            "fixed": _params(max_iters=1000, gamma=5.0,
-                             proj_refresh_every=16),
-            "adaptive": _params(max_iters=1000, gamma=5.0, adaptive=True,
-                                adapt_every=2)},
-    }
-    for (H, N, seed), bodies in shapes.items():
-        cw, mu, sig = (torch.as_tensor(x, device="cuda")
-                       for x in mv_instance(B, H, N, seed, scale=0.01))
+    if which == "path":
+        return {"fixed": MPCParams(max_iters=2000, gamma=1.0, horizon=1),
+                "adaptive": MPCParams(max_iters=800, gamma=1.0, horizon=1,
+                                      adaptive=True, adapt_every=2,
+                                      precond=True)}
+    bodies = mv_settings()
+    if which == "wide":
+        bodies = {k: replace(p, max_iters=200) for k, p in bodies.items()}
+    return bodies
+
+
+def mv_layouts():
+    """Every layout of kernel C that takes the shape (warp, tile, block), at
+    each of ``mv_layout_shapes`` and body, launched in it (``_mv_launch``),
+    timed in its rounds of 3, the layouts alternating; the layouts' weights
+    held to the routed layout's at the mean-variance weight bar (every
+    problem for fixed steps, all but BEYOND_SHARE of them for the adaptive
+    body; at the switches and the wide shapes the adaptive body's share is
+    reported), and
+    the routed layout required to be the fastest (within MV_ROUTED_SLOWER
+    where that names the shape and body): every shape and body is timed
+    before the phase fails on the list of those where another layout was
+    faster."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    slower = []
+    for B, H, N, shared, seed, which, rounds in mv_layout_shapes():
+        cw, mu, sig = (torch.as_tensor(x, device="cuda") for x in mv_instance(
+            B, H, N, seed, shared, scale=0.01))
         sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
-        for body, p in bodies.items():
-            layout, warp = V._mv_route(H, N, p)
-            assert layout == "warp", (H, N, body, layout)
-            kernels = {"warp": warp,
-                       "block": V._MV_KERNELS[("block", p.adaptive)]}
+        for body, p in mv_layout_bodies(which).items():
+            routed, _ = V._mv_route(H, N, p, shared, B)
+            taken = {lay: V._MV_KERNELS[(lay, p.adaptive)]
+                     for lay in ("warp", "tile", "block")
+                     if (lay != "warp" or V.mv_kernel_supports(H, N))
+                     and (lay != "tile"
+                          or V.mv_tile_problems(B, H, N, shared, p.adaptive))}
 
             def run(kernel):
                 return V._mv_launch(kernel, cw, mu, sig, p)
 
-            times = alternating_ms(kernels, run)
-            (w_warp, _), (w_block, _) = (run(k) for k in kernels.values())
+            times = alternating_ms(taken, run, rounds)
+            outs = {lay: run(k)[0] for lay, k in taken.items()}
             torch.cuda.synchronize()
-            dw = (w_warp - w_block).abs().amax(dim=(1, 2))
-            assert torch.isfinite(w_block).all(), (H, N, body)
-            beyond = (dw > MV_W_TOL).float().mean().item()
-            assert beyond <= (BEYOND_SHARE if p.adaptive else 0.0), \
-                f"layouts C H={H} N={N} {body}: {beyond} of the problems apart"
-            warp_ms, block_ms = (float(np.median(t)) for t in times.values())
+            medians = {lay: float(np.median(t)) for lay, t in times.items()}
+            beyond = {}
+            for lay, w in outs.items():
+                assert torch.isfinite(w).all(), (B, H, N, body, lay)
+                dw = (w - outs[routed]).abs().amax(dim=(1, 2))
+                beyond[lay] = (dw > MV_W_TOL).float().mean().item()
+                # The adaptive body at the switches and the wide shapes is
+                # reported (a tie may part two layouts on one problem of a
+                # small batch): ``mv_long_wide`` and the ``kernels`` phase
+                # hold each layout against the plain version, problem by
+                # problem.
+                if p.adaptive and which in ("switch", "wide"):
+                    continue
+                assert beyond[lay] <= (BEYOND_SHARE if p.adaptive else 0.0), \
+                    f"layouts C B={B} H={H} N={N} {body}: {lay} apart from " \
+                    f"{routed} on {beyond[lay]} of the problems"
+            fastest = min(medians, key=medians.get)
+            allowed = MV_ROUTED_SLOWER.get((B, H, N, shared, body), 1.0)
             emit("layouts", program="mean_variance", B=B, H=H, N=N,
-                 body=body, iters=p.max_iters, warp_kernel=warp.name,
-                 block_kernel=kernels["block"].name, warp_ms=times["warp"],
-                 block_ms=times["block"], block_over_warp=block_ms / warp_ms,
-                 max_abs_dw=dw.max().item(), share_beyond_w_tol=beyond)
+                 shared_sigma=shared, body=body, iters=p.max_iters,
+                 routed=routed, fastest=fastest, ms=times,
+                 over_routed={lay: m / medians[routed]
+                              for lay, m in medians.items()},
+                 routed_slower_allowed=allowed, share_beyond_w_tol=beyond)
+            if medians[routed] > allowed * medians[fastest]:
+                slower.append((B, H, N, shared, body, routed, medians))
+    assert not slower, \
+        f"routed mean-variance layouts measured slower than another beyond " \
+        f"MV_ROUTED_SLOWER (B, H, N, shared, body, routed, medians): {slower}"
 
 
 def phase_nan_row():
@@ -3056,58 +3296,77 @@ def phase_mv_long_wide():
     """The mean-variance solve at the shapes of MV_LONG_WIDE, past the warp
     layout, at both of bench.py's settings: first the path, every shape and
     setting through ``solve_mpc_mean_variance_packed`` on bench.py's
-    Markowitz problems (the full batch) and on the shape's 16 probe
-    instances, launches counted from 0 and every row held feasible; then
-    per shape and setting the block kernel against its plain version per
+    Markowitz problems (the full batch, which routing gives to the tile
+    layout at all five shapes) and on the shape's 16 probe instances (per
+    problem covariances, to their route), and the block layout's kernel on
+    each full batch (launched privately: no shape here routes to it),
+    launches counted from 0 and every row held feasible; then per shape and
+    setting the tile and block kernels against their plain version per
     problem (the plain version on a batch cut to PLAIN_TEMP_BYTES, timed
-    once), run twice for the same bits, timed (CUDA-event median of 3 after
-    those runs), its bound and registers, and on the probe instances the
-    kernel held against the plain version by the same bars; last the
-    probe's objective gap to the float64 references (median, p90).
-    Returns (launches, the long_H20N30 case of each kernel, every case by
-    kernel)."""
+    once), each run twice for the same bits and timed (CUDA-event median
+    of 3 after those runs), the tile layout required to be the faster;
+    the bound and its share, registers, the L2 bytes of Sigma each layout
+    reads (a resident Sigma once per CTA, a streamed or global one every
+    iteration), the largest weight difference between the layouts, and on
+    the probe instances the routed kernel held against the plain version
+    by the same bars; last the probe's objective gap to the float64
+    references (median, p90). Returns (launches, the shared_H1N960 case of
+    each kernel, every case by kernel)."""
     from kmpc_tpu_torch.ops import mv_cuda as V
 
     t0 = time.perf_counter()
     settings = mv_settings()
     data, probe = {}, {}
     for seed, (label, B, H, N, shared) in enumerate(MV_LONG_WIDE):
-        data[label] = [torch.as_tensor(x, device="cuda") for x in mv_instance(
-            B, H, N, 900 + seed, shared, scale=0.01)]
+        cw, mu, sig = (torch.as_tensor(x, device="cuda") for x in mv_instance(
+            B, H, N, 900 + seed, shared, scale=0.01))
+        data[label] = (cw, mu, sig,
+                       (0.5 * (sig + sig.transpose(-1, -2))).contiguous())
         probe[label] = mv_probe_instances(H, N)
 
     counters = kernel_counters()
     for k in counters.values():
         k.launches = 0
-    solved = {}
+    solved, expected = {}, {}
     for label, B, H, N, shared in MV_LONG_WIDE:
+        cw, mu, sig, sym = data[label]
         for body, p in settings.items():
-            w, info = V.solve_mpc_mean_variance_packed(*data[label], p)
+            assert V.mv_kernel_layout(H, N, shared, p.adaptive,
+                                      B) == "tile", \
+                (label, body)
+            w, info = V.solve_mpc_mean_variance_packed(cw, mu, sig, p)
             w_probe, _ = V.solve_mpc_mean_variance_packed(
                 *(torch.as_tensor(x) for x in probe[label]), p)
-            solved[(label, body)] = (w, info, w_probe)
+            block = V._MV_KERNELS[("block", p.adaptive)]
+            w_block, _ = V._mv_launch(block, cw, mu, sym, p)
+            solved[(label, body)] = (w, info, w_probe, w_block)
+            for kernel in (V._MV_KERNELS[("tile", p.adaptive)], block,
+                           V._mv_route(H, N, p, B=len(probe[label][0]))[1]):
+                expected[kernel.name] = expected.get(kernel.name, 0) + 1
     torch.cuda.synchronize()
     launches = {name: k.launches for name, k in counters.items()
                 if k.launches}
-    per_kernel = 2 * len(MV_LONG_WIDE)
-    assert launches == {"pdhg_mean_variance_block": per_kernel,
-                        "pdhg_mean_variance_block_adaptive": per_kernel}, \
-        launches
-    for (label, body), (w, info, _) in solved.items():
-        assert simplex_error(w) <= FEAS_TOL and bool((w >= 0).all()), \
-            (label, body, simplex_error(w))
+    assert launches == expected, (launches, expected)
+    for (label, body), (w, info, _, w_block) in solved.items():
+        for x in (w, w_block):
+            assert simplex_error(x) <= FEAS_TOL and bool((x >= 0).all()), \
+                (label, body, simplex_error(x))
         assert bool(info["converged"].all()), (label, body)
 
     regs = {name: _ptxas_report(name)[0] for name in launches}
     rows, cases, first = [], {name: [] for name in launches}, {}
     for label, B, H, N, shared in MV_LONG_WIDE:
-        cw, mu, sig = data[label]
-        sym = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+        cw, mu, _, sym = data[label]
         for body, p in settings.items():
             case = f"mv_long_wide_{label}_{body}"
-            layout, kernel = V._mv_route(H, N, p)
-            assert layout == "block", (case, layout)
-            out_k = mv_kernel_twice(case, layout, cw, mu, sym, p)
+            layout, kernel = V._mv_route(H, N, p, shared, B)
+            block = V._MV_KERNELS[("block", p.adaptive)]
+            out_k = mv_kernel_twice(
+                case, layout, lambda: V.pdhg_mean_variance_cuda(
+                    cw, mu, sym, p, return_steps=p.adaptive))
+            out_b = mv_kernel_twice(
+                case + "_block", "block", lambda: V._mv_launch(
+                    block, cw, mu, sym, p, return_steps=p.adaptive))
             bp = min(B, PLAIN_TEMP_BYTES // (4 * H * N * N))
             sig_p = sym if shared else sym[:bp]
             start = torch.cuda.Event(enable_timing=True)
@@ -3117,20 +3376,42 @@ def phase_mv_long_wide():
                                                return_steps=p.adaptive)
             end.record()
             torch.cuda.synchronize()
+            P = V.mv_tile_problems(B, H, N, shared, p.adaptive)
+            ring = V.mv_tile_plan(P, H, N, p.adaptive)[1]
+            sigma_bytes = 4 * N * N
             res = {"case": case, "kernel": kernel.name, "B": B, "H": H,
                    "N": N, "iters": p.max_iters, "shared_sigma": shared,
-                   "sigma_staged": V.mv_sigma_staged(H, N),
+                   "problems_per_cta": P, "ring_rows": ring,
+                   "l2_sigma_bytes": -(-B // P) * sigma_bytes
+                   * (p.max_iters if ring else 1),
                    "plain_batch": bp, "plain_ms": start.elapsed_time(end)}
-            hold_mv(case, cw[:bp], mu[:bp], sig_p, p,
-                    tuple(x[:bp] for x in out_k), out_p, res)
-            res["kernel_ms"] = cuda_ms(lambda: V.pdhg_mean_variance_cuda(
-                cw, mu, sym, p), 3, warmup=False)
-            res["bound_ms"], res["bound_by"] = mv_bound(B, H, N, p, shared)
-            res["bound_share"] = res["bound_ms"] / res["kernel_ms"]
-            res["registers"] = regs[kernel.name]
+            res_b = {"case": case + "_block", "kernel": block.name, "B": B,
+                     "H": H, "N": N, "iters": p.max_iters,
+                     "shared_sigma": shared,
+                     "sigma_staged": V.mv_sigma_staged(H, N),
+                     "l2_sigma_bytes": B * sigma_bytes * (
+                         1 if V.mv_sigma_staged(H, N) else p.max_iters),
+                     "plain_batch": bp, "plain_ms": res["plain_ms"]}
+            for r, out in ((res, out_k), (res_b, out_b)):
+                hold_mv(r["case"], cw[:bp], mu[:bp], sig_p, p,
+                        tuple(x[:bp] for x in out), out_p, r)
+            dw = (out_k[0] - out_b[0]).abs().max().item()
+            for r, k in ((res, kernel), (res_b, block)):
+                r["kernel_ms"] = cuda_ms(lambda: V._mv_launch(
+                    k, cw, mu, sym, p), 3, warmup=False)
+                r["bound_ms"], r["bound_by"] = mv_bound(B, H, N, p, shared)
+                r["bound_share"] = r["bound_ms"] / r["kernel_ms"]
+                r["registers"] = regs[k.name]
+                r["max_abs_dw_block"] = dw
+            res["block_ms"] = res_b["kernel_ms"]
+            res["block_over_tile"] = res_b["kernel_ms"] / res["kernel_ms"]
+            assert res["kernel_ms"] <= res_b["kernel_ms"], (
+                f"{case}: routing gives the tile layout, "
+                f"{res['kernel_ms']} ms, the block layout takes "
+                f"{res_b['kernel_ms']} ms")
 
-            # The probe: the kernel held against the plain version on the
-            # same instances by the same bars (``hold_mv``, per instance).
+            # The probe: the routed kernel held against the plain version
+            # on the same instances by the same bars (``hold_mv``).
             pcw, pys, psig = (torch.as_tensor(x, device="cuda")
                               for x in probe[label])
             psym = (0.5 * (psig + psig.transpose(-1, -2))).contiguous()
@@ -3141,6 +3422,7 @@ def phase_mv_long_wide():
             torch.cuda.synchronize()
             held = {}
             hold_mv(case + "_probe", pcw, pys, psym, p, out_pk, out_pp, held)
+            res["probe_kernel"] = V._mv_route(H, N, p, B=len(probe[label][0]))[1].name
             res["probe_vs_plain"] = {k: v for k, v in held.items() if k in (
                 "max_abs_dw", "max_abs_dobj", "decisions_parted",
                 "ended_apart", "unsettled_apart", "kernel_unsettled_apart",
@@ -3151,8 +3433,11 @@ def phase_mv_long_wide():
                                                   probe[label][0])
             rows.append(res)
             cases[kernel.name].append(res)
-            if label == MV_LONG_WIDE[0][0]:
+            cases[block.name].append(res_b)
+            emit("mv_long_wide_block", **res_b)
+            if label == "shared_H1N960":
                 first[kernel.name] = res
+                first[block.name] = res_b
 
     refs = mv_references([(H, N) for _, _, H, N, _ in MV_LONG_WIDE])
     for res in rows:
@@ -3363,6 +3648,9 @@ KERNELS = {
     "pdhg_log_utility_wide": (_LOG + "_wide.cu", _PALLAS + ":226"),
     "pdhg_log_utility_wide_adaptive": (_LOG + "_wide_adaptive.cu",
                                        _PALLAS + ":593"),
+    "pdhg_mean_variance_tile": (_MV + "_tile.cu", _PALLAS + ":1089"),
+    "pdhg_mean_variance_tile_adaptive": (_MV + "_tile_adaptive.cu",
+                                         _PALLAS + ":1196"),
 }
 
 
@@ -3419,7 +3707,8 @@ def main():
     # row layout's pipelined body, ``warp_path`` for the warp layout's
     # kernels, ``block_path`` for the block and wide-row layouts',
     # ``mv_long_wide`` for
-    # C's block kernels (its long_H20N30 case for the times), the ladder's
+    # C's tile and block kernels (its shared_H1N960 case for the times),
+    # the ladder's
     # entry point for the ladder; each counted from 0
     # over that path alone), the largest kernel-vs-plain weight difference
     # over every problem of all of its cases (for an adaptive kernel the
@@ -3465,10 +3754,10 @@ def main():
                     "kernel_apart_from_float64",
                     "plain_apart_from_float64", "unsettled_apart",
                     "kernel_unsettled_apart", "plain_unsettled_apart")}})
-        if "block" in name or "rows" in name or "wide" in name:
+        if any(x in name for x in ("block", "rows", "wide", "tile")):
             entry["deterministic_cases"] = sum(
                 1 for c in every if c.get("deterministic"))
-        if "wide" in name:
+        if "wide" in name or "tile" in name:
             entry["max_abs_dw_block"] = max(
                 c.get("max_abs_dw_block", 0.0) for c in every)
         if "rows" in name:

@@ -32,8 +32,8 @@
 // butterflies per Michelot sweep; inputs are read once (Sigma is N*N
 // floats per problem). Bound by the FP32 and shuffle pipes, not by HBM.
 // Shared memory: N * K*32 floats per warp (per block when shared) sets the
-// warps per block; registers cap pow2ceil(H) * K as in the log-utility
-// kernels. The wrapper checks both.
+// warps per block. Only H = 1 is compiled (mv_dispatch). The wrapper
+// checks both.
 
 #pragma once
 
@@ -354,8 +354,9 @@ cudaError_t launch(const MvArgs& a, const MvAdaptArgs& ad,
   return cudaGetLastError();
 }
 
-// Shapes with K = ceil(N/32) <= 4 and pow2ceil(H) * K <= 16 are compiled;
-// anything else returns cudaErrorInvalidValue (the wrapper checks first).
+// One horizon row (H = 1) with K = ceil(N/32) <= 4 is compiled: past one
+// row the tile layout measured faster (pdhg_mean_variance_tile.cuh).
+// Anything else returns cudaErrorInvalidValue (the wrapper checks first).
 // `shared` = 1: sigma is one [N, N] matrix for the whole batch. `schedule`
 // is `refresh` for the fixed-step body and `adapt_every` for the adaptive
 // one; `steps_out` may be null.
@@ -396,11 +397,7 @@ int mv_dispatch(
 
 #define KMPC_CASE(HM_, K_) \
   if (hm == HM_ && K == K_) return (int)launch<HM_, K_, ADAPT>(a, ad, s);
-  KMPC_CASE(1, 1) KMPC_CASE(2, 1) KMPC_CASE(4, 1) KMPC_CASE(8, 1)
-  KMPC_CASE(16, 1)
-  KMPC_CASE(1, 2) KMPC_CASE(2, 2) KMPC_CASE(4, 2) KMPC_CASE(8, 2)
-  KMPC_CASE(1, 3) KMPC_CASE(2, 3) KMPC_CASE(4, 3)
-  KMPC_CASE(1, 4) KMPC_CASE(2, 4) KMPC_CASE(4, 4)
+  KMPC_CASE(1, 1) KMPC_CASE(1, 2) KMPC_CASE(1, 3) KMPC_CASE(1, 4)
 #undef KMPC_CASE
   return (int)cudaErrorInvalidValue;
 }

@@ -18,17 +18,25 @@ primal and dual residuals on every ``adapt_every``-th iteration, and the
 refresh schedule is off. The covariance is per problem ([B, N, N]) or one
 matrix shared by the batch ([N, N] or [1, N, N]); it is symmetrised first.
 
-Two layouts, chosen by shape (``mv_kernel_layout``): one warp per problem
-with the iterates in registers and Sigma in shared memory
-(``csrc/pdhg_mean_variance.cu``, ``..._adaptive.cu``) where
-pow2ceil(H) * ceil(N/32) <= 16 and N <= 128; else one block per problem
-with the iterates in shared memory (``csrc/pdhg_mean_variance_block.cu``,
+Three layouts, chosen by the shape and, where the tile layout streams a
+shared Sigma, the batch (``mv_kernel_layout``, as ``chip_smoke.py``'s
+``mv_layouts`` measured them): one warp per problem with one row in
+registers and Sigma in shared memory (``csrc/pdhg_mean_variance.cu``,
+``..._adaptive.cu``) at H=1 up to 128 assets; the tile layout
+(``csrc/pdhg_mean_variance_tile.cu``, ``..._tile_adaptive.cu``: one warp
+per (problem, horizon row), P problems a CTA, the product Sigma W taken by
+the whole CTA with one Sigma a CTA, resident or streamed through a ring of
+shared-memory stages) where its plan fits (``mv_tile_smem_bytes``,
+``mv_tile_problems``: H <= 32) and Sigma is resident, or streamed at H >= 3
+or for more than 132 problems sharing it; else one block per problem with
+the iterates in shared memory (``csrc/pdhg_mean_variance_block.cu``,
 ``..._block_adaptive.cu``) where they fit a block's 227 KB
 (``mv_block_smem_bytes``: five [H, N] arrays and the reduce staging; Sigma
 is staged beside them where it fits, else read from global memory); else
-``ValueError`` naming ``solve_mpc_mean_variance_batch``. The block layout
-takes every shape kmpc_tpu's wrapper sends to its Pallas kernel (a working
-set within 8 MiB at the 128-lane tile).
+the tile layout where its plan fits; else ``ValueError`` naming
+``solve_mpc_mean_variance_batch``. Together they take every shape
+kmpc_tpu's wrapper sends to its Pallas kernel (a working set within 8 MiB
+at the 128-lane tile).
 
 A CUDA tensor launches a kernel or raises; a CPU tensor runs
 ``pdhg_mean_variance_plain``. ``allow_short`` raises here: a caller who
@@ -52,7 +60,6 @@ from kmpc_tpu_torch.ops.mpc import (
     reject_unhonored_polish,
 )
 from kmpc_tpu_torch.ops.mpc_cuda import (
-    MAX_ROW_ELEMENTS,
     MAX_SLOTS,
     SMEM_PER_BLOCK,
     _check_return_steps,
@@ -69,8 +76,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # (cw, mu, sigma, w_out, fp_out), B, H, N, shared, max_iters, the schedule
 # (``proj_refresh_every``; ``adapt_every`` for the adaptive kernel), the
 # sweep budgets, the scalars, warm, the stream.
-# The adaptive kernel takes one more pointer after fp_out: steps_out.
+# The adaptive kernel takes one more pointer after fp_out: steps_out; the
+# tile kernels one more int after shared: the problems a CTA.
 _ARGTYPES = [_I] * 8 + [_F] * 5 + [_I, _P]
+_TILE_ARGTYPES = [_I] * 9 + [_F] * 5 + [_I, _P]
 PDHG_MEAN_VARIANCE = CudaKernel(
     "pdhg_mean_variance", "kmpc_pdhg_mean_variance", [_P] * 5 + _ARGTYPES)
 PDHG_MEAN_VARIANCE_ADAPTIVE = CudaKernel(
@@ -83,12 +92,21 @@ PDHG_MEAN_VARIANCE_BLOCK = CudaKernel(
 PDHG_MEAN_VARIANCE_BLOCK_ADAPTIVE = CudaKernel(
     "pdhg_mean_variance_block_adaptive",
     "kmpc_pdhg_mean_variance_block_adaptive", [_P] * 6 + _ARGTYPES)
+# The tile layout.
+PDHG_MEAN_VARIANCE_TILE = CudaKernel(
+    "pdhg_mean_variance_tile", "kmpc_pdhg_mean_variance_tile",
+    [_P] * 5 + _TILE_ARGTYPES)
+PDHG_MEAN_VARIANCE_TILE_ADAPTIVE = CudaKernel(
+    "pdhg_mean_variance_tile_adaptive",
+    "kmpc_pdhg_mean_variance_tile_adaptive", [_P] * 6 + _TILE_ARGTYPES)
 # (layout, adaptive) -> kernel
 _MV_KERNELS = {
     ("warp", False): PDHG_MEAN_VARIANCE,
     ("warp", True): PDHG_MEAN_VARIANCE_ADAPTIVE,
     ("block", False): PDHG_MEAN_VARIANCE_BLOCK,
     ("block", True): PDHG_MEAN_VARIANCE_BLOCK_ADAPTIVE,
+    ("tile", False): PDHG_MEAN_VARIANCE_TILE,
+    ("tile", True): PDHG_MEAN_VARIANCE_TILE_ADAPTIVE,
 }
 MV_KERNELS = tuple(_MV_KERNELS.values())
 
@@ -101,10 +119,12 @@ def mv_smem_bytes(N: int) -> int:
 
 
 def mv_kernel_supports(H: int, N: int) -> bool:
-    """Whether the warp-layout kernel takes horizon H and N assets: the
-    register budget of the log-utility kernels, and one covariance within
-    a block's shared memory."""
-    return kernel_supports(H, N) and mv_smem_bytes(N) <= SMEM_PER_BLOCK
+    """Whether the warp-layout kernel takes horizon H and N assets: one
+    horizon row (past it the tile layout measured faster), at most
+    MAX_SLOTS register slots a lane, and one covariance within a block's
+    shared memory."""
+    return (H == 1 and kernel_supports(H, N)
+            and mv_smem_bytes(N) <= SMEM_PER_BLOCK)
 
 
 def _mv_block_iterate_floats(H: int, N: int) -> int:
@@ -131,16 +151,133 @@ def mv_block_smem_bytes(H: int, N: int) -> int:
     return 4 * (_mv_block_iterate_floats(H, N) + sigma)
 
 
-def mv_kernel_layout(H: int, N: int) -> Optional[str]:
-    """The layout a CUDA mean-variance solve of this shape runs in:
-    ``"warp"`` where ``mv_kernel_supports`` holds, else ``"block"`` where
-    one problem's iterates fit a block's shared memory, else None. Neither
-    a shared covariance nor the adaptive body changes either budget."""
+# The tile layout's plan (``mv_tile_layout`` and ``mv_tile_problems`` in
+# csrc/pdhg_mean_variance_tile.cuh, whose values the built library reports
+# as ``kmpc_mv_tile_smem_bytes``, ``kmpc_mv_tile_ring_rows`` and
+# ``kmpc_mv_tile_problems``).
+TILE_MAX_WARPS = 32
+TILE_SMS = 132          # SMs of an H100 SXM: the plan's wave
+TILE_STAGES = 3         # the ring of Sigma's row blocks
+TILE_RING_ROWS = (16, 8, 4)
+
+
+def _tile_hb(C: int) -> int:
+    return 8 if C <= 8 else (20 if C <= 20 else 32)
+
+
+def _tile_items(hb: int) -> int:
+    """Register tiles (4 x 8 floats) of a streamed product a thread holds
+    across a ring's stages, by the warps the kernel is compiled for."""
+    return 2 if hb == 8 else 1
+
+
+def _tile_floats(P: int, H: int, N: int, adaptive: bool, rc: int):
+    """(floats of the tile plan before Sigma, CP) at product tile width
+    ``rc``."""
+    C = P * H
+    CP = -(-C // rc) * rc
+    KW = -(-N // 32) * 32
+    rows = C * (2 + (1 if N > 128 else 0) + (1 if H > 1 else 0)
+                + (2 if adaptive and H > 1 else 0))
+    return (N * CP + rows * KW + (2 * C * 32 if adaptive else 0)
+            + -(-C // 4) * 4), CP
+
+
+def mv_tile_plan(P: int, H: int, N: int,
+                 adaptive: bool) -> Optional[Tuple[int, int]]:
+    """(bytes of shared memory, rows of Sigma a ring stage holds, 0 where
+    Sigma is resident) of a tile-layout CTA of P problems, or None where the
+    plan does not fit: W^T [N][CP] (C = P H warps, CP = C rounded up to the
+    product's tile width, 4 with Sigma resident and 8 streamed), the rows'
+    w [C][KW] past 128 assets (KW = ceil32(N)), G then the projection
+    input and the dual [C][KW] each, wbar [C][KW] where H > 1, the moves
+    dw and dp [C][KW] each where H > 1 and the lanes' residual partials
+    [2][C][32] with the adaptive body, a reduce staging of C floats
+    rounded up to four; then Sigma [N][ceil4(N)] resident where it fits a
+    block's shared memory, else a ring of three stages of Tj rows (the
+    largest of 16, 8, 4 that fits) where every thread's 4 x 8 tiles of G,
+    ceil4(N) / 4 x CP / 8 of them over 32 C threads, fit its registers."""
+    if P < 1 or H < 1 or N < 1 or P * H > TILE_MAX_WARPS:
+        return None
+    NP = -(-N // 4) * 4
+    limit = SMEM_PER_BLOCK // 4
+    floats, _ = _tile_floats(P, H, N, adaptive, 4)
+    if floats + N * NP <= limit:
+        return 4 * (floats + N * NP), 0
+    floats, CP = _tile_floats(P, H, N, adaptive, 8)
+    if (NP // 4) * (CP // 8) > _tile_items(_tile_hb(P * H)) * 32 * P * H:
+        return None
+    for tj in TILE_RING_ROWS:
+        if floats + TILE_STAGES * tj * NP <= limit:
+            return 4 * (floats + TILE_STAGES * tj * NP), tj
+    return None
+
+
+def mv_tile_smem_bytes(P: int, H: int, N: int,
+                       adaptive: bool) -> Optional[int]:
+    """Shared memory of a tile-layout CTA of P problems (``mv_tile_plan``),
+    or None where the plan does not fit."""
+    plan = mv_tile_plan(P, H, N, adaptive)
+    return None if plan is None else plan[0]
+
+
+def mv_tile_problems(B: int, H: int, N: int, shared: bool,
+                     adaptive: bool) -> int:
+    """Problems a CTA of the tile layout for B problems: 1 with a
+    per-problem covariance (a CTA holds one Sigma); with a shared one the
+    largest P whose plan fits (P H <= 32) among those whose waves times P,
+    ceil(ceil(B / P) / 132) P, are least. 0 where the layout does not take
+    the shape."""
+    if B < 1 or H < 1 or N < 1 or H > TILE_MAX_WARPS:
+        return 0
+    if not shared:
+        return 1 if mv_tile_plan(1, H, N, adaptive) else 0
+    best, best_cost = 0, 0
+    for P in range(1, TILE_MAX_WARPS // H + 1):
+        if mv_tile_plan(P, H, N, adaptive) is None:
+            continue
+        ctas = -(-B // P)
+        cost = -(-ctas // TILE_SMS) * P
+        if best == 0 or cost <= best_cost:
+            best, best_cost = P, cost
+    return best
+
+
+# Where the tile layout streams Sigma, it is taken at H >= TILE_STREAM_H
+# (per problem: below it the CTA's few warps leave the product's tile
+# mostly padding, and the block layout measured faster), or with a shared
+# Sigma for more than TILE_SMS problems (below that the block layout's one
+# CTA a problem measured faster at one row).
+TILE_STREAM_H = 3
+
+
+def mv_tile_streams(H: int, N: int, adaptive: bool) -> bool:
+    """Whether the tile layout streams Sigma at this shape: the plan of one
+    problem a CTA does not hold it resident (or does not fit)."""
+    plan = mv_tile_plan(1, H, N, adaptive)
+    return plan is None or plan[1] > 0
+
+
+def mv_kernel_layout(H: int, N: int, shared: bool = False,
+                     adaptive: bool = False, B: int = 1) -> Optional[str]:
+    """The layout a CUDA mean-variance solve of B problems of this shape
+    runs in, as measured fastest (``chip_smoke.py``'s ``mv_layouts``):
+    ``"warp"`` where ``mv_kernel_supports`` (one row of at most 128
+    assets); else ``"tile"`` where its plan takes the batch
+    (``mv_tile_problems``) and holds Sigma resident, or streams it at
+    H >= TILE_STREAM_H or with a shared Sigma for more than TILE_SMS
+    problems; else ``"block"`` where one problem's iterates fit a block's
+    shared memory; else ``"tile"`` where its plan takes the batch; else
+    None."""
     if mv_kernel_supports(H, N):
         return "warp"
+    tile = mv_tile_problems(max(B, 1), H, N, shared, adaptive) > 0
+    if tile and (not mv_tile_streams(H, N, adaptive) or H >= TILE_STREAM_H
+                 or (shared and B > TILE_SMS)):
+        return "tile"
     if H >= 1 and N >= 1 and mv_block_smem_bytes(H, N) <= SMEM_PER_BLOCK:
         return "block"
-    return None
+    return "tile" if tile else None
 
 
 def _check_params(params: MPCParams, entry: str) -> None:
@@ -244,20 +381,21 @@ def pdhg_mean_variance_plain(
     return w_last, fp, steps
 
 
-def _mv_route(H: int, N: int,
-              params: MPCParams) -> Tuple[str, CudaKernel]:
-    """(layout, kernel) of a CUDA mean-variance solve: the layout
-    ``mv_kernel_layout`` gives the shape, the body the parameters select;
-    raises ``ValueError`` for a shape beyond both layouts' budgets, naming
-    the eager solver."""
-    layout = mv_kernel_layout(H, N)
+def _mv_route(H: int, N: int, params: MPCParams, shared: bool = False,
+              B: int = 1) -> Tuple[str, CudaKernel]:
+    """(layout, kernel) of a CUDA mean-variance solve of B problems: the
+    layout ``mv_kernel_layout`` gives the shape, the body the parameters
+    select; raises ``ValueError`` for a shape beyond every layout's budget,
+    naming the eager solver."""
+    layout = mv_kernel_layout(H, N, shared, params.adaptive, B)
     if layout is None:
         raise ValueError(
             f"H={H}, N={N} exceeds the mean-variance kernels' budgets: the "
-            f"warp layout needs ceil(N/32) <= {MAX_SLOTS} and pow2ceil(H) * "
-            f"ceil(N/32) <= {MAX_ROW_ELEMENTS}, the block layout one "
-            f"problem's iterates within {SMEM_PER_BLOCK} bytes of shared "
-            f"memory, here {mv_block_smem_bytes(H, N)}; the eager "
+            f"warp layout needs H = 1 and ceil(N/32) <= {MAX_SLOTS}, the "
+            f"tile layout H <= "
+            f"{TILE_MAX_WARPS} and its plan within {SMEM_PER_BLOCK} bytes "
+            "of shared memory, the block layout one problem's iterates "
+            f"within them, here {mv_block_smem_bytes(H, N)}; the eager "
             "solver solve_mpc_mean_variance_batch takes any shape")
     return layout, _MV_KERNELS[(layout, params.adaptive)]
 
@@ -271,9 +409,10 @@ def pdhg_mean_variance_cuda(
 ):
     """One launch of a CUDA kernel on the current stream: the contract of
     ``pdhg_mean_variance_plain``, for CUDA float32 tensors.
-    ``pdhg_mean_variance`` (``..._adaptive`` with ``params.adaptive``)
-    where the warp layout takes the shape, else ``..._block`` (or
-    ``..._block_adaptive``), else ``ValueError`` (``mv_kernel_layout``)."""
+    ``pdhg_mean_variance`` (``..._adaptive`` with ``params.adaptive``),
+    ``..._tile`` or ``..._block`` (``..._tile_adaptive``,
+    ``..._block_adaptive``) as ``mv_kernel_layout`` routes the batch, else
+    ``ValueError``."""
     _check_params(params, "pdhg_mean_variance_cuda")
     _check_return_steps(params, return_steps)
     if mu.dim() != 3 or current_weights.shape != (mu.shape[0], mu.shape[2]):
@@ -288,16 +427,22 @@ def pdhg_mean_variance_cuda(
             f"expected Sigma [N, N] or [B, N, N] with B={B}, N={N}, got "
             f"{tuple(Sigma.shape)}")
     _require_cuda_f32(current_weights=current_weights, mu=mu, Sigma=Sigma)
-    _, kernel = _mv_route(H, N, params)
+    _, kernel = _mv_route(H, N, params, shared, B)
     return _mv_launch(kernel, current_weights, mu, Sigma, params,
                       return_steps)
 
 
 def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
-               return_steps=False):
+               return_steps=False, problems=None):
     """Launch ``kernel`` (any of ``MV_KERNELS`` whose body matches
-    ``params.adaptive``) on checked CUDA tensors and count the launch."""
+    ``params.adaptive``) on checked CUDA tensors and count the launch; a
+    tile kernel takes the problems a CTA its library chooses for the batch
+    (``mv_tile_problems``), or ``problems`` where given (a plan's edge, for
+    a check)."""
     B, H, N = mu.shape
+    shared = int(Sigma.dim() == 2)
+    tile = kernel in (PDHG_MEAN_VARIANCE_TILE,
+                      PDHG_MEAN_VARIANCE_TILE_ADAPTIVE)
     w = torch.empty_like(mu)
     fp = torch.empty(B, dtype=torch.float32, device=mu.device)
     steps = torch.empty((B, 6), dtype=torch.float32, device=mu.device) \
@@ -316,7 +461,8 @@ def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
             w.data_ptr(), fp.data_ptr(),
             *((None if steps is None else steps.data_ptr(),)
               if params.adaptive else ()),
-            B, H, N, int(Sigma.dim() == 2),
+            B, H, N, shared,
+            *((problems or 0,) if tile else ()),
             params.max_iters, schedule, warm_iters,
             cold_iters, params.cost_coeff, params.gamma, params.over_relax,
             params.step_scale, params.sigma_scale, int(warm), stream,

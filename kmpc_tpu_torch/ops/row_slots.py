@@ -32,8 +32,19 @@ wide kernels' loops (barriers, shuffles, shared-memory loads and stores,
 division sequences). ``--boundary H,H:N,N`` times that grid alone, at
 the given H and N (the wide layout's switch: H 1..3 at N 1000 to 1600).
 
+With ``--mv``, kernel C at one shared covariance of N=960 assets, H=1
+(``mv_long_wide``'s widest shape): the block layout and the tile layout at
+200 iterations of bench.py's Markowitz settings (fixed steps at refresh 16,
+and adaptive at ``adapt_every=2``) at B = 1, 132, 264, 528 and 1028, each
+line with the CTAs, the problems an SM holds at once and the L2 bytes of
+Sigma the batch reads (the block layout: B N^2 4 an iteration; the tile
+layout: ceil(B / P) N^2 4); a plain read kernel in which 132 (and 264) CTAs
+each stream the same N x N float32 matrix from L2 repeatedly, for the rate
+this access reaches; and the SASS counts of both layouts' loops (barriers,
+global and shared loads, FFMA).
+
     python -m kmpc_tpu_torch.ops.row_slots [--layouts warp,rows] [--wide]
-        [--boundary 1,2,3:1024,1056]
+        [--boundary 1,2,3:1024,1056] [--mv]
 
 One JSON line per measurement; needs the card.
 """
@@ -79,6 +90,8 @@ OPCODES = {
     "LDS": r"\bLDS\b",
     "STS": r"\bSTS\b",
     "MUFU.RCP": r"\bMUFU\.RCP\b",
+    "LDG": r"\bLDG\.",
+    "FFMA": r"\bFFMA\b",
     "FCHK": r"\bFCHK\b",
     "CALL": r"\bCALL\.",
 }
@@ -384,6 +397,131 @@ def wide_boundary(horizons=BOUNDARY_H, assets=BOUNDARY_N):
                         flush=True)
 
 
+# --mv: kernel C at one shared Sigma of 960 assets, one row.
+MV_N = 960
+MV_BATCHES = (1, 132, 264, 528, 1028)
+MV_SASS = (("pdhg_mean_variance_block",
+            r"pdhg_mean_variance_block_kernelILb0E"),
+           ("pdhg_mean_variance_block_adaptive",
+            r"pdhg_mean_variance_block_kernelILb1E"),
+           ("pdhg_mean_variance_tile",
+            r"pdhg_mean_variance_tile_kernelILi0ELi8ELb0E"),
+           ("pdhg_mean_variance_tile_adaptive",
+            r"pdhg_mean_variance_tile_kernelILi0ELi8ELb1E"))
+L2_READ_SRC = r"""
+// CTAs each read the same n floats (16-byte loads) `passes` times and
+// write one sum, so that the loads stay.
+extern "C" __global__ void l2_read(const float4* x, long long n4,
+                                   int passes, float* out) {
+  float acc = 0.f;
+  for (int r = 0; r < passes; ++r)
+    for (long long i = threadIdx.x; i < n4; i += blockDim.x) {
+      const float4 v = x[i];
+      acc += v.x + v.y + v.z + v.w;
+    }
+  if (acc == 1234.5f) out[blockIdx.x] = acc;
+}
+extern "C" int launch_l2_read(const void* x, long long n4, int passes,
+                              void* out, int ctas, int threads) {
+  l2_read<<<ctas, threads>>>(static_cast<const float4*>(x), n4, passes,
+                             static_cast<float*>(out));
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _l2_read_fn():
+    """The plain read kernel, built from L2_READ_SRC into the build
+    directory."""
+    import ctypes
+
+    out = BUILD_DIR / "libl2_read.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = BUILD_DIR / "l2_read.cu"
+        src.write_text(L2_READ_SRC)
+        subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                       check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).launch_l2_read
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def time_mv(iters=200):
+    """One line per (layout, body, B): kernel C's block and tile layouts
+    at a shared Sigma of MV_N assets, H=1; then the L2 read rate of the
+    plain read kernel; then the loops' SASS counts."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    rng = np.random.default_rng(960)
+    N, H = MV_N, 1
+    A = rng.standard_normal((N, N)) * 0.01
+    sig = torch.as_tensor((A @ A.T + np.eye(N) * 1e-4).astype(np.float32),
+                          device="cuda").contiguous()
+    bodies = {
+        "fixed": MPCParams(max_iters=iters, sigma_scale=2.0, gamma=5.0,
+                           proj_refresh_every=16),
+        "adaptive": MPCParams(max_iters=iters, sigma_scale=2.0, gamma=5.0,
+                              adaptive=True, adapt_every=2)}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sigma_bytes = 4 * N * N
+    for B in MV_BATCHES:
+        cw = torch.as_tensor(rng.dirichlet(np.ones(N), size=B)
+                             .astype(np.float32), device="cuda")
+        mu = torch.as_tensor((rng.standard_normal((B, H, N)) * 0.01)
+                             .astype(np.float32), device="cuda")
+        for body, p in bodies.items():
+            for layout in ("block", "tile"):
+                kernel = V._MV_KERNELS[(layout, p.adaptive)]
+                ms = cuda_ms(lambda: V._mv_launch(kernel, cw, mu, sig, p))
+                if layout == "block":
+                    P, threads = 1, M.block_threads(N)
+                    smem = V.mv_block_smem_bytes(H, N)
+                    fn = MV_SASS[int(p.adaptive)][1]
+                else:
+                    P = V.mv_tile_problems(B, H, N, True, p.adaptive)
+                    threads = 32 * P * H
+                    smem = V.mv_tile_smem_bytes(P, H, N, p.adaptive)
+                    fn = MV_SASS[2 + int(p.adaptive)][1]
+                ctas = -(-B // P)
+                regs = _registers(kernel.name, fn)
+                per_sm = (resident_ctas(threads, smem, regs)
+                          if regs is not None else None)
+                l2 = ctas * sigma_bytes * iters
+                print(json.dumps({
+                    "phase": "mv", "layout": layout, "body": body,
+                    "kernel": kernel.name, "B": B, "H": H, "N": N,
+                    "problems_per_cta": P, "ctas": ctas,
+                    "threads": threads, "smem_bytes": smem,
+                    "registers": regs, "ctas_per_sm": per_sm,
+                    "problems_per_wave": None if per_sm is None
+                    else per_sm * sms * P,
+                    "iters": iters, "ms": ms,
+                    "us_per_iter": 1e3 * ms / iters,
+                    "l2_sigma_bytes": l2,
+                    "l2_sigma_tb_per_s": l2 / (ms * 1e-3) / 1e12}),
+                    flush=True)
+    fn = _l2_read_fn()
+    out = torch.zeros(2 * sms, device="cuda")
+    passes = 20
+    for ctas in (sms, 2 * sms):
+        def run():
+            err = fn(sig.data_ptr(), N * N // 4, passes, out.data_ptr(),
+                     ctas, 512)
+            assert err == 0, err
+
+        ms = cuda_ms(run)
+        read = ctas * sigma_bytes * passes
+        print(json.dumps({
+            "phase": "l2_read", "ctas": ctas, "threads": 512,
+            "matrix_bytes": sigma_bytes, "passes": passes, "ms": ms,
+            "tb_per_s": read / (ms * 1e-3) / 1e12}), flush=True)
+    for kernel, function in MV_SASS:
+        print(json.dumps(sass_report(kernel, function)), flush=True)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layouts", default="warp,rows")
@@ -391,14 +529,19 @@ def main(argv=None):
                         help="the block and wide layouts past 128 assets")
     parser.add_argument("--boundary", metavar="H,H:N,N",
                         help="the wide/block grid alone, at these H and N")
+    parser.add_argument("--mv", action="store_true",
+                        help="kernel C's block and tile layouts at N=960")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("row_slots: CUDA is not available")
-    if args.wide or args.boundary:
+    if args.wide or args.boundary or args.mv:
         print(json.dumps({"phase": "device", "smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip()}), flush=True)
+    if args.mv:
+        time_mv()
+        return
     if args.boundary:
         hs, ns = args.boundary.split(":")
         wide_boundary(tuple(int(h) for h in hs.split(",")),

@@ -372,8 +372,8 @@ def test_mean_variance_nan_forecast_holds_current_weights():
 
 
 @pytest.mark.parametrize("H,N,ok", [(1, 20, True), (1, 30, True),
-                                    (4, 128, True), (16, 32, True),
-                                    (5, 129, False), (8, 96, False)])
+                                    (1, 128, True), (2, 20, False),
+                                    (5, 129, False), (1, 129, False)])
 def test_mean_variance_kernel_budget(H, N, ok):
     assert V.mv_kernel_supports(H, N) is ok
     assert V.mv_smem_bytes(N) == N * 32 * -(-N // 32) * 4
@@ -675,7 +675,7 @@ def test_every_kernel_has_a_source_and_a_launch_counter():
     from kmpc_tpu_torch.ops.mv_ladder import MV_LADDER
 
     kernels = M.KERNELS + V.MV_KERNELS + (MV_LADDER,)
-    assert len(kernels) == 21
+    assert len(kernels) == 23
     assert {k.name for k in kernels} == set(SOURCES)
     for k in kernels:
         assert k.launches == 0          # nothing launches on the CPU
