@@ -6,11 +6,13 @@
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
 1. ``build``: the card, torch and CUDA versions, the build of the
-   twenty-three kernel sources (one nvcc per source, started together, from
+   twenty-five kernel sources (one nvcc per source, started together, from
    the sources in this checkout) with each build's seconds, registers and
-   spills (every instantiation but the ladder's), and the wrappers' copies
-   of the block, tile, row and wide-row layouts' shared-memory plans (and
-   the tile layout's problems a CTA) against the built kernels';
+   spills (every instantiation but the ladder's), the wrappers' copies
+   of the block, tile, row and wide-row layouts' shared-memory plans (the
+   tile layout's problems a CTA, the row and wide-row layouts' scenario
+   storages and rings) against the built kernels', and the one-forecast
+   wide-row kernels' bits against WIDE_DIGESTS;
 2. ``kernels``: every CUDA kernel against its plain PyTorch version on the
    card: the log-utility kernel over the parametrised cases of the CPU
    tests, the edges of its register budget and the main-path and bench
@@ -48,14 +50,20 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    32 rows, H=20 N=384, H=5 N=1600, one row of 2730), run twice for the
    same bits, with its largest weight difference from the block kernel,
    and its adaptive body past 1000 assets (H=3 N=1000, H=4 N=1600) held
-   by its spread against the float64 run (``hold_spread``);
+   by its spread against the float64 run (``hold_spread``); kernel B past
+   its registers in the row and wide-row layouts, every case in every
+   storage of the returns that takes its shape (registers, resident,
+   streamed: the same bits required of all) beside the warp or block
+   layout, every body and option;
    every rung of the MV ladder; then ``layouts``: every layout of kernels
    A and B that takes the shape, timed at the exact scan's (B=1), the
    comparison's (B=1028) and the headline's (B=65536) batch at H=5, at
    H=1, and at the long path's H=20 (B=1013, S=16 too) and bench.py's long
    shape, the wide-row layout against the block layout at N=150 and N=500
    (B = 1, 1028, 4096) and on each side of the switch where routing
-   leaves it for the block layout, the layouts' outputs held to one
+   leaves it for the block layout, kernel B's storages on each side of
+   their switch and against the block and warp layouts at the shapes
+   those took before (SCEN_LAYOUT_SHAPES), the layouts' outputs held to one
    another (``hold_layouts``), the routed layout required to be the
    fastest or, where ROUTED_SLOWER names the shape and body, within its
    bound; and of kernel C (warp, tile and block layouts) at the Markowitz
@@ -68,11 +76,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    at the accurate one (adaptive steps, 800 iterations);
 4. ``main_path``: finance_sparse at full width (observation 400, latent
    1024) with seeded random weights on the synthetic panel, the H=5
-   forecast for every test date, and the Jacobi backtest, 4 sweeps of the
+   forecast for every test date, and the Jacobi backtest, 2 sweeps of the
    fused solve (the row kernel), for Koopman-MPC and buy-and-hold; the
    kernel's launch count must equal the number of sweeps;
 5. ``comparison``: the full strategy comparison on the same data:
-   buy-and-hold, Markowitz, DMD, Koopman-MPC and scenario Kelly (S=16), 8
+   buy-and-hold, Markowitz, DMD, Koopman-MPC and scenario Kelly (S=16), 3
    sweeps each, every batched solve through its kernel; then Koopman-MPC
    again with warm sweeps of 500 iterations. Launches per kernel must equal
    sweeps times the strategies that use it, every weight row must lie on
@@ -85,7 +93,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    cold run of twice the sweeps);
 6. ``accurate_path``: the same comparison with the configuration's solver
    set to the accurate configuration (``ADAPTIVE``, ``ADAPT_EVERY=2``,
-   ``PRECOND``, 800 iterations), 4 sweeps: every solve through an adaptive
+   ``PRECOND``, 800 iterations), 2 sweeps: every solve through an adaptive
    kernel, launches counted per kernel, every weight row feasible, the
    first sweep's solves held against the plain versions;
 7. ``scan_path``: the exact backtest, one solve of one problem per date,
@@ -94,21 +102,29 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    a test split cut to 64 dates; on the cut split the Jacobi backtest with
    as many sweeps as dates must give the scan's portfolio values;
 8. ``long_path``: the comparison at H=20 with the pipeline configuration
-   (``PROJ_REFRESH_EVERY=16``, ``PIPELINE_REDUCES``, ``PRECOND``), 4
+   (``PROJ_REFRESH_EVERY=16``, ``PIPELINE_REDUCES``, ``PRECOND``), 2
    sweeps: DMD and Koopman-MPC through kernel A's row layout, scenario
    Kelly through kernel B's, Markowitz through C; then Koopman-MPC and
    scenario Kelly at the accurate configuration at H=20 and with the
    pipeline configuration at H=5, 2 sweeps each; launches per kernel,
    feasibility and the first solves against the plain versions as in
    ``accurate_path``; then ``warp_path``: the warp layout's six kernels at
-   the three configurations, kernel A's (which routing no longer picks)
-   launched in that layout on the comparison's first-sweep problems, kernel
-   B's through its packed entry point at a shape that routes to it (B=132,
-   S=113, H=8, N=64), and ``block_path``: a shape past the row layout
-   (B=1028, H=5, N=150), one forecast through its packed entry point to
-   the wide-row layout's two kernels and the same problems launched in the
-   block layout, S=16 through its entry point to kernel B's block kernels,
-   each launch counted and each held against its plain version;
+   the three configurations (no shape routes to them), kernel A's launched
+   in that layout on the comparison's first-sweep problems, kernel B's at
+   B=132, S=113, H=8, N=64 beside the row kernels the packed entry point
+   routes that shape to (the returns streamed), and ``block_path``: a
+   shape past the row layout (B=1028, H=5, N=150), one forecast and S=16
+   through their packed entry points to the wide-row layout's kernels (the
+   scenario returns resident) and the same problems launched in the block
+   layout, each launch counted and each held against its plain version;
+   then ``scenarios_path``: scenario Kelly alone as ``run_experiment
+   --scenarios 512`` builds it (H=5, the comparison's fixed steps) and at
+   ``--horizon 20 --scenarios 128`` with the pipeline configuration, 2
+   sweeps each at full width through the row layout's scenario kernel
+   (S=512 streamed, S=128 resident), launches counted by kernel and
+   storage, every weight row feasible, the first sweep's solves held
+   against the plain version on the first 256 dates, solve and recursion
+   ms a sweep;
 9. ``mv_long_wide``: the mean-variance solve past the warp layout at
    bench.py's Markowitz settings (1000 iterations at refresh 16, and 1000
    adaptive) on bench.py's problems: per-problem covariances at B=4096,
@@ -528,30 +544,42 @@ def compare_tensors(label, cw, r, params, warm=False, dual=False,
                            time_plain, [layout], wide)[layout]
 
 
+def split_layout(layout):
+    """(layout, storage or None) of a layout name, or of ``layout:storage``
+    (the row or wide-row layout with the scenario returns in a storage
+    other than the one routing gives the shape)."""
+    name, _, storage = layout.partition(":")
+    return name, storage or None
+
+
 def pinned_kernel(layout, r, params):
-    """The kernel of ``layout`` for a solve of gross returns ``r`` [B, H, N]
-    or [B, S, H, N] with these parameters' body; ``ValueError`` where the
-    layout does not take the shape."""
+    """The kernel of ``layout`` (or ``layout:storage``) for a solve of gross
+    returns ``r`` [B, H, N] or [B, S, H, N] with these parameters' body;
+    ``ValueError`` where the layout, or the storage, does not take the
+    shape."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     S = r.shape[1] if r.dim() == 4 else None
     H, N = r.shape[-2], r.shape[-1]
-    if layout not in M.LAYOUTS:
+    name, storage = split_layout(layout)
+    if name not in M.LAYOUTS:
         raise ValueError(f"layout must be one of {M.LAYOUTS}, got {layout!r}")
-    if not M.layout_supports(layout, S, H, N):
+    if not M.layout_supports(name, S, H, N) or (
+            storage and not M.storage_supports(name, storage, S, H, N)):
         raise ValueError(
             f"the {layout} layout does not take S={S}, H={H}, N={N}")
-    return M._KERNELS[(S is not None, layout, M._body(params))]
+    return M._KERNELS[(S is not None, name, M._body(params))]
 
 
 def pinned(layout, cw, r, params, w_warm=None, p_warm=None,
            return_dual=False, return_steps=False):
-    """``pdhg_log_utility_cuda`` in ``layout`` (which must take the shape)
-    instead of the one routing gives: that layout's kernel for the
-    parameters' body, launched and counted as the entry point launches it.
-    For the phases that compare layouts, and for ``warp_path``, which drives
-    the warp layout's kernel A at the paths' shapes, where routing takes the
-    row layout."""
+    """``pdhg_log_utility_cuda`` in ``layout`` (which must take the shape;
+    ``layout:storage`` also names where the scenario returns live) instead
+    of the one routing gives: that layout's kernel for the parameters'
+    body, launched and counted as the entry point launches it. For the
+    phases that compare layouts and storages, and for ``warp_path``, which
+    drives the warp layout's kernels A and B at the paths' shapes, where
+    routing takes the row layout."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     kernel = pinned_kernel(layout, r, params)
@@ -559,7 +587,8 @@ def pinned(layout, cw, r, params, w_warm=None, p_warm=None,
             if v is not None}
     M._require_cuda_f32(current_weights=cw, r=r, **warm)
     return M._launch(kernel, M._body(params), cw, r, params, w_warm, p_warm,
-                     return_dual, return_steps)
+                     return_dual, return_steps,
+                     storage=split_layout(layout)[1])
 
 
 def compare_layouts(label, cw, r, params, warm=False, dual=False,
@@ -580,8 +609,10 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
     unless ``rows_bits_part`` names the first operation at which the two
     may part; those cases are held to the bars alone. Where the wide and
     the block layout both run, the wide case reports the largest weight
-    difference between the two (``max_abs_dw_block``). Returns {layout:
-    case}."""
+    difference between the two (``max_abs_dw_block``). Where one layout
+    runs in several storages of the scenario returns (``layout:storage``),
+    every storage must give the first one's bits (``bits_equal_storage``).
+    Returns {layout: case}."""
     from dataclasses import replace
 
     from kmpc_tpu_torch.ops import mpc_cuda as M
@@ -641,7 +672,30 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
         # bars against the plain version; how far apart the two are.
         results["wide"]["max_abs_dw_block"] = (
             outs["wide"][0] - outs["block"][0]).abs().max().item()
+    for layout in outs:
+        first = next(lay for lay in outs
+                     if split_layout(lay)[0] == split_layout(layout)[0])
+        if first != layout:
+            same = [torch.equal(x, y)
+                    for x, y in zip(outs[first], outs[layout])]
+            assert all(same), \
+                f"{label}: the {layout} storage's bits differ from " \
+                f"{first}'s (weights, fp, dual, steps equal: {same})"
+            results[layout]["bits_equal_storage"] = first
     return results
+
+
+def storage_of(layout, S, H, N):
+    """Where a case of ``layout`` (or ``layout:storage``) kept the scenario
+    returns: the storage it names, else the one routing gives the row or
+    wide-row layout; None for one forecast and the other layouts."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    name, storage = split_layout(layout)
+    if S is None or name not in ("rows", "wide"):
+        return None
+    return storage or (M.rows_storage if name == "rows"
+                       else M.wide_storage)(S, H, N)
 
 
 def check_bits(results):
@@ -1237,6 +1291,34 @@ def phase_build():
     check_mv_tile_plan()
     check_rows_plan()
     check_wide_plan()
+    check_wide_digests()
+
+
+# The one-forecast wide-row kernels' outputs (``python -m
+# kmpc_tpu_torch.ops.row_slots --digest``: the block path's N=150 in three
+# bodies, bench.py's assets500 pipelined) as the wide kernel gave them
+# before it took scenarios (NVIDIA H100 80GB HBM3, CUDA 12.8): its scenario
+# paths sit behind ``if constexpr`` and must leave these bits alone.
+WIDE_DIGESTS = {
+    "block_path_N150_fixed":
+        "692c3b3c4e19eb090d852c455efae0695899c3cf8e669f2be601ff4a79203bcc",
+    "block_path_N150_pipe":
+        "e64a7d5c5fffec598254873c16d5c8d648d0d5d6d1f488992ab30d18d4cec629",
+    "block_path_N150_adaptive":
+        "fe4503e8878e8d7d978a52e0f5bd4c998df1d1ced198910f439226b3a707899f",
+    "assets500_pipe":
+        "a4500398208b6e0e81221a1077adebbade0c9ea03f29b428d6ca322957e648a6",
+}
+
+
+def check_wide_digests():
+    """The one-forecast wide-row kernels' bits against WIDE_DIGESTS."""
+    from kmpc_tpu_torch.ops.row_slots import wide_digests
+
+    got = wide_digests()
+    differ = sorted(k for k in WIDE_DIGESTS if got.get(k) != WIDE_DIGESTS[k])
+    assert not differ, f"the one-forecast wide kernels' bits changed: {differ}"
+    emit("wide_digests", cases=len(got), same_bits=True)
 
 
 def check_wide_plan():
@@ -1258,31 +1340,55 @@ def check_wide_plan():
     wrong = [(H, N, a, M.wide_smem_bytes(H, N, a), plan(H, N, a))
              for H, N, a in shapes
              if M.wide_smem_bytes(H, N, a) != plan(H, N, a)]
+    # With scenarios: the bytes of both storages, the ring's stages and
+    # scenarios a stage.
+    lib = ctypes.CDLL(str(library_path("pdhg_log_utility_scenarios_wide")))
+    smem, ring = lib.kmpc_wide_scen_smem_bytes, lib.kmpc_wide_scen_ring
+    smem.argtypes, smem.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    ring.argtypes, ring.restype = [ctypes.c_int] * 4, ctypes.c_int
+    scen = [(S, H, N, a) for S in (1, 5, 16, 64, 512)
+            for H in (1, 5, 8, 12, 20, 32)
+            for N in (129, 150, 300, 384, 500, 2000) for a in (False, True)]
+    for S, H, N, a in scen:
+        for i, st in enumerate(M.STORAGES[1:], 1):
+            want = M.wide_scen_plan(S, H, N, a, st)
+            ring_ok = i != 2 or 10 * want[1] + want[2] == ring(S, H, N,
+                                                               int(a))
+            if want[0] != smem(S, H, N, int(a), i) or not ring_ok:
+                wrong.append((S, H, N, a, st, want))
     assert not wrong, \
         f"the wrapper's wide plan differs from the kernel's: {wrong[:5]}"
-    emit("wide_plan", shapes=len(shapes), agree=True)
+    emit("wide_plan", shapes=len(shapes), scenario_shapes=len(scen),
+         agree=True)
 
 
 def check_rows_plan():
     """The wrapper's copy of the row layout's shared-memory plan
     (``rows_smem_bytes``, which decides whether the row layout takes a
-    shape) against the plan the built kernel launches with, over the edges
-    of its envelope: 1 to 32 rows, 1 to 4 slots, scenarios in registers
-    and past them."""
+    shape and where the scenario returns live) against the plan the built
+    kernel launches with, over the edges of its envelope: 1 to 32 rows, 1
+    to 4 slots, scenarios in registers, resident and streamed (and the
+    ring's stages)."""
     import ctypes
 
     from kmpc_tpu_torch._build import library_path
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
-    plan = ctypes.CDLL(str(library_path("pdhg_log_utility_rows")))
-    plan = plan.kmpc_rows_smem_bytes
-    plan.argtypes, plan.restype = [ctypes.c_int] * 4, ctypes.c_longlong
-    shapes = [(S, H, N, a) for S in (None, 1, 4, 5, 16, 17, 64, 113)
+    lib = ctypes.CDLL(str(library_path("pdhg_log_utility_rows")))
+    plan, ring = lib.kmpc_rows_smem_bytes, lib.kmpc_rows_ring_stages
+    plan.argtypes, plan.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+    ring.argtypes, ring.restype = [ctypes.c_int] * 4, ctypes.c_int
+    shapes = [(S, H, N, a, st)
+              for S in (None, 1, 4, 5, 16, 17, 64, 113, 512, 4096)
               for H in (1, 5, 8, 9, 20, 21, 32) for N in (1, 20, 33, 70, 128)
-              for a in (False, True)]
-    wrong = [(S, H, N, a, M.rows_smem_bytes(S, H, N, a), plan(S or 0, H, N, a))
-             for S, H, N, a in shapes
-             if M.rows_smem_bytes(S, H, N, a) != plan(S or 0, H, N, a)]
+              for a in (False, True) for st in M.STORAGES
+              if S is not None or st == "registers"]
+    wrong = [(S, H, N, a, st, M.rows_smem_bytes(S, H, N, a, st))
+             for S, H, N, a, st in shapes
+             if M.rows_smem_bytes(S, H, N, a, st)
+             != plan(S or 0, H, N, a, M.STORAGES.index(st))
+             or (st == "streamed" and M.rows_ring_stages(S, H, N, a)
+                 != ring(S, H, N, a))]
     assert not wrong, \
         f"the wrapper's row plan differs from the kernel's: {wrong[:5]}"
     emit("rows_plan", shapes=len(shapes), agree=True)
@@ -1619,12 +1725,17 @@ def phase_kernel_vs_plain():
         ("wide_dual_H5N150", 5, 5, 150, _params(max_iters=400), 884,
          dict(dual=True, time_plain=False)),
     ]
-    out = {name: [] for name in kernel_counters()}
+    out = {name: [] for name in list(kernel_counters()) + [
+        k for k in KERNELS if ":" in k]}
 
-    def record(res, kernel=None):
+    def record(res, kernel=None, S=None):
         kernel = kernel or res["kernel"]
         emit("kernel_vs_plain", **dict(res, kernel=kernel))
         out[kernel].append(res)
+        storage = storage_of(res.get("layout", ""), S, res.get("H"),
+                             res.get("N"))
+        if f"{kernel}:{storage}" in out:
+            out[f"{kernel}:{storage}"].append(res)
 
     def routed(res):
         assert ("block" in res["case"]) == ("block" in res["kernel"]), \
@@ -1644,23 +1755,26 @@ def phase_kernel_vs_plain():
         return [main] + [x for x in extra if x != main
                          and M.layout_supports(x, S, H, N)]
 
-    def run(label, B, H, N, p, s, S=None, **kw):
+    def run(label, B, H, N, p, s, S=None, layouts=None, **kw):
         # The plain version is timed on the paths, whose times the kernels
         # line reports, not here. The wide-row layout's adaptive cases (and
         # the block layout's beside them) are at float32's limit as
         # ``block_path``'s are (LOG_UNSETTLED_FP): held as ``wide`` cases
         # where they start cold, past SPREAD_N assets by their spread.
         kw["time_plain"] = False
-        kw["wide"] = label.startswith("wide_") and not kw.get("warm")
+        kw["wide"] = kw.get("wide", label.startswith("wide_")) \
+            and not kw.get("warm")
         kw["spread"] = p.adaptive and N >= SPREAD_N and not kw.get("warm")
         for layout, res in compare_case(
                 label, B, H, N, p, s, S=S,
-                layouts=layouts_of(label, S, H, N), **kw).items():
+                layouts=layouts or layouts_of(label, S, H, N),
+                **kw).items():
             k = res["kernel"]
-            assert all((lay in k) == (layout == lay)
+            base = split_layout(layout)[0]
+            assert all((lay in k) == (base == lay)
                        for lay in ("block", "rows", "wide")), \
                 (label, layout, k)
-            record(res)
+            record(res, S=S)
 
     for label, B, H, N, p, s, kw in cases:
         run(label, B, H, N, p, s, **kw)
@@ -1753,7 +1867,77 @@ def phase_kernel_vs_plain():
     for label, B, S, H, N, p, s, kw in scen_cases:
         run(label, B, H, N, p, s, S=S, **kw)
     emit("rows_vs_warp_bits", **check_bits(
-        [r for rows in out.values() for r in rows]))
+        [r for name, rows in out.items() if ":" not in name for r in rows]))
+
+    # Kernel B past its registers: the row layout (up to 128 assets) and
+    # the wide-row layout (past them) with the returns resident and
+    # streamed, each case in every storage that takes its shape (the same
+    # bits required of all). Every body and option at S=40 H=5 N=20
+    # (refresh 8 and 16 with precond, pipelined with an odd iteration
+    # count, adaptive at adapt_every 1 and 2, ridge, over-relaxation, no
+    # ball, cold projections, warm inputs with the dual output), the three
+    # bodies and warm inputs at S=16 H=5 N=150; the registers' chunk at
+    # S=16; the warp path's S=113 H=8 N=64; three and four slots, 32 rows
+    # with a ring of two stages; 600 scenarios, past the resident plan; the
+    # wide ring's 2 and 1 scenarios a stage (H=8 and H=12 at N=500); one
+    # row of 2000 assets. The warp and block layouts run beside them at the
+    # shapes they took before (S=113 H=8 N=64, S=16 N=150).
+    def storages(S, H, N):
+        main = M.kernel_layout(S, H, N)
+        out = [main]
+        for lay in ("rows", "wide"):
+            if M.layout_supports(lay, S, H, N):
+                routed = storage_of(lay, S, H, N)
+                out += [lay] * (lay != main) + [
+                    f"{lay}:{st}" for st in M.STORAGES if st != routed
+                    and M.storage_supports(lay, st, S, H, N)]
+        before = {(113, 8, 64): "warp", (16, 5, 150): "block"}.get(
+            (S, H, N))
+        return out + [before] * (before is not None)
+
+    options = {
+        "": dict(max_iters=300),
+        "_cond_precond": dict(max_iters=300, proj_refresh_every=16,
+                              precond=True),
+        "_pipe_r8_odd": dict(max_iters=301, proj_refresh_every=8,
+                             precond=True, **pipe),
+        "_ridge": dict(max_iters=300, ridge=1e-3, feas_tol=3e-4),
+        "_over_relax_no_ball": dict(max_iters=300, over_relax=1.5,
+                                    max_turnover=0.0),
+        "_cold": dict(max_iters=300, proj_warm_iters=0),
+        "_adaptive": dict(max_iters=300, **acc),
+        "_adaptive_k1": dict(max_iters=300, adaptive=True),
+    }
+    storage_cases = []
+    for B, S, H, N in ((5, 40, 5, 20), (5, 16, 5, 150)):
+        storage_cases += [(f"storage_S{S}_H{H}N{N}{tag}", B, S, H, N,
+                           _params(**kw), quick)
+                          for tag, kw in options.items()
+                          if N <= 128 or tag in ("", "_pipe_r8_odd",
+                                                 "_adaptive")]
+        storage_cases.append((
+            f"storage_S{S}_H{H}N{N}_warm", B, S, H, N, _params(
+                max_iters=300, proj_refresh_every=16, precond=True), warm))
+    storage_cases.append(("storage_S40_H5N20_adaptive_warm", 5, 40, 5, 20,
+                          _params(max_iters=300, **acc), warm))
+    for B, S, H, N, its, adaptive in (
+            (5, 16, 5, 20, 300, True), (4, 113, 8, 64, 200, True),
+            (3, 37, 4, 90, 300, False),
+            (2, 50, 32, 128, 150, False), (2, 600, 5, 20, 150, False),
+            (3, 7, 3, 300, 300, False), (3, 64, 5, 150, 200, False),
+            (2, 16, 8, 500, 200, True), (2, 16, 12, 500, 150, False),
+            (2, 5, 1, 2000, 300, False)):
+        storage_cases.append((f"storage_S{S}_H{H}N{N}", B, S, H, N,
+                              _params(max_iters=its), quick))
+        if adaptive:
+            storage_cases.append((f"storage_S{S}_H{H}N{N}_adaptive", B, S,
+                                  H, N, _params(max_iters=its, **acc),
+                                  quick))
+    seed = 950
+    for label, B, S, H, N, p, kw in storage_cases:
+        seed += 1
+        run(label, B, H, N, p, seed, S=S, layouts=storages(S, H, N),
+            **dict(kw, wide=N > 128))
 
     # The mean-variance kernel (sigma_scale 1 on the comparison path, as
     # the experiment builds the Markowitz settings).
@@ -1969,6 +2153,24 @@ LAYOUT_SHAPES = (
     (None, 1028, 2, 1888, 21), (None, 1028, 2, 1920, 22),
     (None, 1, 1, 2730, 13), (None, 1, 2, 2730, 14),
 )
+# Kernel B past its registers: (S, B, H, N, seed, iterations). The row and
+# wide-row layouts' returns resident and streamed on each side of the
+# switch between them (``rows_storage``, ``wide_storage``: resident to S=84
+# at H=5 N=20, to S=31 at H=8 N=64, to S=18 at H=5 N=150), at the
+# scenarios path's S=512 and S=128 H=20 and the block path's S=16 N=150;
+# against the block layout where it holds the problem (S=501 at H=5 N=20,
+# S=16 and 64 at N=150, S=16 at N=500, which it took before) and the warp
+# layout at the warp path's S=113 H=8 N=64. At a full batch, and at one
+# problem past the switch at H=5 N=20, the iterations cut where a layout
+# runs long.
+SCEN_LAYOUT_SHAPES = (
+    (84, 1028, 5, 20, 32, 200), (85, 1, 5, 20, 33, 200),
+    (85, 1028, 5, 20, 34, 200), (32, 1028, 8, 64, 38, 200),
+    (501, 1028, 5, 20, 42, 50), (512, 1028, 5, 20, 43, 50),
+    (128, 1013, 20, 20, 44, 100), (113, 132, 8, 64, 46, 200),
+    (16, 1028, 5, 150, 48, 200), (19, 1028, 5, 150, 50, 200),
+    (64, 1028, 5, 150, 51, 100), (16, 1028, 5, 500, 53, 100),
+)
 # Where routing by shape alone is measured slower than another layout:
 # (S, B, H, N, body) -> the largest routed-over-fastest ratio allowed.
 # Routing takes the layout that is faster at B=1028 for most bodies; these
@@ -1988,14 +2190,40 @@ ROUTED_SLOWER = {
     # Two rows of 2730 alone: the bodies split, the fixed one 1.13x
     # faster in the wide layout.
     (None, 1, 2, 2730, "fixed"): 1.25,
+    # Kernel B's storages (``rows_storage``, ``wide_storage``), by shape
+    # alone at the CTAs an SM each plan allows; as measured (PERF.md section 6):
+    # one problem runs faster resident wherever that fits (its returns never
+    # leave the SM; streamed 1.5-1.8x slower at H=5 N=20, 1.2-1.6x at N=150),
+    # a full batch near the switch either way (streamed 1.2x faster at S=84
+    # H=5 N=20, resident 1.07-1.29x at S=32 H=8 N=64 and 1.03-1.26x at S=19
+    # N=150); at S=16 the registers 1.06x slower than resident, adaptive.
+    (16, 1, 5, 20, "fixed"): 1.2, (16, 1, 5, 20, "pipe"): 1.2,
+    (16, 1, 5, 20, "adaptive"): 1.2, (16, 1028, 5, 20, "adaptive"): 1.2,
+    (84, 1028, 5, 20, "fixed"): 1.4, (84, 1028, 5, 20, "pipe"): 1.45,
+    (84, 1028, 5, 20, "adaptive"): 1.15,
+    (85, 1, 5, 20, "fixed"): 1.8, (85, 1, 5, 20, "pipe"): 1.95,
+    (85, 1, 5, 20, "adaptive"): 2.1, (85, 1028, 5, 20, "adaptive"): 1.15,
+    (32, 1028, 8, 64, "fixed"): 1.45, (32, 1028, 8, 64, "pipe"): 1.5,
+    (32, 1028, 8, 64, "adaptive"): 1.25,
+    (19, 1028, 5, 150, "fixed"): 1.4, (19, 1028, 5, 150, "pipe"): 1.45,
+    (19, 1028, 5, 150, "adaptive"): 1.2,
 }
 
 
-def layout_bodies(B):
+def layout_bodies(B, iters=None):
     """The bodies ``layouts`` times: the paths' (2000 iterations fixed and
     pipelined at refresh 16 with precond, 800 adaptive), or bench.py's
     settings at B >= 4096 (1000 iterations at refresh 16 with precond,
-    1000 pipelined, 800 adaptive)."""
+    1000 pipelined, 800 adaptive); ``iters`` cuts the iterations (the
+    adaptive body's to at most 800)."""
+    if iters is not None:
+        return {
+            "fixed": _params(max_iters=iters),
+            "pipe": _params(max_iters=iters, proj_refresh_every=16,
+                            precond=True, pipeline_reduces=True),
+            "adaptive": _params(max_iters=min(iters, 800), adaptive=True,
+                                adapt_every=2, precond=True),
+        }
     its = 1000 if B >= 4096 else 2000
     return {
         "fixed": (_params(max_iters=its) if its == 2000 else _params(
@@ -2041,9 +2269,11 @@ def hold_layouts(label, cw, r, params, outs, routed, res):
 
 
 def phase_layouts():
-    """Every layout of kernels A and B that takes the shape, at each of
-    LAYOUT_SHAPES and body, launched in it (``pinned``), each
-    timed in two rounds of 3, the layouts alternating. The layouts'
+    """Every layout of kernels A and B that takes the shape (the row and
+    wide-row layouts in every storage of the scenario returns that takes
+    it), at each of LAYOUT_SHAPES and SCEN_LAYOUT_SHAPES and body, launched
+    in it (``pinned``), each timed in two rounds of 3, the layouts
+    alternating. The layouts'
     outputs must meet ``hold_layouts``, and the layout the wrapper routes
     the shape to must be the fastest measured there (the routing rule is
     the measurement), or within its bound where ROUTED_SLOWER names the
@@ -2053,13 +2283,20 @@ def phase_layouts():
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     slower, disagree = [], []
-    for S, B, H, N, seed in LAYOUT_SHAPES:
+    for S, B, H, N, seed, iters in [x + (None,) for x in LAYOUT_SHAPES] + \
+            list(SCEN_LAYOUT_SHAPES):
         cw_np, ys_np = (instance(B, H, N, seed) if S is None
                         else scenario_instance(B, S, H, N, seed))
         cw = torch.as_tensor(cw_np, device="cuda")
         r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
         taken = [lay for lay in M.LAYOUTS if M.layout_supports(lay, S, H, N)]
-        for body, p in layout_bodies(B).items():
+        # The row and wide-row layouts in the storages routing does not
+        # give the shape, too.
+        taken += [f"{lay}:{st}" for lay in ("rows", "wide") if lay in taken
+                  for st in M.STORAGES if S is not None
+                  and st != storage_of(lay, S, H, N)
+                  and M.storage_supports(lay, st, S, H, N)]
+        for body, p in layout_bodies(B, iters).items():
             routed, routed_body, _ = M._route(S, H, N, p)
             assert routed_body == body, (S, H, body, routed_body)
 
@@ -2344,7 +2581,7 @@ def phase_main_path(seed: int):
     from kmpc_tpu_torch.ops.rollout import predict_returns
     from kmpc_tpu_torch.run_experiment import backtest_settings
 
-    sweeps = 4
+    sweeps = 2
     dev = torch.device("cuda")
     cfg = get_config("finance_sparse")
     cfg.ENV.FINANCE.CACHE_DIR = None
@@ -2486,7 +2723,7 @@ FIXED_REACH = {"Markowitz": "pdhg_mean_variance",
 ACCURATE_REACH = {k: v + "_adaptive" for k, v in FIXED_REACH.items()}
 
 
-def strategy_kernel(name, mpc, mv_mpc, n_assets):
+def strategy_kernel(name, mpc, mv_mpc, n_assets, scenarios=SCENARIOS):
     """The kernel the wrapper routes a strategy's batched solve to under
     these settings (None for buy-and-hold): the mean-variance kernel for
     Markowitz, else the log-utility kernel of the shape and body."""
@@ -2497,14 +2734,14 @@ def strategy_kernel(name, mpc, mv_mpc, n_assets):
         return None
     if name == "Markowitz":    # one step ahead, per-date covariances
         return _mv_route(1, n_assets, mv_mpc)[1].name
-    S = SCENARIOS if name == "ScenarioKelly" else None
+    S = scenarios if name == "ScenarioKelly" else None
     return _route(S, mpc.horizon, n_assets, mpc)[2].name
 
 
-def expect_kernel(reach, name, mpc, mv_mpc, n_assets):
+def expect_kernel(reach, name, mpc, mv_mpc, n_assets, scenarios=SCENARIOS):
     """``reach[name]``, the kernel named for the strategy on its path, after
     asserting that the wrapper routes the strategy's solve there."""
-    routed = strategy_kernel(name, mpc, mv_mpc, n_assets)
+    routed = strategy_kernel(name, mpc, mv_mpc, n_assets, scenarios)
     assert routed == reach[name], f"{name}: routed to {routed}, not {reach[name]}"
     return reach[name]
 
@@ -2518,15 +2755,28 @@ def kernel_counters():
     return {k.name: k for k in M.KERNELS + V.MV_KERNELS + (MV_LADDER,)}
 
 
-def run_strategies(ctx, cfg, sweeps, reach, horizon=None, names=None):
+def reset_counts():
+    """Every kernel's launch count, and the scenario kernels' counts by
+    storage, set to 0; returns the counters by name."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    kernels = kernel_counters()
+    for k in kernels.values():
+        k.launches = 0
+    M.STORAGE_LAUNCHES.clear()
+    return kernels
+
+
+def run_strategies(ctx, cfg, sweeps, reach, horizon=None, names=None,
+                   scenarios=SCENARIOS):
     """The five-strategy Jacobi comparison (or the ``names`` among them)
     under ``cfg``'s solver settings and ``horizon`` (default the config's),
-    every batched solve through its kernel and every returned weight row
-    checked. Counts are set to 0 just before and read just after; each
-    strategy other than buy-and-hold must have launched the kernel
-    ``reach`` names for it once a sweep, and no other. Returns
-    (strategies, frames, timing, launches, KoopmanMPC's ``Timed``, (mpc,
-    mv_mpc, bt))."""
+    scenario Kelly with ``scenarios`` scenarios, every batched solve through
+    its kernel and every returned weight row checked. Counts are set to 0
+    just before and read just after; each strategy other than buy-and-hold
+    must have launched the kernel ``reach`` names for it once a sweep, and
+    no other. Returns (strategies, frames, timing, launches, KoopmanMPC's
+    ``Timed``, (mpc, mv_mpc, bt))."""
     from kmpc_tpu_torch.backtest.engine import run_backtest_parallel
     from kmpc_tpu_torch.run_experiment import (
         backtest_settings, build_strategies, markowitz_settings,
@@ -2537,12 +2787,10 @@ def run_strategies(ctx, cfg, sweeps, reach, horizon=None, names=None):
     mv_mpc = markowitz_settings(cfg)
     n_dates = fd.test.shape[0] - fd.sequence_length - bt.HORIZON
     strategies = build_strategies(model, mpc, mv_mpc, bt.LOOKBACK_WINDOW,
-                                  scenarios=SCENARIOS, fused=True)
+                                  scenarios=scenarios, fused=True)
     if names is not None:
         strategies = {k: v for k, v in strategies.items() if k in names}
-    kernels = kernel_counters()
-    for k in kernels.values():
-        k.launches = 0
+    kernels = reset_counts()
     frames, timing, koopman = {}, {}, None
     for name, strat in strategies.items():
         timed = Timed(name, strat,
@@ -2568,18 +2816,22 @@ def run_strategies(ctx, cfg, sweeps, reach, horizon=None, names=None):
     want = {k: 0 for k in kernels}
     for name in strategies:
         if name != "BuyAndHold":
-            want[expect_kernel(reach, name, mpc, mv_mpc, fd.n_assets)] += sweeps
+            want[expect_kernel(reach, name, mpc, mv_mpc, fd.n_assets,
+                               scenarios)] += sweeps
     assert launches == want, f"launches {launches}, expected {want}"
     return strategies, frames, timing, launches, koopman, (mpc, mv_mpc, bt)
 
 
-def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label, reach):
-    """The path's first solves (pre-trade guess 1/N on every date) of the
-    named strategies, by each kernel and by its plain version on the same
-    card inputs: {kernel name (``reach``): the case}."""
+def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label, reach,
+                 scenarios=SCENARIOS, dates=None):
+    """The path's first solves (pre-trade guess 1/N on every date, or on
+    the first ``dates``) of the named strategies, by each kernel and by its
+    plain version on the same card inputs: {kernel name (``reach``): the
+    case}."""
     fd = ctx["fd"]
     n = fd.n_assets
     n_dates = fd.test.shape[0] - fd.sequence_length - bt.HORIZON
+    n_dates = min(n_dates, dates or n_dates)
     cw = torch.full((n_dates, n), 1.0 / n, device=fd.device)
     first = {}
     for name in names:
@@ -2593,7 +2845,7 @@ def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label, reach):
                    else "pred_log_returns")
             r = torch.exp(aux[key][:n_dates]).contiguous()
             res = compare_tensors(label, cw, r, mpc, time_reps=5)
-        first[expect_kernel(reach, name, mpc, mv_mpc, n)] = res
+        first[expect_kernel(reach, name, mpc, mv_mpc, n, scenarios)] = res
     return first
 
 
@@ -2610,7 +2862,7 @@ def phase_comparison(ctx):
     from kmpc_tpu_torch.ops.mpc_cuda import _route
     from kmpc_tpu_torch.run_experiment import build_strategies
 
-    sweeps, warm_iters = 8, 500
+    sweeps, warm_iters = 3, 500
     fd, model, cfg = ctx["fd"], ctx["model"], ctx["cfg"]
     strategies, frames, timing, launches, koopman, (mpc, mv_mpc, bt) = \
         run_strategies(ctx, cfg, sweeps, FIXED_REACH)
@@ -2622,7 +2874,7 @@ def phase_comparison(ctx):
     # Koopman-MPC again, later sweeps warm at a quarter of the budget: by
     # the kernel, and by the eager solver (an independent implementation of
     # the same sweeps, on the card). The two must agree on the final value.
-    # Against the cold run the warm one is judged on objectives: 8 sweeps do
+    # Against the cold run the warm one is judged on objectives: 3 sweeps do
     # not converge the Jacobi iteration on random-weight forecasts (the
     # line reports how far the pre-trade guesses moved into the last sweep,
     # and how far a cold run of twice the sweeps lands from the cold run of
@@ -2739,7 +2991,7 @@ def phase_accurate_path(ctx, fixed_values):
 
     from kmpc_tpu_torch.backtest.engine import calculate_metrics
 
-    sweeps = 4
+    sweeps = 2
     cfg = accurate_config(ctx["cfg"])
     strategies, frames, timing, launches, _, (mpc, mv_mpc, bt) = \
         run_strategies(ctx, cfg, sweeps, ACCURATE_REACH)
@@ -2760,7 +3012,7 @@ def phase_accurate_path(ctx, fixed_values):
          sweeps=sweeps, scenarios=SCENARIOS, mpc_iters=mpc.max_iters,
          adapt_every=mpc.adapt_every, precond=mpc.precond, launches=launches,
          per_strategy=timing, final_values=values,
-         fixed_step_final_values_8_sweeps=fixed_values,
+         fixed_step_final_values=fixed_values,
          total_s=sum(t["total_s"] for t in timing.values()))
     return launches, first
 
@@ -2905,7 +3157,7 @@ def pipeline_config(cfg):
 # The long path's runs: (label, config, horizon, sweeps, strategies or None
 # for all five, {strategy: the kernel its solve must reach}).
 LONG_RUNS = (
-    ("pipelined_H20", pipeline_config, 20, 4, None,
+    ("pipelined_H20", pipeline_config, 20, 2, None,
      {"DMD": "pdhg_log_utility_rows",
       "KoopmanMPC": "pdhg_log_utility_rows",
       "ScenarioKelly": "pdhg_log_utility_scenarios_rows",
@@ -2971,10 +3223,11 @@ def phase_long_path(ctx):
     return launches, first
 
 
-# Kernel B's warp layout on a shape that routes to it: (B, S, H, N, seed).
+# Kernel B's warp layout at the shape it was built for: (B, S, H, N, seed).
 # Each problem's 113 scenarios of 8 rows and 64 assets fill one warp's
-# slice of shared memory (226 KB of the 227 KB), past the row layout's plan
-# and the block layout's; B=132, one problem per SM of an H100 SXM.
+# slice of shared memory (226 KB of the 227 KB), past the row layout's
+# resident plan and the block layout's; B=132, one problem per SM of an
+# H100 SXM. Routing gives it to the row layout, its returns streamed.
 WARP_B_PATH = (132, 113, 8, 64, 1160)
 
 
@@ -2985,17 +3238,22 @@ def phase_warp_path(ctx):
     first-sweep Koopman-MPC problems (full width, the pre-trade guess 1/N
     on every date) at the comparison's fixed steps, the accurate
     configuration and the pipeline configuration (H=5), through the packed
-    solve's finalisation. Kernel B's: through
-    ``solve_mpc_log_utility_scenarios_packed`` at WARP_B_PATH, a shape
-    that routes to them, at the same three configurations. Counts set to 0
-    before these six solves and read after; then each solve's kernel held
-    against the plain version, every row of the weights feasible (the
-    simplex sum to FEAS_TOL, or to twice the plain version's own error, as
-    ``hold_to_plain`` holds it), and on the comparison's problems of both
-    kernels (scenario Kelly at S=16 too) the warp kernel compared bit for
-    bit with the row kernel. Returns the launches, the cases at the path's
-    shapes by kernel, and the other cases (the row kernels', and kernel B's
-    warp kernels' at S=16) by kernel."""
+    solve's finalisation. Kernel B's at WARP_B_PATH: through
+    ``solve_mpc_log_utility_scenarios_packed``, which routes the shape to
+    the row layout with its returns streamed, and the same problems in the
+    warp layout by the private launch, at the same three configurations.
+    Counts set to 0 before these nine solves and read after; then each
+    solve's kernel held against the plain version, every row of the
+    weights feasible (the simplex sum to FEAS_TOL, or to twice the plain
+    version's own error, as ``hold_to_plain`` holds it), the streamed row
+    kernel's bits against the warp kernel's (parting only where
+    ``rows_bits_part`` names the operation), and on the comparison's
+    problems of both kernels (scenario Kelly at S=16 too) the warp kernel
+    compared bit for bit with the row kernel. Returns the launches (and the
+    row kernels' by storage), the cases at the path's shapes by kernel
+    (the streamed row kernels' under ``kernel:streamed``), and the other
+    cases (the row kernels', and kernel B's warp kernels' at S=16) by
+    kernel."""
     from dataclasses import replace
 
     from kmpc_tpu_torch.ops import mpc_cuda as M
@@ -3008,7 +3266,6 @@ def phase_warp_path(ctx):
     cw_b, ys_b = scenario_instance(B, S, H, N, seed)
     cw_b = torch.as_tensor(cw_b, device="cuda")
     y_b = torch.as_tensor(ys_b, device="cuda")
-    kernels = kernel_counters()
     solves, comparison = [], []
     for label, make_cfg in (("fixed", lambda c: c),
                             ("accurate", accurate_config),
@@ -3027,38 +3284,55 @@ def phase_warp_path(ctx):
         solves.append((f"{label}_KoopmanMPC", *comparison[-2][1:]))
         solves.append((f"{label}_S{S}_H{H}_N{N}", cw_b, y_b,
                        replace(mpc, horizon=H)))
-    for k in kernels.values():
-        k.launches = 0
-    want, weights = {}, []
+    kernels = reset_counts()
+    want, weights = {}, {}
     for label, cw, y, mpc in solves:
+        r = torch.exp(y).contiguous()
         if y.dim() == 4:
             layout, _, kernel = M._route(S, H, N, mpc)
-            assert layout == "warp", (label, layout)
-            w = M.solve_mpc_log_utility_scenarios_packed(cw, y, mpc)[0]
-        else:
-            kernel = pinned_kernel("warp", y, mpc)
-            r = torch.exp(y).contiguous()
-            out = pinned("warp", cw, r, mpc)
-            w = M._finalize_packed(out[0], r, cw, mpc, out[1])[0]
-        weights.append(w)
+            assert layout == "rows" and M.rows_storage(S, H, N) == \
+                "streamed", (label, layout)
+            weights[(label, "rows")] = \
+                M.solve_mpc_log_utility_scenarios_packed(cw, y, mpc)[0]
+            want[kernel.name] = want.get(kernel.name, 0) + 1
+        kernel = pinned_kernel("warp", r, mpc)
+        out = pinned("warp", cw, r, mpc)
+        weights[(label, "warp")] = \
+            M._finalize_packed(out[0], r, cw, mpc, out[1])[0]
         want[kernel.name] = want.get(kernel.name, 0) + 1
     launches = {k: v.launches for k, v in kernels.items() if v.launches}
     assert launches == want, f"launches {launches}, expected {want}"
+    by_storage = {f"{k}:{st}": n for (k, st), n in M.STORAGE_LAUNCHES.items()}
+    assert by_storage == {f"{k}:streamed": n for k, n in want.items()
+                          if "scenarios_rows" in k}, by_storage
     first, extra = {}, {}
-    for (label, cw, y, mpc), w in zip(solves, weights):
+    for label, cw, y, mpc in solves:
         if y.dim() == 4:
-            res = compare_tensors(f"warp_path_{label}", cw,
-                                  torch.exp(y).contiguous(), mpc, time_reps=5)
-            check_feasible(w, cw, mpc, f"warp_path {label}", max(
-                FEAS_TOL, 2.0 * res["plain_simplex_error"]))
-            emit("warp_path_solve", **res)
-            first[res["kernel"]] = res
+            cases = compare_layouts(f"warp_path_{label}", cw,
+                                    torch.exp(y).contiguous(), mpc,
+                                    time_reps=5, layouts=["rows", "warp"])
+            rows = cases["rows"]
+            assert rows["bits_equal_warp"] or rows["bits_part"], \
+                f"warp_path {label}: the streamed row kernel's bits part " \
+                f"from the warp kernel's ({rows['bits_equal_outputs']})"
+            for layout, res in cases.items():
+                check_feasible(weights[(label, layout)], cw, mpc,
+                               f"warp_path {label} {layout}", max(
+                                   FEAS_TOL, 2.0 * res["plain_simplex_error"]))
+                emit("warp_path_solve", **res)
+            rows.update(storage="streamed", S=S,
+                        returns_bytes_per_iter=4 * B * S * H * N)
+            rows["returns_tb_per_s"] = (rows["returns_bytes_per_iter"]
+                                        * mpc.max_iters
+                                        / (rows["kernel_ms"] * 1e-3) / 1e12)
+            first.setdefault(rows["kernel"] + ":streamed", rows)
+            first[cases["warp"]["kernel"]] = cases["warp"]
     for label, cw, y, mpc in comparison:
         cases = compare_layouts(f"warp_path_{label}", cw,
                                 torch.exp(y).contiguous(), mpc, time_reps=5,
                                 layouts=["warp", "rows"])
         if y.dim() == 3:
-            w = weights[[s[0] for s in solves].index(label)]
+            w = weights[(label, "warp")]
             check_feasible(w, cw, mpc, f"warp_path {label}", max(
                 FEAS_TOL, 2.0 * cases["warp"]["plain_simplex_error"]))
             first[cases["warp"]["kernel"]] = cases["warp"]
@@ -3069,9 +3343,10 @@ def phase_warp_path(ctx):
             emit("warp_path_solve", **res)
         extra.setdefault(cases["rows"]["kernel"], []).append(cases["rows"])
     emit("warp_path", dates=len(solves[0][1]), scenario_shape=WARP_B_PATH[:4],
-         launches=launches, rows_vs_warp_bits=check_bits(
+         launches=launches, launches_by_storage=by_storage,
+         rows_vs_warp_bits=check_bits(
              [c for cases in extra.values() for c in cases]))
-    return launches, first, extra
+    return dict(launches, **by_storage), first, extra
 
 
 # The block and wide-row layouts' shapes on their path: past the row
@@ -3088,8 +3363,10 @@ def phase_block_path():
     kernels, and the same problems in the block layout by the private
     launch (``pinned``, as ``warp_path`` drives kernel A's warp kernels)
     through the packed solve's finalisation; S=16 scenarios through
-    ``solve_mpc_log_utility_scenarios_packed``, routed to kernel B's block
-    kernels. Counts set to 0 before these nine solves and read after; then
+    ``solve_mpc_log_utility_scenarios_packed``, routed to kernel B's
+    wide-row kernels with the returns resident, and the same problems in
+    the block layout by the private launch. Counts set to 0 before these
+    twelve solves and read after; then
     each held against its plain version (twice for the same bits; the
     adaptive body as a ``wide`` case, LOG_UNSETTLED_FP), the wide and block
     kernels on the same problems against one plain run, with their largest
@@ -3111,11 +3388,10 @@ def phase_block_path():
                         else scenario_instance(B, S, H, N, seed))
         cw = torch.as_tensor(cw_np, device="cuda")
         y = torch.as_tensor(ys_np, device="cuda")
-        layouts = ["wide", "block"] if S is None else ["block"]
-        groups += [(S, body, layouts, cw, y, p) for body, p in bodies.items()]
-    kernels = kernel_counters()
-    for k in kernels.values():
-        k.launches = 0
+        groups += [(S, body, ["wide", "block"], cw, y, p)
+                   for body, p in bodies.items()]
+    assert M.wide_storage(SCENARIOS, H, N) == "resident"
+    kernels = reset_counts()
     want, weights = {}, {}
     for S, body, layouts, cw, y, p in groups:
         routed, _, kernel = M._route(S, H, N, p)
@@ -3134,6 +3410,9 @@ def phase_block_path():
             want[kernel.name] = want.get(kernel.name, 0) + 1
     launches = {k: v.launches for k, v in kernels.items() if v.launches}
     assert launches == want, f"launches {launches}, expected {want}"
+    by_storage = {f"{k}:{st}": n for (k, st), n in M.STORAGE_LAUNCHES.items()}
+    assert by_storage == {f"{k}:resident": n for k, n in want.items()
+                          if "scenarios_wide" in k}, by_storage
     first = {}
     for S, body, layouts, cw, y, p in groups:
         cases = compare_layouts(f"block_path_S{S}_{body}", cw,
@@ -3146,7 +3425,93 @@ def phase_block_path():
             emit("block_path_solve", body=body, **res)
             first.setdefault(res["kernel"], res)
     emit("block_path", B=B, H=H, N=N, S=[None, SCENARIOS],
-         layouts=["wide", "block"], launches=launches)
+         layouts=["wide", "block"], launches=launches,
+         launches_by_storage=by_storage)
+    return launches, first
+
+
+# Scenario Kelly alone, as ``python -m kmpc_tpu_torch.run_experiment
+# --scenarios 512`` builds it, and with ``--horizon 20 --scenarios 128``
+# and the pipeline configuration: (label, config, horizon, scenarios,
+# sweeps). Shapes every layout refused before the row layout streamed its
+# returns.
+SCENARIO_RUNS = (
+    ("S512_H5", lambda c: c, 5, 512, 2),
+    ("S128_H20_pipelined", pipeline_config, 20, 128, 2),
+)
+# The first sweep's solves are held against the plain version on the first
+# dates only: at S=512 and the full 1028 dates each of the plain version's
+# [B, S, H, N] temporaries takes 210 MB, and it runs 2000 iterations.
+SCENARIO_PLAIN_DATES = 256
+
+
+def phase_scenarios_path(ctx):
+    """Scenario Kelly alone at SCENARIO_RUNS' scenario counts, through the
+    strategy and the Jacobi backtest at full width (finance_sparse, random
+    weights from --seed, the synthetic panel). For each run: counts set to
+    0 before and read after, one launch a sweep of the row layout's
+    scenario kernel with the returns in the storage ``rows_storage`` gives
+    the shape; every weight row feasible (``Timed``); the first sweep's
+    solves held against the plain version on the first
+    SCENARIO_PLAIN_DATES dates, twice for the same bits; the kernel timed on
+    every date; solve and recursion ms a sweep. Returns the launches (by
+    kernel and by ``kernel:storage``) and the cases by ``kernel:storage``."""
+    import pandas as pd
+
+    from kmpc_tpu_torch.backtest.engine import calculate_metrics
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+    from kmpc_tpu_torch.run_experiment import backtest_settings
+
+    fd = ctx["fd"]
+    launches, first, runs = {}, {}, {}
+    for label, make_cfg, horizon, S, sweeps in SCENARIO_RUNS:
+        cfg = make_cfg(ctx["cfg"])
+        mpc = backtest_settings(cfg, horizon=horizon)[1]
+        layout, _, kernel = M._route(S, horizon, fd.n_assets, mpc)
+        storage = M.rows_storage(S, horizon, fd.n_assets)
+        assert layout == "rows" and storage != "registers", (label, layout)
+        strategies, frames, timing, launched, _, (mpc, _, bt) = \
+            run_strategies(ctx, cfg, sweeps, {"ScenarioKelly": kernel.name},
+                           horizon=horizon, names=("ScenarioKelly",),
+                           scenarios=S)
+        key = f"{kernel.name}:{storage}"
+        by_storage = {f"{k}:{st}": n
+                      for (k, st), n in M.STORAGE_LAUNCHES.items()}
+        assert by_storage == {key: sweeps}, by_storage
+        launches.setdefault(key, sweeps)
+        aux = strategies["ScenarioKelly"].precompute(fd, bt.HORIZON)
+        n_dates = len(frames["ScenarioKelly"])
+        cw = torch.full((n_dates, fd.n_assets), 1.0 / fd.n_assets,
+                        device=fd.device)
+        r = torch.exp(aux["scenario_log_returns"][:n_dates]).contiguous()
+        cut = SCENARIO_PLAIN_DATES
+        res = compare_tensors(f"scenarios_path_{label}", cw[:cut],
+                              r[:cut].contiguous(), mpc, time_reps=3)
+        assert res["kernel"] == kernel.name, res["kernel"]
+        res.update(
+            plain_batch=cut, B=n_dates, S=S, storage=storage,
+            kernel_ms=cuda_ms(lambda: M.pdhg_log_utility_cuda(cw, r, mpc),
+                              3),
+            returns_bytes_per_iter=4 * n_dates * S * horizon * fd.n_assets)
+        res["bound_ms"], res["bound_by"] = pdhg_bound(
+            n_dates, horizon, fd.n_assets, mpc, S)
+        res["returns_tb_per_s"] = (res["returns_bytes_per_iter"]
+                                   * mpc.max_iters
+                                   / (res["kernel_ms"] * 1e-3) / 1e12)
+        emit("scenarios_path_first_solve", run=label, **res)
+        first.setdefault(key, res)
+        print(pd.DataFrame({k: calculate_metrics(v)
+                            for k, v in frames.items()}).T.to_string(),
+              flush=True)
+        runs[label] = {
+            "horizon": horizon, "scenarios": S, "sweeps": sweeps,
+            "dates": n_dates, "mpc_iters": mpc.max_iters,
+            "pipeline_reduces": mpc.pipeline_reduces, "storage": storage,
+            "launches": by_storage,
+            "per_strategy": timing,
+            "final_value": float(
+                frames["ScenarioKelly"]["portfolio_value"].iloc[-1])}
+    emit("scenarios_path", config="finance_sparse", runs=runs)
     return launches, first
 
 
@@ -3651,6 +4016,19 @@ KERNELS = {
     "pdhg_mean_variance_tile": (_MV + "_tile.cu", _PALLAS + ":1089"),
     "pdhg_mean_variance_tile_adaptive": (_MV + "_tile_adaptive.cu",
                                          _PALLAS + ":1196"),
+    "pdhg_log_utility_scenarios_wide": (_LOG + "_scenarios_wide.cu",
+                                        _PALLAS + ":226"),
+    "pdhg_log_utility_scenarios_wide_adaptive": (
+        _LOG + "_scenarios_wide_adaptive.cu", _PALLAS + ":593"),
+    # Kernel B's row layout with the returns past its registers, a line
+    # each: streamed on ``warp_path`` (and the S=512 run of
+    # ``scenarios_path``), resident on ``scenarios_path``'s S=128 H=20 run.
+    "pdhg_log_utility_scenarios_rows:streamed": (
+        _LOG + "_scenarios_rows.cu", _PALLAS + ":226"),
+    "pdhg_log_utility_scenarios_rows_adaptive:streamed": (
+        _LOG + "_scenarios_rows_adaptive.cu", _PALLAS + ":593"),
+    "pdhg_log_utility_scenarios_rows:resident": (
+        _LOG + "_scenarios_rows.cu", _PALLAS + ":226"),
 }
 
 
@@ -3692,6 +4070,8 @@ def main():
         cases[name] += extra
     block_launches, block_first = phase_block_path()
     done("warp_block_paths")
+    scen_launches, scen_first = phase_scenarios_path(ctx)
+    done("scenarios_path")
     mv_launches, mv_first, mv_cases = phase_mv_long_wide()
     for name, rows in mv_cases.items():
         cases[name] += [c for c in rows if c is not mv_first[name]]
@@ -3706,6 +4086,7 @@ def main():
     # layout, the accurate path for the adaptive ones, the long path for the
     # row layout's pipelined body, ``warp_path`` for the warp layout's
     # kernels, ``block_path`` for the block and wide-row layouts',
+    # ``scenarios_path`` for B's row kernel with its returns resident,
     # ``mv_long_wide`` for
     # C's tile and block kernels (its shared_H1N960 case for the times),
     # the ladder's
@@ -3719,7 +4100,8 @@ def main():
     for phase_launches, phase_first in (
             (comparison_launches, {}), (accurate_launches, accurate_first),
             (long_launches, long_first), (warp_launches, warp_first),
-            (block_launches, block_first), (mv_launches, mv_first),
+            (block_launches, block_first), (scen_launches, scen_first),
+            (mv_launches, mv_first),
             ({"mv_ladder": ladder_launches}, {"mv_ladder": ladder_case})):
         for name, n in phase_launches.items():
             if n:
@@ -3740,7 +4122,7 @@ def main():
             "plain_ms": at_path["plain_ms"], "bound_ms": at_path["bound_ms"],
             "bound_by": at_path["bound_by"], "library_ms": None,
         }
-        if name.endswith("_adaptive"):
+        if name.split(":")[0].endswith("_adaptive"):
             entry.update({
                 "problems": sum(c.get("plain_batch", c["B"])
                                 for c in every),
@@ -3760,6 +4142,13 @@ def main():
         if "wide" in name or "tile" in name:
             entry["max_abs_dw_block"] = max(
                 c.get("max_abs_dw_block", 0.0) for c in every)
+        if ":" in name:
+            entry["storage_bits_cases"] = sum(
+                1 for c in every if c.get("bits_equal_storage"))
+        if "storage" in at_path:
+            entry.update({k: at_path[k] for k in (
+                "storage", "S", "returns_bytes_per_iter",
+                "returns_tb_per_s", "plain_batch") if k in at_path})
         if "rows" in name:
             entry["bits_equal_warp_cases"] = [
                 sum(1 for c in every if c.get("bits_equal_warp")),

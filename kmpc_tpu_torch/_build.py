@@ -57,6 +57,9 @@ SOURCES = {
         "pdhg_log_utility_scenarios_rows_adaptive.cu",
     "pdhg_log_utility_wide": "pdhg_log_utility_wide.cu",
     "pdhg_log_utility_wide_adaptive": "pdhg_log_utility_wide_adaptive.cu",
+    "pdhg_log_utility_scenarios_wide": "pdhg_log_utility_scenarios_wide.cu",
+    "pdhg_log_utility_scenarios_wide_adaptive":
+        "pdhg_log_utility_scenarios_wide_adaptive.cu",
     "pdhg_mean_variance_tile": "pdhg_mean_variance_tile.cu",
     "pdhg_mean_variance_tile_adaptive":
         "pdhg_mean_variance_tile_adaptive.cu",

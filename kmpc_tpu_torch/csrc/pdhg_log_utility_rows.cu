@@ -21,11 +21,19 @@ extern "C" int kmpc_pdhg_log_utility_rows(
                            H, N, max_iters, refresh, warm_iters, cold_iters,
                            c, tau_to, ridge, rho, step_scale, sigma_scale,
                            precond, use_ball, warm);
-  return rows_dispatch<false, false>(a, AdaptArgs{nullptr, 0}, pipe, stream);
+  return rows_dispatch<false, false>(a, AdaptArgs{nullptr, 0}, pipe,
+                                     kRegisters, stream);
 }
 
 // The shared memory one problem's CTA takes (S = 0: one forecast), in bytes,
 // as the launch computes it: the wrapper's copy of this plan routes shapes.
-extern "C" long long kmpc_rows_smem_bytes(int S, int H, int N, int adaptive) {
-  return rows_plan(S, H, N, adaptive != 0).total * (long long)sizeof(float);
+extern "C" long long kmpc_rows_smem_bytes(int S, int H, int N, int adaptive,
+                                          int storage) {
+  return rows_plan(S, H, N, adaptive != 0, storage).total
+         * (long long)sizeof(float);
+}
+
+// The depth of each warp's ring where the returns are streamed.
+extern "C" int kmpc_rows_ring_stages(int S, int H, int N, int adaptive) {
+  return rows_plan(S, H, N, adaptive != 0, kStreamed).stages;
 }

@@ -48,11 +48,28 @@
 // - L, the largest curvature ratio over the rows (for scenarios without
 //   precond the scenario sum, s = 0..S-1, of the per-scenario maxima), is
 //   exchanged once at the start; fp is a max, combined over the warps.
-// Scenario returns (kernel B): a row's S x K returns sit in registers when
-// S * K <= kRowsRegSlots (S=16 at K=1), else in the CTA's shared memory,
-// [H][S padded to the chunk][K * 32]; the chunk's S portfolio partials are
-// formed first and butterflied together, so their shuffles interleave, and
-// the gradient is summed over s = 0..S-1 as before.
+// Scenario returns (kernel B), in one of three storages: in registers
+// when S * K <= kRowsRegSlots (S=16 at K=1); resident in the CTA's shared
+// memory, [S][N] floats a row packed as the global array holds them (a
+// problem of S=512 H=5 N=20 takes 204.8 KB), where the plan fits; else
+// streamed, each warp its own row through a ring of 2 or 3 stages of a
+// chunk, C = 16 / K scenarios of K * 32 floats, filled by 4-byte cp.async
+// (zeros past N and past S) stages - 1 chunks ahead, the chunks of one pass
+// wrapping into the next. A lane copies and reads only its own column, so
+// its own cp.async.wait_group orders the ring and no barrier is added. Every
+// storage hands the same chunks, in the same order, to the same
+// expressions: the chunk's C portfolio partials are formed first and summed
+// by one transposing butterfly (`chunk_factors`: the per-scenario
+// butterfly's bits in 32 shuffles and one division a lane where that takes
+// 80 and 16 at C=16) or, where that measured slower (`kTransposedSum`), by
+// a butterfly per scenario, and the gradient is summed over s = 0..S-1; the
+// storages give the same bits, the warp kernel's. The start's
+// scenario mean of the per-scenario maxima over the rows (no precond) is
+// reduced a chunk of ratios at a time, so the plan of the streamed storage
+// does not grow with S: any S runs at H <= 32 and N <= 128. What bounds the
+// streamed storage is the returns' bytes an iteration (S H N 4 a problem,
+// read from L2 where the batch's returns fit it, else from HBM); the
+// resident one the chunk chain of one CTA an SM.
 // A projection's sweeps stop at a bitwise fixed point: a sweep that
 // returns the threshold it started from, bit for bit, has the same active
 // set, count and sum as every later sweep, so stopping there changes no bit
@@ -72,20 +89,24 @@ namespace {
 
 constexpr int kRowsMaxH = 32;
 constexpr int kRowsRegSlots = 16;  // scenario returns per lane in registers
+// Where a problem's scenario returns live (the C interface's `storage`).
+constexpr int kRegisters = 0, kResident = 1, kStreamed = 2;
 
 // Scenarios per chunk (and the register cap in scenarios) at K slots.
 __host__ __device__ inline int rows_chunk(int K) { return kRowsRegSlots / K; }
 
 // Offsets (in floats) of one problem's shared memory, and the total: the
 // dual and wbar exchanged between rows, the adaptive body's moves and
-// residual terms, the curvature ratios and row bounds, the rows' fp, and
-// the scenario returns where they exceed the registers.
+// residual terms, the curvature ratios of a chunk of scenarios and the row
+// bounds, the rows' fp, and the scenario returns: resident [H][S][N], or
+// each warp's ring of `stages` chunk stages (3 where they fit, else 2).
 struct RowsPlan {
   long long p, wb, dw, dp, e1, e2, rat, lr, fp, r, total;
+  int stages;
 };
 
 __host__ __device__ inline RowsPlan rows_plan(int S, int H, int N,
-                                              bool adapt) {
+                                              bool adapt, int storage) {
   const int K = (N + 31) / 32, C = rows_chunk(K);
   const long long HR = (long long)H * K * 32;
   RowsPlan P;
@@ -96,14 +117,87 @@ __host__ __device__ inline RowsPlan rows_plan(int S, int H, int N,
   P.dp = o; o += adapt ? HR : 0;
   P.e1 = o; o += adapt ? HR : 0;
   P.e2 = o; o += adapt ? HR : 0;
-  P.rat = o; o += (long long)(S > 0 ? S : 1) * H;
+  P.rat = o; o += (long long)H * (S < 1 ? 1 : (S < C ? S : C));
   P.lr = o; o += H;
   P.fp = o; o += H;
   P.r = o;
-  if (S > C) o += HR * ((S + C - 1) / C * C);
+  P.stages = 0;
+  if (storage == kResident) o += (long long)H * S * N;
+  if (storage == kStreamed) {
+    const long long stage = HR * C;
+    P.stages = (o + 3 * stage) * (long long)sizeof(float) <= kSmemPerBlock
+                   ? 3 : 2;
+    o += P.stages * stage;
+  }
   P.total = o;
   return P;
 }
+
+// 4-byte asynchronous copy from global to shared memory, zeros where !ok.
+// The "memory" clobbers keep the compiler from moving a stage's reads
+// across the copies and the waits: no barrier orders them.
+__device__ __forceinline__ void ring_copy4(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void ring_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Until at most `pending` (0 to 2) of this thread's copy groups are left.
+__device__ __forceinline__ void ring_wait(int pending) {
+  if (pending >= 2)
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  else if (pending == 1)
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One row's scenario returns streamed through its warp's ring of `stages`
+// stages of C scenarios x K * 32 floats: chunk c of a pass holds scenarios
+// c C .. c C + C - 1, slot k of scenario s at (s K + k) * 32 + lane. Chunks
+// are issued in the order a pass reads them, stages - 1 ahead, wrapping
+// from a pass's last chunk to the next pass's first.
+template <int C>
+struct RowRing {
+  float* base;       // stage 0, at this lane's column
+  const float* src;  // scenario 0 of this row, at this lane's column
+  long long step;    // floats between two scenarios of a row: H N
+  int S, N, K, lane, stages, chunks;
+  int put, put_chunk, get;
+
+  __device__ __forceinline__ int stage_floats() const { return C * K * 32; }
+  __device__ __forceinline__ void issue() {
+    float* const dst = base + put * stage_floats();
+    const int s0 = put_chunk * C;
+#pragma unroll
+    for (int s = 0; s < C; ++s) {
+      for (int k = 0; k < K; ++k) {
+        const bool ok = k * 32 + lane < N && s0 + s < S;
+        ring_copy4(dst + (s * K + k) * 32,
+                   ok ? src + (s0 + s) * step + k * 32 : src, ok);
+      }
+    }
+    ring_commit();
+    put = put + 1 == stages ? 0 : put + 1;
+    put_chunk = put_chunk + 1 == chunks ? 0 : put_chunk + 1;
+  }
+  // The stages - 1 chunks ahead of a pass's first.
+  __device__ __forceinline__ void start() {
+    for (int i = 0; i + 1 < stages; ++i) issue();
+  }
+  // The next chunk of the pass: one more issued, the oldest awaited.
+  __device__ __forceinline__ const float* next() {
+    issue();
+    ring_wait(stages - 1);
+    const float* const x = base + get * stage_floats();
+    get = get + 1 == stages ? 0 : get + 1;
+    return x;
+  }
+};
 
 __device__ __forceinline__ unsigned bits(float x) { return __float_as_uint(x); }
 
@@ -148,55 +242,128 @@ __device__ __forceinline__ void row_ball_excess(
   excess_of<1>(l1, thp, rad, 1, excess);
 }
 
+// The C portfolio values of a chunk, each lane's partial over its slots in
+// port[s], summed across the warp, and f[s] = scale / max(sum_s, 1e-12) on
+// every lane. A transposing butterfly: at each of the first log2(CP) levels
+// (CP, C rounded up to a power of two, the values past C zero) a lane keeps
+// the half of its values its lane bit picks and adds its partner's partials
+// of them, one shuffle a value kept; the last levels are a plain butterfly
+// of the one value left. Every partial pairs lane l with lane l ^ o as a
+// butterfly per scenario does, so each sum has that butterfly's bits; it
+// takes CP - 1 + 5 - log2(CP) shuffles and C more to broadcast (32 at C=16,
+// against 80) and one division a lane (against C). Scenario s ends on lanes
+// s * 32 / CP to (s + 1) * 32 / CP - 1, whence its factor is broadcast.
+template <int C>
+__device__ __forceinline__ void chunk_factors(const float (&port)[C],
+                                              float scale, int lane,
+                                              float (&f)[C]) {
+  constexpr int CP = C <= 1 ? 1 : C <= 2 ? 2 : C <= 4 ? 4 : C <= 8 ? 8 : 16;
+  constexpr int L = CP == 1 ? 0 : CP == 2 ? 1 : CP == 4 ? 2 : CP == 8 ? 3 : 4;
+  float v[CP];
+#pragma unroll
+  for (int s = 0; s < CP; ++s) v[s] = s < C ? port[s] : 0.f;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int o = 16 >> j, h = CP >> (j + 1);
+    const bool hi = (lane & o) != 0;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const float send = hi ? v[i] : v[i + h];
+      const float keep = hi ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(kFull, send, o);
+    }
+  }
+#pragma unroll
+  for (int o = 16 >> L; o > 0; o >>= 1)
+    v[0] += __shfl_xor_sync(kFull, v[0], o);
+  const float mine = scale / jmax(v[0], 1e-12f);
+#pragma unroll
+  for (int s = 0; s < C; ++s)
+    f[s] = CP == 1 ? mine : __shfl_sync(kFull, mine, s << (5 - L));
+}
+
+// Whether an instantiation sums a chunk's portfolio values by the
+// transposing butterfly (`chunk_factors`) or by one butterfly per scenario
+// with a division each: the same bits either way, so the faster one as
+// measured (PERF.md section 6): at one slot and 8 warps a CTA with
+// the returns in registers or streamed the butterfly per scenario ran
+// 1.3-3x faster, everywhere else the transposing one 1.1-1.5x.
+template <int K, int HB, int ST>
+constexpr bool kTransposedSum = !(K == 1 && HB == 8 && ST != kResident);
+
+// One chunk of C scenarios x of a row into g: the portfolio values w . x_s
+// (each lane over its slots), their factors, and g += x_s f_s for the
+// scenarios s0 + s < S, s in order.
+template <int K, int C, bool TRANSPOSED>
+__device__ __forceinline__ void row_chunk(const float (&w)[1][K],
+                                          const float (&x)[C][1][K], int s0,
+                                          int S, float scale, int lane,
+                                          float (&g)[1][K]) {
+  float port[C], f[C];
+#pragma unroll
+  for (int s = 0; s < C; ++s) {
+    port[s] = 0.f;
+#pragma unroll
+    for (int k = 0; k < K; ++k) port[s] += w[0][k] * x[s][0][k];
+  }
+  if constexpr (TRANSPOSED) {
+    chunk_factors<C>(port, scale, lane, f);
+  } else {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+      for (int s = 0; s < C; ++s)
+        port[s] += __shfl_xor_sync(kFull, port[s], o);
+    }
+#pragma unroll
+    for (int s = 0; s < C; ++s) f[s] = scale / jmax(port[s], 1e-12f);
+  }
+#pragma unroll
+  for (int s = 0; s < C; ++s) {
+    if (s0 + s < S) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) g[0][k] += x[s][0][k] * f[s];
+    }
+  }
+}
+
 // scaled_returns() at one row: r * scale / max(w . r, 1e-12); with SCEN the
-// scenario mean, summed s = 0..S-1, from the registers rr (SREG) or from the
-// row's chunks in shared memory rs ([S padded][K * 32]).
-template <int K, int C, bool SCEN, bool SREG>
+// scenario mean, summed s = 0..S-1, from the registers rr (kRegisters), the
+// row's resident returns rs ([S][N] at this lane's column) or its ring.
+template <int K, int C, bool SCEN, int ST, bool TRANSPOSED>
 __device__ __forceinline__ void row_scaled_returns(
     const float (&w)[1][K], const float (&r)[1][K],
-    const float (&rr)[C][1][K], const float* rs, float scale, int S,
-    int lane, float (&g)[1][K]) {
+    const float (&rr)[C][1][K], const float* rs, RowRing<C>& ring,
+    const bool (&valid)[K], float scale, int S, int N, int lane,
+    float (&g)[1][K]) {
   if constexpr (!SCEN) {
     const float sc[1] = {scale};
     scaled_returns<1, K, false>(w, r, nullptr, sc, 0, 1, lane, g);
   } else {
 #pragma unroll
     for (int k = 0; k < K; ++k) g[0][k] = 0.f;
-    auto chunk = [&](const float (&x)[C][1][K], int s0) {
-      float port[C];
-#pragma unroll
-      for (int s = 0; s < C; ++s) {
-        port[s] = 0.f;
-#pragma unroll
-        for (int k = 0; k < K; ++k) port[s] += w[0][k] * x[s][0][k];
-      }
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-#pragma unroll
-        for (int s = 0; s < C; ++s)
-          port[s] += __shfl_xor_sync(kFull, port[s], o);
-      }
-#pragma unroll
-      for (int s = 0; s < C; ++s) {
-        if (s0 + s < S) {
-          const float f = scale / jmax(port[s], 1e-12f);
-#pragma unroll
-          for (int k = 0; k < K; ++k) g[0][k] += x[s][0][k] * f;
-        }
-      }
-    };
-    if constexpr (SREG) {
-      chunk(rr, 0);
+    if constexpr (ST == kRegisters) {
+      row_chunk<K, C, TRANSPOSED>(w, rr, 0, S, scale, lane, g);
     } else {
       for (int s0 = 0; s0 < S; s0 += C) {
         float x[C][1][K];
+        if constexpr (ST == kResident) {
 #pragma unroll
-        for (int s = 0; s < C; ++s) {
+          for (int s = 0; s < C; ++s) {
 #pragma unroll
-          for (int k = 0; k < K; ++k)
-            x[s][0][k] = rs[((s0 + s) * K + k) * 32 + lane];
+            for (int k = 0; k < K; ++k)
+              x[s][0][k] = valid[k] && s0 + s < S
+                               ? rs[(s0 + s) * N + k * 32] : 0.f;
+          }
+        } else {
+          const float* const st = ring.next();
+#pragma unroll
+          for (int s = 0; s < C; ++s) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) x[s][0][k] = st[(s * K + k) * 32];
+          }
         }
-        chunk(x, s0);
+        row_chunk<K, C, TRANSPOSED>(w, x, s0, S, scale, lane, g);
       }
     }
     const float fS = (float)S;
@@ -205,17 +372,18 @@ __device__ __forceinline__ void row_scaled_returns(
   }
 }
 
-template <int K, int HB, bool SCEN, bool SREG, bool ADAPT, bool PIPE>
+template <int K, int HB, bool SCEN, int ST, bool ADAPT, bool PIPE>
 __global__ void __launch_bounds__(HB * 32)
 pdhg_log_utility_rows_kernel(Args a, AdaptArgs ad) {
   extern __shared__ float smem[];
   constexpr int C = SCEN ? kRowsRegSlots / K : 1;
   constexpr int KW = K * 32;
+  constexpr bool TSUM = kTransposedSum<K, HB, ST>;
   const int lane = threadIdx.x & 31;
   const int t = threadIdx.x >> 5;  // this warp's horizon row
   const int b = blockIdx.x;
   const int H = a.H, N = a.N, S = SCEN ? a.S : 0;
-  const RowsPlan P = rows_plan(S, H, N, ADAPT);
+  const RowsPlan P = rows_plan(S, H, N, ADAPT, ST);
   float* const sp = smem + P.p;    // [H][K * 32] the current dual
   float* const swb = smem + P.wb;  // [H][K * 32] this iteration's wbar
   float* const sdw = smem + P.dw;  // [H][K * 32] w - w_new (balancing)
@@ -234,12 +402,16 @@ pdhg_log_utility_rows_kernel(Args a, AdaptArgs ad) {
     cw[k] = valid[k] ? a.cw[(size_t)b * N + i] : 0.f;
   }
 
-  // Returns into registers (or the CTA's shared memory), the curvature
-  // bounds Lrow (this row's, under precond) and L (the problem's).
+  // Returns into registers (or the CTA's shared memory, or the ring's
+  // source), the curvature bounds Lrow (this row's, under precond) and L
+  // (the problem's).
   float r[1][K];
   float rr[C][1][K];
-  const int Sp = SCEN ? (S + C - 1) / C * C : 0;
-  float* const rs = smem + P.r + (size_t)t * Sp * KW;
+  float* const rs = smem + P.r + (size_t)t * S * N + lane;
+  RowRing<C> ring{smem + P.r + (size_t)t * P.stages * C * KW + lane,
+                  a.r + ((size_t)b * S * H + t) * N + lane,
+                  (long long)H * N, S, N, K, lane, P.stages,
+                  (S + C - 1) / C, 0, 0, 0};
   float Lrow, L;
   {
     float* const srat = smem + P.rat;
@@ -261,35 +433,52 @@ pdhg_log_utility_rows_kernel(Args a, AdaptArgs ad) {
     } else {
 #pragma unroll
       for (int k = 0; k < K; ++k) r[0][k] = 0.f;
-      float row_sum = 0.f;
+      float row_sum = 0.f, max_sum = 0.f;
+      // Scenario s of this row: read, kept where resident, its ratio staged
+      // in its chunk's slot and summed.
       auto stage = [&](int s, float (&x)[1][K]) {
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const int i = k * 32 + lane;
           x[0][k] = valid[k]
                         ? a.r[(((size_t)b * S + s) * H + t) * N + i] : 0.f;
-          if constexpr (!SREG) rs[(s * K + k) * 32 + lane] = x[0][k];
+          if constexpr (ST == kResident)
+            if (valid[k]) rs[s * N + k * 32] = x[0][k];
         }
         float ratio[1];
         curvature_ratio<1, K>(x, valid, 1, ratio);
-        if (lane == 0) srat[s * H + t] = ratio[0];
+        if (lane == 0) srat[(s % C) * H + t] = ratio[0];
         row_sum += ratio[0];
       };
-      if constexpr (SREG) {
+      // Without precond: the scenario mean of the per-scenario max over the
+      // horizon, summed over a chunk's staged ratios in scenario order.
+      auto reduce = [&](int s0, int s1) {
+        if (a.precond) return;
+        __syncthreads();
+        for (int s = s0; s < s1; ++s) {
+          const float* const q = srat + (s - s0) * H;
+          float mx = q[0];
+          for (int u = 0; u < H; ++u) mx = jmax(mx, q[u]);
+          max_sum += mx;
+        }
+        __syncthreads();
+      };
+      if constexpr (ST == kRegisters) {
 #pragma unroll
         for (int s = 0; s < C; ++s) {
 #pragma unroll
           for (int k = 0; k < K; ++k) rr[s][0][k] = 0.f;
           if (s < S) stage(s, rr[s]);
         }
+        reduce(0, S);
       } else {
-        for (int s = 0; s < S; ++s) {
-          float x[1][K];
-          stage(s, x);
-        }
-        for (int s = S; s < Sp; ++s) {
-#pragma unroll
-          for (int k = 0; k < K; ++k) rs[(s * K + k) * 32 + lane] = 0.f;
+        for (int s0 = 0; s0 < S; s0 += C) {
+          const int s1 = min(s0 + C, S);
+          for (int s = s0; s < s1; ++s) {
+            float x[1][K];
+            stage(s, x);
+          }
+          reduce(s0, s1);
         }
       }
       const float fS = (float)S;
@@ -302,17 +491,10 @@ pdhg_log_utility_rows_kernel(Args a, AdaptArgs ad) {
         L = slr[0];
         for (int u = 1; u < H; ++u) L = jmax(L, slr[u]);
       } else {
-        // Scenario mean of the per-scenario max over the horizon.
-        __syncthreads();
-        float max_sum = 0.f;
-        for (int s = 0; s < S; ++s) {
-          float mx = srat[s * H];
-          for (int u = 0; u < H; ++u) mx = jmax(mx, srat[s * H + u]);
-          max_sum += mx;
-        }
         L = max_sum / fS + a.ridge;
         Lrow = L;
       }
+      if constexpr (ST == kStreamed) ring.start();
     }
   }
 
@@ -405,7 +587,8 @@ pdhg_log_utility_rows_kernel(Args a, AdaptArgs ad) {
       // the fma is written out.
       {
         float g[1][K];
-        row_scaled_returns<K, C, SCEN, SREG>(w, r, rr, rs, tau, S, lane, g);
+        row_scaled_returns<K, C, SCEN, ST, TSUM>(w, r, rr, rs, ring, valid,
+                                                 tau, S, N, lane, g);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           const float nxt = !last ? sp[mine + KW + k * 32] : 0.f;
@@ -472,8 +655,8 @@ pdhg_log_utility_rows_kernel(Args a, AdaptArgs ad) {
       // Primal step: w - tau (grad g(w) + ridge w + D'p).
       {
         float g[1][K];
-        row_scaled_returns<K, C, SCEN, SREG>(w, r, rr, rs, -1.f, S, lane,
-                                             g);
+        row_scaled_returns<K, C, SCEN, ST, TSUM>(w, r, rr, rs, ring, valid,
+                                                 -1.f, S, N, lane, g);
 #pragma unroll
         for (int k = 0; k < K; ++k) {
           float gg = g[0][k];
@@ -590,7 +773,8 @@ pdhg_log_utility_rows_kernel(Args a, AdaptArgs ad) {
   // The dual written out is the loop's last p.
   {
     float g[1][K];
-    row_scaled_returns<K, C, SCEN, SREG>(w, r, rr, rs, -1.f, S, lane, g);
+    row_scaled_returns<K, C, SCEN, ST, TSUM>(w, r, rr, rs, ring, valid,
+                                             -1.f, S, N, lane, g);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       float gg = g[0][k];
@@ -622,15 +806,16 @@ pdhg_log_utility_rows_kernel(Args a, AdaptArgs ad) {
       a.fp_out[b] = fp;
     }
   }
+  if constexpr (ST == kStreamed) ring_wait(0);  // the chunks in flight
 }
 
-template <int K, int HB, bool SCEN, bool SREG, bool ADAPT, bool PIPE>
+template <int K, int HB, bool SCEN, int ST, bool ADAPT, bool PIPE>
 cudaError_t rows_launch(const Args& a, const AdaptArgs& ad,
                         cudaStream_t stream) {
-  const long long smem =
-      rows_plan(SCEN ? a.S : 0, a.H, a.N, ADAPT).total * (long long)sizeof(float);
+  const long long smem = rows_plan(SCEN ? a.S : 0, a.H, a.N, ADAPT, ST).total
+                         * (long long)sizeof(float);
   if (smem > kSmemPerBlock) return cudaErrorInvalidValue;
-  auto kernel = pdhg_log_utility_rows_kernel<K, HB, SCEN, SREG, ADAPT, PIPE>;
+  auto kernel = pdhg_log_utility_rows_kernel<K, HB, SCEN, ST, ADAPT, PIPE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -640,31 +825,37 @@ cudaError_t rows_launch(const Args& a, const AdaptArgs& ad,
   return cudaGetLastError();
 }
 
-template <int K, int HB, bool SCEN, bool SREG, bool ADAPT>
+template <int K, int HB, bool SCEN, int ST, bool ADAPT>
 cudaError_t rows_body(const Args& a, const AdaptArgs& ad, bool pipe,
                       cudaStream_t s) {
   if constexpr (!ADAPT) {
-    if (pipe) return rows_launch<K, HB, SCEN, SREG, ADAPT, true>(a, ad, s);
+    if (pipe) return rows_launch<K, HB, SCEN, ST, ADAPT, true>(a, ad, s);
   }
-  return rows_launch<K, HB, SCEN, SREG, ADAPT, false>(a, ad, s);
+  return rows_launch<K, HB, SCEN, ST, ADAPT, false>(a, ad, s);
 }
 
 template <int K, int HB, bool SCEN, bool ADAPT>
 cudaError_t rows_returns(const Args& a, const AdaptArgs& ad, bool pipe,
-                         cudaStream_t s) {
+                         int storage, cudaStream_t s) {
   if constexpr (SCEN) {
-    if (a.S > rows_chunk(K))
-      return rows_body<K, HB, SCEN, false, ADAPT>(a, ad, pipe, s);
+    if (storage == kResident)
+      return rows_body<K, HB, SCEN, kResident, ADAPT>(a, ad, pipe, s);
+    if (storage == kStreamed)
+      return rows_body<K, HB, SCEN, kStreamed, ADAPT>(a, ad, pipe, s);
+    if (a.S > rows_chunk(K)) return cudaErrorInvalidValue;
   }
-  return rows_body<K, HB, SCEN, true, ADAPT>(a, ad, pipe, s);
+  if (storage != kRegisters) return cudaErrorInvalidValue;
+  return rows_body<K, HB, SCEN, kRegisters, ADAPT>(a, ad, pipe, s);
 }
 
 // One CTA of H warps per problem, compiled for K = 1..4 and at most 8, 20
-// or 32 warps; H > 32, K > 4 or a plan past a block's shared memory return
+// or 32 warps, the scenario returns in the given storage (kRegisters for
+// one forecast, and for S * K <= 16 only); H > 32, K > 4, a storage that
+// does not take S or a plan past a block's shared memory return
 // cudaErrorInvalidValue (the wrapper checks first). pipe != 0 runs
 // `make_trip_pipe` (warm and refresh > 1; never with ADAPT).
 template <bool SCEN, bool ADAPT>
-int rows_dispatch(const Args& a, const AdaptArgs& ad, int pipe,
+int rows_dispatch(const Args& a, const AdaptArgs& ad, int pipe, int storage,
                   void* stream) {
   if (a.B <= 0 || a.H <= 0 || a.H > kRowsMaxH || a.N <= 0 ||
       (SCEN && a.S <= 0) || (ADAPT && pipe))
@@ -676,7 +867,7 @@ int rows_dispatch(const Args& a, const AdaptArgs& ad, int pipe,
 
 #define KMPC_ROWS(K_, HB_)                                          \
   if (K == K_ && hb == HB_)                                         \
-    return (int)rows_returns<K_, HB_, SCEN, ADAPT>(a, ad, pp, s);
+    return (int)rows_returns<K_, HB_, SCEN, ADAPT>(a, ad, pp, storage, s);
   KMPC_ROWS(1, 8) KMPC_ROWS(2, 8) KMPC_ROWS(3, 8) KMPC_ROWS(4, 8)
   KMPC_ROWS(1, 20) KMPC_ROWS(2, 20) KMPC_ROWS(3, 20) KMPC_ROWS(4, 20)
   KMPC_ROWS(1, 32) KMPC_ROWS(2, 32) KMPC_ROWS(3, 32) KMPC_ROWS(4, 32)

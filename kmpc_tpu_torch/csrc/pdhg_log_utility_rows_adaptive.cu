@@ -24,5 +24,5 @@ extern "C" int kmpc_pdhg_log_utility_rows_adaptive(
                            tau_to, ridge, rho, step_scale, sigma_scale,
                            precond, use_ball, warm);
   const AdaptArgs ad = {static_cast<float*>(steps_out), adapt_every};
-  return rows_dispatch<false, true>(a, ad, 0, stream);
+  return rows_dispatch<false, true>(a, ad, 0, kRegisters, stream);
 }

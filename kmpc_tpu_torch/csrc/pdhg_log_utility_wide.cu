@@ -22,7 +22,8 @@ extern "C" int kmpc_pdhg_log_utility_wide(
                            H, N, max_iters, refresh, warm_iters, cold_iters,
                            c, tau_to, ridge, rho, step_scale, sigma_scale,
                            precond, use_ball, warm);
-  return wide_dispatch<false>(a, AdaptArgs{nullptr, 0}, pipe, stream);
+  return wide_dispatch<false, false>(a, AdaptArgs{nullptr, 0}, pipe,
+                                     kRegisters, stream);
 }
 
 // The shared memory one problem's CTA takes, in bytes, as the launch

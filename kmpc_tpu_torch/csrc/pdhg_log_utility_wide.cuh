@@ -1,10 +1,11 @@
 // The log-utility PDHG solve in a wide-row layout, for one forecast (S=None)
-// past the row layout's four slots a lane (N > 128): one CTA per problem
-// and one warp per horizon row, the row in shared memory. The same program
-// as the row, warp and block kernels: `_make_packed_kernel` of
-// kmpc_tpu/ops/mpc_pallas.py with S=None, its bodies `make_body` (warm or
-// cold thresholds), `make_body_cond` (refresh schedule), `make_trip_pipe`
-// (PIPE, the pipelined reductions) and, with ADAPT, `body_adaptive`;
+// or S scenarios past the row layout's four slots a lane (N > 128): one CTA
+// per problem and one warp per horizon row, the row in shared memory. The
+// same program as the row, warp and block kernels: `_make_packed_kernel` of
+// kmpc_tpu/ops/mpc_pallas.py with S=None or S set, its bodies `make_body`
+// (warm or cold thresholds), `make_body_cond` (refresh schedule),
+// `make_trip_pipe` (PIPE, the pipelined reductions) and, with ADAPT,
+// `body_adaptive`;
 // precond, ridge, over-relaxation, ball on or off, cold projections, warm
 // inputs, the dual output and the extra primal half-step with the
 // fixed-point residual.
@@ -47,6 +48,16 @@
 // the row kernels; the exit is warp-uniform and leaves only a sweep loop).
 // Registers: the kernel is compiled for at most HB warps (8, 20 or 32, as
 // the row kernels); the slots' loops hold a few scalars, not the row.
+// Scenarios (kernel B; ST = kResident or kStreamed, as in the row layout):
+// a row's S returns are resident as [S][N] floats where the plan fits, else
+// streamed through the warp's ring (RowRing) of 2 or 3 stages of CW = 4, 2
+// or 1 scenarios of K * 32 floats, the deepest that fits; the gradient's
+// scenario mean is summed into the projection input's slice (the returns'
+// slice of one forecast is not kept), CW portfolio values a chunk, each
+// two-stage, summed by one transposing butterfly as `row_scaled_returns`
+// sums them. The one-forecast instantiations
+// (ST = kRegisters) keep their code and their bits: every scenario path is
+// behind `if constexpr (SCEN)`.
 
 #pragma once
 
@@ -55,14 +66,18 @@
 namespace {
 
 constexpr int kWideMaxH = 32;
+constexpr int kWideChunk = 4;  // scenarios a chunk, at most
 
 // Offsets (in floats) of one problem's shared memory, and the total: five
 // [H][K * 32] row arrays (returns, w, p, the projection and dual input,
 // wbar with the current weights in a row of their own), with ADAPT the
 // moves dw and dp and each lane's residual partials of every row; the
-// rows' curvature ratios and fp.
+// rows' curvature ratios and fp. With scenarios (`wide_scen_plan`) also
+// the rows' bounds and the returns (rs), the ring's depth and chunk.
 struct WidePlan {
   long long r, w, p, v, wb, dw, dp, e, rat, fp, total;
+  long long lr, rs;
+  int stages, chunk;
 };
 
 __host__ __device__ inline WidePlan wide_plan(int H, int N, bool adapt) {
@@ -79,6 +94,48 @@ __host__ __device__ inline WidePlan wide_plan(int H, int N, bool adapt) {
   P.e = o; o += adapt ? 2LL * H * 32 : 0;
   P.rat = o; o += H;
   P.fp = o; o += H;
+  P.total = o;
+  P.lr = P.rs = o;
+  P.stages = P.chunk = 0;
+  return P;
+}
+
+// The plan of S scenarios (storage kResident or kStreamed): the one-forecast
+// plan's arrays but the returns' slice, the curvature ratios of a chunk of
+// kWideChunk scenarios, the rows' bounds, and the returns: resident
+// [H][S][N], or each warp's ring, the first of (stages, chunk) = (3, 4),
+// (2, 4), (2, 2), (2, 1) that fits a block's shared memory.
+__host__ __device__ inline WidePlan wide_scen_plan(int S, int H, int N,
+                                                   bool adapt, int storage) {
+  const long long KW = (long long)(N + 31) / 32 * 32, HR = H * KW;
+  WidePlan P;
+  long long o = 0;
+  P.r = o;
+  P.w = o; o += HR;
+  P.p = o; o += HR;
+  P.v = o; o += HR;
+  P.wb = o; o += HR + KW;
+  P.dw = o; o += adapt ? HR : 0;
+  P.dp = o; o += adapt ? HR : 0;
+  P.e = o; o += adapt ? 2LL * H * 32 : 0;
+  P.rat = o; o += (long long)H * kWideChunk;
+  P.fp = o; o += H;
+  P.lr = o; o += H;
+  P.rs = o;
+  P.stages = 0;
+  P.chunk = kWideChunk;
+  if (storage == kResident) {
+    o += (long long)H * S * N;
+  } else {
+    const int depth[4] = {3, 2, 2, 2}, chunk[4] = {4, 4, 2, 1};
+    int i = 0;
+    while (i < 3 && (o + (long long)depth[i] * chunk[i] * HR) *
+                            (long long)sizeof(float) > kSmemPerBlock)
+      ++i;
+    P.stages = depth[i];
+    P.chunk = chunk[i];
+    o += (long long)depth[i] * chunk[i] * HR;
+  }
   P.total = o;
   return P;
 }
@@ -199,15 +256,66 @@ __device__ __forceinline__ float wide_port(const Slots& s, const float* w,
   return lane_sum(port);
 }
 
-template <int HB, bool ADAPT, bool PIPE>
+// g <- the scenario mean of r_s * scale / max(w . r_s, 1e-12) over the
+// row's S returns, resident (rs: [S][N] at this lane's column) or streamed
+// (ring): CW scenarios a chunk, their portfolio values two-stage (each lane
+// over its slots, then `chunk_factors`' transposing butterfly), the
+// gradient summed slot by slot over s = 0..S-1.
+template <int CW, int ST>
+__device__ __forceinline__ void wide_scen_returns(const Slots& sl,
+                                                  const float* w, float* g,
+                                                  const float* rs,
+                                                  RowRing<CW>& ring,
+                                                  float scale, int S) {
+  const int K = sl.K, N = sl.N;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) g[k * 32] = 0.f;
+  for (int s0 = 0; s0 < S; s0 += CW) {
+    const float* const x =
+        ST == kResident ? rs + (size_t)s0 * N : ring.next();
+    auto at = [&](int s, int k) {
+      if constexpr (ST == kResident)
+        return sl.valid(k) && s0 + s < S ? x[s * N + k * 32] : 0.f;
+      else
+        return x[(s * K + k) * 32];
+    };
+    float port[CW];
+#pragma unroll
+    for (int s = 0; s < CW; ++s) port[s] = 0.f;
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      const float wk = w[k * 32];
+#pragma unroll
+      for (int s = 0; s < CW; ++s) port[s] += wk * at(s, k);
+    }
+    float f[CW];
+    chunk_factors<CW>(port, scale, sl.lane, f);
+#pragma unroll 4
+    for (int k = 0; k < K; ++k) {
+      float acc = g[k * 32];
+#pragma unroll
+      for (int s = 0; s < CW; ++s)
+        if (s0 + s < S) acc += at(s, k) * f[s];
+      g[k * 32] = acc;
+    }
+  }
+  const float fS = (float)S;
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) g[k * 32] = g[k * 32] / fS;
+}
+
+template <int HB, int ST, int CW, bool ADAPT, bool PIPE>
 __global__ void __launch_bounds__(HB * 32)
 pdhg_log_utility_wide_kernel(Args a, AdaptArgs ad) {
   extern __shared__ float smem[];
+  constexpr bool SCEN = ST != kRegisters;
   const int lane = threadIdx.x & 31;
   const int t = threadIdx.x >> 5;  // this warp's horizon row
   const int b = blockIdx.x;
   const int H = a.H, N = a.N, K = (N + 31) / 32, KW = K * 32;
-  const WidePlan P = wide_plan(H, N, ADAPT);
+  const int S = SCEN ? a.S : 0;
+  const WidePlan P = SCEN ? wide_scen_plan(S, H, N, ADAPT, ST)
+                          : wide_plan(H, N, ADAPT);
   const Slots s{K, N, lane};
   const int mine = t * KW + lane;  // this lane's slot 0 of its row
   const bool last = t + 1 == H;
@@ -220,10 +328,73 @@ pdhg_log_utility_wide_kernel(Args a, AdaptArgs ad) {
   const float* const pn = p + KW;                // row t + 1 (not at last)
   float* const sdw = smem + P.dw + mine;
   float* const sdp = smem + P.dp + mine;
+  const float* const rs = smem + P.rs + (size_t)t * S * N + lane;
+  RowRing<CW> ring{smem + P.rs + (size_t)t * P.stages * CW * KW + lane,
+                   a.r + ((size_t)b * S * H + t) * N + lane,
+                   (long long)H * N, S, N, K, lane, P.stages,
+                   (S + CW - 1) / CW, 0, 0, 0};
 
   // Returns, current weights (warp 0 into wbar's row -1), curvature bounds.
   float Lrow, L;
-  {
+  if constexpr (SCEN) {
+    // Scenario s of this row: read, kept where resident, its curvature
+    // ratio summed for the row and staged in its chunk's slot; without
+    // precond the scenario mean of the per-scenario max over the rows, a
+    // chunk of staged ratios at a time, in scenario order.
+    float* const srat = smem + P.rat;
+    float* const slr = smem + P.lr;
+    for (int k = 0; k < K; ++k) {
+      const int i = k * 32 + lane;
+      if (t == 0) smem[P.wb + i] = i < N ? a.cw[(size_t)b * N + i] : 0.f;
+    }
+    float row_sum = 0.f, max_sum = 0.f;
+    for (int s0 = 0; s0 < S; s0 += kWideChunk) {
+      const int s1 = min(s0 + kWideChunk, S);
+      for (int sc = s0; sc < s1; ++sc) {
+        float n2 = 0.f, mn = __int_as_float(0x7f800000);  // +inf
+        for (int k = 0; k < K; ++k) {
+          const int i = k * 32 + lane;
+          const bool ok = i < N;
+          const float x =
+              ok ? a.r[(((size_t)b * S + sc) * H + t) * N + i] : 0.f;
+          if (ST == kResident && ok)
+            smem[P.rs + ((size_t)t * S + sc) * N + i] = x;
+          n2 += x * x;
+          if (ok) mn = jmin(mn, x);
+        }
+        n2 = lane_sum(n2);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1)
+          mn = jmin(mn, __shfl_xor_sync(kFull, mn, o));
+        const float m = jmax(mn, 1e-12f);
+        const float ratio = n2 / (m * m);
+        if (lane == 0) srat[(sc - s0) * H + t] = ratio;
+        row_sum += ratio;
+      }
+      if (!a.precond) {
+        __syncthreads();
+        for (int sc = s0; sc < s1; ++sc) {
+          const float* const q = srat + (sc - s0) * H;
+          float mx = q[0];
+          for (int u = 0; u < H; ++u) mx = jmax(mx, q[u]);
+          max_sum += mx;
+        }
+        __syncthreads();
+      }
+    }
+    const float fS = (float)S;
+    if (a.precond) {
+      Lrow = row_sum / fS + a.ridge;
+      if (lane == 0) slr[t] = Lrow;
+      __syncthreads();
+      L = slr[0];
+      for (int u = 1; u < H; ++u) L = jmax(L, slr[u]);
+    } else {
+      L = max_sum / fS + a.ridge;
+      Lrow = L;
+    }
+    if constexpr (ST == kStreamed) ring.start();
+  } else {
     float n2 = 0.f, mn = __int_as_float(0x7f800000);  // +inf
     for (int k = 0; k < K; ++k) {
       const int i = k * 32 + lane;
@@ -340,11 +511,21 @@ pdhg_log_utility_wide_kernel(Args a, AdaptArgs ad) {
 
       // Primal step: w - tau (grad g(w) + ridge w + D'p), tau folded into
       // the portfolio reciprocal and the ridge into c1.
-      {
+      if constexpr (!SCEN) {
         const float f = tau / jmax(wide_port(s, w, r), 1e-12f);
 #pragma unroll 4
         for (int k = 0; k < K; ++k) {
           const float g = r[k * 32] * f;
+          const float nxt = !last ? pn[k * 32] : 0.f;
+          const float base = ridge0 ? w[k * 32] : c1 * w[k * 32];
+          const float x = base + __fmaf_rn(-tau, p[k * 32] - nxt, g);
+          v[k * 32] = s.valid(k) ? x : kNeg;
+        }
+      } else {
+        wide_scen_returns<CW, ST>(s, w, v, rs, ring, tau, S);
+#pragma unroll 4
+        for (int k = 0; k < K; ++k) {
+          const float g = v[k * 32];
           const float nxt = !last ? pn[k * 32] : 0.f;
           const float base = ridge0 ? w[k * 32] : c1 * w[k * 32];
           const float x = base + __fmaf_rn(-tau, p[k * 32] - nxt, g);
@@ -391,11 +572,21 @@ pdhg_log_utility_wide_kernel(Args a, AdaptArgs ad) {
       const bool balance = ad.adapt_every <= 1 ||
                            (it % ad.adapt_every) == ad.adapt_every - 1;
       // Primal step: w - tau (grad g(w) + ridge w + D'p).
-      {
+      if constexpr (!SCEN) {
         const float f = -1.f / jmax(wide_port(s, w, r), 1e-12f);
 #pragma unroll 4
         for (int k = 0; k < K; ++k) {
           float gg = r[k * 32] * f;
+          if (!ridge0) gg = gg + a.ridge * w[k * 32];
+          const float nxt = !last ? pn[k * 32] : 0.f;
+          const float x = w[k * 32] - tau * (gg + (p[k * 32] - nxt));
+          v[k * 32] = s.valid(k) ? x : kNeg;
+        }
+      } else {
+        wide_scen_returns<CW, ST>(s, w, v, rs, ring, -1.f, S);
+#pragma unroll 4
+        for (int k = 0; k < K; ++k) {
+          float gg = v[k * 32];
           if (!ridge0) gg = gg + a.ridge * w[k * 32];
           const float nxt = !last ? pn[k * 32] : 0.f;
           const float x = w[k * 32] - tau * (gg + (p[k * 32] - nxt));
@@ -490,13 +681,24 @@ pdhg_log_utility_wide_kernel(Args a, AdaptArgs ad) {
   // returned iterate is w_last and fp = max |w_last - w| over the problem.
   // The dual written out is the loop's last p.
   {
-    const float f = -1.f / jmax(wide_port(s, w, r), 1e-12f);
-    for (int k = 0; k < K; ++k) {
-      float gg = r[k * 32] * f;
-      if (!ridge0) gg = gg + a.ridge * w[k * 32];
-      const float nxt = !last ? pn[k * 32] : 0.f;
-      const float x = w[k * 32] - tau * (gg + (p[k * 32] - nxt));
-      v[k * 32] = s.valid(k) ? x : kNeg;
+    if constexpr (!SCEN) {
+      const float f = -1.f / jmax(wide_port(s, w, r), 1e-12f);
+      for (int k = 0; k < K; ++k) {
+        float gg = r[k * 32] * f;
+        if (!ridge0) gg = gg + a.ridge * w[k * 32];
+        const float nxt = !last ? pn[k * 32] : 0.f;
+        const float x = w[k * 32] - tau * (gg + (p[k * 32] - nxt));
+        v[k * 32] = s.valid(k) ? x : kNeg;
+      }
+    } else {
+      wide_scen_returns<CW, ST>(s, w, v, rs, ring, -1.f, S);
+      for (int k = 0; k < K; ++k) {
+        float gg = v[k * 32];
+        if (!ridge0) gg = gg + a.ridge * w[k * 32];
+        const float nxt = !last ? pn[k * 32] : 0.f;
+        const float x = w[k * 32] - tau * (gg + (p[k * 32] - nxt));
+        v[k * 32] = s.valid(k) ? x : kNeg;
+      }
     }
     thw = wide_threshold(s, at_v, thw, 1.f, true, a.cold_iters);
     float fp = 0.f;
@@ -520,15 +722,19 @@ pdhg_log_utility_wide_kernel(Args a, AdaptArgs ad) {
       a.fp_out[b] = fp;
     }
   }
+  if constexpr (ST == kStreamed) ring_wait(0);  // the chunks in flight
 }
 
-template <int HB, bool ADAPT, bool PIPE>
+template <int HB, int ST, int CW, bool ADAPT, bool PIPE>
 cudaError_t wide_launch(const Args& a, const AdaptArgs& ad,
                         cudaStream_t stream) {
-  const long long smem =
-      wide_plan(a.H, a.N, ADAPT).total * (long long)sizeof(float);
-  if (smem > kSmemPerBlock) return cudaErrorInvalidValue;
-  auto kernel = pdhg_log_utility_wide_kernel<HB, ADAPT, PIPE>;
+  const WidePlan P = ST == kRegisters
+                         ? wide_plan(a.H, a.N, ADAPT)
+                         : wide_scen_plan(a.S, a.H, a.N, ADAPT, ST);
+  const long long smem = P.total * (long long)sizeof(float);
+  if (smem > kSmemPerBlock || (ST == kStreamed && P.chunk != CW))
+    return cudaErrorInvalidValue;
+  auto kernel = pdhg_log_utility_wide_kernel<HB, ST, CW, ADAPT, PIPE>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -538,29 +744,50 @@ cudaError_t wide_launch(const Args& a, const AdaptArgs& ad,
   return cudaGetLastError();
 }
 
-// One CTA of H warps per problem, compiled for at most 8, 20 or 32 warps;
-// H > 32 or a plan past a block's shared memory return
+template <int HB, int ST, int CW, bool ADAPT>
+cudaError_t wide_body(const Args& a, const AdaptArgs& ad, bool pipe,
+                      cudaStream_t s) {
+  if constexpr (!ADAPT) {
+    if (pipe) return wide_launch<HB, ST, CW, ADAPT, true>(a, ad, s);
+  }
+  return wide_launch<HB, ST, CW, ADAPT, false>(a, ad, s);
+}
+
+template <int HB, bool SCEN, bool ADAPT>
+cudaError_t wide_returns(const Args& a, const AdaptArgs& ad, bool pipe,
+                         int storage, cudaStream_t s) {
+  if constexpr (SCEN) {
+    if (storage == kResident)
+      return wide_body<HB, kResident, kWideChunk, ADAPT>(a, ad, pipe, s);
+    if (storage != kStreamed) return cudaErrorInvalidValue;
+    const int cw = wide_scen_plan(a.S, a.H, a.N, ADAPT, kStreamed).chunk;
+    if (cw == 4) return wide_body<HB, kStreamed, 4, ADAPT>(a, ad, pipe, s);
+    if (cw == 2) return wide_body<HB, kStreamed, 2, ADAPT>(a, ad, pipe, s);
+    return wide_body<HB, kStreamed, 1, ADAPT>(a, ad, pipe, s);
+  } else {
+    if (storage != kRegisters) return cudaErrorInvalidValue;
+    return wide_body<HB, kRegisters, 1, ADAPT>(a, ad, pipe, s);
+  }
+}
+
+// One CTA of H warps per problem, compiled for at most 8, 20 or 32 warps,
+// one forecast (storage kRegisters) or S scenarios resident or streamed;
+// H > 32, another storage or a plan past a block's shared memory return
 // cudaErrorInvalidValue (the wrapper checks first). pipe != 0 runs
 // `make_trip_pipe` (warm and refresh > 1; never with ADAPT).
-template <bool ADAPT>
-int wide_dispatch(const Args& a, const AdaptArgs& ad, int pipe,
+template <bool SCEN, bool ADAPT>
+int wide_dispatch(const Args& a, const AdaptArgs& ad, int pipe, int storage,
                   void* stream) {
   if (a.B <= 0 || a.H <= 0 || a.H > kWideMaxH || a.N <= 0 ||
-      (ADAPT && pipe))
+      (SCEN && a.S <= 0) || (ADAPT && pipe))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int hb = a.H <= 8 ? 8 : (a.H <= 20 ? 20 : 32);
-
-#define KMPC_WIDE(HB_)                                                \
-  if (hb == HB_) {                                                    \
-    if constexpr (!ADAPT) {                                           \
-      if (pipe) return (int)wide_launch<HB_, ADAPT, true>(a, ad, s);  \
-    }                                                                 \
-    return (int)wide_launch<HB_, ADAPT, false>(a, ad, s);             \
-  }
-  KMPC_WIDE(8) KMPC_WIDE(20) KMPC_WIDE(32)
-#undef KMPC_WIDE
-  return (int)cudaErrorInvalidValue;
+  const bool pp = pipe != 0;
+  if (hb == 8) return (int)wide_returns<8, SCEN, ADAPT>(a, ad, pp, storage, s);
+  if (hb == 20)
+    return (int)wide_returns<20, SCEN, ADAPT>(a, ad, pp, storage, s);
+  return (int)wide_returns<32, SCEN, ADAPT>(a, ad, pp, storage, s);
 }
 
 }  // namespace

@@ -25,5 +25,5 @@ extern "C" int kmpc_pdhg_log_utility_wide_adaptive(
                            tau_to, ridge, rho, step_scale, sigma_scale,
                            precond, use_ball, warm);
   const AdaptArgs ad = {static_cast<float*>(steps_out), adapt_every};
-  return wide_dispatch<true>(a, ad, 0, stream);
+  return wide_dispatch<false, true>(a, ad, 0, kRegisters, stream);
 }

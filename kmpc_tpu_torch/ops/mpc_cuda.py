@@ -28,21 +28,26 @@ last dual.
 
 Four layouts: one CTA per problem and one warp per horizon row
 (``csrc/pdhg_log_utility_rows.cuh``, up to 32 rows of ceil(N/32) <= 4
-slots), one warp per problem with the iterates in registers
-(``csrc/pdhg_log_utility.cuh``, up to pow2ceil(H) * ceil(N/32) = 16), the
-wide-row layout for one forecast past 128 assets, one warp per horizon row
-with the row in shared memory (``csrc/pdhg_log_utility_wide.cuh``, up to
-32 rows, as many slots as the shared memory holds), and one block per
-problem with the iterates in shared memory
+slots, any number of scenarios), one warp per problem with the iterates in
+registers (``csrc/pdhg_log_utility.cuh``, up to pow2ceil(H) * ceil(N/32) =
+16), the wide-row layout past 128 assets, one warp per horizon row with the
+row in shared memory (``csrc/pdhg_log_utility_wide.cuh``, up to 32 rows, as
+many slots as the shared memory holds, one forecast or any number of
+scenarios), and one block per problem with the iterates in shared memory
 (``csrc/pdhg_log_utility_block.cuh``, every shape whose problem fits a
-block's shared memory: long horizons, hundreds of assets, scenarios). A
-CUDA tensor launches the row kernel where it fits (the fastest layout at
-every shape measured), else the warp kernel (which the row layout now
-takes wherever both fit, except for scenario returns past the row plan's
-shared memory), else the wide kernel where it measured faster than the
-block kernel (``wide_preferred``), else the block kernel, else raises.
-A CPU tensor runs ``pdhg_log_utility_plain``, the same iteration as plain
-tensor code, the plain version of every layout.
+block's shared memory: long horizons, hundreds of assets). In the row and
+wide-row layouts a problem's scenario returns sit in registers (the row
+layout, S ceil(N/32) <= 16), resident in the CTA's shared memory, or
+streamed through each warp's ring of chunk stages (``STORAGES``;
+``rows_storage``, ``wide_storage``): the plan of the streamed storage does
+not grow with S. A CUDA tensor launches the row kernel where it fits (the
+fastest layout at every shape measured), else the wide kernel where it
+measured faster than the block kernel (``wide_preferred``), else the block
+kernel, else the wide kernel where it takes the shape, else raises; no
+shape routes to the warp layout, which the row layout takes wherever both
+fit (the private launch of chip_smoke.py still runs it). A CPU tensor runs
+``pdhg_log_utility_plain``, the same iteration as plain tensor code, the
+plain version of every layout.
 ``allow_short`` raises here (the kernels project on the simplex only): a
 caller who wants shorts calls the eager solvers by name.
 """
@@ -127,6 +132,10 @@ PDHG_LOG_UTILITY_SCENARIOS_BLOCK_ADAPTIVE = CudaKernel(
     "kmpc_pdhg_log_utility_scenarios_block_adaptive",
     [_P] * 8 + [_I, _I] + _TAIL,
 )
+# The scenario kernels of the row and wide-row layouts take one more int
+# before the stream: the storage of the returns (STORAGES' index).
+_TAIL_STORE = _TAIL_BLOCK[:-1] + [_I, _P]
+_TAIL_STORE_ADAPTIVE = _TAIL[:-1] + [_I, _P]
 # The row-per-warp layout: the block layout's arguments.
 PDHG_LOG_UTILITY_ROWS = CudaKernel(
     "pdhg_log_utility_rows", "kmpc_pdhg_log_utility_rows",
@@ -135,7 +144,7 @@ PDHG_LOG_UTILITY_ROWS = CudaKernel(
 PDHG_LOG_UTILITY_SCENARIOS_ROWS = CudaKernel(
     "pdhg_log_utility_scenarios_rows",
     "kmpc_pdhg_log_utility_scenarios_rows",
-    [_P] * 7 + [_I, _I] + _TAIL_BLOCK,
+    [_P] * 7 + [_I, _I] + _TAIL_STORE,
 )
 PDHG_LOG_UTILITY_ROWS_ADAPTIVE = CudaKernel(
     "pdhg_log_utility_rows_adaptive", "kmpc_pdhg_log_utility_rows_adaptive",
@@ -144,7 +153,7 @@ PDHG_LOG_UTILITY_ROWS_ADAPTIVE = CudaKernel(
 PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE = CudaKernel(
     "pdhg_log_utility_scenarios_rows_adaptive",
     "kmpc_pdhg_log_utility_scenarios_rows_adaptive",
-    [_P] * 8 + [_I, _I] + _TAIL,
+    [_P] * 8 + [_I, _I] + _TAIL_STORE_ADAPTIVE,
 )
 # The wide-row layout (one forecast): the block layout's arguments.
 PDHG_LOG_UTILITY_WIDE = CudaKernel(
@@ -154,6 +163,16 @@ PDHG_LOG_UTILITY_WIDE = CudaKernel(
 PDHG_LOG_UTILITY_WIDE_ADAPTIVE = CudaKernel(
     "pdhg_log_utility_wide_adaptive", "kmpc_pdhg_log_utility_wide_adaptive",
     [_P] * 8 + [_I] + _TAIL,
+)
+# Kernel B in the wide-row layout: the row layout's scenario arguments.
+PDHG_LOG_UTILITY_SCENARIOS_WIDE = CudaKernel(
+    "pdhg_log_utility_scenarios_wide", "kmpc_pdhg_log_utility_scenarios_wide",
+    [_P] * 7 + [_I, _I] + _TAIL_STORE,
+)
+PDHG_LOG_UTILITY_SCENARIOS_WIDE_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_scenarios_wide_adaptive",
+    "kmpc_pdhg_log_utility_scenarios_wide_adaptive",
+    [_P] * 8 + [_I, _I] + _TAIL_STORE_ADAPTIVE,
 )
 # (scenarios, layout, body) -> kernel
 _KERNELS = {
@@ -178,6 +197,9 @@ _KERNELS = {
     (False, "wide", "fixed"): PDHG_LOG_UTILITY_WIDE,
     (False, "wide", "pipe"): PDHG_LOG_UTILITY_WIDE,
     (False, "wide", "adaptive"): PDHG_LOG_UTILITY_WIDE_ADAPTIVE,
+    (True, "wide", "fixed"): PDHG_LOG_UTILITY_SCENARIOS_WIDE,
+    (True, "wide", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_WIDE,
+    (True, "wide", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_WIDE_ADAPTIVE,
 }
 KERNELS = tuple(dict.fromkeys(_KERNELS.values()))
 # In the order routing prefers them.
@@ -186,7 +208,21 @@ LAYOUTS = ("rows", "warp", "wide", "block")
 # body by a flag.
 _PIPE_FLAG = (PDHG_LOG_UTILITY_BLOCK, PDHG_LOG_UTILITY_SCENARIOS_BLOCK,
               PDHG_LOG_UTILITY_ROWS, PDHG_LOG_UTILITY_SCENARIOS_ROWS,
-              PDHG_LOG_UTILITY_WIDE)
+              PDHG_LOG_UTILITY_WIDE, PDHG_LOG_UTILITY_SCENARIOS_WIDE)
+# The kernels that take the storage of the scenario returns.
+_STORAGE_ARG = (PDHG_LOG_UTILITY_SCENARIOS_ROWS,
+                PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE,
+                PDHG_LOG_UTILITY_SCENARIOS_WIDE,
+                PDHG_LOG_UTILITY_SCENARIOS_WIDE_ADAPTIVE)
+# Where a problem's scenario returns live in the row and wide-row layouts
+# (the kernels' ``storage``, by index): in registers (the row layout at
+# S ceil(N/32) <= ROWS_REG_SLOTS, and every one-forecast launch), resident
+# in the CTA's shared memory as [S][N] floats a row, or streamed through
+# each warp's ring of chunk stages by cp.async.
+STORAGES = ("registers", "resident", "streamed")
+# Launches of the kernels in _STORAGE_ARG by (kernel name, storage),
+# counted beside each kernel's ``launches``.
+STORAGE_LAUNCHES: Dict[Tuple[str, str], int] = {}
 
 
 # Register budget of the warp layout: one warp per problem keeps
@@ -269,30 +305,78 @@ def rows_warp_bound(H: int) -> int:
     return next(hb for hb in ROWS_WARP_BOUNDS if H <= hb)
 
 
-def rows_smem_bytes(S: Optional[int], H: int, N: int,
-                    adaptive: bool = True) -> int:
-    """Shared memory of one problem's CTA in the row layout (``rows_plan``
-    in csrc/pdhg_log_utility_rows.cuh): the dual and wbar of every row
-    exchanged between neighbours, with ``adaptive`` the moves and residual
-    terms of every row (four [H][K * 32] arrays), the curvature ratios per
-    scenario and row, the rows' bounds and fixed-point residuals, and the
-    scenario returns when they exceed the registers, [H][S padded to the
-    chunk 16 / K][K * 32]."""
+def _rows_plan(S: Optional[int], H: int, N: int, adaptive: bool,
+               storage: str) -> Tuple[int, int]:
+    """(bytes, ring stages) of ``rows_plan`` in
+    csrc/pdhg_log_utility_rows.cuh."""
     k = -(-N // 32)
     row = H * 32 * k
     chunk = ROWS_REG_SLOTS // k
     s = S or 0
-    floats = (2 + (4 if adaptive else 0)) * row + max(s, 1) * H + 2 * H
-    if s > chunk:
-        floats += row * (-(-s // chunk) * chunk)
-    return 4 * floats
+    floats = (2 + (4 if adaptive else 0)) * row \
+        + H * min(max(s, 1), chunk) + 2 * H
+    stages = 0
+    if storage == "resident":
+        floats += H * s * N
+    elif storage == "streamed":
+        stage = row * chunk
+        stages = 3 if 4 * (floats + 3 * stage) <= SMEM_PER_BLOCK else 2
+        floats += stages * stage
+    return 4 * floats, stages
+
+
+def sm_ctas(smem_bytes: int) -> int:
+    """CTAs of this much shared memory an SM holds at once (each reserves
+    1 KB more)."""
+    return SM_SMEM // (smem_bytes + 1024)
+
+
+def rows_storage(S: Optional[int], H: int, N: int) -> str:
+    """Where the row kernels keep a problem's scenario returns: in
+    registers for one forecast and S ceil(N/32) <= ROWS_REG_SLOTS, else
+    resident in the CTA's shared memory where the adaptive body's plan
+    lets as many CTAs share an SM as streaming would, else streamed. By
+    measurement (PERF.md section 6): at B=1028 a resident plan of one CTA
+    an SM ran 1.5-1.6x slower than the streamed one at S=364 to 512, H=5
+    N=20; one problem alone runs faster resident (chip_smoke.py's
+    ``ROUTED_SLOWER`` names the shapes routing by shape alone loses)."""
+    if S is None or S * -(-N // 32) <= ROWS_REG_SLOTS:
+        return "registers"
+    resident = _rows_plan(S, H, N, True, "resident")[0]
+    streamed = _rows_plan(S, H, N, True, "streamed")[0]
+    if resident <= SMEM_PER_BLOCK and sm_ctas(resident) >= sm_ctas(streamed):
+        return "resident"
+    return "streamed"
+
+
+def rows_smem_bytes(S: Optional[int], H: int, N: int,
+                    adaptive: bool = True,
+                    storage: Optional[str] = None) -> int:
+    """Shared memory of one problem's CTA in the row layout (``rows_plan``
+    in csrc/pdhg_log_utility_rows.cuh): the dual and wbar of every row
+    exchanged between neighbours, with ``adaptive`` the moves and residual
+    terms of every row (four [H][K * 32] arrays), the curvature ratios of a
+    chunk of min(S, 16 / K) scenarios a row, the rows' bounds and
+    fixed-point residuals, and the scenario returns in ``storage`` (default
+    ``rows_storage``'s): none in registers, [H][S][N] resident, or each
+    warp's ring of ``rows_ring_stages`` stages of 16 / K scenarios x K * 32
+    floats."""
+    storage = storage or rows_storage(S, H, N)
+    return _rows_plan(S, H, N, adaptive, storage)[0]
+
+
+def rows_ring_stages(S: int, H: int, N: int, adaptive: bool = True) -> int:
+    """The depth of each warp's ring where the returns are streamed: 3
+    where the plan fits a block's shared memory, else 2."""
+    return _rows_plan(S, H, N, adaptive, "streamed")[1]
 
 
 def rows_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
     """Whether the row-layout kernels take a problem of S scenarios (None:
     one forecast) at horizon H and N assets: at most ROWS_MAX_H rows of
     ceil(N/32) <= MAX_SLOTS slots, and the adaptive body's plan within a
-    block's shared memory (the budget is the same for every body)."""
+    block's shared memory (the budget is the same for every body; streamed,
+    it holds at any S)."""
     return (1 <= H <= ROWS_MAX_H and 1 <= N <= 32 * MAX_SLOTS
             and (S is None or S >= 1)
             and rows_smem_bytes(S, H, N) <= SMEM_PER_BLOCK)
@@ -304,14 +388,58 @@ def rows_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
 WIDE_MAX_H = 32
 
 
-def wide_smem_bytes(H: int, N: int, adaptive: bool = True) -> int:
+WIDE_CHUNK = 4   # scenarios a chunk, at most
+# A streamed ring's (stages, scenarios a stage), the first that fits.
+WIDE_RINGS = ((3, 4), (2, 4), (2, 2), (2, 1))
+
+
+def wide_scen_plan(S: int, H: int, N: int, adaptive: bool,
+                   storage: str) -> Tuple[int, int, int]:
+    """(bytes, ring stages, scenarios a chunk) of ``wide_scen_plan`` in
+    csrc/pdhg_log_utility_wide.cuh: the one-forecast plan's arrays but the
+    returns' slice (the gradient is summed in the projection input's),
+    the curvature ratios of WIDE_CHUNK scenarios and the bounds of every
+    row, and the returns: resident [H][S][N], or each warp's ring, the
+    first of WIDE_RINGS that fits a block's shared memory."""
+    kw = 32 * -(-N // 32)
+    row = H * kw
+    floats = 4 * row + kw + H * WIDE_CHUNK + 2 * H
+    if adaptive:
+        floats += 2 * row + 2 * H * 32
+    if storage == "resident":
+        return 4 * (floats + H * S * N), 0, WIDE_CHUNK
+    for stages, chunk in WIDE_RINGS:
+        total = 4 * (floats + stages * chunk * row)
+        if total <= SMEM_PER_BLOCK:
+            break
+    return total, stages, chunk
+
+
+def wide_storage(S: int, H: int, N: int) -> str:
+    """Where the wide kernels keep a problem's scenario returns: resident
+    where the adaptive body's plan lets as many CTAs share an SM as
+    streaming would (as ``rows_storage``), else streamed."""
+    resident = wide_scen_plan(S, H, N, True, "resident")[0]
+    streamed = wide_scen_plan(S, H, N, True, "streamed")[0]
+    if resident <= SMEM_PER_BLOCK and sm_ctas(resident) >= sm_ctas(streamed):
+        return "resident"
+    return "streamed"
+
+
+def wide_smem_bytes(H: int, N: int, adaptive: bool = True,
+                    S: Optional[int] = None,
+                    storage: Optional[str] = None) -> int:
     """Shared memory of one problem's CTA in the wide-row layout
     (``wide_plan`` in csrc/pdhg_log_utility_wide.cuh): five [H][K * 32]
     arrays (returns, w, p, the projection and dual input, wbar) and one
     more [K * 32] row of wbar for the current weights; with ``adaptive``
     the moves dw and dp, [H][K * 32] each, and each lane's two residual
     partials of every row, [2][H][32]; the rows' curvature ratios and
-    fixed-point residuals."""
+    fixed-point residuals. With S scenarios, ``wide_scen_plan`` in
+    ``storage`` (default ``wide_storage``'s)."""
+    if S is not None:
+        return wide_scen_plan(S, H, N, adaptive,
+                              storage or wide_storage(S, H, N))[0]
     kw = 32 * -(-N // 32)
     row = H * kw
     floats = 5 * row + kw + 2 * H
@@ -322,11 +450,32 @@ def wide_smem_bytes(H: int, N: int, adaptive: bool = True) -> int:
 
 def wide_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
     """Whether the wide-row kernels take a problem of this shape: one
-    forecast, at most WIDE_MAX_H rows, past the row layout's 32 * MAX_SLOTS
-    assets, and the adaptive body's plan within a block's shared memory
-    (the budget is the same for every body)."""
-    return (S is None and 1 <= H <= WIDE_MAX_H and N > 32 * MAX_SLOTS
-            and wide_smem_bytes(H, N) <= SMEM_PER_BLOCK)
+    forecast or S >= 1 scenarios, at most WIDE_MAX_H rows, past the row
+    layout's 32 * MAX_SLOTS assets, and the adaptive body's plan within a
+    block's shared memory (the budget is the same for every body)."""
+    return ((S is None or S >= 1) and 1 <= H <= WIDE_MAX_H
+            and N > 32 * MAX_SLOTS
+            and wide_smem_bytes(H, N, True, S) <= SMEM_PER_BLOCK)
+
+
+def storage_supports(layout: str, storage: str, S: Optional[int], H: int,
+                     N: int) -> bool:
+    """Whether ``layout``'s kernels take this shape with the scenario
+    returns in ``storage`` (chip_smoke.py launches a storage privately to
+    compare storages): registers in the row layout for one forecast or
+    S ceil(N/32) <= ROWS_REG_SLOTS; resident or streamed in the row and
+    wide-row layouts for S scenarios where the adaptive plan fits."""
+    if layout == "rows" and 1 <= H <= ROWS_MAX_H and 1 <= N <= 32 * MAX_SLOTS:
+        if storage == "registers":
+            return S is None or S * -(-N // 32) <= ROWS_REG_SLOTS
+        return S is not None and storage in STORAGES and S >= 1 and \
+            _rows_plan(S, H, N, True, storage)[0] <= SMEM_PER_BLOCK
+    if layout == "wide" and storage in ("resident", "streamed"):
+        return (S is not None and S >= 1 and 1 <= H <= WIDE_MAX_H
+                and N > 32 * MAX_SLOTS
+                and wide_scen_plan(S, H, N, True, storage)[0]
+                <= SMEM_PER_BLOCK)
+    return False
 
 
 # Where the block layout is faster: the wide layout's warps hide one
@@ -341,17 +490,19 @@ SM_SMEM = 233472
 WIDE_MIN_WARPS = 3
 
 
-def wide_resident_warps(H: int, N: int) -> int:
+def wide_resident_warps(H: int, N: int, S: Optional[int] = None) -> int:
     """Warps of wide-layout CTAs an SM holds at once, by the adaptive
     plan's shared memory (threads and registers bind later at H <= 32)."""
-    return H * (SM_SMEM // (wide_smem_bytes(H, N) + 1024))
+    return H * sm_ctas(wide_smem_bytes(H, N, True, S))
 
 
-def wide_preferred(H: int, N: int) -> bool:
+def wide_preferred(H: int, N: int, S: Optional[int] = None) -> bool:
     """Whether routing takes the wide-row layout over the block layout at a
-    shape the wide layout takes (the block layout takes every such shape:
-    its plan is the smaller)."""
-    return wide_resident_warps(H, N) >= WIDE_MIN_WARPS
+    shape the wide layout takes (for one forecast the block layout takes
+    every such shape: its plan is the smaller). The same rule with the
+    scenario plan for S scenarios, measured at N=150 and N=500
+    (chip_smoke.py's ``layouts``)."""
+    return wide_resident_warps(H, N, S) >= WIDE_MIN_WARPS
 
 
 def layout_supports(layout: str, S: Optional[int], H: int, N: int) -> bool:
@@ -368,26 +519,28 @@ def layout_supports(layout: str, S: Optional[int], H: int, N: int) -> bool:
 
 def kernel_layout(S: Optional[int], H: int, N: int) -> Optional[str]:
     """The layout a CUDA solve of this shape runs in: ``"rows"`` (one CTA
-    per problem, one warp per horizon row) wherever it fits, else
-    ``"warp"`` (one warp per problem, the iterates in registers) where it
-    fits, else ``"wide"`` (one forecast past 128 assets: one CTA per
-    problem, one warp per horizon row, the row in shared memory) where it
-    fits and ``wide_preferred``, else ``"block"`` (one block per problem,
-    the iterates in shared memory), else None. By measurement: the row
-    layout was faster than the warp and block layouts at every shape and
-    batch chip_smoke.py's ``layouts`` phase times (B from 1 to 65536, H
-    from 1 to 20), the wide layout faster than the block layout at N=150
-    and N=500 (B from 1 to 4096), and past 1000 assets for most bodies at
-    B=1028 where ``wide_preferred`` holds (``layouts``; the grid of
-    ``python -m kmpc_tpu_torch.ops.row_slots --wide``). By shape alone, so
-    a batch of one problem at one or two rows past 1000 assets, where the
-    block layout's pipelined and adaptive bodies are faster, runs wide
+    per problem, one warp per horizon row) wherever it fits, which at
+    H <= 32 and N <= 128 is every shape, any S (the warp layout, one warp
+    per problem, is therefore never routed to), else ``"wide"`` (past 128
+    assets: one CTA per problem, one warp per horizon row, the row in
+    shared memory) where it fits and ``wide_preferred``, else ``"block"``
+    (one block per problem, the iterates in shared memory), else
+    ``"wide"`` where it fits (a scenario shape the block layout cannot
+    hold), else None. By measurement: the row layout was faster than the
+    warp and block layouts at every shape and batch chip_smoke.py's
+    ``layouts`` phase times (B from 1 to 65536, H from 1 to 20, S up to
+    501), the wide layout faster than the block layout at N=150 and N=500
+    (B from 1 to 4096, S=16 and 64 too), and past 1000 assets for most
+    bodies at B=1028 where ``wide_preferred`` holds (``layouts``; the grid
+    of ``python -m kmpc_tpu_torch.ops.row_slots --wide``). By shape alone,
+    so a batch of one problem at one or two rows past 1000 assets, where
+    the block layout's pipelined and adaptive bodies are faster, runs wide
     (PERF.md section 6)."""
     for layout in LAYOUTS:
         if layout_supports(layout, S, H, N) and (
-                layout != "wide" or wide_preferred(H, N)):
+                layout != "wide" or wide_preferred(H, N, S)):
             return layout
-    return None
+    return "wide" if layout_supports("wide", S, H, N) else None
 
 
 def _check_params(params: MPCParams, entry: str) -> None:
@@ -685,15 +838,16 @@ def _route(S: Optional[int], H: int, N: int,
     if layout is None:
         eager = ("solve_mpc_log_utility_batch" if S is None
                  else "solve_mpc_log_utility_scenarios")
+        wide = wide_smem_bytes(H, N, True, S, S and "streamed")
         raise ValueError(
-            f"S={S}, H={H}, N={N} exceeds the kernels' budgets: the warp "
-            f"and row layouts need ceil(N/32) <= {MAX_SLOTS} (the warp "
-            f"layout pow2ceil(H) * ceil(N/32) <= {MAX_ROW_ELEMENTS}, the "
-            f"row layout H <= {ROWS_MAX_H}), the wide and block layouts "
-            f"one problem within {SMEM_PER_BLOCK} bytes of shared memory "
-            f"(the wide layout one forecast and H <= {WIDE_MAX_H}), here "
-            f"{block_smem_bytes(S, H, N)} in the block layout; the eager "
-            f"solver {eager} takes any shape"
+            f"S={S}, H={H}, N={N} exceeds the kernels' budgets: the row "
+            f"layout needs ceil(N/32) <= {MAX_SLOTS} and H <= {ROWS_MAX_H} "
+            f"(any S), the wide-row layout H <= {WIDE_MAX_H} and its plan, "
+            f"the scenario returns streamed, within {SMEM_PER_BLOCK} bytes "
+            f"of shared memory (here {wide}), the block layout one problem "
+            f"with its returns within them (here "
+            f"{block_smem_bytes(S, H, N)}); the eager solver {eager} takes "
+            f"any shape"
         )
     body = _body(params)
     return layout, body, _KERNELS[(S is not None, layout, body)]
@@ -712,13 +866,13 @@ def pdhg_log_utility_cuda(
     contract as ``pdhg_log_utility_plain``, for CUDA float32 tensors.
     r [B, H, N] launches kernel A, r [B, S, H, N] kernel B (the
     ``..._scenarios`` sources), in the layout ``kernel_layout`` gives the
-    shape: ``pdhg_log_utility_rows`` where the row layout fits, else the
-    warp layout's ``pdhg_log_utility``, else ``pdhg_log_utility_wide``,
-    else the ``..._block`` kernel; with ``params.adaptive`` the
-    ``..._adaptive`` kernel of each, with the pipelined body
-    (``pipeline_reduces``) the warp layout's ``..._pipe`` kernel or the
-    others' fixed-step kernel. A shape beyond every layout raises
-    ``ValueError``."""
+    shape: ``pdhg_log_utility{,_scenarios}_rows`` where the row layout
+    fits, else ``pdhg_log_utility{,_scenarios}_wide`` where preferred,
+    else the ``..._block`` kernel, else the wide kernel; scenario returns in
+    the storage ``rows_storage`` or ``wide_storage`` gives; with
+    ``params.adaptive`` the ``..._adaptive`` kernel of each, with the
+    pipelined body (``pipeline_reduces``) their fixed-step kernel by a
+    flag. A shape beyond every layout raises ``ValueError``."""
     _check_params(params, "pdhg_log_utility_cuda")
     _check_return_steps(params, return_steps)
     scen = r.dim() == 4
@@ -747,13 +901,27 @@ def pdhg_log_utility_cuda(
                    return_dual, return_steps)
 
 
+def _storage(kernel: CudaKernel, S: int, H: int, N: int) -> str:
+    """The storage routing gives a scenario kernel of the row or wide-row
+    layout."""
+    rows = kernel in (PDHG_LOG_UTILITY_SCENARIOS_ROWS,
+                      PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE)
+    return (rows_storage if rows else wide_storage)(S, H, N)
+
+
 def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
-            w_warm, p_warm, return_dual, return_steps):
+            w_warm, p_warm, return_dual, return_steps, storage=None):
     """Launch ``kernel`` (running ``body``) on checked CUDA tensors and
-    count the launch."""
+    count the launch; a scenario kernel of the row or wide-row layout keeps
+    the returns in ``storage`` (default: the one routing gives the
+    shape)."""
     scen = r.dim() == 4
     B, H, N = r.shape[0], r.shape[-2], r.shape[-1]
     S = r.shape[1] if scen else 0
+    if kernel in _STORAGE_ARG:
+        storage = storage or _storage(kernel, S, H, N)
+    elif storage not in (None, "registers"):
+        raise ValueError(f"{kernel.name} keeps no returns in {storage}")
     schedule = (params.adapt_every if params.adaptive
                 else params.proj_refresh_every)
     w = torch.empty((B, H, N), dtype=torch.float32, device=r.device)
@@ -780,12 +948,17 @@ def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
                 params.over_relax, params.step_scale, params.sigma_scale,
                 int(params.precond), int(params.max_turnover > 0), int(warm),
                 *((int(body == "pipe"),) if kernel in _PIPE_FLAG else ()),
+                *((STORAGES.index(storage),) if kernel in _STORAGE_ARG
+                  else ()),
                 stream,
             )
         if err != 0:
             raise RuntimeError(
                 f"{kernel.name} kernel launch failed: CUDA error {err}")
         kernel.launches += 1
+        if kernel in _STORAGE_ARG:
+            key = (kernel.name, storage)
+            STORAGE_LAUNCHES[key] = STORAGE_LAUNCHES.get(key, 0) + 1
     out = (w, fp) + ((dual,) if return_dual else ())
     return out + ((steps,) if return_steps else ())
 

@@ -43,8 +43,30 @@ each stream the same N x N float32 matrix from L2 repeatedly, for the rate
 this access reaches; and the SASS counts of both layouts' loops (barriers,
 global and shared loads, FFMA).
 
+With ``--scen``, kernel B's warp and block layouts (the scenario
+shapes before the row layout streamed its returns): the warp kernels'
+three bodies (200 iterations of the fixed steps, the pipeline
+configuration and the accurate one) at H=8, N=64 and S = 16, 64, 113 at B=1
+and B=132, each line with S x pow2ceil(H), the chain one warp walks; the
+block kernels at S=16, H=5, N=150 at B=1 and 1028; then a plain streaming
+kernel in which each warp reads its own horizon row of a [B][S][H][N]
+array (S rows of N floats, H * N apart) by 4-byte cp.async with zero-fill
+past N into a three-stage ring of shared memory, 16 / ceil(N/32)
+scenarios a stage, pass after pass: at B=132 S=113 H=8 N=64 (30.5 MB,
+inside L2) with 132 and 264 CTAs, and at two arrays of about 210 MB (past
+L2): B=1028 S=512 H=5 N=20 and B=900 S=113 H=8 N=64; each line with the
+rate it reached.
+
+With ``--digest``, a SHA-256 of the one-forecast wide-row kernels'
+outputs (weights, fixed-point residuals, duals, the adaptive body's steps)
+at the block path's N=150 (B=1028, H=5: fixed, pipelined, adaptive) and at
+bench.py's assets500 (B=4096, H=5, N=500, 1000 pipelined iterations), on
+inputs made with numpy from fixed seeds; it uses only the launch the
+package has had since the wide layout came, so the same script run
+against an earlier checkout (``PYTHONPATH``) gives that tree's digest.
+
     python -m kmpc_tpu_torch.ops.row_slots [--layouts warp,rows] [--wide]
-        [--boundary 1,2,3:1024,1056] [--mv]
+        [--boundary 1,2,3:1024,1056] [--mv] [--scen] [--digest]
 
 One JSON line per measurement; needs the card.
 """
@@ -522,6 +544,187 @@ def time_mv(iters=200):
         print(json.dumps(sass_report(kernel, function)), flush=True)
 
 
+# --scen: kernel B's warp layout at H=8, N=64 over S, at B=1 and 132 (the
+# warp path's shape is S=113, B=132); its block layout at the block path's
+# S=16, H=5, N=150; the three bodies at 200 iterations.
+SCEN_ITERS = 200
+SCEN_BODIES = {
+    "fixed": MPCParams(sigma_scale=2.0, max_iters=SCEN_ITERS),
+    "pipe": MPCParams(sigma_scale=2.0, max_iters=SCEN_ITERS,
+                      proj_refresh_every=16, precond=True,
+                      pipeline_reduces=True),
+    "adaptive": MPCParams(sigma_scale=2.0, max_iters=SCEN_ITERS,
+                          adaptive=True, adapt_every=2, precond=True),
+}
+SCEN_WARP = ((8, 64), (16, 64, 113), (1, 132))       # (H, N), S, B
+SCEN_BLOCK = ((5, 150), 16, (1, 1028))
+# The streaming read: (CTAs, problems B of the array, S, H, N, passes).
+STREAM_CASES = ((132, 132, 113, 8, 64, 20), (264, 132, 113, 8, 64, 20),
+                (1028, 1028, 512, 5, 20, 4), (900, 900, 113, 8, 64, 4))
+STREAM_SRC = r"""
+// Each warp (horizon row t of problem blockIdx.x % B) reads its row of a
+// [B][S][H][N] float array, S rows of N floats H * N apart, by 4-byte
+// cp.async with zero-fill past N into a ring of three shared-memory stages
+// of C = 16 / K scenarios of K * 32 floats, `passes` times over, and sums
+// what it reads so that the loads stay.
+#include <cuda_runtime.h>
+__device__ __forceinline__ void cp4(float* dst, const float* src, bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+template <int K>
+__global__ void stream_rows(const float* r, int B, int S, int H, int N,
+                            int passes, float* out) {
+  extern __shared__ float smem[];
+  constexpr int C = 16 / K, KW = K * 32, STAGE = C * KW;
+  const int lane = threadIdx.x & 31, t = threadIdx.x >> 5;
+  const int b = blockIdx.x % B;
+  float* const ring = smem + t * 3 * STAGE;
+  const int chunks = (S + C - 1) / C, total = chunks * passes;
+  auto issue = [&](int g) {
+    if (g < total) {
+      const int s0 = (g % chunks) * C;
+      float* const dst = ring + (g % 3) * STAGE;
+      for (int s = 0; s < C; ++s)
+        for (int k = 0; k < K; ++k) {
+          const int i = k * 32 + lane;
+          const bool ok = i < N && s0 + s < S;
+          cp4(dst + s * KW + k * 32 + lane,
+              ok ? r + (((size_t)b * S + s0 + s) * H + t) * N + i : r, ok);
+        }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  issue(0);
+  issue(1);
+  float acc = 0.f;
+  for (int g = 0; g < total; ++g) {
+    issue(g + 2);
+    asm volatile("cp.async.wait_group 2;\n" ::);
+    const float* const x = ring + (g % 3) * STAGE;
+    for (int j = 0; j < C * K; ++j) acc += x[j * 32 + lane];
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  if (acc == 1234.5f) out[blockIdx.x] = acc;
+}
+extern "C" int launch_stream_rows(const void* r, int ctas, int B, int S,
+                                  int H, int N, int passes, void* out) {
+  const int K = (N + 31) / 32;
+  const int smem = H * 3 * 16 * 32 * 4;
+  auto run = [&](auto kernel) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         smem);
+    kernel<<<ctas, H * 32, smem>>>(static_cast<const float*>(r), B, S, H, N,
+                                   passes, static_cast<float*>(out));
+    return (int)cudaGetLastError();
+  };
+  if (K == 1) return run(stream_rows<1>);
+  if (K == 2) return run(stream_rows<2>);
+  if (K == 4) return run(stream_rows<4>);
+  return (int)cudaErrorInvalidValue;
+}
+"""
+
+
+def _stream_fn():
+    """The plain streaming kernel, built from STREAM_SRC into the build
+    directory."""
+    import ctypes
+
+    out = BUILD_DIR / "libstream_rows.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        src = BUILD_DIR / "stream_rows.cu"
+        src.write_text(STREAM_SRC)
+        subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)],
+                       check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out)).launch_stream_rows
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _scen_inputs(rng, B, S, H, N):
+    cw = torch.as_tensor(rng.dirichlet(np.ones(N), size=B)
+                         .astype(np.float32), device="cuda")
+    ys = (rng.standard_normal((B, S, H, N)) * 0.01).astype(np.float32)
+    return cw, torch.exp(torch.as_tensor(ys, device="cuda")).contiguous()
+
+
+def time_scen():
+    """One line per (layout, body, S, B): kernel B's warp and block
+    kernels' ms and us an iteration; then one line per streaming case."""
+    rng = np.random.default_rng(113)
+    (H, N), scens, batches = SCEN_WARP
+    cases = [("warp", S, B, H, N) for S in scens for B in batches]
+    (Hb, Nb), Sb, bb = SCEN_BLOCK
+    cases += [("block", Sb, B, Hb, Nb) for B in bb]
+    for layout, S, B, H_, N_ in cases:
+        cw, r = _scen_inputs(rng, B, S, H_, N_)
+        for body, p in SCEN_BODIES.items():
+            kernel = M._KERNELS[(True, layout, body)]
+            ms = cuda_ms(lambda: M._launch(kernel, body, cw, r, p, None,
+                                           None, False, False))
+            print(json.dumps({
+                "phase": "scen", "layout": layout, "body": body,
+                "kernel": kernel.name, "B": B, "S": S, "H": H_, "N": N_,
+                "chain": S * (1 << max(H_ - 1, 0).bit_length()),
+                "iters": p.max_iters, "ms": ms,
+                "us_per_iter": 1e3 * ms / p.max_iters}), flush=True)
+    fn = _stream_fn()
+    for ctas, B, S, H_, N_, passes in STREAM_CASES:
+        x = torch.rand((B, S, H_, N_), device="cuda")
+        out = torch.zeros(ctas, device="cuda")
+
+        def run():
+            err = fn(x.data_ptr(), ctas, B, S, H_, N_, passes,
+                     out.data_ptr())
+            assert err == 0, err
+
+        ms = cuda_ms(run)
+        read = ctas * S * H_ * N_ * 4 * passes
+        print(json.dumps({
+            "phase": "stream", "ctas": ctas, "B": B, "S": S, "H": H_,
+            "N": N_, "array_bytes": x.numel() * 4, "passes": passes,
+            "ms": ms, "us_per_pass": 1e3 * ms / passes,
+            "tb_per_s": read / (ms * 1e-3) / 1e12}), flush=True)
+
+
+# --digest: the one-forecast wide kernels' bits, (label, B, H, N, seed,
+# bodies).
+DIGEST_CASES = (("block_path_N150", 1028, 5, 150, 1150,
+                 ("fixed", "pipe", "adaptive")),
+                ("assets500", 4096, 5, 500, 0, ("pipe",)))
+
+
+def wide_digests() -> dict:
+    """{case_body: SHA-256 hex of the wide kernel's outputs}, through the
+    private launch ``M._launch`` of ``M._KERNELS[(False, "wide", body)]``
+    (whose signature the wide layout has kept since it came)."""
+    import hashlib
+
+    out = {}
+    for label, B, H, N_, seed, bodies in DIGEST_CASES:
+        rng = np.random.default_rng(seed)
+        cw = torch.as_tensor(rng.dirichlet(np.ones(N_), size=B)
+                             .astype(np.float32), device="cuda")
+        ys = (rng.standard_normal((B, H, N_)) * 0.01 + 0.0005)
+        r = torch.exp(torch.as_tensor(ys.astype(np.float32),
+                                      device="cuda")).contiguous()
+        for body in bodies:
+            p = WIDE_BODIES[body]
+            kernel = M._KERNELS[(False, "wide", body)]
+            res = M._launch(kernel, body, cw, r, p, None, None, True,
+                            p.adaptive)
+            torch.cuda.synchronize()
+            h = hashlib.sha256()
+            for x in res:
+                h.update(x.cpu().numpy().tobytes())
+            out[f"{label}_{body}"] = h.hexdigest()
+    return out
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--layouts", default="warp,rows")
@@ -531,14 +734,27 @@ def main(argv=None):
                         help="the wide/block grid alone, at these H and N")
     parser.add_argument("--mv", action="store_true",
                         help="kernel C's block and tile layouts at N=960")
+    parser.add_argument("--scen", action="store_true",
+                        help="kernel B's warp and block layouts, and a "
+                             "streaming read")
+    parser.add_argument("--digest", action="store_true",
+                        help="a digest of the one-forecast wide kernels' "
+                             "outputs")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("row_slots: CUDA is not available")
-    if args.wide or args.boundary or args.mv:
+    if args.wide or args.boundary or args.mv or args.scen or args.digest:
         print(json.dumps({"phase": "device", "smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip()}), flush=True)
+    if args.digest:
+        print(json.dumps({"phase": "wide_digest", **wide_digests()}),
+              flush=True)
+        return
+    if args.scen:
+        time_scen()
+        return
     if args.mv:
         time_mv()
         return

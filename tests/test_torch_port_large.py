@@ -228,10 +228,11 @@ def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
     """Over a grid of (H, N) and every (adaptive, warm, dual): where
     kmpc_tpu's ``_default_tile_b_packed`` admits the shape to its Pallas
     kernel, ``kernel_layout`` names a CUDA kernel; the row layout wherever
-    it fits (only at ceil(N/32) <= 4 and H <= 32), else the warp layout
-    where it fits, else the wide-row layout where it fits (one forecast),
-    never the block layout where any of them does; and the block layout's
-    own budget is its shared memory."""
+    it fits (only at ceil(N/32) <= 4 and H <= 32, any S), else the
+    wide-row layout where it fits and is preferred, else the block layout
+    where it holds the problem, else the wide-row layout where it fits;
+    never the warp layout; and the block layout's own budget is its shared
+    memory."""
     routed = {"warp": 0, "rows": 0, "wide": 0, "block": 0}
     Hs = list(range(1, 25)) + [32, 33, 40, 64, 100, 200]
     Ns = list(range(1, 70, 3)) + [96, 128, 129, 136, 150, 200, 256, 257,
@@ -248,10 +249,13 @@ def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
                 assert layout == "rows", (S, H, N)
             elif warp_fits:
                 assert layout == "warp", (S, H, N)
-            elif M.wide_kernel_supports(S, H, N) and M.wide_preferred(H, N):
+            elif M.wide_kernel_supports(S, H, N) and M.wide_preferred(
+                    H, N, S):
                 assert layout == "wide", (S, H, N)
             elif M.block_smem_bytes(S, H, N) <= M.SMEM_PER_BLOCK:
                 assert layout == "block", (S, H, N)
+            elif M.wide_kernel_supports(S, H, N):
+                assert layout == "wide", (S, H, N)
             for adaptive, warm, dual in FLAGS:
                 extra = 2 * warm + dual + 3 * adaptive
                 if JP._default_tile_b_packed(H, NP, S=S,
@@ -260,8 +264,11 @@ def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
                 assert layout in ("warp", "rows", "wide", "block"), (
                     S, H, N, adaptive, warm, dual)
                 routed[layout] += 1
-    assert routed["block"] > 0 and routed["rows"] > 0
-    assert (routed["wide"] > 0) == (S is None)
+    assert routed["rows"] > 0 and routed["warp"] == 0
+    # At S=256 every shape kmpc_tpu's kernel admits is small enough for the
+    # row layout.
+    assert (routed["block"] > 0 and routed["wide"] > 0) == (
+        S is None or S <= 64)
 
 
 @pytest.mark.parametrize("S", [None, 16])

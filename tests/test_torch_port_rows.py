@@ -129,10 +129,12 @@ def test_rows_layout_shapes_match_pallas(name):
     # layout (129 assets, N=500).
     (None, 32, 128, "rows"), (None, 33, 20, "block"), (None, 5, 129, "wide"),
     (None, 5, 500, "wide"),
-    # Scenario returns past the registers (S * K > 16) in shared memory; a
-    # problem whose returns fit one warp's slice but not the row plan
-    # (the warp layout); past a block's shared memory.
-    (64, 8, 64, "rows"), (113, 8, 64, "warp"), (120, 8, 33, "block"),
+    # Scenario returns past the registers (S * K > 16) resident in shared
+    # memory; past the resident plan, streamed through each warp's ring (the
+    # warp path's S=113 H=8 N=64, which the warp layout took before, and
+    # S=120 H=8 N=33, which the block layout took): the row layout takes
+    # any S.
+    (64, 8, 64, "rows"), (113, 8, 64, "rows"), (120, 8, 33, "rows"),
     (None, 40, 2000, None),
 ])
 def test_routing_table(S, H, N, layout):
@@ -150,20 +152,23 @@ def test_routing_table(S, H, N, layout):
 
 def test_rows_layout_takes_only_four_slots_and_32_rows():
     """Over a grid: the row layout's budget is ceil(N/32) <= 4, H <= 32 and
-    the adaptive plan within a block's shared memory, and every shape it
-    takes routes there; the others go to the warp layout where it fits,
-    else to the wide-row layout where it fits, else to the block layout."""
-    for S in (None, 1, 16, 64):
+    the adaptive plan within a block's shared memory, which the streamed
+    storage meets at any S, and every shape it takes routes there; the
+    others go to the wide-row layout where it fits and is preferred, else
+    to the block layout, else to the wide-row layout where it fits; the
+    warp layout is reached by no shape."""
+    for S in (None, 1, 16, 64, 113, 512, 4096):
         for H in (1, 2, 5, 8, 9, 17, 20, 21, 32, 33):
             for N in (1, 20, 32, 33, 64, 100, 128, 129, 500):
                 fits = M.rows_kernel_supports(S, H, N)
-                assert fits == (H <= 32 and N <= 128 and M.rows_smem_bytes(
-                    S, H, N) <= M.SMEM_PER_BLOCK), (S, H, N)
+                assert fits == (H <= 32 and N <= 128), (S, H, N)
+                assert not fits or M.rows_smem_bytes(
+                    S, H, N) <= M.SMEM_PER_BLOCK
+                wide = M.layout_supports("wide", S, H, N)
                 want = "rows" if fits else (
-                    "warp" if M.layout_supports("warp", S, H, N) else
-                    "wide" if M.layout_supports("wide", S, H, N)
-                    and M.wide_preferred(H, N) else
-                    "block" if M.block_kernel_supports(S, H, N) else None)
+                    "wide" if wide and M.wide_preferred(H, N, S) else
+                    "block" if M.block_kernel_supports(S, H, N) else
+                    "wide" if wide else None)
                 assert M.kernel_layout(S, H, N) == want
 
 
@@ -221,23 +226,38 @@ def test_rows_register_bound_by_warps_of_a_cta():
 
 
 @pytest.mark.parametrize("S,H,N,bytes_", [
-    # [H][K * 32] for p and wbar (and four more adaptive), S * H ratios,
-    # 2 H bounds and residuals; S * K > 16 adds [H][S padded][K * 32].
+    # [H][K * 32] for p and wbar (and four more adaptive), the ratios of a
+    # chunk of min(S, 16 / K) scenarios a row, 2 H bounds and residuals;
+    # S * K > 16 adds the returns resident, [H][S][N], where that lets as
+    # many CTAs share an SM as streaming them would, else each warp's ring
+    # of 3 (or 2) stages of [16 / K][K * 32].
     (None, 5, 20, 4 * (6 * 5 * 32 + 5 + 10)),
     (16, 20, 20, 4 * (6 * 20 * 32 + 16 * 20 + 40)),
-    (17, 20, 20, 4 * (6 * 20 * 32 + 17 * 20 + 40 + 20 * 32 * 32)),
-    (64, 8, 64, 4 * (6 * 8 * 64 + 64 * 8 + 16 + 8 * 64 * 64)),
+    (17, 20, 20, 4 * (6 * 20 * 32 + 16 * 20 + 40 + 20 * 17 * 20)),
+    (64, 5, 20, 4 * (6 * 5 * 32 + 16 * 5 + 10 + 5 * 64 * 20)),
+    (64, 8, 64, 4 * (6 * 8 * 64 + 8 * 8 + 16 + 3 * 8 * 8 * 64)),
     (5, 3, 90, 4 * (6 * 3 * 96 + 5 * 3 + 6)),
-    (6, 3, 90, 4 * (6 * 3 * 96 + 6 * 3 + 6 + 3 * 96 * 10)),
+    (6, 3, 90, 4 * (6 * 3 * 96 + 5 * 3 + 6 + 3 * 6 * 90)),
+    (512, 5, 20, 4 * (6 * 5 * 32 + 16 * 5 + 10 + 3 * 5 * 16 * 32)),
+    (128, 20, 20, 4 * (6 * 20 * 32 + 16 * 20 + 40 + 20 * 128 * 20)),
+    (113, 8, 64, 4 * (6 * 8 * 64 + 8 * 8 + 16 + 3 * 8 * 8 * 64)),
+    (4096, 32, 128, 4 * (6 * 32 * 128 + 4 * 32 + 64 + 2 * 32 * 4 * 128)),
 ])
 def test_rows_shared_memory_plan(S, H, N, bytes_):
     """The wrapper's copy of ``rows_plan`` (chip_smoke.py holds it against
     the built kernel's ``kmpc_rows_smem_bytes``); the fixed-step bodies
-    stage no moves or residual terms."""
+    stage no moves or residual terms (and a streamed ring takes a third
+    stage where the smaller plan leaves room for it). The streamed
+    storage's plan does not grow with S."""
     assert M.rows_smem_bytes(S, H, N) == bytes_
     k = -(-N // 32)
+    deeper = 0
+    if M.rows_storage(S, H, N) == "streamed":
+        deeper = (M.rows_ring_stages(S, H, N, False)
+                  - M.rows_ring_stages(S, H, N)) * 4 * H * 16 * 32
+        assert M.rows_ring_stages(S, H, N, False) == 3
     assert M.rows_smem_bytes(S, H, N, adaptive=False) == \
-        bytes_ - 4 * 4 * H * 32 * k
+        bytes_ - 4 * 4 * H * 32 * k + deeper
     assert M.rows_smem_bytes(S, 32, 128) <= M.SMEM_PER_BLOCK or S
 
 

@@ -79,24 +79,26 @@ def test_wide_shared_memory_plan(H, N, adaptive, floats):
 
 @pytest.mark.parametrize("S", [None, 16])
 def test_routing_grid(S):
-    """Over H 1..40 and N 1..2730: a shape of one forecast reaches the
-    first of rows, warp, wide and block that takes it, the wide layout
-    taking exactly the shapes where H <= 32, N > 128 and its adaptive plan
-    fits a block's shared memory, and passed over for the block layout
-    only where fewer than three of its warps share an SM (H a CTA times the
-    CTAs whose adaptive plans fit an SM's 228 KB, each reserving 1 KB: the
-    measured boundary); scenario shapes route as before this layout
-    existed (rows, warp, block), never to it."""
-    before = ("rows", "warp", "block")
+    """Over H 1..40 and N 1..2730: a shape reaches the first of rows, warp,
+    wide and block that takes it, the wide layout taking exactly the
+    shapes where H <= 32, N > 128 and its adaptive plan (with S scenarios,
+    the returns resident or streamed) fits a block's shared memory, and
+    passed over for the block layout only where fewer than three of its
+    warps share an SM (H a CTA times the CTAs whose adaptive plans fit an
+    SM's 228 KB, each reserving 1 KB: the measured boundary); a scenario
+    shape the block layout cannot hold goes to the wide layout wherever it
+    fits."""
+    before = ("rows", "warp", "block", "wide")
     reached = dict.fromkeys(M.LAYOUTS + (None,), 0)
     for H in range(1, 41):
         for N in range(1, 2731):
             fits = M.layout_supports("wide", S, H, N)
-            assert fits == (S is None and H <= 32 and N > 128 and
-                            M.wide_smem_bytes(H, N) <= M.SMEM_PER_BLOCK)
-            preferred = H * (233472 // (M.wide_smem_bytes(H, N) + 1024)) >= 3
-            assert M.wide_preferred(H, N) == preferred
-            order = M.LAYOUTS if S is None and preferred else before
+            assert fits == (H <= 32 and N > 128 and M.wide_smem_bytes(
+                H, N, True, S) <= M.SMEM_PER_BLOCK)
+            preferred = H * (233472 // (
+                M.wide_smem_bytes(H, N, True, S) + 1024)) >= 3
+            assert M.wide_preferred(H, N, S) == preferred
+            order = M.LAYOUTS if preferred else before
             want = next((lay for lay in order
                          if M.layout_supports(lay, S, H, N)), None)
             got = M.kernel_layout(S, H, N)
@@ -121,7 +123,12 @@ def test_routing_grid(S):
         assert M.kernel_layout(S, 1, 2730) == M.kernel_layout(S, 2, 2730) \
             == "block"
     else:
-        assert reached["wide"] == 0
+        # N=150 and N=500 (S=16) in the wide layout; 33 rows in the block
+        # layout.
+        assert reached["wide"] > 0 and reached["warp"] == 0
+        assert M.kernel_layout(S, 5, 150) == M.kernel_layout(S, 5, 500) \
+            == "wide"
+        assert M.kernel_layout(S, 33, 60) == "block"
 
 
 @pytest.mark.parametrize("params,body", [
@@ -148,7 +155,7 @@ def test_wide_route_and_pinned_launch(params, body):
     with pytest.raises(ValueError, match="the wide layout does not"):
         C.pinned_kernel("wide", torch.ones(2, 5, 128), params)
     with pytest.raises(ValueError, match="the wide layout does not"):
-        C.pinned_kernel("wide", torch.ones(2, 4, 5, 500), params)
+        C.pinned_kernel("wide", torch.ones(2, 4, 33, 500), params)
     cw, ys = _inputs(2, 5, 150, seed=7)
     with pytest.raises(ValueError, match="CUDA tensor"):
         C.pinned("wide", torch.as_tensor(cw), torch.exp(torch.as_tensor(ys)),
