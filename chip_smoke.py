@@ -6,10 +6,10 @@
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
 1. ``build``: the card, torch and CUDA versions, the build of the
-   twenty-five kernel sources (one nvcc per source, started together, from
+   twenty-seven kernel sources (one nvcc per source, started together, from
    the sources in this checkout) with each build's seconds, registers and
    spills (every instantiation but the ladder's), the wrappers' copies
-   of the block, tile, row and wide-row layouts' shared-memory plans (the
+   of the block, tile, lane, ladder, row and wide-row layouts' plans (the
    tile layout's problems a CTA, the row and wide-row layouts' scenario
    storages and rings) against the built kernels', and the one-forecast
    wide-row kernels' bits against WIDE_DIGESTS;
@@ -31,12 +31,18 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    N=129, N=1112, N=480 at H=5, N=128 at H=20; adaptive at N=976 shared
    and H=20 N=64; over-relaxation, cold projections) through its route
    (the tile layout, the block layout at H > 32) with the block kernel
-   beside it; the warp kernel beside every mean-variance case it takes
-   that routing gives the tile layout; the tile layout at its plan's edges
+   beside it; the tile layout at its plan's edges
    (P > 1 with a ragged last CTA, B=1, N off the multiples of 4 and 32,
    Sigma resident and streamed, shared and per problem, up to 32 warps,
    every body and option); every block and tile case run twice and
-   required to give the same bits; the row layout (one warp
+   required to give the same bits; kernel C at one horizon row in the lane
+   layout (Sigma's rows in registers, w broadcast through shared memory,
+   the sweeps in every lane or by the butterfly), every H=1 case through
+   its route, and the lane layout at its plan's edges (N = 1, 20, 30, 31,
+   32, 33, 64, 128; shared and per problem; B=1 and ragged last CTAs;
+   every body and option) in each sweep compiled for N (both up to 32
+   assets, the butterfly past), each run twice for the same bits; the
+   row layout (one warp
    per horizon row) beside the warp and block layouts at every case
    whose shape it takes, run twice for the same bits and compared bit for
    bit with the warp kernel, and at cases of its own (H in {1, 5, 8, 17,
@@ -55,7 +61,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    storage of the returns that takes its shape (registers, resident,
    streamed: the same bits required of all) beside the warp or block
    layout, every body and option;
-   every rung of the MV ladder; then ``layouts``: every layout of kernels
+   every rung of the MV ladder (Sigma's rows in registers and in shared
+   memory; ``proj`` in both sweeps up to 32 assets); then ``layouts``:
+   every layout of kernels
    A and B that takes the shape, timed at the exact scan's (B=1), the
    comparison's (B=1028) and the headline's (B=65536) batch at H=5, at
    H=1, and at the long path's H=20 (B=1013, S=16 too) and bench.py's long
@@ -66,8 +74,10 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    those took before (SCEN_LAYOUT_SHAPES), the layouts' outputs held to one
    another (``hold_layouts``), the routed layout required to be the
    fastest or, where ROUTED_SLOWER names the shape and body, within its
-   bound; and of kernel C (warp, tile and block layouts) at the Markowitz
-   path's shape (H=1, N=20) and at H=5, N=30, at B=1028 and B=1, and at
+   bound; and of kernel C (the lane layout in each sweep compiled for N,
+   warp, tile and block layouts) at the Markowitz path's shape (H=1, N=20) at B=1028 and
+   B=1, bench.py's H=1, N=30 at B=4096 and 65536 (the sweep's switch), at
+   H=5, N=30 at B=1028 and B=1, and at
    the five ``mv_long_wide`` shapes at 200 iterations, the routed layout
    required to be the fastest;
 3. ``nan_row``, ``probe``, ``probe_accurate``: a NaN forecast holds the
@@ -137,7 +147,15 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    gap on the shape's 16 probe instances to a float64 adaptive-PDHG run of
    40000 iterations of the port's eager solver on the card;
 10. ``mv_ladder``: the rungs of the MV ladder at B=4096, N=30, 1000
-   iterations;
+   iterations and at the Markowitz path's B=1028, N=20, 2000; then
+   ``markowitz_headline``: bench.py's ``--mode markowitz`` shape (B=65536,
+   H=1, N=30, a covariance per problem; 1000 iterations at refresh 16, and
+   the adaptive co-row) through the entry point to the lane layout, the
+   warp layout's kernels beside it (launched privately, counted), solves/s,
+   bound, every problem of both bodies held against the plain version (the
+   adaptive one by its tie rules), the 16 probe instances held per
+   instance in the headline's sweep and their objective gap to the float64
+   references in bench_probe_cache.json;
 11. ``headline``, ``accurate_headline``: the solve at B=65536, H=5, N=30,
    at the bench setting (1000 iterations) and at the accurate one (800);
    ``large_headline``: bench.py's ``long`` shape (B=16384, H=20, N=30, 1000
@@ -342,8 +360,12 @@ def rows_bits_part(H, N, params, S=None):
     return ROWS_BITS_TRACED.get((S is not None, hm, k, body))
 
 
+T0 = time.perf_counter()   # the run's start: every line's "t"
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "t": round(time.perf_counter() - T0, 1)}), flush=True)
 
 
 def smi_line() -> str:
@@ -393,6 +415,21 @@ def mv_instance(B, H, N, seed, shared=False, scale=0.05):
     A = rng.standard_normal((N, N) if shared else (B, N, N)) * scale
     sig = A @ np.swapaxes(A, -1, -2) + np.eye(N) * 1e-4
     return cw, mu, sig.astype(np.float32)
+
+
+def mv_instance_cuda(B, H, N, seed, scale=0.01):
+    """``mv_instance``'s distribution (a covariance per problem) made on the
+    card from a seeded torch generator, for batches where numpy's float64
+    product takes seconds: current weights Dirichlet(1) (normalised
+    exponentials), mu ~ 0.01 N(0, 1), Sigma = A A' + 1e-4 I with
+    A ~ scale N(0, 1); float32, the product in full float32."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    e = torch.empty((B, N), device="cuda").exponential_(generator=g)
+    cw = e / e.sum(-1, keepdim=True)
+    mu = torch.randn((B, H, N), generator=g, device="cuda") * 0.01
+    A = torch.randn((B, N, N), generator=g, device="cuda") * scale
+    sig = A @ A.transpose(-1, -2) + 1e-4 * torch.eye(N, device="cuda")
+    return cw, mu, sig
 
 
 def _sweeps(params, N):
@@ -928,7 +965,7 @@ def adaptive_agreement(label, steps_k, steps_p, dw, dp, dobj, w_tol,
 
 def compare_mv_case(label, B, H, N, params, seed, shared=False,
                     scale=0.05, time_reps=3, time_plain=True, layout=None,
-                    problems=None):
+                    problems=None, sweep=None):
     """The mean-variance kernel and its plain version on the same card
     inputs, through the same finalisation."""
     cw_np, mu_np, sig_np = mv_instance(B, H, N, seed, shared, scale)
@@ -936,18 +973,19 @@ def compare_mv_case(label, B, H, N, params, seed, shared=False,
     mu = torch.as_tensor(mu_np, device="cuda")
     sig = torch.as_tensor(sig_np, device="cuda")
     return compare_mv_tensors(label, cw, mu, sig, params, time_reps,
-                              time_plain, layout, problems)
+                              time_plain, layout, problems, sweep)
 
 
 def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
-                       time_plain=True, layout=None, problems=None):
+                       time_plain=True, layout=None, problems=None,
+                       sweep=None):
     """``compare_mv_case`` on given card tensors: current weights [B, N],
     mu [B, H, N] and a covariance [B, N, N] or [N, N]. The kernel routing
     gives the shape, through the entry point; or, with ``layout``, that
     layout's kernel launched privately (``_mv_launch``: a layout routing
-    does not give this shape, or a tile plan's edge with ``problems``
-    problems a CTA). A block- or tile-layout kernel runs twice and must
-    give the same bits."""
+    does not give this shape, a tile plan's edge with ``problems``
+    problems a CTA, or the lane layout with the sweep ``sweep``). A block-,
+    tile- or lane-layout kernel runs twice and must give the same bits."""
     from kmpc_tpu_torch.ops import mv_cuda as V
 
     B, H, N = mu.shape
@@ -966,7 +1004,8 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
 
         def run(ret=steps):
             return V._mv_launch(kernel, cw, mu, sig, params,
-                                return_steps=ret, problems=problems)
+                                return_steps=ret, problems=problems,
+                                sweep=sweep)
     out_k = mv_kernel_twice(label, layout, run)
     out_p = V.pdhg_mean_variance_plain(cw, mu, sig, params,
                                        return_steps=steps)
@@ -978,6 +1017,8 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
     if layout == "tile":
         res["problems_per_cta"] = problems or V.mv_tile_problems(
             B, H, N, shared, params.adaptive)
+    if layout == "lanes":
+        res["sweep"] = sweep or V.mv_lanes_sweep(B, N)
     hold_mv(label, cw, mu, sig, params, out_k, out_p, res)
     res["bound_ms"], res["bound_by"] = mv_bound(B, H, N, params, shared)
     res["kernel_ms"] = cuda_ms(lambda: run(False), time_reps)
@@ -988,12 +1029,12 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
 
 
 def mv_kernel_twice(label, layout, run):
-    """The mean-variance kernel's outputs, ``run()``; a block- or
-    tile-layout kernel runs a second time and must give the same bits (they
-    stage sums and the rows' exchanges in shared memory: a missing barrier
-    shows as a run-to-run difference)."""
+    """The mean-variance kernel's outputs, ``run()``; a block-, tile- or
+    lane-layout kernel runs a second time and must give the same bits (they
+    stage sums, the rows' exchanges or the broadcast vectors in shared
+    memory: a missing barrier shows as a run-to-run difference)."""
     out = run()
-    if layout in ("block", "tile"):
+    if layout in ("block", "tile", "lanes"):
         again = run()
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(out, again)), \
@@ -1017,7 +1058,7 @@ def hold_mv(label, cw, mu, sig, params, out_k, out_p, res):
     wp_f, ip = V._finalize_mv(wp, fpp, mu, sig, cw, params)
     dw_all = (wk_f - wp_f).abs().amax(dim=(1, 2))
     dobj_all = ik["objective"] - ip["objective"]
-    if any(x in res.get("kernel", "") for x in ("block", "tile")):
+    if any(x in res.get("kernel", "") for x in ("block", "tile", "lanes")):
         res["deterministic"] = True
     rest = torch.ones_like(dw_all, dtype=torch.bool)
     held = rest.clone()
@@ -1119,13 +1160,18 @@ def spread_refs(cw, r, params, out_p):
         return ((w.double() - w64).abs().amax(dim=(1, 2)),
                 info["objective"].double() - i64["objective"], w)
 
-    permuted = []
-    for seed in range(-(-SPREAD_MIN_B // r.shape[0])):
-        perm = torch.randperm(r.shape[-1], generator=torch.Generator()
-                              .manual_seed(seed)).to(r.device)
-        o = M.pdhg_log_utility_plain(cw[:, perm].contiguous(),
-                                     r[..., perm].contiguous(), params)
-        permuted.append(distances((o[0][..., torch.argsort(perm)], o[1])))
+    # The permuted copies of the batch in one plain run (the problems are
+    # independent): one launch sequence, not one a permutation.
+    B = r.shape[0]
+    perms = [torch.randperm(r.shape[-1], generator=torch.Generator()
+                            .manual_seed(seed)).to(r.device)
+             for seed in range(-(-SPREAD_MIN_B // B))]
+    o = M.pdhg_log_utility_plain(
+        torch.cat([cw[:, perm] for perm in perms]).contiguous(),
+        torch.cat([r[..., perm] for perm in perms]).contiguous(), params)
+    permuted = [distances((o[0][i * B:(i + 1) * B][..., torch.argsort(perm)],
+                           o[1][i * B:(i + 1) * B]))
+                for i, perm in enumerate(perms)]
     return {"distances": distances, "plain": distances(out_p),
             "permuted": tuple(torch.cat(x) for x in zip(*permuted))}
 
@@ -1283,12 +1329,13 @@ def phase_build():
     for name in SOURCES:
         regs, spills = _ptxas_report(name)
         assert regs, f"{name}: no ptxas report in the build log"
-        if name == "mv_ladder":     # its 72 rungs: the extremes only
+        if name == "mv_ladder":     # its 96 rungs: the extremes only
             regs = {"instantiations": len(regs), "max": max(regs.values())}
         emit("build", kernel=name, seconds=secs[name], registers=regs,
              spill_store_bytes={k: v for k, v in spills.items() if v})
     check_mv_block_plan()
     check_mv_tile_plan()
+    check_mv_lanes_plan()
     check_rows_plan()
     check_wide_plan()
     check_wide_digests()
@@ -1462,6 +1509,56 @@ def check_mv_tile_plan():
         f"the wrapper's tile plan differs from the kernel's: {wrong[:5]}"
     emit("mv_tile_plan", shapes=len(shapes), batches=len(batches),
          agree=True)
+
+
+# The lane layout's plan edges: one slot's row widths (8, 16, 24, 32 floats),
+# two to four slots, the largest per-problem Sigma (three warps a CTA at
+# 128 assets), and past the layout.
+LANES_PLAN_N = (1, 7, 8, 9, 16, 17, 20, 24, 25, 30, 31, 32, 33, 63, 64, 65,
+                96, 97, 100, 112, 113, 127, 128, 129, 200)
+
+
+def check_mv_lanes_plan():
+    """The wrappers' copies of the lane layout's plan (``mv_lanes_plan``:
+    the warps a CTA and its shared memory, which decide whether the lane
+    layout takes a shape) and of the ladder's (``ladder_rows``,
+    ``ladder_block_bytes``: Sigma's rows in registers or its columns in
+    shared memory, a block's bytes) against the values the built kernels
+    launch with, over LANES_PLAN_N, shared and per problem, and the
+    ladder's chains and warps."""
+    import ctypes
+
+    from kmpc_tpu_torch._build import library_path
+    from kmpc_tpu_torch.ops import mv_cuda as V
+    from kmpc_tpu_torch.ops import mv_ladder as D
+
+    lib = ctypes.CDLL(str(library_path("pdhg_mean_variance_lanes")))
+    warps, smem = lib.kmpc_mv_lanes_warps, lib.kmpc_mv_lanes_smem_bytes
+    warps.argtypes, warps.restype = [ctypes.c_int] * 2, ctypes.c_int
+    smem.argtypes, smem.restype = [ctypes.c_int] * 2, ctypes.c_longlong
+    wrong = []
+    for N in LANES_PLAN_N:
+        for sh in (0, 1):
+            plan = V.mv_lanes_plan(N, bool(sh))
+            want = (0, -1) if plan is None else plan
+            if (warps(N, sh), smem(N, sh)) != want:
+                wrong.append((N, sh, want, (warps(N, sh), smem(N, sh))))
+    lad = ctypes.CDLL(str(library_path("mv_ladder")))
+    rows, lsmem = lad.kmpc_mv_ladder_rows, lad.kmpc_mv_ladder_smem_bytes
+    rows.argtypes, rows.restype = [ctypes.c_int] * 2, ctypes.c_int
+    lsmem.argtypes, lsmem.restype = [ctypes.c_int] * 3, ctypes.c_longlong
+    ladder = [(N, c, w) for N in LANES_PLAN_N if N <= 128
+              for c in (1, 2, 4) for w in (1, 2, 4, 8)]
+    for N, c, w in ladder:
+        want = (int(D.ladder_rows(N, c)), D.ladder_block_bytes(N, c, w))
+        if (rows(N, c), lsmem(N, c, w)) != want:
+            wrong.append(("ladder", N, c, w, want, (rows(N, c),
+                                                     lsmem(N, c, w))))
+    assert not wrong, \
+        f"the wrappers' lane or ladder plans differ from the kernels': " \
+        f"{wrong[:5]}"
+    emit("mv_lanes_plan", shapes=2 * len(LANES_PLAN_N),
+         ladder_shapes=len(ladder), agree=True)
 
 
 def _params(**kw):
@@ -1997,6 +2094,39 @@ def phase_kernel_vs_plain():
         record(routed(compare_mv_case(label, B, H, N, p, s,
                                       **dict(kw, time_plain=False))))
 
+    # The lane layout at its plan's edges, pinned, in each sweep compiled
+    # for N (both up to 32 assets, the butterfly past): one slot's row
+    # widths (N = 1, 20, 30, 31, 32; the adaptive body at bench.py's N=30),
+    # two to four slots (N = 33, 64, 128, three warps a CTA with a
+    # per-problem Sigma at 128), shared and per problem, B=1 and ragged last
+    # CTAs (B=7), every body and option (refresh 8 and 16, cold
+    # projections, over-relaxation, adapt_every 1 and 2).
+    seed = 760
+    for name, B, N, shared, kw in (
+            ("N1_B5", 5, 1, False, {}),
+            ("N20_B1", 1, 20, False, {}),
+            ("N20_B1_adaptive_k2", 1, 20, False, dict(
+                adaptive=True, adapt_every=2)),
+            ("N20_shared_B7_refresh16", 7, 20, True, dict(
+                proj_refresh_every=16)),
+            ("N30_B6_adaptive_k2", 6, 30, False, dict(
+                adaptive=True, adapt_every=2)),
+            ("N31_cold_proj", 6, 31, False, dict(proj_warm_iters=0)),
+            ("N32_over_relax", 6, 32, False, dict(over_relax=1.5)),
+            ("N33_shared_adaptive_k1", 5, 33, True, dict(
+                adaptive=True, adapt_every=1)),
+            ("N64_refresh8", 5, 64, False, dict(proj_refresh_every=8)),
+            ("N128_B7", 7, 128, False, {}),
+            ("N128_shared_adaptive_k2", 5, 128, True, dict(
+                adaptive=True, adapt_every=2, over_relax=1.5)),
+    ):
+        seed += 1
+        p = _params(**{"max_iters": 300, "gamma": 5.0, **kw})
+        for sweep in V.mv_lanes_sweeps(N):
+            record(routed(compare_mv_case(
+                f"lanes_{name}_{sweep}", B, 1, N, p, seed, shared=shared,
+                scale=0.01, time_plain=False, layout="lanes", sweep=sweep)))
+
     # C.2: the shapes past the warp layout at the edges of kmpc_tpu's
     # envelope (a per-problem covariance past the warp layout's registers
     # at H=17 and H=340, N=65 and N=112 at H=5, N=88 at H=16; a shared one
@@ -2094,19 +2224,27 @@ def phase_kernel_vs_plain():
     # multiple of the chains; two and four slots per lane.
     from kmpc_tpu_torch.ops import mv_ladder as D
 
+    # Sigma's rows in registers (one and two chains, 24 and 32 floats
+    # wide) and in shared memory (four chains, every rung past 32 assets);
+    # ``proj`` in both sweeps up to 32 assets.
     rungs = [(v, u, c, 4, 61, 30, 203) for v in D.VARIANTS
              for c in D.CHAINS for u in D.UNROLLS]
     rungs += [("proj", 4, 4, 1, 9, 33, 100), ("proj", 1, 2, 2, 7, 100, 60),
-              ("sigma", 4, 1, 8, 70, 64, 60)]
-    for variant, unroll, chains, warps, B, N, iters in rungs:
+              ("sigma", 4, 1, 8, 70, 64, 60), ("proj", 4, 4, 2, 13, 16, 80),
+              ("proj", 4, 2, 4, 11, 20, 80), ("sigma", 1, 4, 2, 9, 8, 80),
+              ("proj", 4, 1, 1, 5, 128, 40)]
+    rungs = [r + (sw,) for r in rungs for sw in (
+        D.LANES_SWEEPS if r[0] == "proj" and r[5] <= 32 else (None,))]
+    for variant, unroll, chains, warps, B, N, iters, sweep in rungs:
         cw, mu, sig = (torch.as_tensor(x, device="cuda").contiguous()
                        for x in D.ladder_inputs(B, N))
         wk = D.mv_ladder_cuda(cw, mu, sig, variant, iters, unroll, chains,
-                              warps)
+                              warps, sweep)
         wp = D.mv_ladder_plain(cw, mu, sig, variant, iters, unroll)
         torch.cuda.synchronize()
         dw = (wk - wp).abs().max().item()
-        label = f"{variant}_u{unroll}c{chains}w{warps}_B{B}N{N}"
+        label = f"{variant}_u{unroll}c{chains}w{warps}_B{B}N{N}" + (
+            f"_{sweep}" if sweep else "")
         assert dw <= MV_W_TOL, f"mv_ladder {label}: weights differ by {dw}"
         assert torch.isfinite(wk).all(), label
         res = {"case": label, "B": B, "N": N, "iters": iters,
@@ -2118,11 +2256,13 @@ def phase_kernel_vs_plain():
 
 def alternating_ms(kernels, run, rounds=2):
     """{layout: [ms, ...]}: ``run(kernel)`` for each of ``kernels`` timed in
-    ``rounds`` rounds of 3 (``cuda_ms``), the layouts alternating."""
+    ``rounds`` rounds of 3 (``cuda_ms``), the layouts alternating; each
+    warmed up once, in the first round."""
     times = {name: [] for name in kernels}
-    for _ in range(rounds):
+    for i in range(rounds):
         for name, kernel in kernels.items():
-            times[name].append(cuda_ms(lambda: run(kernel), 3))
+            times[name].append(cuda_ms(lambda: run(kernel), 3,
+                                       warmup=i == 0))
     return times
 
 
@@ -2353,6 +2493,10 @@ MV_SWITCH_SHAPES = (
 # batches streamed at H=5: the block layout's adaptive body 1.05-1.08x
 # faster.
 MV_ROUTED_SLOWER = {
+    # The lane layout's two sweeps within 1% of each other, either one
+    # faster from run to run (PERF.md section 6): the Markowitz path's
+    # fixed body (B=1028, N=20).
+    (1028, 1, 20, False, "fixed"): 1.05,
     (264, 2, 300, False, "fixed"): 1.15,
     (5, 5, 300, False, "adaptive"): 1.2,
     (5, 5, 320, True, "adaptive"): 1.15,
@@ -2363,13 +2507,17 @@ def mv_layout_shapes():
     """Kernel C's shapes for ``mv_layouts``: (B, H, N, shared, seed,
     bodies, rounds): the Markowitz path's (H=1, N=20; 2000 iterations at
     gamma 1, and its accurate configuration, 800 adaptive) at B=1028 and at
-    the exact scan's B=1; bench.py's Markowitz setting at H=5, N=30 (1000
-    iterations at refresh 16, and 1000 adaptive) at B=1028 and B=1; the
+    the exact scan's B=1; bench.py's Markowitz setting (1000 iterations at
+    refresh 16, and 1000 adaptive) at H=1, N=30 at B=4096 and bench.py's
+    65536 (the lane layout's sweep switch), and at H=5, N=30 at
+    B=1028 and B=1; the
     switches (``MV_SWITCH_SHAPES``, "switch" up to 128 assets, else "wide");
     the five MV_LONG_WIDE shapes at 200 iterations of bench.py's settings,
     one round (``mv_long_wide`` times them at 1000)."""
     return ((1028, 1, 20, False, 410, "path", 2),
             (1, 1, 20, False, 724, "path", 2),
+            (4096, 1, 30, False, 414, "bench", 2),
+            (65536, 1, 30, False, 416, "bench", 1),
             (1028, 5, 30, False, 412, "bench", 2),
             (1, 5, 30, False, 413, "bench", 2)) + tuple(
         (B, H, N, shared, 940 + i, "switch" if N <= 128 else "wide", 2)
@@ -2398,9 +2546,10 @@ def mv_layout_bodies(which):
 
 
 def mv_layouts():
-    """Every layout of kernel C that takes the shape (warp, tile, block), at
-    each of ``mv_layout_shapes`` and body, launched in it (``_mv_launch``),
-    timed in its rounds of 3, the layouts alternating; the layouts' weights
+    """Every layout of kernel C that takes the shape (lanes in each sweep
+    compiled for N, warp, tile, block), at each of ``mv_layout_shapes`` and body,
+    launched in it (``_mv_launch``), timed in its rounds of 3, the layouts
+    alternating; the layouts' weights
     held to the routed layout's at the mean-variance weight bar (every
     problem for fixed steps, all but BEYOND_SHARE of them for the adaptive
     body; at the switches and the wide shapes the adaptive body's share is
@@ -2418,14 +2567,20 @@ def mv_layouts():
         sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
         for body, p in mv_layout_bodies(which).items():
             routed, _ = V._mv_route(H, N, p, shared, B)
-            taken = {lay: V._MV_KERNELS[(lay, p.adaptive)]
+            if routed == "lanes":
+                routed = f"lanes:{V.mv_lanes_sweep(B, N)}"
+            taken = {lay: (V._MV_KERNELS[(lay, p.adaptive)], None)
                      for lay in ("warp", "tile", "block")
                      if (lay != "warp" or V.mv_kernel_supports(H, N))
                      and (lay != "tile"
                           or V.mv_tile_problems(B, H, N, shared, p.adaptive))}
+            if V.mv_kernel_layout(H, N, shared, p.adaptive, B) == "lanes":
+                taken.update({f"lanes:{sw}": (V._MV_KERNELS[(
+                    "lanes", p.adaptive)], sw) for sw in V.mv_lanes_sweeps(N)})
 
-            def run(kernel):
-                return V._mv_launch(kernel, cw, mu, sig, p)
+            def run(kernel_sweep):
+                kernel, sweep = kernel_sweep
+                return V._mv_launch(kernel, cw, mu, sig, p, sweep=sweep)
 
             times = alternating_ms(taken, run, rounds)
             outs = {lay: run(k)[0] for lay, k in taken.items()}
@@ -2716,7 +2871,7 @@ SCENARIOS = 16
 # The kernel each strategy's batched solve must launch on a path (buy-and-
 # hold launches none): the comparison (fixed steps, H=5) and the accurate
 # path; the long path's runs name theirs in LONG_RUNS.
-FIXED_REACH = {"Markowitz": "pdhg_mean_variance",
+FIXED_REACH = {"Markowitz": "pdhg_mean_variance_lanes",
                "DMD": "pdhg_log_utility_rows",
                "KoopmanMPC": "pdhg_log_utility_rows",
                "ScenarioKelly": "pdhg_log_utility_scenarios_rows"}
@@ -3161,7 +3316,7 @@ LONG_RUNS = (
      {"DMD": "pdhg_log_utility_rows",
       "KoopmanMPC": "pdhg_log_utility_rows",
       "ScenarioKelly": "pdhg_log_utility_scenarios_rows",
-      "Markowitz": "pdhg_mean_variance"}),
+      "Markowitz": "pdhg_mean_variance_lanes"}),
     ("accurate_H20", accurate_config, 20, 2, ("KoopmanMPC", "ScenarioKelly"),
      {"KoopmanMPC": "pdhg_log_utility_rows_adaptive",
       "ScenarioKelly": "pdhg_log_utility_scenarios_rows_adaptive"}),
@@ -3909,6 +4064,143 @@ def phase_large_headlines():
         emit("large_headline", **res)
 
 
+# bench.py's ``--mode markowitz``: (B, H, N, probe cache key), per-problem
+# covariances, bench.py's Markowitz settings (``mv_settings``).
+MARKOWITZ = (65536, 1, 30, "mv_H1_N30_n16_seed1241_f64pdhg")
+
+
+def phase_markowitz():
+    """bench.py's ``--mode markowitz`` shape (B=65536, H=1, N=30, a
+    covariance per problem) at both of its settings (1000 iterations at
+    refresh 16, and the adaptive co-row at ``adapt_every=2``): first the
+    path, through ``solve_mpc_mean_variance_packed`` (the lane layout) with
+    the warp layout's kernel launched privately on the same inputs, counts
+    from 0; then the entry point's, the routed kernel's and the warp
+    kernel's times (CUDA-event median of 3), the plain version's (one
+    run), solves/s, the bound and its share; the routed kernel held
+    against the plain version on every problem by the mean-variance bars
+    (``hold_mv``: the adaptive body by its tie rules), the warp kernel by
+    the weight bar with fixed steps; on bench.py's 16 probe instances (seed
+    1241) the lane kernel in the headline's sweep (``mv_lanes_sweep`` at
+    B=65536) and the warp kernel held against the plain version per
+    instance by the mean-variance bars, and the objective gap to the
+    float64 references in
+    bench_probe_cache.json (read only; a missing key raises). Returns
+    (launches, the warp kernels' cases, every case by kernel)."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    B, H, N, key = MARKOWITZ
+    ref = np.asarray(json.loads((ROOT / "bench_probe_cache.json")
+                                .read_text())[key])
+    cw, mu, sig = mv_instance_cuda(B, H, N, 1240)
+    sym = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+    pcw, pys, psig = mv_probe_instances(H, N)
+    settings = mv_settings()
+
+    counters = kernel_counters()
+    for k in counters.values():
+        k.launches = 0
+    solved = {}
+    for body, p in settings.items():
+        layout, kernel = V._mv_route(H, N, p, False, B)
+        assert layout == "lanes", (body, layout)
+        warp = V._MV_KERNELS[("warp", p.adaptive)]
+        w, info = V.solve_mpc_mean_variance_packed(cw, mu, sig, p)
+        solved[body] = (w, info, V._mv_launch(warp, cw, mu, sym, p)[0])
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()
+                if k.launches}
+    want = {V._MV_KERNELS[(lay, a)].name: 1 for lay in ("lanes", "warp")
+            for a in (False, True)}
+    assert launches == want, (launches, want)
+    for body, (w, info, w_warp) in solved.items():
+        for x in (w, w_warp):
+            assert simplex_error(x) <= FEAS_TOL and bool((x >= 0).all()), \
+                (body, simplex_error(x))
+        assert bool(info["converged"].all()), body
+
+    first, cases = {}, {}
+    for body, p in settings.items():
+        _, kernel = V._mv_route(H, N, p, False, B)
+        warp = V._MV_KERNELS[("warp", p.adaptive)]
+        bound_ms, bound_by = mv_bound(B, H, N, p, False)
+        entry_ms = cuda_ms(lambda: V.solve_mpc_mean_variance_packed(
+            cw, mu, sig, p), 3)
+        kernel_ms = cuda_ms(lambda: V.pdhg_mean_variance_cuda(
+            cw, mu, sym, p), 3)
+        warp_ms = cuda_ms(lambda: V._mv_launch(warp, cw, mu, sym, p), 3)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out_p = V.pdhg_mean_variance_plain(cw, mu, sym, p)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        # The routed kernel, the instantiation timed above, held against
+        # the plain version on every problem by the mean-variance bars (the
+        # adaptive body by its tie rules, its step histories returned);
+        # the warp kernel by the weight bar with fixed steps.
+        if p.adaptive:
+            out_p = V.pdhg_mean_variance_plain(cw, mu, sym, p,
+                                               return_steps=True)
+        held = {}
+        hold_mv(f"markowitz_full_batch_{body}", cw, mu, sym, p,
+                V._mv_launch(kernel, cw, mu, sym, p,
+                             return_steps=p.adaptive), out_p, held)
+        held.update(case=f"markowitz_full_batch_{body}", B=B, H=H, N=N,
+                    iters=p.max_iters)
+        full = {kernel.name: held["max_abs_dw"]}
+        wp_f, _ = V._finalize_mv(*out_p[:2], mu, sym, cw, p)
+        wk_f, _ = V._finalize_mv(*V._mv_launch(warp, cw, mu, sym, p),
+                                 mu, sym, cw, p)
+        full[warp.name] = (wk_f - wp_f).abs().max().item()
+        if not p.adaptive:
+            assert full[warp.name] <= MV_W_TOL, (body, full[warp.name])
+        torch.cuda.synchronize()
+
+        # The probe: bench.py's 16 instances, each kernel held against the
+        # plain version per instance; the routed kernel's objective gap.
+        t = [torch.as_tensor(x, device="cuda") for x in (pcw, pys, psig)]
+        res = compare_mv_tensors(f"markowitz_probe_{body}", *t, p,
+                                 time_reps=1, time_plain=False,
+                                 layout="lanes", sweep=V.mv_lanes_sweep(B, N))
+        res_w = compare_mv_tensors(f"warp_markowitz_probe_{body}", *t, p,
+                                   time_reps=1, time_plain=False,
+                                   layout="warp")
+        w_probe, info_probe = V.solve_mpc_mean_variance_packed(
+            *(torch.as_tensor(x) for x in (pcw, pys, psig)), p)
+        gap = mv_min_objective(w_probe.cpu().numpy(), pys, psig, pcw) - ref
+        assert np.all(np.isfinite(gap)), gap
+        common = {"B": B, "H": H, "N": N, "iters": p.max_iters,
+                  "plain_ms": plain_ms, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "plain_batch": len(pcw)}
+        res["probe_sweep"] = res.pop("sweep")
+        res.update(common, kernel_ms=kernel_ms, entry_ms=entry_ms,
+                   solves_per_s=B / (entry_ms / 1e3),
+                   kernel_solves_per_s=B / (kernel_ms / 1e3),
+                   bound_share=bound_ms / kernel_ms, warp_ms=warp_ms,
+                   warp_over_lanes=warp_ms / kernel_ms,
+                   sweep=V.mv_lanes_sweep(B, N),
+                   max_abs_dw_full_batch=full[kernel.name],
+                   full_batch={k: v for k, v in held.items()
+                               if k not in ("unsettled", "case")},
+                   reference="f64_adaptive_pdhg", probe_instances=len(gap),
+                   median_gap=float(np.median(gap)),
+                   p90_gap=float(np.quantile(gap, 0.9)),
+                   max_gap=float(np.max(gap)),
+                   probe_converged=float(info_probe["converged"].float()
+                                         .mean().item()))
+        res_w.update(common, kernel_ms=warp_ms,
+                     bound_share=bound_ms / warp_ms,
+                     max_abs_dw_full_batch=full[warp.name])
+        emit("markowitz_headline", body=body, **res)
+        emit("markowitz_headline_warp", body=body, **res_w)
+        cases.setdefault(kernel.name, []).extend((res, held))
+        cases.setdefault(warp.name, []).append(res_w)
+        first[warp.name] = res_w
+    return launches, first, cases
+
+
 def ladder_ops(B, N, iters, variant) -> float:
     """FP32 operations of one ladder rung: per element and iteration 4 for
     ``carry``; else 2 N for Sigma w, 5 for the step, 7 for the clamp, the
@@ -3918,26 +4210,40 @@ def ladder_ops(B, N, iters, variant) -> float:
     return float(B) * N * (iters * per + 2 * N)
 
 
+# The ladder's shapes: (B, N, iterations): its default, then the Markowitz
+# path's (the comparison's B=1028, N=20, 2000 iterations). The first gives
+# the kernels line its case.
+LADDER_SHAPES = ((4096, 30, 1000), (1028, 20, 2000))
+
+
 def phase_mv_ladder():
-    """The MV ladder's rungs through its entry point; returns the launch
-    count and the ``proj`` rung's case for the kernels line."""
+    """The MV ladder's rungs through its entry point at LADDER_SHAPES;
+    returns the launch count and the first shape's ``proj`` rung's case for
+    the kernels line."""
     from kmpc_tpu_torch.ops import mv_ladder as D
 
-    B, N, iters = 4096, 30, 1000
     D.MV_LADDER.launches = 0
-    rows = D.run_ladder(B, N, iters, reps=5)
+    for B, N, iters in LADDER_SHAPES:
+        rows = D.run_ladder(B, N, iters, reps=5)
+        assert len(rows) == len(D.RUNGS)
+        assert all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows)
+        for r in rows:
+            bytes_ms = 4.0 * B * (3 * N + N * N) / PEAK_HBM_BYTES * 1e3
+            ops_ms = ladder_ops(B, N, iters, r["variant"]) \
+                / PEAK_FP32_FLOPS * 1e3
+            r["bound_ms"] = max(bytes_ms, ops_ms)
+            r["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+        emit("mv_ladder", B=B, N=N, iters=iters,
+             sweep=D.mv_lanes_sweep(B, N),
+             rows_in_registers={c: D.ladder_rows(N, c) for c in D.CHAINS},
+             rungs=rows)
+        if (B, N, iters) == LADDER_SHAPES[0]:
+            first = rows
     launches = D.MV_LADDER.launches
-    assert len(rows) == len(D.RUNGS) and launches == 6 * len(D.RUNGS)
-    assert all(np.isfinite(r["ms"]) and r["ms"] > 0 for r in rows)
-    for r in rows:
-        bytes_ms = 4.0 * B * (3 * N + N * N) / PEAK_HBM_BYTES * 1e3
-        ops_ms = ladder_ops(B, N, iters, r["variant"]) / PEAK_FP32_FLOPS * 1e3
-        r["bound_ms"] = max(bytes_ms, ops_ms)
-        r["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
-    emit("mv_ladder", B=B, N=N, iters=iters, launches=launches, rungs=rows)
-
-    rung = next(r for r in rows if (r["variant"], r["unroll"], r["chains"],
-                                    r["warps"]) == ("proj", 4, 1, 4))
+    assert launches == 6 * len(D.RUNGS) * len(LADDER_SHAPES), launches
+    B, N, iters = LADDER_SHAPES[0]
+    rung = next(r for r in first if (r["variant"], r["unroll"], r["chains"],
+                                     r["warps"]) == ("proj", 4, 1, 4))
     cw, mu, sig = (torch.as_tensor(x, device="cuda").contiguous()
                    for x in D.ladder_inputs(B, N))
     wk = D.mv_ladder_cuda(cw, mu, sig, "proj", iters)
@@ -4016,6 +4322,9 @@ KERNELS = {
     "pdhg_mean_variance_tile": (_MV + "_tile.cu", _PALLAS + ":1089"),
     "pdhg_mean_variance_tile_adaptive": (_MV + "_tile_adaptive.cu",
                                          _PALLAS + ":1196"),
+    "pdhg_mean_variance_lanes": (_MV + "_lanes.cu", _PALLAS + ":1089"),
+    "pdhg_mean_variance_lanes_adaptive": (_MV + "_lanes_adaptive.cu",
+                                          _PALLAS + ":1196"),
     "pdhg_log_utility_scenarios_wide": (_LOG + "_scenarios_wide.cu",
                                         _PALLAS + ":226"),
     "pdhg_log_utility_scenarios_wide_adaptive": (
@@ -4077,6 +4386,9 @@ def main():
         cases[name] += [c for c in rows if c is not mv_first[name]]
     ladder_launches, ladder_case = phase_mv_ladder()
     done("mv")
+    mk_launches, mk_first, mk_cases = phase_markowitz()
+    for name, rows in mk_cases.items():
+        cases[name] += [c for c in rows if c is not mk_first.get(name)]
     phase_headline()
     phase_large_headlines()
     done("headlines")
@@ -4102,7 +4414,8 @@ def main():
             (long_launches, long_first), (warp_launches, warp_first),
             (block_launches, block_first), (scen_launches, scen_first),
             (mv_launches, mv_first),
-            ({"mv_ladder": ladder_launches}, {"mv_ladder": ladder_case})):
+            ({"mv_ladder": ladder_launches}, {"mv_ladder": ladder_case}),
+            (mk_launches, mk_first)):
         for name, n in phase_launches.items():
             if n:
                 launches.setdefault(name, n)
@@ -4136,7 +4449,8 @@ def main():
                     "kernel_apart_from_float64",
                     "plain_apart_from_float64", "unsettled_apart",
                     "kernel_unsettled_apart", "plain_unsettled_apart")}})
-        if any(x in name for x in ("block", "rows", "wide", "tile")):
+        if any(x in name for x in ("block", "rows", "wide", "tile",
+                                   "lanes")):
             entry["deterministic_cases"] = sum(
                 1 for c in every if c.get("deterministic"))
         if "wide" in name or "tile" in name:

@@ -63,7 +63,27 @@ SOURCES = {
     "pdhg_mean_variance_tile": "pdhg_mean_variance_tile.cu",
     "pdhg_mean_variance_tile_adaptive":
         "pdhg_mean_variance_tile_adaptive.cu",
+    "pdhg_mean_variance_lanes": "pdhg_mean_variance_lanes.cu",
+    "pdhg_mean_variance_lanes_adaptive":
+        "pdhg_mean_variance_lanes_adaptive.cu",
 }
+
+
+# The sources whose builds take longest (alone on the H100 machine's 8
+# cores: mv_ladder 84 s, pdhg_log_utility_scenarios_wide 54 s,
+# pdhg_log_utility_scenarios_rows 50 s; every other one under 40 s; all 27
+# together 423 CPU seconds, 119 s of wall time, the ladder last) split their
+# device compilation over threads (nvcc's and ptxas' --split-compile; the
+# ladder's registers and spills measured the same), so that the cores the
+# shorter builds leave idle shorten them.
+SLOWEST = ("mv_ladder", "pdhg_log_utility_scenarios_wide",
+           "pdhg_log_utility_scenarios_rows")
+SPLIT_FLAGS = ["--split-compile=0", "-Xptxas", "--split-compile=0"]
+
+
+def nvcc_flags(name: str) -> List[str]:
+    """NVCC_FLAGS, and SPLIT_FLAGS for the SLOWEST sources."""
+    return NVCC_FLAGS + (SPLIT_FLAGS if name in SLOWEST else [])
 
 
 def find_nvcc() -> str:
@@ -85,7 +105,7 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags(name)).encode())
     for src in [CSRC / SOURCES[name], *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
@@ -99,7 +119,7 @@ def _start(name: str):
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [find_nvcc(), *nvcc_flags(name), "-o", str(tmp),
            str(CSRC / SOURCES[name])]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)

@@ -20,9 +20,13 @@ matrix shared by the batch ([N, N] or [1, N, N]); it is symmetrised first.
 
 Three layouts, chosen by the shape and, where the tile layout streams a
 shared Sigma, the batch (``mv_kernel_layout``, as ``chip_smoke.py``'s
-``mv_layouts`` measured them): one warp per problem with one row in
-registers and Sigma in shared memory (``csrc/pdhg_mean_variance.cu``,
-``..._adaptive.cu``) at H=1 up to 128 assets; the tile layout
+``mv_layouts`` measured them): the lane layout at H=1 up to 128 assets
+(``csrc/pdhg_mean_variance_lanes.cu``, ``..._lanes_adaptive.cu``: one warp
+per problem, Sigma's row in the lane's registers up to 32 assets, else
+Sigma in shared memory, w broadcast through a per-warp shared vector, the
+threshold's sweeps summed in every lane up to ``LANES_INLANE_MAX_B``
+problems of at most 32 assets, else by the warp butterfly:
+``mv_lanes_sweep``); the tile layout
 (``csrc/pdhg_mean_variance_tile.cu``, ``..._tile_adaptive.cu``: one warp
 per (problem, horizon row), P problems a CTA, the product Sigma W taken by
 the whole CTA with one Sigma a CTA, resident or streamed through a ring of
@@ -36,7 +40,11 @@ is staged beside them where it fits, else read from global memory); else
 the tile layout where its plan fits; else ``ValueError`` naming
 ``solve_mpc_mean_variance_batch``. Together they take every shape
 kmpc_tpu's wrapper sends to its Pallas kernel (a working set within 8 MiB
-at the 128-lane tile).
+at the 128-lane tile). The warp layout before the lane layout
+(``csrc/pdhg_mean_variance.cu``, ``..._adaptive.cu``: one warp per problem,
+Sigma in shared memory, w broadcast by shuffles, the sweeps by butterflies)
+takes the same shapes and is launched only by ``_mv_launch``, to be
+compared with it.
 
 A CUDA tensor launches a kernel or raises; a CPU tensor runs
 ``pdhg_mean_variance_plain``. ``allow_short`` raises here: a caller who
@@ -99,6 +107,14 @@ PDHG_MEAN_VARIANCE_TILE = CudaKernel(
 PDHG_MEAN_VARIANCE_TILE_ADAPTIVE = CudaKernel(
     "pdhg_mean_variance_tile_adaptive",
     "kmpc_pdhg_mean_variance_tile_adaptive", [_P] * 6 + _TILE_ARGTYPES)
+# The lane layout (one horizon row), with the tile kernels' C interface:
+# the sweep (1 in every lane, 0 by the warp butterfly) after ``shared``.
+PDHG_MEAN_VARIANCE_LANES = CudaKernel(
+    "pdhg_mean_variance_lanes", "kmpc_pdhg_mean_variance_lanes",
+    [_P] * 5 + _TILE_ARGTYPES)
+PDHG_MEAN_VARIANCE_LANES_ADAPTIVE = CudaKernel(
+    "pdhg_mean_variance_lanes_adaptive",
+    "kmpc_pdhg_mean_variance_lanes_adaptive", [_P] * 6 + _TILE_ARGTYPES)
 # (layout, adaptive) -> kernel
 _MV_KERNELS = {
     ("warp", False): PDHG_MEAN_VARIANCE,
@@ -107,6 +123,8 @@ _MV_KERNELS = {
     ("block", True): PDHG_MEAN_VARIANCE_BLOCK_ADAPTIVE,
     ("tile", False): PDHG_MEAN_VARIANCE_TILE,
     ("tile", True): PDHG_MEAN_VARIANCE_TILE_ADAPTIVE,
+    ("lanes", False): PDHG_MEAN_VARIANCE_LANES,
+    ("lanes", True): PDHG_MEAN_VARIANCE_LANES_ADAPTIVE,
 }
 MV_KERNELS = tuple(_MV_KERNELS.values())
 
@@ -125,6 +143,64 @@ def mv_kernel_supports(H: int, N: int) -> bool:
     shared memory."""
     return (H == 1 and kernel_supports(H, N)
             and mv_smem_bytes(N) <= SMEM_PER_BLOCK)
+
+
+# The lane layout's plan (``mv_lanes_plan`` in
+# csrc/pdhg_mean_variance_lanes.cuh, whose values the built library reports
+# as ``kmpc_mv_lanes_warps`` and ``kmpc_mv_lanes_smem_bytes``).
+LANES_MAX_WARPS = 4
+
+
+def _lanes_vec(N: int) -> int:
+    """Floats of a warp's broadcast vector: N rounded up to 8 within one
+    slot, else the slots' 32 lanes each."""
+    K = -(-N // 32)
+    return -(-N // 8) * 8 if K == 1 else 32 * K
+
+
+def mv_lanes_plan(N: int, shared: bool) -> Optional[Tuple[int, int]]:
+    """(warps a CTA, bytes of shared memory a CTA) of the lane layout, or
+    None where it does not take N: each warp's two vectors (w, and the
+    in-lane sweep's staged values, ``_lanes_vec`` floats each); past 32 assets
+    Sigma as N columns of 32 ceil(N/32) floats, per warp (as many
+    warps, up to four, as fit a block) or once a CTA when shared. Up to 32
+    assets Sigma's rows lie in the lanes' registers."""
+    K = -(-N // 32)
+    if N < 1 or K > MAX_SLOTS:
+        return None
+    vec = 2 * _lanes_vec(N)
+    sig = 0 if K == 1 else N * 32 * K
+    warps = LANES_MAX_WARPS
+    if not shared and sig:
+        warps = min(warps, SMEM_PER_BLOCK // 4 // (vec + sig))
+    floats = warps * vec + (sig if shared else warps * sig)
+    if warps < 1 or 4 * floats > SMEM_PER_BLOCK:
+        return None
+    return warps, 4 * floats
+
+
+# The lane layout's two sweeps of the simplex threshold: in every lane
+# (each lane sums the staged active values: no butterfly on the
+# iteration's chain), or by the warp butterfly (the work spread over the
+# lanes: a ballot count and a five-level sum). ``chip_smoke.py``'s
+# ``mv_layouts`` measured the in-lane sweep faster at one slot up to
+# B=1028 (where one warp's chain sets the pace) and the butterfly faster
+# at B=4096 and past (where the issue slots do); no batch between was
+# measured, and the switch sits at the last batch measured in-lane's
+# (PERF.md section 6). Past one slot the staged vector is 32 K floats a
+# sweep: the butterfly is taken, and the in-lane sweep is not compiled.
+LANES_SWEEPS = ("inlane", "butterfly")
+LANES_INLANE_MAX_B = 1028
+
+
+def mv_lanes_sweeps(N: int) -> Tuple[str, ...]:
+    """The sweeps the lane layout is compiled with at N assets."""
+    return LANES_SWEEPS if N <= 32 else ("butterfly",)
+
+
+def mv_lanes_sweep(B: int, N: int) -> str:
+    """The sweep the lane layout runs for B problems of N assets."""
+    return "inlane" if B <= LANES_INLANE_MAX_B and N <= 32 else "butterfly"
 
 
 def _mv_block_iterate_floats(H: int, N: int) -> int:
@@ -262,15 +338,16 @@ def mv_kernel_layout(H: int, N: int, shared: bool = False,
                      adaptive: bool = False, B: int = 1) -> Optional[str]:
     """The layout a CUDA mean-variance solve of B problems of this shape
     runs in, as measured fastest (``chip_smoke.py``'s ``mv_layouts``):
-    ``"warp"`` where ``mv_kernel_supports`` (one row of at most 128
-    assets); else ``"tile"`` where its plan takes the batch
+    ``"lanes"`` at one horizon row where its plan takes N (at most 128
+    assets: ``mv_lanes_plan``; the warp layout, which takes the same
+    shapes, measured slower); else ``"tile"`` where its plan takes the batch
     (``mv_tile_problems``) and holds Sigma resident, or streams it at
     H >= TILE_STREAM_H or with a shared Sigma for more than TILE_SMS
     problems; else ``"block"`` where one problem's iterates fit a block's
     shared memory; else ``"tile"`` where its plan takes the batch; else
     None."""
-    if mv_kernel_supports(H, N):
-        return "warp"
+    if H == 1 and mv_lanes_plan(N, shared) is not None:
+        return "lanes"
     tile = mv_tile_problems(max(B, 1), H, N, shared, adaptive) > 0
     if tile and (not mv_tile_streams(H, N, adaptive) or H >= TILE_STREAM_H
                  or (shared and B > TILE_SMS)):
@@ -391,8 +468,9 @@ def _mv_route(H: int, N: int, params: MPCParams, shared: bool = False,
     if layout is None:
         raise ValueError(
             f"H={H}, N={N} exceeds the mean-variance kernels' budgets: the "
-            f"warp layout needs H = 1 and ceil(N/32) <= {MAX_SLOTS}, the "
-            f"tile layout H <= "
+            f"lane layout needs H = 1 and ceil(N/32) <= {MAX_SLOTS} (its "
+            f"Sigma within {SMEM_PER_BLOCK} bytes of shared memory past 32 "
+            f"assets), the tile layout H <= "
             f"{TILE_MAX_WARPS} and its plan within {SMEM_PER_BLOCK} bytes "
             "of shared memory, the block layout one problem's iterates "
             f"within them, here {mv_block_smem_bytes(H, N)}; the eager "
@@ -409,10 +487,12 @@ def pdhg_mean_variance_cuda(
 ):
     """One launch of a CUDA kernel on the current stream: the contract of
     ``pdhg_mean_variance_plain``, for CUDA float32 tensors.
-    ``pdhg_mean_variance`` (``..._adaptive`` with ``params.adaptive``),
-    ``..._tile`` or ``..._block`` (``..._tile_adaptive``,
+    ``pdhg_mean_variance_lanes`` (``..._lanes_adaptive`` with
+    ``params.adaptive``), ``..._tile`` or ``..._block`` (``..._tile_adaptive``,
     ``..._block_adaptive``) as ``mv_kernel_layout`` routes the batch, else
-    ``ValueError``."""
+    ``ValueError``. The warp layout's kernels (``pdhg_mean_variance``,
+    ``..._adaptive``) take the lane layout's shapes and are launched only by
+    ``_mv_launch``, to be compared with it."""
     _check_params(params, "pdhg_mean_variance_cuda")
     _check_return_steps(params, return_steps)
     if mu.dim() != 3 or current_weights.shape != (mu.shape[0], mu.shape[2]):
@@ -433,16 +513,28 @@ def pdhg_mean_variance_cuda(
 
 
 def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
-               return_steps=False, problems=None):
+               return_steps=False, problems=None, sweep=None):
     """Launch ``kernel`` (any of ``MV_KERNELS`` whose body matches
     ``params.adaptive``) on checked CUDA tensors and count the launch; a
     tile kernel takes the problems a CTA its library chooses for the batch
     (``mv_tile_problems``), or ``problems`` where given (a plan's edge, for
-    a check)."""
+    a check); a lane kernel the sweep ``mv_lanes_sweep`` gives the batch,
+    or ``sweep`` (one of ``mv_lanes_sweeps(N)``) where given."""
     B, H, N = mu.shape
     shared = int(Sigma.dim() == 2)
     tile = kernel in (PDHG_MEAN_VARIANCE_TILE,
                       PDHG_MEAN_VARIANCE_TILE_ADAPTIVE)
+    lanes = kernel in (PDHG_MEAN_VARIANCE_LANES,
+                       PDHG_MEAN_VARIANCE_LANES_ADAPTIVE)
+    extra = ()
+    if tile:
+        extra = (problems or 0,)
+    elif lanes:
+        sweep = sweep or mv_lanes_sweep(B, N)
+        if sweep not in mv_lanes_sweeps(N):
+            raise ValueError(f"sweep {sweep!r} not in {mv_lanes_sweeps(N)} "
+                             f"at N={N}")
+        extra = (int(sweep == "inlane"),)
     w = torch.empty_like(mu)
     fp = torch.empty(B, dtype=torch.float32, device=mu.device)
     steps = torch.empty((B, 6), dtype=torch.float32, device=mu.device) \
@@ -461,8 +553,7 @@ def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
             w.data_ptr(), fp.data_ptr(),
             *((None if steps is None else steps.data_ptr(),)
               if params.adaptive else ()),
-            B, H, N, shared,
-            *((problems or 0,) if tile else ()),
+            B, H, N, shared, *extra,
             params.max_iters, schedule, warm_iters,
             cold_iters, params.cost_coeff, params.gamma, params.over_relax,
             params.step_scale, params.sigma_scale, int(warm), stream,

@@ -1,9 +1,12 @@
 """Attribution ladder of the mean-variance H=1 PDHG loop on the card.
 
 Port of scripts/mv_ladder.py (its Pallas ``make_kernel`` / ``run``): stripped
-H=1 bodies in the loop shape of the production mean-variance kernel
-(``csrc/pdhg_mean_variance.cuh``), timed one against the other so that an
-iteration's cost splits into
+H=1 bodies in the loop shape of the production mean-variance kernel at one
+horizon row, the lane layout (``csrc/pdhg_mean_variance_lanes.cuh``: w
+broadcast through a per-warp shared vector, Sigma's row in registers up to
+32 assets, the sweep summed in every lane or by the butterfly as the
+wrapper routes the lane layout at the batch, ``mv_lanes_sweep``), timed one
+against the other so that an iteration's cost splits into
 
     carry   the loop's floor (one multiply-add per iterate, no reduction),
     sigma   + the quadratic gradient Sigma w (projection: a clamp at 0),
@@ -21,6 +24,10 @@ output is the loop's last ``w``.
 
     python -m kmpc_tpu_torch.ops.mv_ladder [--batch 4096] [--iters 1000]
         [--N 30] [--cpu]
+
+(the paths' shapes: ``--batch 1028 --N 20 --iters 2000``, the comparison's
+Markowitz solve; ``--batch 1 --N 20 --iters 800``, the exact scan's;
+``--batch 65536 --N 30 --iters 1000``, bench.py's ``--mode markowitz``)
 
 prints one line per rung: milliseconds, microseconds per iteration, solves
 per second. ``carry``'s time is the card's floor for this loop shape. A
@@ -41,13 +48,14 @@ import torch
 
 from kmpc_tpu_torch._build import CudaKernel
 from kmpc_tpu_torch.ops.mpc_cuda import SMEM_PER_BLOCK, _require_cuda_f32
+from kmpc_tpu_torch.ops.mv_cuda import LANES_SWEEPS, mv_lanes_sweep
 from kmpc_tpu_torch.ops.projections import michelot_sweep
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 MV_LADDER = CudaKernel(
     "mv_ladder", "kmpc_mv_ladder",
-    [_P] * 4 + [_I] * 7 + [_F] * 3 + [_P],
+    [_P] * 4 + [_I] * 8 + [_F] * 3 + [_P],
 )
 
 VARIANTS = ("carry", "sigma", "proj")
@@ -79,10 +87,35 @@ def ladder_inputs(B: int, N: int, seed: int = 0):
     return cw, mu[:, 0], sig
 
 
+def ladder_vec(N: int) -> int:
+    """Floats of a chain's broadcast vector: one slot's row compiled 24 or
+    32 floats wide, else 32 ceil(N/32)."""
+    return (24 if N <= 24 else 32) if N <= 32 else 32 * -(-N // 32)
+
+
+def ladder_rows(N: int, chains: int) -> bool:
+    """Whether a warp's chains keep Sigma's rows in registers (the lane
+    layout's rows, ``ladder_vec`` floats each, at most 64 floats a lane
+    over the chains: one chain or two up to 32 assets); else each chain's
+    Sigma lies in shared memory."""
+    return N <= 32 and chains * ladder_vec(N) <= 64
+
+
 def ladder_smem_bytes(N: int, chains: int, warps: int) -> int:
-    """Shared memory of one block: a covariance (N columns of ceil32(N)
-    floats) per chain and warp."""
+    """Shared memory of one block's covariances: N columns of ceil32(N)
+    floats per chain and warp, where the rows are not in registers
+    (``ladder_rows``), else none."""
+    if ladder_rows(N, chains):
+        return 0
     return warps * chains * N * 32 * (-(-N // 32)) * 4
+
+
+def ladder_block_bytes(N: int, chains: int, warps: int) -> int:
+    """Shared memory of one block: the covariances and each chain's two
+    broadcast vectors (w and the projection input) of the lane layout, as
+    ``kmpc_mv_ladder_smem_bytes`` in csrc/mv_ladder.cu reports it."""
+    return ladder_smem_bytes(N, chains, warps) \
+        + warps * chains * 2 * ladder_vec(N) * 4
 
 
 def _check(variant, unroll, chains, warps, N):
@@ -94,7 +127,7 @@ def _check(variant, unroll, chains, warps, N):
             f"{unroll}, {chains}, {warps}")
     if not 1 <= N <= 128:
         raise ValueError(f"N={N}: the ladder is compiled for 1 <= N <= 128")
-    need = ladder_smem_bytes(N, chains, warps)
+    need = ladder_block_bytes(N, chains, warps)
     if need > SMEM_PER_BLOCK:
         raise ValueError(
             f"N={N}, chains={chains}, warps={warps} need {need} bytes of a "
@@ -131,9 +164,12 @@ def mv_ladder_plain(cw: torch.Tensor, mu: torch.Tensor, Sigma: torch.Tensor,
 
 
 def mv_ladder_cuda(cw, mu, Sigma, variant: str, iters: int, unroll: int = 4,
-                   chains: int = 1, warps: int = 4) -> torch.Tensor:
+                   chains: int = 1, warps: int = 4,
+                   sweep: Optional[str] = None) -> torch.Tensor:
     """One launch of a rung's kernel on the current stream, for contiguous
-    float32 CUDA tensors."""
+    float32 CUDA tensors; ``proj`` sweeps as the lane layout does at the
+    batch (``mv_lanes_sweep``), or as ``sweep`` (one of ``LANES_SWEEPS``;
+    in every lane up to 32 assets only) says."""
     if cw.dim() != 2 or mu.shape != cw.shape \
             or Sigma.shape != (*cw.shape, cw.shape[1]):
         raise ValueError(
@@ -141,6 +177,10 @@ def mv_ladder_cuda(cw, mu, Sigma, variant: str, iters: int, unroll: int = 4,
             f"{tuple(cw.shape)}, {tuple(mu.shape)}, {tuple(Sigma.shape)}")
     B, N = cw.shape
     _check(variant, unroll, chains, warps, N)
+    sweep = sweep or mv_lanes_sweep(B, N)
+    if sweep not in LANES_SWEEPS or (sweep == "inlane" and N > 32):
+        raise ValueError(f"sweep {sweep!r}: expected one of {LANES_SWEEPS}, "
+                         f"'inlane' up to 32 assets, at N={N}")
     _require_cuda_f32(cw=cw, mu=mu, Sigma=Sigma)
     w = torch.empty_like(cw)
     if B == 0:
@@ -149,7 +189,8 @@ def mv_ladder_cuda(cw, mu, Sigma, variant: str, iters: int, unroll: int = 4,
     with torch.cuda.device(cw.device):
         stream = torch.cuda.current_stream(cw.device).cuda_stream
         err = fn(cw.data_ptr(), mu.data_ptr(), Sigma.data_ptr(), w.data_ptr(),
-                 B, N, iters, VARIANTS.index(variant), unroll, chains, warps,
+                 B, N, iters, VARIANTS.index(variant),
+                 int(sweep == "inlane"), unroll, chains, warps,
                  GAMMA, COST, SIGMA_SCALE, stream)
     if err != 0:
         raise RuntimeError(f"mv_ladder kernel launch failed: CUDA error {err}")
@@ -158,11 +199,13 @@ def mv_ladder_cuda(cw, mu, Sigma, variant: str, iters: int, unroll: int = 4,
 
 
 def mv_ladder(cw, mu, Sigma, variant: str, iters: int, unroll: int = 4,
-              chains: int = 1, warps: int = 4) -> torch.Tensor:
-    """The kernel for CUDA tensors, its plain version for CPU tensors."""
+              chains: int = 1, warps: int = 4,
+              sweep: Optional[str] = None) -> torch.Tensor:
+    """The kernel for CUDA tensors, its plain version for CPU tensors (both
+    sweeps compute the same threshold)."""
     if cw.is_cuda:
         return mv_ladder_cuda(cw, mu, Sigma, variant, iters, unroll, chains,
-                              warps)
+                              warps, sweep)
     _check(variant, unroll, chains, warps, cw.shape[-1])
     return mv_ladder_plain(cw, mu, Sigma, variant, iters, unroll)
 

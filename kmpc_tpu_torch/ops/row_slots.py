@@ -217,25 +217,29 @@ def sass_report(kernel_name: str, function: str) -> dict:
 
 
 SETTLED = "  return bits(th) == before;\n"
+# The lane layout's test of the same exit (``lanes_settled``).
+LANES_SETTLED = "  return __float_as_uint(th) == __float_as_uint(before);\n"
 
 
-def without_sweep_exit(kernel):
-    """The function of the row kernel ``kernel`` built from a copy of the
-    sources (in the build directory) whose ``settled`` returns false, so
-    that every projection runs its full budget of sweeps, bound as the
+def without_sweep_exit(kernel, header="pdhg_log_utility_rows.cuh",
+                       settled=SETTLED):
+    """The function of ``kernel`` (a row kernel, or with ``header`` and
+    ``settled`` another whose header has that exit test) built from a copy
+    of the sources (in the build directory) whose exit test returns false,
+    so that every projection runs its full budget of sweeps, bound as the
     package binds it."""
     import ctypes
 
     out = library_path(kernel.name).with_name(
         library_path(kernel.name).stem + "_no_exit.so")
     if not out.exists():
-        src = BUILD_DIR / "no_exit_src"
+        src = BUILD_DIR / f"no_exit_src_{kernel.name}"
         shutil.rmtree(src, ignore_errors=True)
         shutil.copytree(CSRC, src)
-        header = src / "pdhg_log_utility_rows.cuh"
+        header = src / header
         text = header.read_text()
-        assert text.count(SETTLED) == 1, "settled() not found"
-        header.write_text(text.replace(SETTLED, "  return false;\n"))
+        assert text.count(settled) == 1, "the exit test not found"
+        header.write_text(text.replace(settled, "  return false;\n"))
         subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", str(out),
                         str(src / SOURCES[kernel.name])],
                        check=True, capture_output=True)
@@ -544,6 +548,194 @@ def time_mv(iters=200):
         print(json.dumps(sass_report(kernel, function)), flush=True)
 
 
+# --h1: kernel C at one horizon row, at the shapes its paths and bench.py
+# give it: (label, B, N, settings). "path": the Markowitz path's settings
+# (2000 fixed iterations at gamma 1; the accurate configuration, 800
+# adaptive at adapt_every 2), at the comparison's B=1028 and the exact
+# scan's B=1; "bench": bench.py's Markowitz settings (1000 iterations at
+# refresh 16, sigma_scale 2, gamma 5; 1000 adaptive at adapt_every 2), at
+# the ladder's default B=4096 and bench.py's ``--mode markowitz`` B=65536.
+H1_SHAPES = (("path", 1028, 20, "path"), ("scan", 1, 20, "path"),
+             ("ladder", 4096, 30, "bench"), ("markowitz", 65536, 30, "bench"))
+# The ladder at the same four shapes: (B, N, iterations).
+H1_LADDER = ((1028, 20, 2000), (1, 20, 800), (4096, 30, 1000),
+             (65536, 30, 1000))
+
+
+def h1_bodies(which):
+    """{body: MPCParams} of an ``H1_SHAPES`` settings name."""
+    if which == "path":
+        return {"fixed": MPCParams(max_iters=2000, gamma=1.0, horizon=1),
+                "adaptive": MPCParams(max_iters=800, gamma=1.0, horizon=1,
+                                      adaptive=True, adapt_every=2,
+                                      precond=True)}
+    common = dict(max_iters=1000, sigma_scale=2.0, gamma=5.0)
+    return {"fixed": MPCParams(proj_refresh_every=16, **common),
+            "adaptive": MPCParams(adaptive=True, adapt_every=2, **common)}
+
+
+def h1_inputs(B, N, seed):
+    """Current weights [B, N], forecasts [B, 1, N] and per-problem
+    covariances A A' + 1e-4 I [B, N, N] (A ~ 0.01 N(0, 1)), made on the card
+    from ``seed``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cw = torch.rand((B, N), generator=g, device="cuda") + 0.05
+    cw = cw / cw.sum(-1, keepdim=True)
+    mu = torch.randn((B, 1, N), generator=g, device="cuda") * 0.01
+    A = torch.randn((B, N, N), generator=g, device="cuda") * 0.01
+    sig = A @ A.transpose(-1, -2) + 1e-4 * torch.eye(N, device="cuda")
+    return cw, mu, (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+
+
+def h1_kernels(p):
+    """{name: launch(cw, mu, sig)} of kernel C's H=1 layouts for the body
+    of ``p``: the warp layout, and the lane layout in each of its
+    sweeps."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    out = {"warp": lambda cw, mu, sig: V._mv_launch(
+        V._MV_KERNELS[("warp", p.adaptive)], cw, mu, sig, p)}
+    for sweep in V.LANES_SWEEPS:
+        out[f"lanes:{sweep}"] = (
+            lambda cw, mu, sig, s=sweep: V._mv_launch(
+                V._MV_KERNELS[("lanes", p.adaptive)], cw, mu, sig, p,
+                sweep=s))
+    return out
+
+
+def time_h1(reps=5):
+    """One line per (shape, body, layout): kernel C at H=1 in the warp
+    layout and the lane layout's two sweeps, at ``H1_SHAPES``, in turns
+    (A, B, C, C, B, A); then the routed lane kernel with and without its
+    sweeps' early exit, and its adaptive body balancing every second
+    iteration, never, and as the fixed-step body; then the ladder's rungs
+    at ``H1_LADDER``; then the SASS counts of the loops."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+    from kmpc_tpu_torch.ops import mv_ladder as D
+
+    for i, (label, B, N, which) in enumerate(H1_SHAPES):
+        cw, mu, sig = h1_inputs(B, N, 1100 + i)
+        for body, p in h1_bodies(which).items():
+            runs = h1_kernels(p)
+            order = list(runs) + list(runs)[::-1]
+            times = {name: [] for name in runs}
+            for name in order:
+                times[name].append(cuda_ms(lambda: runs[name](cw, mu, sig),
+                                           reps))
+            ref = runs["warp"](cw, mu, sig)[0]
+            for name, t in times.items():
+                w = runs[name](cw, mu, sig)[0]
+                ms = float(np.median(t))
+                print(json.dumps({
+                    "phase": "h1", "shape": label, "body": body,
+                    "layout": name, "B": B, "N": N, "iters": p.max_iters,
+                    "routed": V._mv_route(1, N, p, False, B)[0]
+                    + f":{V.mv_lanes_sweep(B, N)}",
+                    "ms": t, "us_per_iter": 1e3 * ms / p.max_iters,
+                    "max_abs_dw_warp": (w - ref).abs().max().item()}),
+                    flush=True)
+        del cw, mu, sig
+    for i, (label, B, N, which) in enumerate(H1_SHAPES):
+        cw, mu, sig = h1_inputs(B, N, 1100 + i)
+        for body, p in h1_bodies(which).items():
+            time_lanes_exit(label, cw, mu, sig, p)
+            if p.adaptive:
+                time_balancing(label, cw, mu, sig, p)
+        del cw, mu, sig
+    for B, N, iters in H1_LADDER:
+        for r in D.run_ladder(B, N, iters, reps=reps):
+            print(json.dumps({"phase": "mv_ladder", "B": B, "N": N,
+                              "iters": iters,
+                              "sweep": V.mv_lanes_sweep(B, N), **r}),
+                  flush=True)
+    for kernel, function in H1_SASS:
+        if kernel in SOURCES:
+            print(json.dumps(sass_report(kernel, function)), flush=True)
+
+
+def time_lanes_exit(label, cw, mu, sig, p):
+    """The routed lane kernel with and without its sweeps' early exit
+    (``lanes_settled``), timed in two rounds of 5 in turns; the outputs must
+    agree bit for bit."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    kernel = V._MV_KERNELS[("lanes", p.adaptive)]
+    fns = {"exit": kernel.function(),
+           "no_exit": without_sweep_exit(
+               kernel, "pdhg_mean_variance_lanes.cuh", LANES_SETTLED)}
+
+    def run(fn):
+        kernel._fn = fn    # the shipped kernel's launch, this build
+        try:
+            return V._mv_launch(kernel, cw, mu, sig, p,
+                                return_steps=p.adaptive)
+        finally:
+            kernel._fn = fns["exit"]
+
+    outs = [run(fn) for fn in fns.values()]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*outs)), (label, p)
+    ms = {name: [] for name in fns}
+    for _ in range(2):
+        for name, fn in fns.items():
+            ms[name].append(cuda_ms(lambda: run(fn)))
+    print(json.dumps({
+        "phase": "lanes_sweep_exit", "shape": label, "B": cw.shape[0],
+        "N": cw.shape[1], "adaptive": p.adaptive, "iters": p.max_iters,
+        "ms": ms, "no_exit_over_exit": float(np.median(ms["no_exit"])
+                                             / np.median(ms["exit"])),
+        "same_bits": True}), flush=True)
+
+
+def time_balancing(label, cw, mu, sig, p):
+    """What the adaptive body's balancing costs: the routed lane kernel's
+    adaptive body as ``p`` sets it, the same body balancing never
+    (``adapt_every`` past the iterations) and the fixed-step body at the
+    same iterations and sweep budget, timed in two rounds of 5 in turns."""
+    from dataclasses import replace
+
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    runs = {"adaptive": p,
+            "adaptive_never_balancing": replace(
+                p, adapt_every=p.max_iters + 1),
+            "fixed": replace(p, adaptive=False, adapt_every=1,
+                             proj_refresh_every=0)}
+    ms = {name: [] for name in runs}
+    for _ in range(2):
+        for name, q in runs.items():
+            ms[name].append(cuda_ms(lambda: V._mv_launch(
+                V._MV_KERNELS[("lanes", q.adaptive)], cw, mu, sig, q)))
+    print(json.dumps({
+        "phase": "lanes_balancing", "shape": label, "B": cw.shape[0],
+        "N": cw.shape[1], "iters": p.max_iters, "adapt_every": p.adapt_every,
+        "ms": ms, "us_per_iter": {k: 1e3 * float(np.median(v)) / p.max_iters
+                                  for k, v in ms.items()}}), flush=True)
+
+
+# The H=1 kernels' loops read by ``--h1``: the warp layout's at K=1, both
+# bodies; the lane layout's at the path's N=20 (NC=24: the in-lane and the
+# butterfly sweep, both bodies) and bench.py's N=30 (NC=32, butterfly);
+# the ladder's sigma and in-lane proj rungs at N=20, unroll 4, one chain.
+H1_SASS = (
+    ("pdhg_mean_variance", r"pdhg_mean_variance_kernelILi1ELi1ELb0E"),
+    ("pdhg_mean_variance_adaptive",
+     r"pdhg_mean_variance_kernelILi1ELi1ELb1E"),
+    ("pdhg_mean_variance_lanes",
+     r"pdhg_mean_variance_lanes_kernelILi1ELi24ELb0ELb1E"),
+    ("pdhg_mean_variance_lanes",
+     r"pdhg_mean_variance_lanes_kernelILi1ELi24ELb0ELb0E"),
+    ("pdhg_mean_variance_lanes",
+     r"pdhg_mean_variance_lanes_kernelILi1ELi32ELb0ELb0E"),
+    ("pdhg_mean_variance_lanes_adaptive",
+     r"pdhg_mean_variance_lanes_kernelILi1ELi24ELb1ELb0E"),
+    ("pdhg_mean_variance_lanes_adaptive",
+     r"pdhg_mean_variance_lanes_kernelILi1ELi24ELb1ELb1E"),
+    ("mv_ladder", r"mv_ladder_kernelILi1ELi24ELi1ELi4ELi1E"),
+    ("mv_ladder", r"mv_ladder_kernelILi1ELi24ELi3ELi4ELi1E"),
+)
+
+
 # --scen: kernel B's warp layout at H=8, N=64 over S, at B=1 and 132 (the
 # warp path's shape is S=113, B=132); its block layout at the block path's
 # S=16, H=5, N=150; the three bodies at 200 iterations.
@@ -737,13 +929,17 @@ def main(argv=None):
     parser.add_argument("--scen", action="store_true",
                         help="kernel B's warp and block layouts, and a "
                              "streaming read")
+    parser.add_argument("--h1", action="store_true",
+                        help="kernel C at one horizon row and the MV "
+                             "ladder at its paths' shapes")
     parser.add_argument("--digest", action="store_true",
                         help="a digest of the one-forecast wide kernels' "
                              "outputs")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("row_slots: CUDA is not available")
-    if args.wide or args.boundary or args.mv or args.scen or args.digest:
+    if args.wide or args.boundary or args.mv or args.scen or args.digest \
+            or args.h1:
         print(json.dumps({"phase": "device", "smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -754,6 +950,9 @@ def main(argv=None):
         return
     if args.scen:
         time_scen()
+        return
+    if args.h1:
+        time_h1()
         return
     if args.mv:
         time_mv()

@@ -158,7 +158,9 @@ def test_every_shape_the_pallas_kernel_takes_routes_to_a_cuda_kernel(
     takes its Pallas kernel (read from the wrapper itself: a spy on
     ``_make_packed_mv_kernel``, and on the XLA solver it falls back to),
     ``mv_kernel_layout`` names a CUDA layout for one problem and for 1028:
-    the warp layout every shape ``mv_kernel_supports`` gives it, the block
+    the lane layout every shape ``mv_kernel_supports`` gives the warp
+    layout (one row up to 128 assets; the warp layout measured slower
+    there and is launched only privately), the block
     layout the longer horizons and, at most 32 rows, only the shapes whose
     Sigma the tile layout would stream at fewer than TILE_STREAM_H rows (a
     shared one for at most 132 problems), the tile layout the rest. The
@@ -175,7 +177,7 @@ def test_every_shape_the_pallas_kernel_takes_routes_to_a_cuda_kernel(
 
     monkeypatch.setattr(JP, "_make_packed_mv_kernel", kernel)
     monkeypatch.setattr(JM, "solve_mpc_mean_variance_batch", fallback)
-    taken, routed = {}, {"warp": 0, "tile": 0, "block": 0}
+    taken, routed = {}, {"lanes": 0, "tile": 0, "block": 0}
     for H in HS:
         for N in NS:
             for adaptive in (False, True):
@@ -184,10 +186,10 @@ def test_every_shape_the_pallas_kernel_takes_routes_to_a_cuda_kernel(
                 for B in (1, 1028):
                     layout = V.mv_kernel_layout(H, N, shared, adaptive, B)
                     if V.mv_kernel_supports(H, N):
-                        assert layout == "warp", (H, N)
+                        assert layout == "lanes", (H, N)
                     if not taken[(H, N, adaptive)]:
                         continue
-                    assert layout in ("warp", "tile", "block"), (
+                    assert layout in ("lanes", "tile", "block"), (
                         H, N, shared, adaptive, B)
                     streamed_few = (
                         V.mv_tile_streams(H, N, adaptive)
@@ -241,7 +243,7 @@ def test_a_cuda_solve_beyond_both_layouts_raises():
     with pytest.raises(ValueError, match="solve_mpc_mean_variance_batch"):
         V._mv_route(H, N, MPCParams())
     assert V._mv_route(1, 20, MPCParams()) == (
-        "warp", V.PDHG_MEAN_VARIANCE)
+        "lanes", V.PDHG_MEAN_VARIANCE_LANES)
     assert V._mv_route(20, 30, MPCParams(adaptive=True)) == (
         "tile", V.PDHG_MEAN_VARIANCE_TILE_ADAPTIVE)
     assert V._mv_route(1, 1112, MPCParams()) == (

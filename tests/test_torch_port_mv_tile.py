@@ -155,7 +155,8 @@ GRID_N = [1, 8, 20, 30, 33, 64, 100, 128, 129, 320, 600, 960, 1112, 1200]
 @pytest.mark.parametrize("adaptive", [False, True])
 def test_routing_grid(shared, adaptive):
     """``mv_kernel_layout`` over (H, N) for one problem and for 1028: the
-    warp layout at one row of at most 128 assets; else the tile layout
+    lane layout at one row of at most 128 assets (the shapes the warp
+    layout takes, ``mv_kernel_supports``); else the tile layout
     where its plan takes the batch and holds Sigma resident, or streams it
     at H >= TILE_STREAM_H or, shared, for more than TILE_SMS problems; else
     the block layout where one problem fits a block; else the tile layout
@@ -170,7 +171,7 @@ def test_routing_grid(shared, adaptive):
                 tile = V.mv_tile_problems(B, H, N, shared, adaptive) > 0
                 streams = V.mv_tile_streams(H, N, adaptive)
                 if H == 1 and N <= 128:
-                    want = "warp"
+                    want = "lanes"
                 elif tile and (not streams or H >= V.TILE_STREAM_H
                                or (shared and B > V.TILE_SMS)):
                     want = "tile"
@@ -179,7 +180,7 @@ def test_routing_grid(shared, adaptive):
                 else:
                     want = "tile" if tile else None
                 assert layout == want, (B, H, N)
-                assert (layout == "warp") == V.mv_kernel_supports(H, N)
+                assert (layout == "lanes") == V.mv_kernel_supports(H, N)
                 if H > V.TILE_MAX_WARPS:
                     assert layout in ("block", None), (H, N)
                 seen.add(layout)
@@ -190,7 +191,7 @@ def test_routing_grid(shared, adaptive):
                 else:
                     assert V._mv_route(H, N, p, shared, B) == (
                         layout, V._MV_KERNELS[(layout, adaptive)])
-    assert {"warp", "tile", "block", None} <= seen
+    assert {"lanes", "tile", "block", None} <= seen
     # The mv_long_wide shapes all take the tile layout.
     for B, H, N, sh in ((1028, 1, 960, True), (1028, 5, 320, True),
                         (4096, 5, 100, False), (4096, 20, 30, False),
@@ -200,8 +201,9 @@ def test_routing_grid(shared, adaptive):
 
 
 @pytest.mark.parametrize("B,H,N,shared,layout", [
-    # One row up to 128 assets: warp (the tile layout 1.13-1.88x slower).
-    (1028, 1, 128, False, "warp"), (5, 1, 20, True, "warp"),
+    # One row up to 128 assets: lanes (the tile layout 1.13-1.88x slower
+    # than the warp layout there, which the lane layout replaced).
+    (1028, 1, 128, False, "lanes"), (5, 1, 20, True, "lanes"),
     # Past one row, or 128 assets, with Sigma resident: tile.
     (1028, 2, 30, False, "tile"), (1, 2, 30, False, "tile"),
     (5, 1, 129, True, "tile"), (1028, 1, 200, False, "tile"),
@@ -243,7 +245,7 @@ def test_chip_smoke_times_each_side_of_every_switch():
     # Both sides of each switch are timed: some routed to each layout.
     routed = {V.mv_kernel_layout(H, N, sh, False, B)
               for B, H, N, sh in C.MV_SWITCH_SHAPES}
-    assert routed == {"warp", "tile", "block"}
+    assert routed == {"lanes", "tile", "block"}
 
 
 # ---------------------------------------------------------------------------
