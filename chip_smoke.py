@@ -15,12 +15,15 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    wide-row kernels' bits against WIDE_DIGESTS;
 2. ``kernels``: every CUDA kernel against its plain PyTorch version on the
    card: the log-utility kernel over the parametrised cases of the CPU
-   tests, the edges of its register budget and the main-path and bench
-   shapes; the same kernel with warm inputs and the dual output; the
-   scenario kernel; the mean-variance kernel with a per-problem and a
-   shared covariance; the adaptive body of all three (``adapt_every`` 1
-   and 2, ``precond`` off and on, ridge, over-relaxation, no ball, cold
-   projections, warm inputs, an odd iteration count, the budget's edges);
+   tests (each shape at two of the four refresh and precond pairs, each
+   pair at three shapes), the edges of its register budget and the
+   main-path and bench shapes; the same kernel with warm inputs and the
+   dual output; the scenario kernel; the mean-variance kernel with a
+   per-problem and a shared covariance; the adaptive body of all three
+   (``adapt_every`` 1 and 2, ``precond`` off and on, each pair at one
+   shape; ridge, over-relaxation, no ball, cold projections, warm inputs,
+   an odd iteration count, the budget's edges at one, three and four
+   slots);
    the pipelined body of kernels A and B in the warp and the block layout
    (refresh 8 and 16, an odd iteration count, ball on and off, precond,
    ridge, warm inputs and the dual output); the block layout's fixed-step
@@ -88,7 +91,23 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    1024) with seeded random weights on the synthetic panel, the H=5
    forecast for every test date, and the Jacobi backtest, 2 sweeps of the
    fused solve (the row kernel), for Koopman-MPC and buy-and-hold; the
-   kernel's launch count must equal the number of sweeps;
+   kernel's launch count must equal the number of sweeps; then
+   ``train_path``: training at full width through ``python -m
+   kmpc_tpu_torch.train``'s config function: ``finance_sparse`` (batch 64,
+   the sequence loss at L=10, 25 steps a dispatch) and ``lista`` (2048
+   codes, 10 loops) on duffing, each first held for 3 steps against the
+   port on the CPU from the same weights and batches (step 1's six
+   metrics within 1e-5 relative, its gradients within 1e-4 per tensor,
+   each step's loss within 1e-4), then trained (1000 and 101 steps; the
+   steps of a chunk under ``torch.cuda`` sync debugging at "error", so
+   none may synchronise the host), every logged loss finite, the last
+   checkpoint read back through ``load_jax_checkpoint`` with bit-equal
+   forecasts, and one Jacobi sweep of Koopman-MPC from the finance run's
+   checkpoint through kernel A's row layout; ``generic`` for 6 steps; ms
+   a step (CUDA events over whole chunks) and the host's time to enqueue
+   it, steps/s and the host's share (K's spectrum at every log,
+   evaluations, checkpoint writes), and the card's busy share over a
+   window of steps under ``torch.profiler``;
 5. ``comparison``: the full strategy comparison on the same data:
    buy-and-hold, Markowitz, DMD, Koopman-MPC and scenario Kelly (S=16), 3
    sweeps each, every batched solve through its kernel; then Koopman-MPC
@@ -331,7 +350,7 @@ WARM_VS_COLD_MEAN_SHARE = 0.25
 # parted on an H100 in the ``kernels`` phase, with the first differing
 # operation as per-phase dumps of both kernels found it; every other
 # instantiation must give the warp kernel's bits. ROWS_BITS_PARTED is how many of the ``kernels`` phase's
-# shared-shape cases parted there (11 of 113).
+# shared-shape cases parted there (11 of 113 before 30 repeated cases were cut).
 _ADAPTIVE_PROX = ("the adaptive dual prox's c / sigma, which the warp "
                   "kernels fuse into |v| - c / sigma and c / sigma + excess "
                   "at HM=8 K=1 and into one or the other of them elsewhere")
@@ -1576,10 +1595,17 @@ def phase_kernel_vs_plain():
     cases = []
     seed = 0
     quick = dict(time_plain=False)
-    for H, N in ((1, 12), (1, 33), (5, 12), (5, 20), (5, 30), (5, 33)):
+    # Each shape at two of the four (refresh, precond) pairs, the pairs
+    # alternating, so that every pair runs at three shapes. A case dropped
+    # from a grid still takes its seed, so that every case keeps the inputs
+    # it had before the grid was cut.
+    for i, (H, N) in enumerate(((1, 12), (1, 33), (5, 12), (5, 20), (5, 30),
+                                (5, 33))):
         for refresh in (0, 16):
             for precond in (False, True):
                 seed += 1
+                if (refresh == 16) != (precond == (i % 2 == 0)):
+                    continue
                 p = _params(max_iters=400, proj_refresh_every=refresh,
                             precond=precond)
                 cases.append((f"H{H}N{N}r{refresh}p{int(precond)}",
@@ -1626,18 +1652,26 @@ def phase_kernel_vs_plain():
     ]
     # The adaptive body, in the kernel of its own.
     acc = dict(adaptive=True, adapt_every=2, precond=True)
+    # Each shape at one (adapt_every, precond) pair, every pair at one
+    # shape; the edges of the register budget at one, three and four slots.
+    kept = {(1, 12, 1, False), (5, 20, 2, True), (5, 30, 1, True),
+            (5, 33, 2, False)}
     for H, N in ((1, 12), (5, 20), (5, 30), (5, 33)):
         for k in (1, 2):
             for precond in (False, True):
                 seed += 1
-                cases.append((f"adaptive_H{H}N{N}k{k}p{int(precond)}", 7, H, N,
-                              _params(max_iters=400, adaptive=True,
-                                      adapt_every=k, precond=precond),
+                if (H, N, k, precond) not in kept:
+                    continue
+                cases.append((f"adaptive_H{H}N{N}k{k}p{int(precond)}", 7,
+                              H, N, _params(max_iters=400, adaptive=True,
+                                            adapt_every=k, precond=precond),
                               seed, quick))
     for label, H, N in (("H12N20", 12, 20), ("H16N32", 16, 32),
                         ("H8N64", 8, 64), ("H3N90", 3, 90),
                         ("H4N128", 4, 128)):
         seed += 1
+        if label in ("H12N20", "H8N64"):
+            continue
         cases.append((f"adaptive_{label}", 7, H, N,
                       _params(max_iters=400, **acc), seed, quick))
     cases += [
@@ -1787,6 +1821,9 @@ def phase_kernel_vs_plain():
             max_iters=300, proj_refresh_every=16)),
     ]
     seed = 850
+    # Each shape at two (adapt_every, precond) pairs, every pair at one.
+    wide_dropped = {"wide_adaptive_H5N150k1p1", "wide_adaptive_H5N150k2p0",
+                    "wide_adaptive_H5N500k1p0", "wide_adaptive_H5N500k2p1"}
     for H, N in ((5, 150), (5, 500)):
         for k in (1, 2):
             for precond in (False, True):
@@ -1811,7 +1848,8 @@ def phase_kernel_vs_plain():
     ]
     for label, B, H, N, p in wide_cases:
         seed += 1
-        cases.append((label, B, H, N, p, seed, quick))
+        if label not in wide_dropped:
+            cases.append((label, B, H, N, p, seed, quick))
     cases += [
         ("wide_warm_dual_H5N200", 5, 5, 200, _params(
             max_iters=400, proj_refresh_every=16, precond=True), 881, warm),
@@ -4283,6 +4321,353 @@ def phase_headline():
              fp32_ops=pdhg_ops(B, H, N, p), bound_share=bound_ms / ms)
 
 
+TRAIN_DIR = ROOT / "runs" / "chip_smoke_train"
+TRAIN_HOLD_STEPS = 3
+TRAIN_LOSS_REL = 1e-5   # step 1's six metrics, card vs CPU
+TRAIN_GRAD_REL = 1e-4   # step 1's gradients per tensor, |d| / |g|
+TRAIN_STEP_REL = 1e-4   # each held step's loss
+
+
+def _rel_norm(a, b) -> float:
+    a, b = a.double().cpu(), b.double().cpu()
+    return float(torch.linalg.vector_norm(a - b)
+                 / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def hold_train_steps(cfg, model, batches, dt=1.0):
+    """The first train steps (``make_train_step``) on the card against the
+    port on the CPU, from ``model``'s weights and the same ``batches``
+    (tensors on the card, copied to the CPU), TF32 off: step 1's six
+    metrics within TRAIN_LOSS_REL, its gradients within TRAIN_GRAD_REL per
+    tensor, every step's loss within TRAIN_STEP_REL."""
+    from kmpc_tpu_torch.models.koopman import make_model
+    from kmpc_tpu_torch.train import loop as T
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 is on"
+    cpu_model = make_model(cfg, model.observation_size, device="cpu")
+    cpu_model.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    sides = {}
+    for name, m in (("cuda", model), ("cpu", cpu_model)):
+        state = T.TrainState(m, T.build_optimizer(cfg, m))
+        step = T.make_train_step(cfg, m, dt)
+        first, grads, losses = None, None, []
+        t0 = time.perf_counter()
+        for i, b in enumerate(batches):
+            b = (tuple(x.to(name) for x in b) if isinstance(b, tuple)
+                 else b.to(name))
+            _, metrics = step(state, b)
+            if i == 0:
+                first = {k: v.item() for k, v in metrics.items()}
+                grads = {n: p.grad.detach().clone()
+                         for n, p in m.named_parameters()}
+            losses.append(metrics["loss"].item())
+        sides[name] = (first, grads, losses, time.perf_counter() - t0)
+    (fk, gk, lk, sk), (fc, gc, lc, sc) = sides["cuda"], sides["cpu"]
+    metric_rel = {k: abs(fk[k] - fc[k]) / max(abs(fc[k]), 1e-12) for k in fc}
+    grad_rel = {n: _rel_norm(gk[n], gc[n]) for n in gc}
+    step_rel = [abs(a - b) / max(abs(b), 1e-12) for a, b in zip(lk, lc)]
+    res = {"steps": len(batches), "loss_card": lk, "loss_cpu": lc,
+           "max_metric_rel": max(metric_rel.values()),
+           "max_grad_rel": max(grad_rel.values()),
+           "max_step_loss_rel": max(step_rel), "cpu_s": sc}
+    far = {k: v for k, v in metric_rel.items() if v > TRAIN_LOSS_REL}
+    assert not far, f"step 1's metrics apart from the CPU's: {far}"
+    far = {n: v for n, v in grad_rel.items() if v > TRAIN_GRAD_REL}
+    assert not far, f"step 1's gradients apart from the CPU's: {far}"
+    assert max(step_rel) <= TRAIN_STEP_REL, f"losses apart: {lk} vs {lc}"
+    return res
+
+
+@contextlib.contextmanager
+def timed_training(stats):
+    """Times ``train/loop.py``'s run as it goes, by wrapping its module
+    globals: CUDA events around each chunk's steps and the host clock
+    around their enqueueing (the steps run with ``torch.cuda`` sync
+    debugging at "error", so a step that synchronises the host raises),
+    the host clock around each boundary (logs, evals, checkpoints), split
+    into K's spectrum, evaluations and checkpoint writes."""
+    from kmpc_tpu_torch.train import loop as T
+
+    parts = {"spectral_metrics": "spectrum_s", "evaluate_finance": "eval_s",
+             "_val_loss": "eval_s", "evaluate_system": "eval_s",
+             "save_checkpoint": "checkpoint_s"}
+    originals = {name: getattr(T, name) for name in (*parts, "_run_chunks")}
+    stats.update(spectrum_s=0.0, eval_s=0.0, checkpoint_s=0.0,
+                 boundary_s=0.0, enqueue_s=0.0, chunks=[], loop_s=0.0,
+                 in_boundary=False)
+
+    def timed(name):
+        fn = originals[name]
+
+        def wrapper(*a, **kw):
+            if not stats["in_boundary"]:   # the final evaluation
+                return fn(*a, **kw)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                torch.cuda.synchronize()
+                stats[parts[name]] += time.perf_counter() - t
+        return wrapper
+
+    def run_chunks(cfg, start_step, step_fn, on_boundary):
+        chunk = {"start": None, "n": 0}
+
+        def step(s):
+            if chunk["start"] is None:
+                chunk["t"] = time.perf_counter()
+                chunk["start"] = torch.cuda.Event(enable_timing=True)
+                chunk["start"].record()
+                torch.cuda.set_sync_debug_mode("error")
+            chunk["n"] += 1
+            return step_fn(s)
+
+        def boundary(step_no, metrics):
+            stats["enqueue_s"] += time.perf_counter() - chunk["t"]
+            torch.cuda.set_sync_debug_mode("default")
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            stats["chunks"].append((chunk["start"], end, chunk["n"]))
+            chunk.update(start=None, n=0)
+            tr = cfg.TRAIN
+            if not (step_no % tr.LOG_INTERVAL == 0 or step_no
+                    % tr.EVAL_INTERVAL == 0 or step_no == tr.NUM_STEPS - 1):
+                # A chunk end that logs, evaluates and saves nothing (every
+                # step at STEPS_PER_DISPATCH=1): no synchronisation, so the
+                # next chunk queues behind this one as in an untimed run.
+                on_boundary(step_no, metrics)
+                return
+            t = time.perf_counter()
+            stats["in_boundary"] = True
+            try:
+                on_boundary(step_no, metrics)
+                torch.cuda.synchronize()
+            finally:
+                stats["in_boundary"] = False
+            stats["boundary_s"] += time.perf_counter() - t
+
+        t = time.perf_counter()
+        try:
+            originals["_run_chunks"](cfg, start_step, step, boundary)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        stats["loop_s"] += time.perf_counter() - t
+
+    for name in parts:
+        setattr(T, name, timed(name))
+    T._run_chunks = run_chunks
+    try:
+        yield
+    finally:
+        for name, fn in originals.items():
+            setattr(T, name, fn)
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def profiled_steps(cfg, model, batches, dt=1.0):
+    """``make_train_step`` over ``batches`` (tensors on the card) under
+    ``torch.profiler``, after one warm step: the window's host seconds and
+    the card's kernel seconds (the sum of the kernels' self device time;
+    one stream, so they do not overlap), and their ratio, the card's busy
+    share. None where the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kmpc_tpu_torch.train import loop as T
+
+    state = T.TrainState(model, T.build_optimizer(cfg, model))
+    step = T.make_train_step(cfg, model, dt)
+    step(state, batches[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for b in batches:
+            step(state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    # The kernels' own entries (Kineto gives them the CUDA device type; the
+    # operators that launched them carry the same time again).
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in kernels)
+    n = len(batches)
+    return {"steps": n, "wall_ms_per_step": 1e3 * wall / n,
+            "device_ms_per_step": device_us / 1e3 / n if device_us else None,
+            "device_busy_share": device_us / 1e6 / wall if device_us else None,
+            "kernels_per_step": sum(e.count for e in kernels) / n}
+
+
+def train_run(flags, label):
+    """``python -m kmpc_tpu_torch.train`` with ``flags`` (the CLI's config
+    function, then ``train`` on the card), timed by ``timed_training``.
+    Every logged training loss must be finite. Returns (config, state,
+    run directory, the run's numbers)."""
+    from kmpc_tpu_torch.train import loop as T
+    from kmpc_tpu_torch.train.__main__ import config_from_args, parse_args
+
+    cfg = config_from_args(parse_args(flags))
+    stats = {}
+    t0 = time.perf_counter()
+    with timed_training(stats):
+        state, _, run_dir = T.train(cfg, log_dir=str(TRAIN_DIR / label),
+                                    verbose=False, device="cuda")
+    wall = time.perf_counter() - t0
+    steps = sum(n for _, _, n in stats["chunks"])
+    assert steps == cfg.TRAIN.NUM_STEPS == state.step, (steps, state.step)
+    chunk_ms = sum(a.elapsed_time(b) for a, b, _ in stats["chunks"])
+    hist = [json.loads(line) for line in open(run_dir / "metrics_history.jsonl")]
+    losses = [e["value"] for e in hist if e["name"] == "train/loss"]
+    assert losses and np.all(np.isfinite(losses)), f"{label}: losses {losses}"
+    last = {e["name"]: e["value"] for e in hist}
+    res = {
+        "steps": steps, "chunks": len(stats["chunks"]),
+        "steps_per_dispatch": cfg.TRAIN.STEPS_PER_DISPATCH,
+        "batch": cfg.TRAIN.BATCH_SIZE, "ms_per_step": chunk_ms / steps,
+        "enqueue_ms_per_step": 1e3 * stats["enqueue_s"] / steps,
+        "steps_per_s": steps / stats["loop_s"],
+        "steps_per_s_chunks": steps / (chunk_ms / 1e3),
+        "loop_s": stats["loop_s"], "train_s": wall,
+        "host_s": stats["boundary_s"],
+        "host_share": stats["boundary_s"] / stats["loop_s"],
+        **{k: stats[k] for k in ("spectrum_s", "eval_s", "checkpoint_s")},
+        "first_loss": losses[0], "final_loss": losses[-1],
+        "final": {k: v for k, v in last.items()
+                  if k.startswith(("train/", "eval/", "val/"))},
+    }
+    return cfg, state, run_dir, res
+
+
+def served_from_last(run_dir, state, x):
+    """The run's last checkpoint read back through ``load_jax_checkpoint``
+    (a directory holding only the run's config.json and last/): its model's
+    ``fn(x)`` must equal the model in memory's bit for bit."""
+    import shutil
+
+    from kmpc_tpu_torch.utils.params import load_jax_checkpoint
+
+    view = run_dir.parent / (run_dir.name + "_last")
+    view.mkdir()
+    shutil.copy(run_dir / "config.json", view / "config.json")
+    (view / "last").symlink_to(run_dir / "last")
+    _, served, step = load_jax_checkpoint(view, device="cuda")
+    assert step == state.step, (step, state.step)
+    state.model.eval()
+    with torch.no_grad():
+        a, b = x(state.model), x(served)
+    assert torch.equal(a, b), (a - b).abs().max().item()
+    return step
+
+
+def phase_train_path(seed: int):
+    """The training path at full width on the card: ``finance_sparse``
+    (observation 400, encoder 400-1024-1024-1024, K 1024 x 1024, batch 64,
+    the sequence loss at L=10, 25 steps a dispatch) held for its first
+    steps against the port on the CPU and profiled over 24 more, then 1000
+    steps through the CLI's config function, its checkpoint served back
+    bit for bit, and one
+    Jacobi sweep of Koopman-MPC from the trained run through kernel A's
+    row layout; ``lista`` (2048 codes, 10 loops, linear encoder) on
+    duffing at its preset batch, held the same way and profiled over 9
+    steps, then 101 steps; and
+    ``generic`` on duffing for 6."""
+    import shutil
+
+    from kmpc_tpu_torch.backtest.engine import (
+        KoopmanMPCStrategy, run_backtest_parallel,
+    )
+    from kmpc_tpu_torch.data.finance import load_finance_data
+    from kmpc_tpu_torch.data.systems import make_system
+    from kmpc_tpu_torch.models.koopman import make_model
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+    from kmpc_tpu_torch.ops.rollout import predict_returns
+    from kmpc_tpu_torch.run_experiment import backtest_settings
+    from kmpc_tpu_torch.train import loop as T
+    from kmpc_tpu_torch.train.__main__ import config_from_args, parse_args
+    from kmpc_tpu_torch.utils.params import load_jax_checkpoint
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    out = {}
+
+    # finance_sparse: the hold, the run, the served checkpoint, a sweep.
+    flags = ["--config", "finance_sparse", "--num_steps", "1000",
+             "--seed", str(seed)]
+    cfg = config_from_args(parse_args(flags))
+    fd = load_finance_data(cfg, device=dev)
+    assert fd.observation_size == 400 and cfg.MODEL.TARGET_SIZE == 1024
+    model = make_model(cfg, fd.observation_size, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(seed))
+    L = cfg.TRAIN.SEQUENCE_LENGTH
+    batches = [fd.batch_at(torch.tensor(
+        rng.integers(0, fd.num_examples("train", L), cfg.TRAIN.BATCH_SIZE),
+        device=dev), "train", L) for _ in range(TRAIN_HOLD_STEPS)]
+    hold = hold_train_steps(cfg, model, batches)
+    prof = profiled_steps(cfg, model, batches * 8)
+    cfg, state, run_dir, res = train_run(flags, "finance_sparse")
+    evals = json.loads((run_dir / "evaluation_results.json").read_text())
+    for k in ("mean_mse_reencode", "mean_mse_no_reencode", "best_mse"):
+        assert np.isfinite(evals[k]), (k, evals[k])
+    bt, mpc = backtest_settings(cfg)
+    served_step = served_from_last(run_dir, state, lambda m: predict_returns(
+        m, fd.test, bt.HORIZON, fd.n_assets, fd.mean, fd.std))
+    _, best, best_step = load_jax_checkpoint(run_dir, device=dev)
+    strat = KoopmanMPCStrategy(model=best, mpc=mpc)
+    timed = Timed("KoopmanMPC", strat, mpc.max_turnover)
+    kernel = M._route(None, bt.HORIZON, fd.n_assets, mpc)[2]
+    assert kernel is M.PDHG_LOG_UTILITY_ROWS, kernel.name
+    kernel.launches = 0
+    df = run_backtest_parallel(strat, fd, bt, num_sweeps=1)
+    assert kernel.launches == 1, kernel.launches
+    assert np.all(np.isfinite(df[["portfolio_value", "return", "turnover",
+                                  "cost"]].to_numpy()))
+    out["finance_sparse"] = {
+        "model": "GenericKM 400-1024-1024-1024, K 1024, decoder linear",
+        "sequence_length": L, "hold": hold, "profiled": prof, **res,
+        "eval": {k: evals[k] for k in (
+            "mean_mse_reencode", "mean_mse_no_reencode",
+            "final_mse_reencode", "final_mse_no_reencode", "best_mode",
+            "best_mse")},
+        "served_step": served_step, "best_step": best_step,
+        "sweep": {"kernel": kernel.name, "launches": 1, "dates": len(df),
+                  "solve_ms": 1e3 * timed.solve_s[0],
+                  "final_value": float(df["portfolio_value"].iloc[-1])}}
+
+    # lista on duffing at full width: the hold, then 101 steps.
+    flags = ["--config", "lista", "--env", "duffing", "--num_steps", "101",
+             "--seed", str(seed), "--no_final_eval"]
+    cfg = config_from_args(parse_args(flags))
+    system = make_system(cfg)
+    model = make_model(cfg, system.observation_size, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(seed))
+    assert model.target_size == 2048 and model.lista.num_loops == 10
+    gen = torch.Generator().manual_seed(seed)
+    batches = []
+    for _ in range(TRAIN_HOLD_STEPS):
+        x = system.reset(gen, cfg.TRAIN.BATCH_SIZE)
+        batches.append((x.to(dev), system.step(x).to(dev)))
+    hold = hold_train_steps(cfg, model, batches, dt=system.dt)
+    prof = profiled_steps(cfg, model, batches * 3, dt=system.dt)
+    cfg, state, run_dir, res = train_run(flags, "lista")
+    probe = batches[0][0]
+    served_step = served_from_last(run_dir, state, lambda m: m.step_env(probe))
+    out["lista"] = {"model": "LISTAKM 2048 codes, 10 loops, linear encoder",
+                    "env": "duffing", "hold": hold, "profiled": prof, **res,
+                    "served_step": served_step}
+
+    # generic on duffing, a few steps.
+    _, _, _, res = train_run(["--config", "generic", "--env", "duffing",
+                              "--num_steps", "6", "--seed", str(seed),
+                              "--no_final_eval"], "generic")
+    out["generic"] = res
+    emit("train_path", card=smi_line(), **out,
+         elapsed_s=time.perf_counter() - t_phase)
+    return out
+
+
 _LOG, _MV = "kmpc_tpu_torch/csrc/pdhg_log_utility", \
     "kmpc_tpu_torch/csrc/pdhg_mean_variance"
 _PALLAS = "kmpc_tpu/ops/mpc_pallas.py"
@@ -4368,6 +4753,8 @@ def main():
     phase_probe()
     ctx = phase_main_path(args.seed)
     done("main_path")
+    phase_train_path(args.seed)
+    done("train_path")
     comparison_launches, path, fixed_values = phase_comparison(ctx)
     path[ctx["kernel"]] = ctx["first"]
     accurate_launches, accurate_first = phase_accurate_path(ctx, fixed_values)

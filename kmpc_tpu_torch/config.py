@@ -2,7 +2,8 @@
 
 Its own copy of kmpc_tpu's nested dataclasses (same sections, fields and
 defaults, so a JAX run directory's ``config.json`` loads here unchanged)
-with the presets this package runs: ``default``, ``generic`` and
+with its presets: ``default``, ``generic``, ``generic_sparse``,
+``generic_prediction``, ``lista``, ``lista_nonlinear`` and
 ``finance_sparse``.
 """
 
@@ -354,6 +355,72 @@ def get_train_generic_km_config() -> Config:
     return cfg
 
 
+def get_train_generic_sparse_config() -> Config:
+    """GenericKM with L1 regularization."""
+    cfg = Config()
+    cfg.TRAIN.LR = 1e-4
+    cfg.MODEL.MODEL_NAME = "GenericKM"
+    cfg.MODEL.TARGET_SIZE = 64
+    cfg.MODEL.NORM_FN = "id"
+    cfg.MODEL.DECODER.LAYERS = []
+    cfg.MODEL.ENCODER.LAYERS = [64, 64]
+    cfg.MODEL.ENCODER.LAST_RELU = True
+    cfg.MODEL.ENCODER.USE_BIAS = True
+    cfg.MODEL.RECONST_COEFF = 0.5
+    cfg.MODEL.SPARSITY_COEFF = 0.01
+    return cfg
+
+
+def get_train_generic_prediction_config() -> Config:
+    """Prediction-focused GenericKM."""
+    cfg = Config()
+    cfg.MODEL.MODEL_NAME = "GenericKM"
+    cfg.TRAIN.LR = 1e-3
+    cfg.MODEL.DECODER.LAYERS = []
+    cfg.MODEL.PRED_COEFF = 1.0
+    cfg.MODEL.RES_COEFF = 0.0
+    cfg.MODEL.RECONST_COEFF = 0.0
+    cfg.MODEL.SPARSITY_COEFF = 0.0
+    return cfg
+
+
+def get_train_lista_config() -> Config:
+    """LISTAKM with a linear LISTA encoder, 2048 codes."""
+    cfg = Config()
+    cfg.MODEL.MODEL_NAME = "LISTAKM"
+    cfg.MODEL.ENCODER.LISTA.LINEAR_ENCODER = True
+    cfg.MODEL.ENCODER.LISTA.NUM_LOOPS = 10
+    cfg.MODEL.TARGET_SIZE = 1024 * 2
+    cfg.MODEL.RES_COEFF = 1.0
+    cfg.MODEL.RECONST_COEFF = 1.0
+    cfg.MODEL.PRED_COEFF = 0.0
+    cfg.MODEL.SPARSITY_COEFF = 1.0
+    cfg.MODEL.NORM_FN = "id"
+    cfg.MODEL.ENCODER.LISTA.L = 0.1
+    cfg.MODEL.ENCODER.LISTA.ALPHA = 5e-3
+    return cfg
+
+
+def get_train_lista_nonlinear_config() -> Config:
+    """LISTAKM with an MLP encoder (64-64-64, bias, last ReLU), 2048 codes."""
+    cfg = Config()
+    cfg.MODEL.MODEL_NAME = "LISTAKM"
+    cfg.MODEL.ENCODER.LISTA.LINEAR_ENCODER = False
+    cfg.MODEL.ENCODER.LAYERS = [64, 64, 64]
+    cfg.MODEL.ENCODER.LISTA.NUM_LOOPS = 10
+    cfg.MODEL.TARGET_SIZE = 1024 * 2
+    cfg.MODEL.RES_COEFF = 1.0
+    cfg.MODEL.RECONST_COEFF = 1.0
+    cfg.MODEL.PRED_COEFF = 0.0
+    cfg.MODEL.SPARSITY_COEFF = 1.0
+    cfg.MODEL.NORM_FN = "id"
+    cfg.MODEL.ENCODER.LISTA.L = 1e4
+    cfg.MODEL.ENCODER.LISTA.ALPHA = 1.0
+    cfg.MODEL.ENCODER.LAST_RELU = True
+    cfg.MODEL.ENCODER.USE_BIAS = True
+    return cfg
+
+
 def get_train_finance_sparse_config() -> Config:
     """Finance portfolio rebalancing: GenericKM 400 -> 1024 -> 1024 ->
     1024 with bias, a linear 1024 -> 400 decoder, K of 1024 x 1024."""
@@ -392,12 +459,16 @@ def get_train_finance_sparse_config() -> Config:
 
 _CONFIG_REGISTRY = {
     "generic": get_train_generic_km_config,
+    "generic_sparse": get_train_generic_sparse_config,
+    "generic_prediction": get_train_generic_prediction_config,
+    "lista": get_train_lista_config,
+    "lista_nonlinear": get_train_lista_nonlinear_config,
     "finance_sparse": get_train_finance_sparse_config,
 }
 
 
 def get_config(name: str = "default") -> Config:
-    """Preset lookup: ``default``, ``generic`` or ``finance_sparse``."""
+    """Preset lookup: ``default`` or a name of ``_CONFIG_REGISTRY``."""
     if name == "default":
         return get_default_config()
     if name not in _CONFIG_REGISTRY:

@@ -164,6 +164,33 @@ def create_finance_splits(
     )
 
 
+def verify_embedding_shift(embedded: np.ndarray, n_assets: int, embedding_dim: int) -> bool:
+    """The shift property Y_{t+1}[1:] == Y_t[:-1] of the embedding."""
+    a = embedded[:-1].reshape(-1, embedding_dim, n_assets)[:, :-1]
+    b = embedded[1:].reshape(-1, embedding_dim, n_assets)[:, 1:]
+    return bool(np.allclose(a, b))
+
+
+def compute_return_stats(log_returns: pd.DataFrame) -> pd.DataFrame:
+    """Summary statistics per asset."""
+    return pd.DataFrame(
+        {
+            "mean": log_returns.mean(),
+            "std": log_returns.std(),
+            "min": log_returns.min(),
+            "max": log_returns.max(),
+            "skew": log_returns.skew(),
+            "kurtosis": log_returns.kurtosis(),
+            "missing_ratio": log_returns.isna().mean(),
+        }
+    )
+
+
+def compute_autocorrelation(log_returns: pd.DataFrame, lag: int = 1) -> pd.Series:
+    """Per-asset autocorrelation at ``lag``."""
+    return log_returns.apply(lambda x: x.autocorr(lag=lag))
+
+
 @dataclass
 class FinanceData:
     """The splits as float32 tensors [n_samples, obs_size] on one device,
@@ -196,6 +223,59 @@ class FinanceData:
     @property
     def embedding_dim(self) -> int:
         return int(self.metadata["embedding_dim"])
+
+    def split(self, name: str) -> torch.Tensor:
+        return {"train": self.train, "val": self.val, "test": self.test}[name]
+
+    def num_examples(self, split: str, sequence_length: Optional[int] = None) -> int:
+        """Number of start indices for windows of L+1 rows."""
+        L = self.sequence_length if sequence_length is None else sequence_length
+        return int(self.split(split).shape[0]) - L
+
+    def sample_batch(
+        self,
+        generator: torch.Generator,
+        split: str = "train",
+        batch_size: int = 64,
+        sequence_length: Optional[int] = None,
+    ) -> torch.Tensor:
+        """Random windows [B, L+1, obs] (L=1 gives pairs), their start
+        indices uniform with replacement, drawn on the generator's device
+        (which must be the data's)."""
+        L = self.sequence_length if sequence_length is None else sequence_length
+        n = self.num_examples(split, L)
+        if n <= 0:
+            raise ValueError(
+                f"Split '{split}' has {n + L} rows: too short for "
+                f"sequence_length {L}"
+            )
+        starts = torch.randint(0, n, (batch_size,), generator=generator,
+                               device=generator.device)
+        return self.batch_at(starts, split, L)
+
+    def batch_at(self, start_indices: torch.Tensor, split: str,
+                 sequence_length: int) -> torch.Tensor:
+        """The windows [B, L+1, obs] that start at ``start_indices``."""
+        data = self.split(split)
+        steps = torch.arange(sequence_length + 1, device=data.device)
+        return data[start_indices.to(data.device)[:, None] + steps[None, :]]
+
+    def get_test_sequences(
+        self, num_sequences: int = 100, max_length: int = 200
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Evenly spaced test windows: (init [B, obs], future [L, B, obs])."""
+        n_samples = self.test.shape[0]
+        actual_length = min(max_length, n_samples - 1)
+        actual_num = min(num_sequences, n_samples - actual_length)
+        if actual_num <= 0:
+            raise ValueError(
+                f"Not enough test data for {num_sequences} sequences of length {max_length}"
+            )
+        step = (n_samples - actual_length) // actual_num
+        starts = torch.arange(actual_num, device=self.device) * step
+        init = self.test[starts]
+        idx = starts[:, None] + 1 + torch.arange(actual_length, device=self.device)[None, :]
+        return init, self.test[idx].transpose(0, 1)
 
     def extract_current_returns(self, observations: torch.Tensor) -> torch.Tensor:
         """First n_assets block of the embedding = y_t."""

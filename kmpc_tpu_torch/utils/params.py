@@ -1,11 +1,17 @@
-"""Carry kmpc_tpu (JAX) Koopman weights into kmpc_tpu_torch, with numpy only.
+"""Carry kmpc_tpu (JAX) Koopman weights and AdamW state into kmpc_tpu_torch
+and back, with numpy only.
 
-kmpc_tpu keeps GenericKM parameters as a tree
+kmpc_tpu keeps a model's parameters as a tree: GenericKM
 ``{'encoder': [{'w': [in, out], 'b': [out]}, ...], 'decoder': [...],
-'kmat': [z, z]}`` and checkpoints a run as ``<run>/config.json`` plus
-``<run>/checkpoint/arrays.npz`` (or ``<run>/last/arrays.npz``) whose keys
-are tree paths joined by ``//``, e.g. ``params//encoder//[0]//w``. A torch
-``Linear`` weight is ``w.T``; K keeps its ``z @ K`` orientation.
+'kmat': [z, z]}``, LISTAKM ``{'dict': [z, x], 'lista': {'S': [z, z],
+'We': [x, z]} or {'S', 'We_mlp': [...]}, 'kmat'}``. A run checkpoints its
+train state as ``<run>/config.json`` plus ``<run>/checkpoint/arrays.npz``
+(or ``<run>/last/arrays.npz``) whose keys are tree paths joined by ``//``:
+``params//encoder//[0]//w``, ``params//lista//S``, the optax
+``multi_transform`` AdamW state
+``opt_state//inner_states//{other,kmat}//inner_state//[0]//{count,mu//...,nu//...}``
+and ``step``. A torch ``Linear`` weight is ``w.T``; K, S and the dictionary
+keep their orientation.
 """
 
 from __future__ import annotations
@@ -21,48 +27,177 @@ from kmpc_tpu_torch.config import Config
 from kmpc_tpu_torch.models.koopman import KoopmanModel, make_model
 
 _SEP = "//"
+_MLP = re.compile(r"(encoder|decoder|lista\.We)\.network\.(\d+)\.(weight|bias)")
+_JAX_MLP = re.compile(r"(encoder|decoder|lista//We_mlp)//\[(\d+)\]//(w|b)")
+_PLAIN = {"kmat": "kmat", "dict": "dict", "lista.S": "lista//S"}
 
 
-def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
-    """A KoopmanModel state dict from a kmpc_tpu GenericKM parameter tree
-    of numpy arrays. Linear layer i of an MLP sits at ``network.{2 i}``
-    (activations interleave)."""
-    state = {}
-    for part in ("encoder", "decoder"):
-        for i, layer in enumerate(tree[part]):
-            state[f"{part}.network.{2 * i}.weight"] = torch.tensor(
-                np.asarray(layer["w"], np.float32).T)
-            if "b" in layer:
-                state[f"{part}.network.{2 * i}.bias"] = torch.tensor(
-                    np.asarray(layer["b"], np.float32))
-    state["kmat"] = torch.tensor(np.asarray(tree["kmat"], np.float32))
-    return state
+def jax_path(name: str) -> Tuple[str, bool]:
+    """(path under kmpc_tpu's ``params`` tree, whether the array is the
+    transpose) of the torch parameter ``name``. Linear layer i of an MLP
+    sits at ``network.{2 i}`` (activations interleave)."""
+    if name in _PLAIN:
+        return _PLAIN[name], False
+    if name == "lista.We.weight":
+        return "lista//We", True
+    m = _MLP.fullmatch(name)
+    if m is None or int(m.group(2)) % 2:
+        raise KeyError(f"no kmpc_tpu parameter for '{name}'")
+    part = "lista//We_mlp" if m.group(1) == "lista.We" else m.group(1)
+    leaf = "w" if m.group(3) == "weight" else "b"
+    return f"{part}//[{int(m.group(2)) // 2}]//{leaf}", leaf == "w"
+
+
+def torch_name(path: str) -> Tuple[str, bool]:
+    """The inverse of :func:`jax_path`."""
+    plain = {v: k for k, v in _PLAIN.items()}
+    if path in plain:
+        return plain[path], False
+    if path == "lista//We":
+        return "lista.We.weight", True
+    m = _JAX_MLP.fullmatch(path)
+    if m is None:
+        raise KeyError(f"unexpected Koopman parameter '{path}'")
+    part = "lista.We" if m.group(1) == "lista//We_mlp" else m.group(1)
+    leaf = "weight" if m.group(3) == "w" else "bias"
+    return f"{part}.network.{2 * int(m.group(2))}.{leaf}", leaf == "weight"
+
+
+def _flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """A nested dict / list tree as {``//``-joined path: array}, list
+    items as ``[i]``, the tokens of ``jax.tree_util``'s paths."""
+    if isinstance(tree, dict):
+        items = ((str(k), v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((f"[{i}]", v) for i, v in enumerate(tree))
+    else:
+        return {prefix: np.asarray(tree)}
+    flat = {}
+    for token, sub in items:
+        flat.update(_flatten(sub, f"{prefix}{_SEP}{token}" if prefix else token))
+    return flat
 
 
 def _unflatten_params(flat: Dict[str, np.ndarray]) -> Dict:
-    """The ``params`` subtree of a flattened kmpc_tpu train state."""
-    tree: Dict = {"encoder": {}, "decoder": {}}
+    """The ``params`` subtree of a flattened kmpc_tpu train state, lists
+    where a level's tokens are ``[i]``."""
+    tree: Dict = {}
     for key, arr in flat.items():
         parts = key.split(_SEP)
         if parts[0] != "params":
             continue
-        if parts[1:] == ["kmat"]:
-            tree["kmat"] = arr
-            continue
-        m = re.fullmatch(r"\[(\d+)\]", parts[2]) if len(parts) == 4 else None
-        if parts[1] not in ("encoder", "decoder") or m is None:
-            raise KeyError(f"unexpected GenericKM parameter '{key}'")
-        tree[parts[1]].setdefault(int(m.group(1)), {})[parts[3]] = arr
-    for part in ("encoder", "decoder"):
-        tree[part] = [tree[part][i] for i in sorted(tree[part])]
-    return tree
+        torch_name(_SEP.join(parts[1:]))  # a Koopman parameter, or raise
+        node = tree
+        for token in parts[1:-1]:
+            node = node.setdefault(token, {})
+        node[parts[-1]] = arr
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(re.fullmatch(r"\[\d+\]", k) for k in node):
+            return [lists(node[f"[{i}]"]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(tree)
+
+
+def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
+    """A KoopmanModel state dict from a kmpc_tpu parameter tree (GenericKM
+    or LISTAKM) of numpy arrays."""
+    state = {}
+    for path, arr in _flatten(tree).items():
+        name, transpose = torch_name(path)
+        a = np.asarray(arr, np.float32)
+        state[name] = torch.tensor(a.T if transpose else a)
+    return state
+
+
+def params_to_jax(model: KoopmanModel) -> Dict[str, np.ndarray]:
+    """{path under ``params``: float32 array} of a model's parameters."""
+    out = {}
+    for name, p in model.named_parameters():
+        path, transpose = jax_path(name)
+        a = p.detach().cpu().numpy()
+        out[path] = np.ascontiguousarray(a.T if transpose else a)
+    return out
+
+
+def _group_prefix(group: Dict) -> str:
+    return f"opt_state{_SEP}inner_states{_SEP}{group['name']}{_SEP}inner_state{_SEP}[0]"
+
+
+def train_state_to_jax(model: KoopmanModel, optimizer: torch.optim.Optimizer,
+                       step: int) -> Dict[str, np.ndarray]:
+    """A train state (model, its AdamW with the groups ``other`` and
+    ``kmat``, the step) flattened under kmpc_tpu's keys: AdamW's
+    ``exp_avg``, ``exp_avg_sq`` and ``step`` of each group become optax's
+    ``mu``, ``nu`` and ``count``."""
+    flat = {f"params{_SEP}{k}": v for k, v in params_to_jax(model).items()}
+    names = {p: n for n, p in model.named_parameters()}
+    for group in optimizer.param_groups:
+        prefix = _group_prefix(group)
+        count = 0
+        for p in group["params"]:
+            path, transpose = jax_path(names[p])
+            st = optimizer.state.get(p, {})
+            for moment, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+                a = (st[key].detach().cpu().numpy() if key in st
+                     else np.zeros(tuple(p.shape), np.float32))
+                flat[f"{prefix}{_SEP}{moment}{_SEP}{path}"] = \
+                    np.ascontiguousarray(a.T if transpose else a)
+            if "step" in st:
+                count = int(st["step"])
+        flat[f"{prefix}{_SEP}count"] = np.asarray(count, np.int32)
+    flat["step"] = np.asarray(step, np.int32)
+    return flat
+
+
+def _checked(flat: Dict[str, np.ndarray], key: str, shape) -> np.ndarray:
+    if key not in flat:
+        raise KeyError(f"Checkpoint missing leaf '{key}'")
+    a = flat[key]
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"Shape mismatch for '{key}': checkpoint {a.shape} "
+                         f"vs model {tuple(shape)}")
+    return a
+
+
+def train_state_from_jax(flat: Dict[str, np.ndarray], model: KoopmanModel,
+                         optimizer: torch.optim.Optimizer) -> int:
+    """Load a flattened kmpc_tpu train state into ``model`` and its AdamW
+    (in place; the inverse of :func:`train_state_to_jax`); returns the
+    step. Every leaf the model and optimizer need must be present with its
+    shape."""
+    names = {p: n for n, p in model.named_parameters()}
+    with torch.no_grad():
+        for group in optimizer.param_groups:
+            prefix = _group_prefix(group)
+            count = int(_checked(flat, f"{prefix}{_SEP}count", ()))
+            for p in group["params"]:
+                path, transpose = jax_path(names[p])
+                shape = tuple(p.shape)[::-1] if transpose else tuple(p.shape)
+
+                def get(key):
+                    a = np.asarray(_checked(flat, key, shape), np.float32)
+                    return torch.tensor(a.T if transpose else a,
+                                        device=p.device)
+
+                p.copy_(get(f"params{_SEP}{path}"))
+                optimizer.state[p] = {
+                    "step": torch.tensor(float(count)),
+                    "exp_avg": get(f"{prefix}{_SEP}mu{_SEP}{path}"),
+                    "exp_avg_sq": get(f"{prefix}{_SEP}nu{_SEP}{path}"),
+                }
+    return int(_checked(flat, "step", ()))
 
 
 def load_jax_checkpoint(
     run_dir: Union[str, Path], device: Union[str, torch.device] = "cuda"
 ) -> Tuple[Config, KoopmanModel, int]:
     """(config, model with the run's weights on ``device``, step) from a
-    kmpc_tpu run directory: its best checkpoint, else its last."""
+    kmpc_tpu or kmpc_tpu_torch run directory: its best checkpoint, else
+    its last."""
     run_dir = Path(run_dir)
     ckpt = run_dir / "checkpoint"
     if not (ckpt / "arrays.npz").exists():
@@ -73,7 +208,10 @@ def load_jax_checkpoint(
     with np.load(ckpt / "arrays.npz") as npz:
         flat = {k: npz[k] for k in npz.files}
     tree = _unflatten_params(flat)
-    obs = int(np.asarray(tree["encoder"][0]["w"]).shape[0])
+    if "dict" in tree:
+        obs = int(np.asarray(tree["dict"]).shape[1])
+    else:
+        obs = int(np.asarray(tree["encoder"][0]["w"]).shape[0])
     model = make_model(cfg, obs, device=device)
     model.load_state_dict(params_from_jax(tree))
     step = int(np.asarray(flat["step"])) if "step" in flat else -1

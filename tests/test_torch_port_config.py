@@ -42,7 +42,9 @@ def test_config_section_defaults_match(section):
             assert a == b, name
 
 
-@pytest.mark.parametrize("name", ["default", "generic", "finance_sparse"])
+@pytest.mark.parametrize("name", ["default", "generic", "generic_sparse",
+                                  "generic_prediction", "lista",
+                                  "lista_nonlinear", "finance_sparse"])
 def test_get_config_matches(name):
     assert tcfg.get_config(name).to_dict() == jcfg.get_config(name).to_dict()
 
