@@ -107,7 +107,15 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    a step (CUDA events over whole chunks) and the host's time to enqueue
    it, steps/s and the host's share (K's spectrum at every log,
    evaluations, checkpoint writes), and the card's busy share over a
-   window of steps under ``torch.profiler``;
+   window of steps under ``torch.profiler``; then ``eval_path``
+   (``phase_eval_path``): ``finance_sparse`` in bfloat16 (step 1 against
+   the CPU, 100 steps beside float32's), the latent ODE against float64
+   ``expm``, the evaluation suite after ``train_system(final_eval=True)``
+   on duffing and lyapunov against the CPU, the sparsity sweep's members
+   against single runs, a reference ``.pt`` checkpoint served by
+   ``run_experiment --torch_ckpt`` (kernels A and C) and resumed, and
+   ``examples/full_pipeline.py`` (kernels A, B and C), its launches joining
+   the ``kernels`` line's entries as ``eval_path_launches``;
 5. ``comparison``: the full strategy comparison on the same data:
    buy-and-hold, Markowitz, DMD, Koopman-MPC and scenario Kelly (S=16), 3
    sweeps each, every batched solve through its kernel; then Koopman-MPC
@@ -1749,6 +1757,14 @@ def phase_kernel_vs_plain():
         seed += 1
         cases.append((f"adaptive_block_{label}", 4, H, N, _params(
             max_iters=400, **acc), seed, quick))
+    # adaptive_block_H5N500 at seed 30, where one problem parted beyond
+    # FLIP_OBJ_TOL: float32's limit at N=500 (``python -m
+    # kmpc_tpu_torch.ops.adaptive_parting --n500``: the problem stays
+    # unsettled, fixed-point residual 6.0e-4 to 8.4e-4 in every run, and
+    # the kernels' step history is the one the plain version takes with its
+    # assets permuted), so held as the wide-row cases are (LOG_UNSETTLED_FP).
+    cases.append(("adaptive_block_H5N500_seed30", 4, 5, 500, _params(
+        max_iters=400, **acc), 30, dict(quick, wide=True)))
     cases += [
         ("adaptive_block_warm_dual", 6, 20, 20, _params(
             max_iters=400, **acc), 821, warm),
@@ -4499,7 +4515,7 @@ def profiled_steps(cfg, model, batches, dt=1.0):
             "kernels_per_step": sum(e.count for e in kernels) / n}
 
 
-def train_run(flags, label):
+def train_run(flags, label, root=None):
     """``python -m kmpc_tpu_torch.train`` with ``flags`` (the CLI's config
     function, then ``train`` on the card), timed by ``timed_training``.
     Every logged training loss must be finite. Returns (config, state,
@@ -4511,7 +4527,8 @@ def train_run(flags, label):
     stats = {}
     t0 = time.perf_counter()
     with timed_training(stats):
-        state, _, run_dir = T.train(cfg, log_dir=str(TRAIN_DIR / label),
+        state, _, run_dir = T.train(cfg, log_dir=str((root or TRAIN_DIR)
+                                                     / label),
                                     verbose=False, device="cuda")
     wall = time.perf_counter() - t0
     steps = sum(n for _, _, n in stats["chunks"])
@@ -4668,6 +4685,562 @@ def phase_train_path(seed: int):
     return out
 
 
+EVAL_DIR = ROOT / "runs" / "chip_smoke_eval"
+# bfloat16, card vs CPU: step 1's metrics, |d| / max(|ref|, 1); the port
+# against kmpc_tpu's bfloat16 on the CPU is 0 to 1.3e-7 apart, a model
+# computing in float32 1.0e-3 to 5.1e-3 (tests/test_torch_port_bf16_ode.py).
+BF16_REL = 1e-4
+# Step 1's gradients card vs CPU per tensor, |d| / |ref| over the tensor:
+# float32 compute reads 1.4e-2 and more from bfloat16 on some tensor of
+# every case on the CPU, bfloat16 against kmpc_tpu's at most 4.3e-3.
+BF16_GRAD_REL = 1e-2
+BF16_F32_REL = 0.05    # bfloat16 loss against float32's
+ODE_REL = 1e-4         # the latent ODE against float64 expm, relative
+EVAL_MSE_REL = 1e-4    # an evaluation mode's horizon-100 MSE, card vs CPU
+# A sweep member's loss against its single run, |d| / max(|ref|, 1). In
+# bfloat16 vmap's batched product sums in another order than a single run's
+# and the rounding to bfloat16 parts them: 6.4e-5 over 20 steps, 1.2e-7 in
+# float32 (on the H100); ``nearest_other_single_rel`` reads how far a
+# member is from the single run with another coefficient.
+SWEEP_LOSS_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
+
+def _near(a, b, rel) -> bool:
+    return abs(a - b) <= rel * max(abs(b), 1.0)
+
+
+def uncounted(fn, *args, **kwargs):
+    """``fn(*args, **kwargs)`` with every kernel's launch count left as it
+    was before: the launches a hold makes to compare a kernel with its
+    plain version do not count as the path's."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    counters = kernel_counters()
+    saved = {k: c.launches for k, c in counters.items()}
+    storage = dict(M.STORAGE_LAUNCHES)
+    try:
+        return fn(*args, **kwargs)
+    finally:
+        for k, c in counters.items():
+            c.launches = saved[k]
+        M.STORAGE_LAUNCHES.clear()
+        M.STORAGE_LAUNCHES.update(storage)
+
+
+def _bf16_step1(cfg, model, batch):
+    """Step 1 of ``model`` (bfloat16 compute) on ``batch``, on the card and
+    on the CPU from the same weights: its six metrics {name: (card, cpu)};
+    per parameter the gradient's distance card to CPU (norm of the
+    difference over the CPU's norm); and beside it the distance of the
+    float32-compute gradient on the card to the CPU's bfloat16 one (what a
+    model that did not compute in bfloat16 reads)."""
+    import copy
+
+    from kmpc_tpu_torch.models.koopman import make_model
+
+    cfg32 = copy.deepcopy(cfg)
+    cfg32.TRAIN.DTYPE = "float32"
+    weights = model.state_dict()
+    sides = {}
+    for label, c, dev in (("card", cfg, "cuda"), ("cpu", cfg, "cpu"),
+                          ("float32", cfg32, "cuda")):
+        m = model if label == "card" else make_model(
+            c, model.observation_size, device=dev)
+        m.load_state_dict({k: v.to(dev) for k, v in weights.items()})
+        m.zero_grad(set_to_none=True)
+        loss, metrics = m.loss_sequence(batch.to(dev))
+        loss.backward()
+        sides[label] = ({k: v.item() for k, v in metrics.items()},
+                        {n: p.grad for n, p in m.named_parameters()})
+        m.zero_grad(set_to_none=True)
+    (mk, gk), (mc, gc), (_, g32) = sides["card"], sides["cpu"], \
+        sides["float32"]
+    return ({k: (mk[k], mc[k]) for k in mc},
+            {n: _rel_norm(gk[n], gc[n]) for n in gc},
+            {n: _rel_norm(g32[n], gc[n]) for n in gc})
+
+
+class _OutDtypeMm(torch.autograd.Function):
+    """a [M, k] @ b [k, n] of bfloat16 operands as one bfloat16 GEMM with a
+    float32 output (``torch.mm(..., out_dtype=torch.float32)``, which has
+    no derivative in torch 2.11), the gradients by the same GEMMs of the
+    incoming gradient cast to bfloat16: the tensor-core route for the
+    port's bfloat16 products, timed by ``_bf16_routes`` against the one the
+    port takes."""
+
+    @staticmethod
+    def forward(a, b):
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (torch.mm(g, b.T, out_dtype=torch.float32).to(a.dtype),
+                torch.mm(a.T, g, out_dtype=torch.float32).to(b.dtype))
+
+
+def _out_dtype_matmul(a, b):
+    out = _OutDtypeMm.apply(a.reshape(-1, a.shape[-1]), b)
+    return out.reshape(*a.shape[:-1], b.shape[-1])
+
+
+@contextlib.contextmanager
+def _out_dtype_products():
+    """While it lasts, the port's bfloat16 products are ``_OutDtypeMm``
+    GEMMs instead of ``matmul_f32``'s float32 products of the operands cast
+    up (the same sums)."""
+    from kmpc_tpu_torch.models import koopman, lista, mlp
+
+    saved = [(m, m.matmul_f32) for m in (koopman, lista, mlp)]
+    for m, _ in saved:
+        m.matmul_f32 = _out_dtype_matmul
+    try:
+        yield
+    finally:
+        for m, f in saved:
+            m.matmul_f32 = f
+
+
+def _bf16_routes(cfg, model, batch, steps=10):
+    """The bfloat16 products of ``finance_sparse``'s training step two ways
+    on the card: ``matmul_f32`` (the port's route: the float32 product of
+    the operands cast up) against one bfloat16 GEMM with a float32 output
+    (``_OutDtypeMm``). Forward and backward of each product shape (the
+    encoder's and the decoder's layers on the batch's frames, z @ K on the
+    batch), ms each; then the whole training step from copies of the
+    model, ``steps`` steps a round in the order port, GEMM, GEMM, port, ms
+    a step each."""
+    import copy
+
+    from kmpc_tpu_torch.models.mlp import matmul_f32
+    from kmpc_tpu_torch.train import loop as T
+
+    bf, dev = torch.bfloat16, batch.device
+    frames = batch.shape[0] * batch.shape[1]
+    shapes = [(frames, lin.in_features, lin.out_features) for lin in
+              model.encoder.linears() + model.decoder.linears()]
+    shapes.append((batch.shape[0], model.target_size, model.target_size))
+    gemms = {}
+    for M_, k, n in dict.fromkeys(shapes):
+        a = torch.randn(M_, k, device=dev, dtype=bf, requires_grad=True)
+        b = torch.randn(k, n, device=dev, dtype=bf, requires_grad=True)
+        g = torch.randn(M_, n, device=dev)
+
+        def run(f):
+            f(a, b).backward(g)
+
+        gemms[f"{M_}x{k}x{n}"] = {
+            "cast_up_ms": cuda_ms(lambda: run(matmul_f32), 20),
+            "out_dtype_ms": cuda_ms(lambda: run(_out_dtype_matmul), 20)}
+
+    def timed_round(route):
+        m = copy.deepcopy(model)
+        state = T.TrainState(m, T.build_optimizer(cfg, m))
+        step = T.make_train_step(cfg, m, 1.0)
+        with route():
+            step(state, batch)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(steps):
+                step(state, batch)
+            end.record()
+            torch.cuda.synchronize()
+        return start.elapsed_time(end) / steps
+
+    rounds = {"cast_up": [], "out_dtype": []}
+    for name in ("cast_up", "out_dtype", "out_dtype", "cast_up"):
+        rounds[name].append(timed_round(
+            _out_dtype_products if name == "out_dtype"
+            else contextlib.nullcontext))
+    return {"gemm_fwd_bwd": gemms,
+            "gemm_total_ms": {r: sum(v[f"{r}_ms"] for v in gemms.values())
+                              for r in ("cast_up", "out_dtype")},
+            "step_ms": rounds}
+
+
+def _ode_hold(seed, dev):
+    """``rollout_sequence_ode`` at ``generic``'s width (64 latents, encoder
+    2-64-64-64) on duffing with a random K (scaled to spectral radius about
+    0.5), both methods, against the latents z0 expm(K t) in float64 on the
+    CPU, and the decode of those."""
+    import scipy.linalg
+
+    from kmpc_tpu_torch.config import get_config
+    from kmpc_tpu_torch.data.systems import make_system
+    from kmpc_tpu_torch.models.koopman import make_model
+
+    cfg = get_config("generic")
+    system = make_system(cfg, "duffing")
+    model = make_model(cfg, system.observation_size, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(seed))
+    z = cfg.MODEL.TARGET_SIZE
+    rng = np.random.default_rng(seed)
+    K = rng.standard_normal((z, z)) * 0.5 / np.sqrt(z)
+    with torch.no_grad():
+        model.kmat.copy_(torch.as_tensor(K, dtype=torch.float32))
+        x0 = system.reset(torch.Generator(device=dev).manual_seed(seed), 64)
+        z0 = model.encode(x0).double().cpu().numpy()
+    steps, dt = 50, system.dt
+    ref = np.stack([z0 @ scipy.linalg.expm(K.astype(np.float32).astype(
+        np.float64) * (i * np.float32(dt))) for i in range(steps + 1)])
+    out = {"latent": z, "steps": steps, "dt": dt}
+    for method in ("dopri5", "rk4"):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            t_span = torch.arange(steps + 1, dtype=torch.float32,
+                                  device=dev) * dt
+            zt = model.integrate_latent_ode(model.encode(x0), t_span, method)
+            xt = model.rollout_sequence_ode(x0, steps, dt, method)
+            xr = model.decode(torch.as_tensor(ref, dtype=torch.float32,
+                                              device=dev))
+        torch.cuda.synchronize()
+        err = float(np.abs(zt.double().cpu().numpy() - ref).max()
+                    / np.abs(ref).max())
+        derr = float(((xt - xr).abs().max() / xr.abs().max()).item())
+        out[method] = {"latent_rel_err": err, "decoded_rel_err": derr,
+                       "s": time.perf_counter() - t0}
+        assert zt.dtype == torch.float32 and xt.shape == (steps + 1, 64, 2)
+        assert err <= ODE_REL and derr <= ODE_REL, (method, err, derr)
+    return out
+
+
+def _eval_hold(seed, env, dev):
+    """``train_system(final_eval=True)`` for 4 steps of ``generic`` on
+    ``env`` on the card (EvaluationSettings' defaults: horizons 100 and
+    1000, batch 100, periods 10/25/50/100; the basin grid on lyapunov),
+    then the best checkpoint's evaluation on the CPU from the same weights
+    and initial states at horizon 100: each mode's ``num_valid`` equal and
+    its MSE within EVAL_MSE_REL where both are finite."""
+    from kmpc_tpu_torch.config import get_config
+    from kmpc_tpu_torch.data.systems import make_system
+    from kmpc_tpu_torch.eval.evaluation import (
+        EvaluationSettings, _evaluate_system, initial_states,
+    )
+    from kmpc_tpu_torch.models.koopman import make_model
+    from kmpc_tpu_torch.train import loop as T
+    from kmpc_tpu_torch.utils.params import params_from_checkpoint
+
+    cfg = get_config("generic")
+    cfg.ENV.ENV_NAME, cfg.SEED = env, seed
+    cfg.TRAIN.NUM_STEPS = 4
+    t0 = time.perf_counter()
+    _, _, run_dir = T.train_system(cfg, log_dir=str(EVAL_DIR / env),
+                                   verbose=False, final_eval=True,
+                                   device=dev)
+    torch.cuda.synchronize()
+    train_eval_s = time.perf_counter() - t0
+    card = json.loads((run_dir / "evaluation_results_best.json")
+                      .read_text())[env]
+    assert json.loads((run_dir / "evaluation_results_last.json")
+                      .read_text())[env]["modes"]
+    settings = EvaluationSettings(systems=(env,))
+    system = make_system(cfg, env)
+    x0 = initial_states(system, cfg, settings, dev).cpu()
+    model = make_model(cfg, system.observation_size, device="cpu")
+    model.load_state_dict(params_from_checkpoint(run_dir / "checkpoint")[0])
+    short = EvaluationSettings(systems=(env,), horizons=(100,))
+    cpu = _evaluate_system(model.eval(), system, short, x0, None, False)
+    held, worst = 0, 0.0
+    for mode, m in cpu["modes"].items():
+        a, b = card["modes"][mode]["horizons"]["100"], m["horizons"]["100"]
+        assert a["num_valid"] == b["num_valid"], (env, mode, a, b)
+        if np.isfinite(a["mean"]) and np.isfinite(b["mean"]):
+            rel = abs(a["mean"] - b["mean"]) / max(abs(b["mean"]), 1e-30)
+            worst = max(worst, rel)
+            assert rel <= EVAL_MSE_REL, (env, mode, a["mean"], b["mean"])
+            held += 1
+    out = {"train_and_eval_s": train_eval_s, "modes_held": held,
+           "max_mse_rel_vs_cpu": worst,
+           "h100_mse": {k: v["horizons"]["100"]["mean"]
+                        for k, v in card["modes"].items()},
+           "h1000_mse": {k: v["horizons"]["1000"]["mean"]
+                         for k, v in card["modes"].items()},
+           "best_periodic": card["best_periodic"],
+           "figures": len(card["files"])}
+    if env == "lyapunov":
+        basins = card["basins"]
+        assert len(basins["true_assignment"]) == 225
+        out["basins"] = {k: basins[k] for k in ("agreement", "grid_n",
+                                                "steps")}
+        out["basins"]["true_attractors"] = len(basins["true_attractors"])
+    return out
+
+
+def _sweep_hold(seed, dev, dtype, steps, coefficients=(0.0, 1e-3, 1e-2, 0.1)):
+    """``generic_sparse`` on duffing in ``dtype``: the sweep's members (one
+    stacked AdamW, vmap over the coefficients) against single runs with
+    each coefficient from the same weights on the same batches, every
+    step's loss within SWEEP_LOSS_TOL[dtype]."""
+    import copy
+
+    from kmpc_tpu_torch import stream_seed
+    from kmpc_tpu_torch.config import get_config
+    from kmpc_tpu_torch.data.systems import make_system
+    from kmpc_tpu_torch.models.koopman import make_model
+    from kmpc_tpu_torch.train import loop as T
+    from kmpc_tpu_torch.train import sweep as W
+
+    cfg = get_config("generic_sparse")
+    cfg.ENV.ENV_NAME, cfg.SEED = "duffing", seed
+    cfg.TRAIN.DTYPE = dtype
+    system = make_system(cfg)
+    model = make_model(cfg, system.observation_size, device=dev)
+    state = W.stack_states(cfg, model, torch.Generator(device=dev)
+                           .manual_seed(seed), len(coefficients))
+    coeffs = torch.tensor(coefficients, dtype=torch.float32, device=dev)
+    singles = []
+    for c in coefficients:
+        cc = copy.deepcopy(cfg)
+        cc.MODEL.SPARSITY_COEFF = c
+        m = make_model(cc, system.observation_size, device=dev)
+        m.load_state_dict(W.member(state, 0))
+        singles.append((T.TrainState(m, T.build_optimizer(cc, m)),
+                        T.make_system_train_step(cc, m, system)))
+    fused = W.make_fused_sweep_step(cfg, model, system)
+    gen = torch.Generator(device=dev)
+    sweep_losses, single_losses = [], []
+    t0 = time.perf_counter()
+    for s in range(steps):
+        _, metrics = fused(state, s, coeffs)
+        sweep_losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - t0
+    for s in range(steps):
+        row = []
+        for st, fn in singles:
+            gen.manual_seed(stream_seed(cfg.SEED, T._DATA, s))
+            row.append(fn(st, gen)[1]["loss"])
+        single_losses.append(torch.stack(row))
+    a = torch.stack(sweep_losses).double().cpu()
+    b = torch.stack(single_losses).double().cpu()
+    rel = ((a[:, :, None] - b[:, None, :]).abs()
+           / b[:, None, :].abs().clamp_min(1.0)).amax(dim=0)  # [member, single]
+    dev_rel = rel.diagonal().max().item()
+    other = rel.masked_fill(torch.eye(len(coefficients), dtype=torch.bool),
+                            float("inf"))
+    assert dev_rel <= SWEEP_LOSS_TOL[dtype], (dtype, dev_rel)
+    dparams = max((W.member(state, i)[k] - st.model.state_dict()[k])
+                  .abs().max().item()
+                  for i, (st, _) in enumerate(singles)
+                  for k in state.params)
+    return {"dtype": dtype, "coefficients": list(coefficients),
+            "steps": steps, "max_loss_rel_vs_single": dev_rel,
+            "nearest_other_single_rel": other.min().item(),
+            "max_abs_param_diff_vs_single": dparams,
+            "ms_per_sweep_step": 1e3 * sweep_s / steps}
+
+
+def phase_eval_path(seed: int):
+    """The training and evaluation entry points past ``train_path``, at the
+    presets' full widths on the card (weights from ``seed``):
+
+    - ``finance_sparse`` with ``--dtype bfloat16``: step 1's six metrics
+      on the card within BF16_REL of the port's bfloat16 on the CPU, its
+      gradients within BF16_GRAD_REL; the products' two routes timed
+      (``_bf16_routes``); then 100 steps of it and of float32 through the
+      CLI's config function, the bfloat16 run's first loss and final
+      validation loss within BF16_F32_REL of float32's, ms a step of each;
+    - the latent ODE (``_ode_hold``);
+    - the evaluation suite after ``train_system(final_eval=True)`` on
+      duffing and lyapunov (``_eval_hold``);
+    - the sparsity sweep in float32 and in bfloat16 (``_sweep_hold``),
+      then ``run_sparsity_sweep``;
+    - a reference checkpoint: the float32 run's weights and AdamW written
+      in the reference's layout, ``run_experiment --torch_ckpt`` on it
+      in-process (every batched solve through its kernel; the served
+      model's forecasts bit-equal to the trained one's; its Koopman-MPC
+      first solve held against the plain version as ``main_path`` holds
+      it), and ``train`` resumed from it for 10 steps;
+    - ``examples/full_pipeline.py`` at 20 training steps and 2 sweeps,
+      its two batches of 1024 problems and its backtest's first solves
+      held against the plain version on the same inputs.
+
+    Every kernel the phase launches is held at one of its shapes here;
+    the holds' own launches are not counted (``uncounted``). Returns the
+    phase's launches by kernel (counted from 0 here) and the held
+    cases."""
+    import shutil
+
+    from kmpc_tpu_torch import run_experiment as RE
+    from kmpc_tpu_torch.backtest.engine import KoopmanMPCStrategy
+    from kmpc_tpu_torch.config import get_config
+    from kmpc_tpu_torch.data.finance import load_finance_data
+    from kmpc_tpu_torch.examples import full_pipeline
+    from kmpc_tpu_torch.models.koopman import make_model
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+    from kmpc_tpu_torch.ops.rollout import predict_returns
+    from kmpc_tpu_torch.train import loop as T
+    from kmpc_tpu_torch.train import sweep as W
+    from kmpc_tpu_torch.train.__main__ import config_from_args, parse_args
+    from kmpc_tpu_torch.utils.torch_import import (
+        load_torch_checkpoint, save_reference_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(EVAL_DIR, ignore_errors=True)
+    EVAL_DIR.mkdir(parents=True)
+    dev = torch.device("cuda")
+    kernels = reset_counts()
+    out = {}
+
+    # bfloat16 at full width: step 1 against the CPU, then 100 steps of
+    # each dtype.
+    base = ["--config", "finance_sparse", "--num_steps", "100",
+            "--seed", str(seed)]
+    cfg16 = config_from_args(parse_args(base + ["--dtype", "bfloat16"]))
+    fd = load_finance_data(cfg16, device=dev)
+    model = make_model(cfg16, fd.observation_size, device=dev).init_params(
+        torch.Generator(device=dev).manual_seed(seed))
+    L = cfg16.TRAIN.SEQUENCE_LENGTH
+    rng = np.random.default_rng(seed)
+    batch = fd.batch_at(torch.tensor(rng.integers(
+        0, fd.num_examples("train", L), cfg16.TRAIN.BATCH_SIZE), device=dev),
+        "train", L)
+    step1, grad_rel, grad_rel_f32 = _bf16_step1(cfg16, model, batch)
+    far = {k: v for k, v in step1.items() if not _near(*v, BF16_REL)}
+    assert not far, f"bfloat16 step 1 apart from the CPU's: {far}"
+    far = {k: v for k, v in grad_rel.items() if v > BF16_GRAD_REL}
+    assert not far, f"bfloat16 step 1's gradients apart from the CPU's: {far}"
+    routes = _bf16_routes(cfg16, model, batch)
+    runs = {}
+    for label, flags in (("float32", base),
+                         ("bfloat16", base + ["--dtype", "bfloat16"])):
+        cfg, state, run_dir, res = train_run(flags, f"eval_{label}",
+                                             root=EVAL_DIR)
+        hist = [json.loads(x) for x in open(run_dir / "metrics_history.jsonl")]
+        val = [e["value"] for e in hist if e["name"] == "val/loss"]
+        runs[label] = (cfg, state, run_dir, res, val[-1])
+    r16, r32 = runs["bfloat16"], runs["float32"]
+    assert _near(r16[3]["first_loss"], r32[3]["first_loss"], BF16_F32_REL), \
+        (r16[3]["first_loss"], r32[3]["first_loss"])
+    assert _near(r16[4], r32[4], BF16_F32_REL), (r16[4], r32[4])
+    out["bfloat16"] = {
+        "step1_card_vs_cpu": step1,
+        "max_step1_rel": max(abs(a - b) / max(abs(b), 1.0)
+                             for a, b in step1.values()),
+        "step1_grad_rel_card_vs_cpu": grad_rel,
+        "step1_grad_rel_float32_compute_vs_cpu": grad_rel_f32,
+        "products": routes,
+        **{f"{k}_{label}": runs[label][3][k] for label in runs
+           for k in ("ms_per_step", "enqueue_ms_per_step", "first_loss",
+                     "steps_per_s")},
+        "final_val_loss_float32": r32[4], "final_val_loss_bfloat16": r16[4],
+        "card": smi_line()}
+
+    out["ode"] = _ode_hold(seed, dev)
+    out["evaluation"] = {env: _eval_hold(seed, env, dev)
+                         for env in ("duffing", "lyapunov")}
+    out["sweep"] = {dtype: _sweep_hold(seed, dev, dtype, steps)
+                    for dtype, steps in (("float32", 50), ("bfloat16", 20))}
+    sweep_cfg = get_config("generic_sparse")
+    sweep_cfg.ENV.ENV_NAME, sweep_cfg.SEED = "duffing", seed
+    sweep_cfg.TRAIN.NUM_STEPS = 50
+    coefficients = out["sweep"]["float32"]["coefficients"]
+    t0 = time.perf_counter()
+    results, _ = W.run_sparsity_sweep(sweep_cfg, coefficients,
+                                      log_dir=str(EVAL_DIR / "sweep"),
+                                      verbose=False, device=dev)
+    assert len(results["no_reencode_mse"]) == len(coefficients)
+    assert all(0.0 <= r <= 1.0 for r in results["sparsity_ratio"])
+    out["sweep"]["run_sparsity_sweep"] = {
+        "s": time.perf_counter() - t0, "results": results}
+
+    # The float32 run as a reference checkpoint, served and resumed.
+    cfg, state, run_dir, _, _ = r32
+    pt = EVAL_DIR / "reference" / "checkpoint.pt"
+    pt.parent.mkdir()
+    save_reference_checkpoint(pt, state.model, cfg, step=state.step,
+                              optimizer=state.optimizer,
+                              finance_metadata=fd.metadata)
+    ckpt = load_torch_checkpoint(str(pt), device=dev)
+    bt, mpc = RE.backtest_settings(cfg)
+    state.model.eval()
+    with torch.no_grad():
+        served = predict_returns(ckpt["model"], fd.test, bt.HORIZON,
+                                 fd.n_assets, fd.mean, fd.std)
+        trained = predict_returns(state.model, fd.test, bt.HORIZON,
+                                  fd.n_assets, fd.mean, fd.std)
+    assert torch.equal(served, trained), (served - trained).abs().max().item()
+    rows = M.PDHG_LOG_UTILITY_ROWS
+    before = rows.launches
+    t0 = time.perf_counter()
+    table = RE.main(["--torch_ckpt", str(pt), "--sweeps", "1",
+                     "--output", str(EVAL_DIR / "reference")])
+    experiment_s = time.perf_counter() - t0
+    assert rows.launches - before == 2, rows.launches - before  # DMD, KMPC
+    assert all(np.isfinite(v) for row in table.values() for v in row.values())
+    n_dates = fd.test.shape[0] - fd.sequence_length - bt.HORIZON
+    aux = KoopmanMPCStrategy(model=ckpt["model"], mpc=mpc).precompute(
+        fd, bt.HORIZON)
+    r = torch.exp(aux["pred_log_returns"][:n_dates]).contiguous()
+    cw = torch.full((n_dates, fd.n_assets), 1.0 / fd.n_assets, device=dev)
+    first = uncounted(compare_tensors, "torch_ckpt_first_solve", cw, r, mpc,
+                      time_reps=3, time_plain=False)
+    held = [first]
+    resume_cfg = config_from_args(parse_args(
+        ["--config", "finance_sparse", "--num_steps", str(state.step + 10),
+         "--seed", str(seed)]))
+    resumed, _, _ = T.train(resume_cfg, log_dir=str(EVAL_DIR / "resumed"),
+                            checkpoint_path=str(pt), verbose=False,
+                            device="cuda")
+    assert resumed.step == state.step + 10, resumed.step
+    out["torch_ckpt"] = {
+        "step": ckpt["step"], "forecasts_bit_equal": True,
+        "experiment_s": experiment_s, "metrics": table,
+        "first_solve": {k: first[k] for k in (
+            "kernel", "B", "max_abs_dw", "max_abs_dobj", "kernel_ms")},
+        "resumed_to": resumed.step}
+
+    t0 = time.perf_counter()
+    pipe = full_pipeline.main(["--steps", "20", "--sweeps", "2"])
+    pipe_s = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in kernels.items() if c.launches}
+    for k in ("deterministic", "scenario_kelly"):
+        assert pipe[k]["finite"] and pipe[k]["sum_err"] <= FEAS_TOL, pipe[k]
+    assert all(np.isfinite(v["Final Value"]) for v in pipe["metrics"].values())
+    # Its solves held against the plain version on the same inputs: step
+    # 4's two batches of 1024 problems, and the backtest's first solves.
+    cw, ys, yss = pipe["problems"]
+    for label, y in (("full_pipeline_deterministic", ys),
+                     ("full_pipeline_scenarios", yss)):
+        held.append(uncounted(compare_tensors, label, cw, torch.exp(y),
+                              pipe["mpc"], time_reps=1, time_plain=False))
+    strategies, pfd = pipe["strategies"], pipe["fd"]
+    mv_mpc = strategies["Markowitz"].mpc
+    names = ("DMD", "KoopmanMPC", "ScenarioKelly", "Markowitz")
+    reach = {n: strategy_kernel(n, pipe["mpc"], mv_mpc, pfd.n_assets,
+                                strategies["ScenarioKelly"].num_scenarios)
+             for n in names}
+    for name in names:
+        held += uncounted(first_solves, {"fd": pfd}, strategies, pipe["mpc"],
+                          mv_mpc, pipe["bt"], (name,),
+                          f"full_pipeline_{name}", reach,
+                          scenarios=strategies["ScenarioKelly"].num_scenarios
+                          ).values()
+    out["full_pipeline"] = {
+        "s": pipe_s, "losses": pipe["losses"],
+        "solves": {k: pipe[k] for k in ("deterministic", "scenario_kelly")},
+        "final_values": {k: v["Final Value"]
+                         for k, v in pipe["metrics"].items()}}
+    out["held"] = [{k: c[k] for k in ("case", "kernel", "B", "max_abs_dw")}
+                   for c in held]
+
+    for name in ("pdhg_log_utility_rows", "pdhg_log_utility_scenarios_rows",
+                 "pdhg_mean_variance_lanes"):
+        assert launches.get(name, 0) > 0, f"{name} never launched"
+    unheld = set(launches) - {c["kernel"] for c in held}
+    assert not unheld, f"launched here, held at none of its shapes: {unheld}"
+    emit("eval_path", **out, launches=launches,
+         elapsed_s=time.perf_counter() - t_phase)
+    return launches, held
+
+
 _LOG, _MV = "kmpc_tpu_torch/csrc/pdhg_log_utility", \
     "kmpc_tpu_torch/csrc/pdhg_mean_variance"
 _PALLAS = "kmpc_tpu/ops/mpc_pallas.py"
@@ -4755,6 +5328,10 @@ def main():
     done("main_path")
     phase_train_path(args.seed)
     done("train_path")
+    eval_launches, eval_held = phase_eval_path(args.seed)
+    for case in eval_held:
+        cases[case["kernel"]].append(case)
+    done("eval_path")
     comparison_launches, path, fixed_values = phase_comparison(ctx)
     path[ctx["kernel"]] = ctx["first"]
     accurate_launches, accurate_first = phase_accurate_path(ctx, fixed_values)
@@ -4822,6 +5399,8 @@ def main():
             "plain_ms": at_path["plain_ms"], "bound_ms": at_path["bound_ms"],
             "bound_by": at_path["bound_by"], "library_ms": None,
         }
+        if eval_launches.get(name):
+            entry["eval_path_launches"] = eval_launches[name]
         if name.split(":")[0].endswith("_adaptive"):
             entry.update({
                 "problems": sum(c.get("plain_batch", c["B"])

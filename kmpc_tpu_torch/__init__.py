@@ -7,9 +7,17 @@ Entry points run on a CUDA device unless the caller asks for the CPU.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __version__ = "0.1.0"
+
+
+def stream_seed(*words: int) -> int:
+    """A ``torch.Generator`` seed from integers (``SEED``, a stream, a
+    step): the random streams of training and evaluation."""
+    return int(np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
+               >> np.uint64(1))
 
 
 def default_device() -> torch.device:

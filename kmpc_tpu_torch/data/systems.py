@@ -166,18 +166,34 @@ _LYAPUNOV_POINTS = (
 )
 
 
+# _LYAPUNOV_POINTS as the origin, then three quads (a, b, c, d): b is a
+# mirrored in x, c is a mirrored in y, d is both.
+_LYAPUNOV_QUADS = (4, 0, 1, 2, 3, 5, 6, 7, 8, 9, 10, 11, 12)
+
+
+def _quad_sum(t: torch.Tensor) -> torch.Tensor:
+    """The sum over the points of t [..., 13, 2] (in _LYAPUNOV_QUADS'
+    order), each quad as (a + b) + (c + d): on an axis of the field's
+    symmetry the mirrored terms cancel exactly, so a state on it stays on
+    it as the field says."""
+    q = t[..., 1:, :].unflatten(-2, (3, 4))
+    quads = (q[..., 0, :] + q[..., 1, :]) + (q[..., 2, :] + q[..., 3, :])
+    return t[..., 0, :] + ((quads[..., 0, :] + quads[..., 1, :])
+                           + quads[..., 2, :])
+
+
 def make_lyapunov(cfg: Config) -> DynamicalSystem:
     """Multi-attractor field from Gaussian bumps around _LYAPUNOV_POINTS."""
     sigma2 = float(cfg.ENV.LYAPUNOV.SIGMA) ** 2
+    points = tuple(_LYAPUNOV_POINTS[i] for i in _LYAPUNOV_QUADS)
 
     def dynamics(x):
-        diff = x[..., None, :] - _const(_LYAPUNOV_POINTS, x)  # [..., M, 2]
+        diff = x[..., None, :] - _const(points, x)      # [..., M, 2]
         r2 = torch.sum(diff * diff, dim=-1)              # [..., M]
         normx2 = torch.sum(x * x, dim=-1, keepdim=True)  # [..., 1]
         bump = torch.exp(-r2 / sigma2)
-        term1 = (-2.0 / sigma2) * torch.sum((normx2 * bump)[..., None] * diff,
-                                            dim=-2)
-        term2 = -torch.sum(bump[..., None] * diff, dim=-2)
+        term1 = (-2.0 / sigma2) * _quad_sum((normx2 * bump)[..., None] * diff)
+        term2 = -_quad_sum(bump[..., None] * diff)
         return term1 + term2
 
     return DynamicalSystem("lyapunov", cfg.ENV.LYAPUNOV.DT, 2, dynamics,

@@ -10,17 +10,19 @@ with W_e initialised to (1/L) W_d^T and S to I - (1/L) W_d^T W_d. The
 encoder W_e is either linear (``We``, an ``nn.Linear`` whose weight is
 stored [z, x]) or an MLP (``We.network.*``), so the state dict's keys are
 the original PyTorch LISTA module's: ``S``, ``We.weight`` or
-``We.network.{2 i}.weight``. Float32 only.
+``We.network.{2 i}.weight``. With a ``compute_dtype`` (bfloat16) the
+refinements run in it: each product z S accumulates in float32, the sum
+with c casts back (kmpc_tpu's semantics).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
 
-from kmpc_tpu_torch.models.mlp import MLP
+from kmpc_tpu_torch.models.mlp import MLP, matmul_f32
 
 
 def shrink(x: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -71,10 +73,23 @@ class LISTA(nn.Module):
         eye = torch.eye(zdim, device=dictionary.device)
         self.S.copy_(eye - (1.0 / self.L) * (dictionary @ dictionary.T))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.We(x)
+    def forward(self, x: torch.Tensor,
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         threshold = self.alpha / self.L
+        if compute_dtype is None:
+            c = self.We(x)
+            z = shrink(c, threshold)
+            for _ in range(self.num_loops):
+                z = shrink(z @ self.S + c, threshold)
+            return z
+        cd = compute_dtype
+        if self.linear_encoder:
+            c = matmul_f32(x.to(cd), self.We.weight.to(cd).T)
+        else:
+            c = self.We(x, cd)
+        c = c.to(cd)
+        S = self.S.to(cd)
         z = shrink(c, threshold)
         for _ in range(self.num_loops):
-            z = shrink(z @ self.S + c, threshold)
+            z = shrink((matmul_f32(z, S) + c).to(cd), threshold)
         return z

@@ -32,10 +32,16 @@ at the accurate configuration) it shows two things.
    bars) they must still be within those bars, ``W_TOL``, and the margins
    within ``DRIFT_TIE_TOL``.
 
-    python -m kmpc_tpu_torch.ops.adaptive_parting
+    python -m kmpc_tpu_torch.ops.adaptive_parting [--n500]
 
 prints one JSON line per case and exits non-zero if a requirement failed.
 It needs the card: the plain version alone has nothing to part from.
+
+``--n500`` classifies one case instead (``classify``): chip_smoke.py's
+``adaptive_block_H5N500`` at the seed where it parted beyond FLIP_OBJ_TOL
+(B=4, H=5, N=500, 400 adaptive iterations), through the block and the
+wide-row kernels, traced in its batch, beside the float32 plain version
+as given and with its assets permuted and the float64 plain version.
 """
 
 from __future__ import annotations
@@ -61,6 +67,8 @@ MV_W_TOL, MV_OBJ_TOL = 5e-5, 1e-6
 SCENARIOS = 16
 SAMPLE = 12           # problems traced per case, of those that end apart
 SEED = 0              # of the comparison model's random weights
+REFEREE_FACTOR = 3.0  # chip_smoke.py's, for ``classify``
+UNSETTLED_FP = 1e-4   # chip_smoke.py's LOG_UNSETTLED_FP
 
 
 def referee_slack(n: int) -> int:
@@ -131,12 +139,33 @@ def _plain64(plain):
     return run
 
 
-def _log_case(cw, r, params):
+def pinned(layout: str):
+    """The log-utility kernel of ``layout`` (``M.LAYOUTS``) for the
+    parameters' body, launched and counted as ``pdhg_log_utility_cuda``
+    launches the layout routing gives: the same contract, for a layout the
+    shape need not route to. ``ValueError`` where it does not take the
+    shape."""
+    def run(cw, r, params, return_dual=False, return_steps=False):
+        S = r.shape[1] if r.dim() == 4 else None
+        H, N = r.shape[-2], r.shape[-1]
+        if not M.layout_supports(layout, S, H, N):
+            raise ValueError(
+                f"the {layout} layout does not take S={S}, H={H}, N={N}")
+        M._require_cuda_f32(current_weights=cw, r=r)
+        body = M._body(params)
+        return M._launch(M._KERNELS[(S is not None, layout, body)], body,
+                         cw, r, params, None, None, return_dual,
+                         return_steps)
+    return run
+
+
+def _log_case(cw, r, params, kernel=None):
     """A log-utility case on card tensors: current weights [B, N], gross
     returns [B, H, N] or [B, S, H, N]. Returns (solve, the kernel, the
     plain version and the referee, weight bar, objective bar, iterations);
     ``solve(f, sel, n)`` gives (finalised weights, objective, dual, steps)
-    of the problems ``sel`` after n iterations of ``f``."""
+    of the problems ``sel`` after n iterations of ``f``. ``kernel``
+    defaults to the routed one, ``pdhg_log_utility_cuda``."""
     def solve(f, sel, n):
         p = replace(params, max_iters=n)
         w, fp, dual, steps = f(cw[sel].contiguous(), r[sel].contiguous(), p,
@@ -144,7 +173,7 @@ def _log_case(cw, r, params):
         w_f, info = M._finalize_packed(w, r[sel], cw[sel], p, fp)
         return w_f, info["objective"], dual, steps
 
-    fns = (M.pdhg_log_utility_cuda, M.pdhg_log_utility_plain,
+    fns = (kernel or M.pdhg_log_utility_cuda, M.pdhg_log_utility_plain,
            _plain64(M.pdhg_log_utility_plain))
     obj_tol = OBJ_TOL if r.dim() == 3 else SCEN_OBJ_TOL
     return solve, fns, W_TOL, obj_tol, params.max_iters
@@ -291,15 +320,37 @@ def _summary(d: Dict) -> Dict:
             "mean_dobj": d["dobj"].mean().item()}
 
 
-def trace_case(name: str, make, sample: int = SAMPLE
-               ) -> Tuple[Dict, List[str]]:
-    """One case's JSON fields and the requirements it failed."""
+def trace_problem(solve, fns, b: int, max_iters: int,
+                  in_batch: bool = False) -> Optional[Dict]:
+    """``first_parting`` of problem ``b`` between the kernel and the plain
+    version of a case (``solve``, ``fns`` as ``_log_case`` gives them):
+    each bisection step re-runs the problem alone, or with ``in_batch`` the
+    whole batch and reads the problem's row. None where the two take one
+    step history."""
+    one = slice(b, b + 1)
+    sel, pick = (slice(None), one) if in_batch else (one, slice(None))
+
+    def run(n):
+        return [(o[3][pick], o[2][pick])
+                for o in (solve(f, sel, n) for f in fns[:2])]
+
+    return first_parting(run, max_iters)
+
+
+def trace_case(name: str, make, sample: int = SAMPLE,
+               in_batch: bool = False) -> Tuple[Dict, List[str]]:
+    """One case's JSON fields and the requirements it failed. The
+    bisection re-runs each traced problem alone, or with ``in_batch`` the
+    whole batch it came in: a plain version's sums over assets may take
+    another order at another batch size, so a problem that parts in its
+    batch need not part alone."""
     solve, fns, w_tol, obj_tol, max_iters = make()
     kernel, plain, referee = (solve(f, slice(None), max_iters) for f in fns)
     kp = _pair(kernel, plain, w_tol, obj_tol)
     kr = _pair(kernel, referee, w_tol, obj_tol)
     pr = _pair(plain, referee, w_tol, obj_tol)
     res = {"case": name, "B": kernel[0].shape[0], "iters": max_iters,
+           "in_batch": in_batch,
            "kernel_vs_plain": _summary(kp),
            "kernel_vs_float64_plain": _summary(kr),
            "plain_vs_float64_plain": _summary(pr)}
@@ -321,17 +372,17 @@ def trace_case(name: str, make, sample: int = SAMPLE
     idx.sort(key=lambda b: -dw[b].item())
     if len(idx) > sample:
         rest = idx[1:]
-        step = len(rest) / (sample - 1)
+        step = len(rest) / max(sample - 1, 1)
         idx = idx[:1] + [rest[int(i * step)] for i in range(sample - 1)]
     traces = []
     for b in idx:
-        one = slice(b, b + 1)
-
-        def run(n):
-            return [(o[3], o[2])
-                    for o in (solve(f, one, n) for f in fns[:2])]
-
-        t = first_parting(run, max_iters)
+        t = trace_problem(solve, fns, b, max_iters, in_batch)
+        if t is None:
+            # Equal histories when re-run: the parting needs its batch.
+            traces.append({"problem": b, "reproduced": False})
+            failed.append(f"{name}, problem {b}: parts in its batch but not "
+                          "when re-run alone; trace it with in_batch=True")
+            continue
         margin = max(t["tie_margin_kernel"], t["tie_margin_plain"])
         t.update(problem=b, max_abs_dw=dw[b].item(), dobj=dobj[b].item(),
                  drifted=t["max_abs_diff_before"] > AGREE_TOL)
@@ -342,8 +393,9 @@ def trace_case(name: str, make, sample: int = SAMPLE
         if margin > (DRIFT_TIE_TOL if t["drifted"] else TIE_TOL):
             failed.append(f"{name}, problem {b}: parted away from a tie: {t}")
     res["traced"] = traces
-    ties = [t for t in traces if not t["drifted"]]
-    drifted = [t for t in traces if t["drifted"]]
+    ties = [t for t in traces if not t.get("drifted", True)
+            and "iteration" in t]
+    drifted = [t for t in traces if t.get("drifted")]
     for key, ts in (("ties", ties), ("drifted", drifted)):
         if ts:
             res[key] = {
@@ -355,10 +407,133 @@ def trace_case(name: str, make, sample: int = SAMPLE
     return res, failed
 
 
-def main() -> int:
+# The ``kernels`` case of chip_smoke.py that parted beyond FLIP_OBJ_TOL at
+# another seed than its own: (B, H, N, seed) and its parameters.
+N500_CASE = (4, 5, 500, 30)
+N500_PARAMS = dict(max_iters=400, sigma_scale=2.0, adaptive=True,
+                   adapt_every=2, precond=True)
+
+
+def n500_inputs(device="cuda", case=N500_CASE):
+    """(current weights, gross returns) of ``case``, drawn as chip_smoke.py's
+    ``instance`` draws a log-utility case."""
+    B, H, N, seed = case
+    rng = np.random.default_rng(seed)
+    cw = rng.dirichlet(np.ones(N), size=B).astype(np.float32)
+    ys = (rng.standard_normal((B, H, N)) * 0.01 + 0.0005).astype(np.float32)
+    return (torch.as_tensor(cw, device=device),
+            torch.exp(torch.as_tensor(ys, device=device)).contiguous())
+
+
+def permuted(fn, seed: int = 0):
+    """``fn`` run with the assets permuted and its outputs permuted back:
+    another float32 summation order of the same solve."""
+    def run(cw, r, params, return_dual=False, return_steps=False):
+        perm = torch.randperm(r.shape[-1], generator=torch.Generator()
+                              .manual_seed(seed)).to(r.device)
+        inv = torch.argsort(perm)
+        out = fn(cw[:, perm].contiguous(), r[..., perm].contiguous(), params,
+                 return_dual=return_dual, return_steps=return_steps)
+        w, fp = out[0][..., inv], out[1]
+        rest = list(out[2:])
+        if return_dual:
+            rest[0] = rest[0][..., inv]
+        return (w, fp, *rest)
+    return run
+
+
+def classify(cw, r, params, kernels: Dict[str, Callable],
+             sample: int = SAMPLE) -> Dict:
+    """Whether the kernels in ``kernels`` (name: callable with the plain
+    version's contract) part from the plain version through a fault of
+    theirs or at float32's limit, on one batch. Each is traced in its batch
+    (``trace_case``); per problem the objectives, fixed-point residuals and
+    step histories (the last column of the steps) of every kernel, of the
+    float32 plain version, of the plain version with its assets permuted
+    (another float32 summation order) and of the float64 plain version.
+
+    A problem convicts a kernel where the kernel ends apart from the float32
+    plain version while the float32 plain version as given, the permuted
+    one and the float64 one all take one step history, and the kernel
+    takes another or, where the float64 run has settled (fixed-point
+    residual at most ``UNSETTLED_FP``), ends farther from its objective
+    than ``REFEREE_FACTOR`` times the farther float32 order plus the
+    objective bar: every other summation order agrees and the kernel alone
+    is off.
+    The verdict is ``"kernel"`` if any problem convicts, else
+    ``"float32"``; for each problem a kernel ends apart on, the runs whose
+    step history the kernel shares (``shares_history``). The parting
+    trace's requirements (a tie, iterates within the bars before it) are
+    reported, not required: a problem whose fixed point is not reached
+    (residual above ``LOG_UNSETTLED_FP`` in chip_smoke.py) drifts under
+    equal histories."""
+    p = params
+    fns = {**kernels, "plain": M.pdhg_log_utility_plain,
+           "plain_permuted": permuted(M.pdhg_log_utility_plain),
+           "plain_float64": _plain64(M.pdhg_log_utility_plain)}
+    outs = {}
+    for name, f in fns.items():
+        w, fp, dual, steps = f(cw, r, p, return_dual=True, return_steps=True)
+        w_f, info = M._finalize_packed(w, r, cw, p, fp)
+        outs[name] = (w_f, info["objective"], dual, steps, fp)
+    obj_tol = OBJ_TOL if r.dim() == 3 else SCEN_OBJ_TOL
+    ref = outs["plain_float64"]
+    history = {name: o[3][:, -1] for name, o in outs.items()}
+    others = ("plain", "plain_permuted", "plain_float64")
+    one_history = ((history["plain"] == history["plain_float64"])
+                   & (history["plain_permuted"] == history["plain_float64"]))
+    # Where the float64 run has not settled its objective is no referee.
+    settled = ref[4] <= UNSETTLED_FP
+    res = {"B": cw.shape[0], "H": r.shape[-2], "N": r.shape[-1],
+           "iters": p.max_iters,
+           "problems": {name: {"objective": o[1].tolist(),
+                               "fixed_point_residual": o[4].tolist(),
+                               "history": history[name].tolist()}
+                        for name, o in outs.items()},
+           "plain_orders_share_one_history": one_history.tolist(),
+           "traces": {}, "apart": {}, "convicted": {}}
+    for name, f in kernels.items():
+        traced, failed = trace_case(
+            name, lambda: _log_case(cw, r, p, kernel=f), sample,
+            in_batch=True)
+        traced["trace_requirements_missed"] = failed
+        res["traces"][name] = traced
+        kp = _pair(outs[name], outs["plain"], W_TOL, obj_tol)
+        apart = torch.nonzero(kp["apart"])[:, 0].tolist()
+        res["apart"][name] = [
+            {"problem": b, "shares_history": [
+                o for o in (*kernels, *others)
+                if o != name and history[o][b] == history[name][b]]}
+            for b in apart]
+        far = settled & ((outs[name][1] - ref[1]).abs() > REFEREE_FACTOR
+                         * torch.maximum((outs["plain"][1] - ref[1]).abs(),
+                                         (outs["plain_permuted"][1]
+                                          - ref[1]).abs()) + obj_tol)
+        convicts = kp["apart"] & one_history & (
+            (history[name] != history["plain_float64"]) | far)
+        res["convicted"][name] = torch.nonzero(convicts)[:, 0].tolist()
+    res["verdict"] = ("kernel" if any(res["convicted"].values())
+                      else "float32")
+    return res
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("adaptive_parting: CUDA is not available", file=sys.stderr)
         return 1
+    if "--n500" in argv:
+        # The N=500 block-layout case that parted beyond FLIP_OBJ_TOL, in
+        # the block and the wide-row layouts, traced in its batch.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        build_all([M.PDHG_LOG_UTILITY_BLOCK_ADAPTIVE.name,
+                   M.PDHG_LOG_UTILITY_WIDE_ADAPTIVE.name])
+        cw, r = n500_inputs()
+        res = classify(cw, r, MPCParams(**N500_PARAMS),
+                       {"block": pinned("block"), "wide": pinned("wide")})
+        print(json.dumps({"case": "adaptive_block_H5N500",
+                          "seed": N500_CASE[3], **res}), flush=True)
+        return 1 if res["verdict"] == "kernel" else 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_all([k.name for k in (M.PDHG_LOG_UTILITY_ADAPTIVE,

@@ -8,12 +8,16 @@ the default here, its default mode (the exact scan, one solve per date) is
 pipelined body's ``PROJ_REFRESH_EVERY`` and ``PIPELINE_REDUCES``), comes
 from the run directory's ``config.json``. With ``--path``
 it loads a kmpc_tpu run directory (config.json and its npz checkpoint);
-without it, it builds ``finance_sparse`` at full width with weights drawn
-from ``--init_seed``, or the model and settings of ``--config`` (a
+with ``--torch_ckpt`` (or a ``--path`` ending in ``.pt``) a reference
+PyTorch ``checkpoint.pt`` (``utils/torch_import.py``; ``--allow_pickle``
+permits a full unpickle of a trusted file), whose ``finance_metadata`` must
+match the loaded panel; without either, it builds ``finance_sparse`` at
+full width with weights drawn from ``--init_seed``, or the model and settings of ``--config`` (a
 ``config.json``) with such weights. It prints the metrics table and writes
 ``full_comparison_metrics.csv`` and ``experiment_results.json``.
 
-    python -m kmpc_tpu_torch.run_experiment [--path RUN_DIR | --init_seed S]
+    python -m kmpc_tpu_torch.run_experiment
+        [--path RUN_DIR | --torch_ckpt CHECKPOINT_PT | --init_seed S]
         [--config CONFIG_JSON] [--horizon 20] [--scenarios 16]
         [--risk_aversion 1.0] [--sweeps 8 | --scan] [--mpc_iters N]
         [--eager] [--cpu] [--output DIR]
@@ -104,8 +108,15 @@ def main(argv: Optional[List[str]] = None) -> dict:
     src = parser.add_mutually_exclusive_group()
     src.add_argument("--path", type=str, default=None,
                      help="kmpc_tpu run directory to load")
+    src.add_argument("--torch_ckpt", type=str, default=None,
+                     help="reference PyTorch checkpoint.pt to load")
     src.add_argument("--init_seed", type=int, default=0,
                      help="seed of fresh finance_sparse weights (no --path)")
+    parser.add_argument("--allow_pickle", action="store_true",
+                        help="permit a full unpickle of a .pt checkpoint "
+                             "that fails the safe weights_only load (runs "
+                             "code embedded in the file; trusted files "
+                             "only)")
     parser.add_argument("--config", type=str, default=None,
                         help="config.json of the run (fresh weights; not "
                              "with --path, whose directory has its own)")
@@ -145,11 +156,25 @@ def main(argv: Optional[List[str]] = None) -> dict:
     from kmpc_tpu_torch.models.koopman import make_model
     from kmpc_tpu_torch.utils.params import load_jax_checkpoint
 
-    if args.path and args.config:
+    torch_ckpt = args.torch_ckpt
+    if args.path and args.path.endswith(".pt"):
+        torch_ckpt, args.path = args.path, None
+    if (args.path or torch_ckpt) and args.config:
         parser.error("--config is for fresh weights; a --path run directory "
-                     "holds its own config.json")
+                     "or a checkpoint holds its own config")
     device = torch.device("cpu") if args.cpu else default_device()
-    if args.path:
+    if torch_ckpt:
+        from kmpc_tpu_torch.utils.torch_import import (
+            check_finance_compatibility, load_torch_checkpoint,
+        )
+
+        ckpt = load_torch_checkpoint(torch_ckpt, allow_pickle=args.allow_pickle,
+                                     device=device)
+        cfg, model = ckpt["config"], ckpt["model"]
+        print(f"Loaded reference checkpoint {torch_ckpt} at step "
+              f"{ckpt['step']}")
+        out_dir = Path(args.output) if args.output else Path(torch_ckpt).parent
+    elif args.path:
         cfg, model, step = load_jax_checkpoint(args.path, device=device)
         if cfg.ENV.ENV_NAME != "finance":
             raise SystemExit(f"{args.path} is not a finance run "
@@ -161,7 +186,9 @@ def main(argv: Optional[List[str]] = None) -> dict:
                else get_config("finance_sparse"))
         out_dir = Path(args.output) if args.output else Path("runs/kmpc_tpu_torch")
     fd = load_finance_data(cfg, device=device)
-    if not args.path:
+    if torch_ckpt:
+        check_finance_compatibility(fd, ckpt)
+    elif not args.path:
         gen = torch.Generator(device=device).manual_seed(args.init_seed)
         model = make_model(cfg, fd.observation_size, device=device)
         model.init_params(gen).eval()

@@ -6,8 +6,10 @@
         --num_steps 6 --batch_size 8 --target_size 8 --no_final_eval
 
 It runs on the CUDA device; ``--cpu`` is the only way onto the CPU.
-``--dtype bfloat16``, a reference ``.pt`` checkpoint and the systems'
-post-training evaluation (the default without ``--no_final_eval``) raise.
+``--dtype bfloat16`` computes the model in bfloat16 (float32 accumulation
+and master weights); ``--checkpoint`` takes a run's checkpoint directory
+or a reference ``.pt`` checkpoint; a systems run ends with the evaluation
+suite on its last and best checkpoints unless ``--no_final_eval``.
 """
 
 from __future__ import annotations
@@ -47,26 +49,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     parser.add_argument("--sequence_length", type=int, default=None)
     parser.add_argument("--log_dir", type=str, default="./runs/kae")
     parser.add_argument("--checkpoint", type=str, default=None,
-                        help="checkpoint directory to resume from")
+                        help="checkpoint directory, or reference .pt "
+                             "checkpoint, to resume from")
     parser.add_argument("--cpu", action="store_true",
                         help="train on the CPU instead of the CUDA device")
     parser.add_argument("--no_final_eval", action="store_true",
-                        help="skip the post-training evaluation suite (which "
-                             "systems runs do not have yet)")
+                        help="skip the post-training evaluation suite")
     parser.add_argument("--steps_per_dispatch", type=int, default=None,
                         help="optimizer steps enqueued per host dispatch")
     parser.add_argument("--dtype", type=str, default=None,
                         choices=["float32", "bfloat16"],
-                        help="model compute dtype (float32 only)")
+                        help="model compute dtype")
     return parser.parse_args(argv)
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
     """The run's config: the preset with the flags applied."""
-    if args.dtype == "bfloat16":
-        raise NotImplementedError(
-            "--dtype bfloat16: kmpc_tpu_torch trains in float32 only; "
-            "bfloat16 through autocast is ROADMAP.md §1 item 1")
     cfg = get_config(args.config)
     # finance_sparse keeps its own ENV_NAME.
     if args.config != "finance_sparse":

@@ -14,11 +14,16 @@ the finance and dynamical-system loops, evaluation and checkpoints.
   logs, evaluates or checkpoints, as kmpc_tpu's fused dispatch does.
 - The spectrum of K is computed on the host at log steps only.
 - Checkpoints are kmpc_tpu's npz directories (``utils/checkpoint.py``),
-  readable by either package.
+  readable by either package; a ``checkpoint_path`` ending in ``.pt`` is a
+  reference PyTorch checkpoint, resumed with its AdamW moments and step
+  (``utils/torch_import.py``).
+- After training, the training curves (``plot_training_metrics.py``) and
+  the finance figures are drawn where matplotlib imports; a systems run
+  with ``final_eval`` evaluates its last and best checkpoints
+  (``eval/evaluation.py``) into ``evaluation_{last,best}/`` and
+  ``evaluation_results_{last,best}.json``.
 
-Not ported (each raises where a run would need it): a ``PARALLEL`` mesh,
-a reference ``.pt`` resume, systems' post-training evaluation suite, and
-the training plots.
+Not ported: a ``PARALLEL`` mesh (it raises).
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from kmpc_tpu_torch import default_device
+from kmpc_tpu_torch import default_device, stream_seed as _stream_seed
 from kmpc_tpu_torch.config import Config
 from kmpc_tpu_torch.data.finance import FinanceData, load_finance_data
 from kmpc_tpu_torch.data.systems import DynamicalSystem, make_system
@@ -51,25 +56,12 @@ Device = Union[str, torch.device]
 _INIT, _DATA, _EVAL = 0, 1, 2
 
 
-def _stream_seed(*words: int) -> int:
-    """A generator seed from integers (``SEED``, a stream, a step)."""
-    return int(np.random.SeedSequence(list(words)).generate_state(1, np.uint64)[0]
-               >> np.uint64(1))
-
-
 def _check_parallel(cfg: Config) -> None:
     sizes = (cfg.PARALLEL.DATA, cfg.PARALLEL.SCENARIO, cfg.PARALLEL.MODEL)
     if not all(s in (1, None) for s in sizes):
         raise NotImplementedError(
             f"PARALLEL {sizes}: kmpc_tpu_torch trains on one device; a mesh "
-            "is ROADMAP.md §1 item 8, multiple GPUs")
-
-
-def _resume_format(checkpoint_path) -> None:
-    if str(checkpoint_path).endswith(".pt"):
-        raise NotImplementedError(
-            f"{checkpoint_path}: resuming from a reference .pt checkpoint is "
-            "ROADMAP.md §1 item 5, the reference's PyTorch checkpoints")
+            "is ROADMAP.md §1 item 3, multiple GPUs")
 
 
 # ---------------------------------------------------------------------------
@@ -80,7 +72,11 @@ def _resume_format(checkpoint_path) -> None:
 def build_optimizer(cfg: Config, model: KoopmanModel) -> torch.optim.AdamW:
     """AdamW with a group ``kmat`` at K_MATRIX_LR and no weight decay, and
     a group ``other`` at LR with WEIGHT_DECAY."""
-    named = list(model.named_parameters())
+    return adamw(cfg, list(model.named_parameters()))
+
+
+def adamw(cfg: Config, named) -> torch.optim.AdamW:
+    """``build_optimizer``'s AdamW over (name, tensor) pairs."""
     return torch.optim.AdamW(
         [{"params": [p for n, p in named if n != "kmat"], "name": "other",
           "lr": cfg.TRAIN.LR, "weight_decay": cfg.TRAIN.WEIGHT_DECAY},
@@ -174,12 +170,14 @@ def _dispatch_chunks(start: int, num_steps: int, spd: int, intervals):
 
 def _run_chunks(cfg: Config, start_step: int,
                 step_fn: Callable[[int], Dict[str, torch.Tensor]],
-                on_boundary: Callable[[int, Dict[str, torch.Tensor]], None]
-                ) -> None:
+                on_boundary: Callable[[int, Dict[str, torch.Tensor]], None],
+                intervals: Optional[Tuple[int, ...]] = None) -> None:
     """Enqueue each chunk's steps with no host synchronisation, then hand
-    the chunk's last metrics to ``on_boundary``."""
+    the chunk's last metrics to ``on_boundary``; chunks end on the
+    multiples of ``intervals`` (default: the log and eval intervals)."""
     spd = max(1, int(cfg.TRAIN.STEPS_PER_DISPATCH))
-    intervals = (cfg.TRAIN.LOG_INTERVAL, cfg.TRAIN.EVAL_INTERVAL)
+    if intervals is None:
+        intervals = (cfg.TRAIN.LOG_INTERVAL, cfg.TRAIN.EVAL_INTERVAL)
     for step0, chunk in _dispatch_chunks(start_step, cfg.TRAIN.NUM_STEPS,
                                          spd, intervals):
         for s in range(step0, step0 + chunk):
@@ -234,6 +232,7 @@ def evaluate_finance(model: KoopmanModel, initial_states: torch.Tensor,
     mse_curves, l2_curves, predictions = {}, {}, {}
     for name, period in modes.items():
         pred = rollout(model, initial_states, horizon, period)
+        pred = pred.float()
         predictions[name] = pred.cpu().numpy()
         mse_curves[name] = torch.mean((pred - true) ** 2, dim=(1, 2)).cpu().numpy()
         l2_curves[name] = torch.mean(
@@ -299,16 +298,23 @@ def _run_dir(log_dir: str) -> Path:
 
 def _start(cfg: Config, model: KoopmanModel, device: torch.device,
            checkpoint_path, verbose: bool) -> Tuple[TrainState, int]:
-    """The train state from SEED, or resumed from a checkpoint
-    directory; and the step to start from."""
+    """The train state from SEED, or resumed from a checkpoint directory
+    or a reference ``.pt`` checkpoint; and the step to start from."""
     gen = torch.Generator(device=device).manual_seed(_stream_seed(cfg.SEED, _INIT))
     state = init_train_state(cfg, model, gen)
     if checkpoint_path is None:
         return state, 0
-    state, meta = load_checkpoint(checkpoint_path, state)
+    if str(checkpoint_path).endswith(".pt"):
+        from kmpc_tpu_torch.utils.torch_import import (
+            resume_train_state_from_torch,
+        )
+
+        state = resume_train_state_from_torch(str(checkpoint_path), cfg, state)
+    else:
+        state, meta = load_checkpoint(checkpoint_path, state)
     if verbose:
-        print(f"Resumed from checkpoint at step {int(meta['step'])}")
-    return state, int(meta["step"])
+        print(f"Resumed from checkpoint at step {state.step}")
+    return state, state.step
 
 
 # ---------------------------------------------------------------------------
@@ -328,8 +334,6 @@ def train_finance(
     Returns (state, model, run_dir)."""
     device = torch.device(device) if device is not None else default_device()
     _check_parallel(cfg)
-    if checkpoint_path is not None:
-        _resume_format(checkpoint_path)
     run_dir = _run_dir(log_dir or "./runs/kae_finance")
     cfg.to_json(str(run_dir / "config.json"))
     logger = MetricsLogger(run_dir)
@@ -413,7 +417,14 @@ def train_finance(
     }
     with open(run_dir / "evaluation_results.json", "w") as f:
         json.dump(summary, f, indent=2)
+    try:
+        from kmpc_tpu_torch.eval.finance_plots import save_finance_plots
+
+        save_finance_plots(final, fd, run_dir)
+    except Exception as e:  # plots are best-effort
+        print(f"Warning: failed to generate finance plots: {e}")
     logger.close()
+    _plot_training_metrics(run_dir, verbose)
     return state, model, run_dir
 
 
@@ -431,15 +442,10 @@ def train_system(
     device: Optional[Device] = None,
 ) -> Tuple[TrainState, KoopmanModel, Path]:
     """Dynamical-systems training loop on ``device`` (default: the CUDA
-    device). Returns (state, model, run_dir)."""
-    if final_eval:
-        raise NotImplementedError(
-            "final_eval: the systems' post-training evaluation suite is "
-            "ROADMAP.md §1 item 4, evaluation; train with --no_final_eval")
+    device). Returns (state, model, run_dir). ``final_eval`` runs the
+    evaluation suite on the last and best checkpoints after training."""
     device = torch.device(device) if device is not None else default_device()
     _check_parallel(cfg)
-    if checkpoint_path is not None:
-        _resume_format(checkpoint_path)
     run_dir = _run_dir(log_dir or "./runs/kae")
     cfg.to_json(str(run_dir / "config.json"))
     logger = MetricsLogger(run_dir)
@@ -486,7 +492,54 @@ def train_system(
 
     _run_chunks(cfg, start_step, step_fn, on_boundary)
     logger.close()
+    _plot_training_metrics(run_dir, verbose)
+    if final_eval:
+        _post_training_evaluation(cfg, model, run_dir, verbose)
     return state, model, run_dir
+
+
+def _plot_training_metrics(run_dir: Path, verbose: bool = True) -> None:
+    """The training curves of ``metrics_history.jsonl`` into
+    ``training_metrics.png``; best-effort, nothing without matplotlib."""
+    from kmpc_tpu_torch.plot_training_metrics import plot_metrics
+
+    try:
+        out = plot_metrics(log_dir=Path(run_dir),
+                           save_path=Path(run_dir) / "training_metrics.png")
+    except Exception as e:  # plots are best-effort
+        print(f"Warning: failed to plot training metrics: {e}")
+        return
+    if verbose and out is not None:
+        print(f"Training metrics plot saved to {out}")
+
+
+def _post_training_evaluation(cfg: Config, model: KoopmanModel,
+                              run_dir: Path, verbose: bool) -> None:
+    """The evaluation suite on the run's system for the ``last`` and the
+    best (``checkpoint``) weights, each into ``evaluation_{tag}/`` and
+    ``evaluation_results_{tag}.json``; the trained model is left as it
+    is."""
+    import copy
+
+    from kmpc_tpu_torch.eval.evaluation import EvaluationSettings, evaluate_model
+    from kmpc_tpu_torch.utils.params import params_from_checkpoint
+
+    settings = EvaluationSettings(systems=(cfg.ENV.ENV_NAME,))
+    evaluated = copy.deepcopy(model).eval()
+    for name in ("last", "checkpoint"):
+        ckpt_dir = run_dir / name
+        if not (ckpt_dir / "arrays.npz").exists():
+            continue
+        weights, step = params_from_checkpoint(ckpt_dir)
+        evaluated.load_state_dict(weights)
+        tag = "best" if name == "checkpoint" else "last"
+        if verbose:
+            print(f"Evaluating {tag} checkpoint (step {step})...")
+        results = evaluate_model(evaluated, cfg, settings,
+                                 output_dir=run_dir / f"evaluation_{tag}",
+                                 verbose=verbose)
+        with open(run_dir / f"evaluation_results_{tag}.json", "w") as f:
+            json.dump(results, f, indent=2)
 
 
 def train(

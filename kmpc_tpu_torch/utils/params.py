@@ -104,13 +104,27 @@ def _unflatten_params(flat: Dict[str, np.ndarray]) -> Dict:
 
 def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     """A KoopmanModel state dict from a kmpc_tpu parameter tree (GenericKM
-    or LISTAKM) of numpy arrays."""
+    or LISTAKM) of numpy arrays. The same call carries a stacked tree
+    (``kmpc_tpu.train.sweep.stack_states``' ``params``, each leaf with a
+    leading sweep axis) into the port's stacked parameters: only the last
+    two axes are transposed. kmpc_tpu's bfloat16 model keeps float32
+    parameters, so its tree carries the same way."""
     state = {}
     for path, arr in _flatten(tree).items():
         name, transpose = torch_name(path)
         a = np.asarray(arr, np.float32)
-        state[name] = torch.tensor(a.T if transpose else a)
+        state[name] = torch.tensor(np.swapaxes(a, -1, -2) if transpose else a)
     return state
+
+
+def params_from_checkpoint(ckpt_dir: Union[str, Path]
+                           ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """(state dict, step) of the weights in one checkpoint directory
+    (``<run>/checkpoint`` or ``<run>/last``) of either package."""
+    with np.load(Path(ckpt_dir) / "arrays.npz") as npz:
+        flat = {k: npz[k] for k in npz.files}
+    step = int(np.asarray(flat["step"])) if "step" in flat else -1
+    return params_from_jax(_unflatten_params(flat)), step
 
 
 def params_to_jax(model: KoopmanModel) -> Dict[str, np.ndarray]:
@@ -205,14 +219,9 @@ def load_jax_checkpoint(
     if not (ckpt / "arrays.npz").exists():
         raise FileNotFoundError(f"no checkpoint/arrays.npz or last/arrays.npz under {run_dir}")
     cfg = Config.from_json(str(run_dir / "config.json"))
-    with np.load(ckpt / "arrays.npz") as npz:
-        flat = {k: npz[k] for k in npz.files}
-    tree = _unflatten_params(flat)
-    if "dict" in tree:
-        obs = int(np.asarray(tree["dict"]).shape[1])
-    else:
-        obs = int(np.asarray(tree["encoder"][0]["w"]).shape[0])
-    model = make_model(cfg, obs, device=device)
-    model.load_state_dict(params_from_jax(tree))
-    step = int(np.asarray(flat["step"])) if "step" in flat else -1
+    weights, step = params_from_checkpoint(ckpt)
+    first = weights["dict"] if "dict" in weights \
+        else weights["encoder.network.0.weight"]
+    model = make_model(cfg, int(first.shape[1]), device=device)
+    model.load_state_dict(weights)
     return cfg, model.eval(), step

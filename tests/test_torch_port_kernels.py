@@ -765,3 +765,68 @@ def test_parting_trace_of_a_case_end_to_end(monkeypatch):
     for t in res["traced"]:
         assert 0 <= t["iteration"] < 300 and t["iteration"] % 2 == 1
     assert not failed, failed
+
+
+@pytest.mark.parametrize("in_batch", [False, True])
+def test_parting_trace_in_batch(in_batch):
+    """A parting that shows only in its batch: the stand-in kernel is the
+    plain version on returns 1e-6 off when it is given more than one
+    problem, as a plain version's sums take another order at another batch
+    size. Problem 4 of the batch parts there; re-run alone it does not
+    (``trace_problem`` gives None), traced in its batch (``in_batch``) its
+    first differing decision is found."""
+    from kmpc_tpu_torch.ops import adaptive_parting as P
+
+    def batch_dependent(cw, r, p, **kw):
+        return M.pdhg_log_utility_plain(
+            cw, r * (1.0 + 1e-6 * (r.shape[0] > 1)), p, **kw)
+
+    cw, ys = _log_inputs(12, 5, 20, seed=11)
+    p = _params(dict(max_iters=800, **ACCURATE))
+    solve, fns, _, _, iters = P._log_case(_t(cw), torch.exp(_t(ys)), p,
+                                          kernel=batch_dependent)
+    whole = [solve(f, slice(None), iters)[3] for f in fns[:2]]
+    assert P.histories_differ(*whole).nonzero()[:, 0].tolist() == [4]
+    t = P.trace_problem(solve, fns, 4, iters, in_batch=in_batch)
+    if not in_batch:
+        assert t is None
+        return
+    assert 0 <= t["iteration"] < iters and t["iteration"] % 2 == 1
+    assert t["max_abs_diff_before"] <= P.W_TOL
+    assert max(t["tie_margin_kernel"], t["tie_margin_plain"]) <= P.DRIFT_TIE_TOL
+
+
+def test_n500_parting_is_classified_on_the_plain_versions():
+    """The N=500 classification (``adaptive_parting --n500``) on the CPU:
+    the seed-30 case of ``adaptive_block_H5N500`` with the plain version
+    under another summation order (its assets permuted) as the kernel is
+    float32's limit; a kernel that stops at half its iterations is
+    convicted."""
+    from dataclasses import replace
+
+    from kmpc_tpu_torch.ops import adaptive_parting as P
+
+    cw, r = P.n500_inputs("cpu")
+    assert cw.shape == (4, 500) and r.shape == (4, 5, 500)
+    params = MPCParams(**P.N500_PARAMS)
+
+    def half(c, rr, pp, **kw):
+        return M.pdhg_log_utility_plain(
+            c, rr, replace(pp, max_iters=max(pp.max_iters // 2, 1)), **kw)
+
+    res = P.classify(cw, r, params, {
+        "other_order": P.permuted(M.pdhg_log_utility_plain, 1),
+        "half_iterations": half}, sample=1)
+    assert set(res["problems"]) == {"other_order", "half_iterations",
+                                    "plain", "plain_permuted",
+                                    "plain_float64"}
+    assert res["convicted"]["other_order"] == []
+    assert res["convicted"]["half_iterations"]
+    assert res["verdict"] == "kernel"
+    for entry in res["apart"]["other_order"]:
+        assert "plain_float64" in entry["shares_history"]
+    for name, traced in res["traces"].items():
+        assert traced["in_batch"] is True and traced["B"] == 4
+    alone = P.classify(cw, r, params, {
+        "other_order": P.permuted(M.pdhg_log_utility_plain, 1)}, sample=1)
+    assert alone["verdict"] == "float32"

@@ -458,11 +458,10 @@ def test_resume_continues_the_uninterrupted_run(tmp_path):
 
 
 def test_train_raises_where_the_slice_stops(tmp_path):
+    """A PARALLEL mesh is the one refusal left (the final evaluation and a
+    reference .pt resume run since they were ported), before any file is
+    written."""
     tc = _tiny(tcfg)
-    with pytest.raises(NotImplementedError, match="evaluation"):
-        T.train(tc, log_dir=str(tmp_path), final_eval=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="PyTorch checkpoints"):
-        T.train(tc, log_dir=str(tmp_path), checkpoint_path="run.pt", device="cpu")
     tc.PARALLEL.DATA = 2
     with pytest.raises(NotImplementedError, match="multiple GPUs"):
         T.train(tc, log_dir=str(tmp_path), device="cpu")
@@ -514,8 +513,9 @@ def test_cli_device_and_refusals(monkeypatch):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--num_steps", "2"])
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        cli.config_from_args(cli.parse_args(["--dtype", "bfloat16"]))
+    cfg = cli.config_from_args(cli.parse_args(["--dtype", "bfloat16"]))
+    assert cfg.TRAIN.DTYPE == "bfloat16"
+    assert tmake(cfg, 2, device="cpu").compute_dtype == "bfloat16"
 
 
 def test_metrics_logger_writes_kmpc_tpus_files(tmp_path):
