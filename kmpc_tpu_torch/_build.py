@@ -18,6 +18,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -179,3 +181,17 @@ class CudaKernel:
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the kernel's C entry point with ``args`` and the current
+        stream of ``device``, with ``device`` made the current CUDA device
+        for the call (a rank whose tensors sit on cuda:k launches there,
+        whichever card is current); raise on a CUDA error, else count the
+        launch."""
+        fn = self.function()
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(
+                f"{self.name} kernel launch failed: CUDA error {err}")
+        self.launches += 1

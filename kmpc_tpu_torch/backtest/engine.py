@@ -18,7 +18,9 @@ enter only the cost term and the first step's turnover cap), so a handful
 of sweeps converges; as many sweeps as dates is exact and equals the scan.
 ``warm_sweeps_iters`` carries the (primal, dual) iterates from sweep to
 sweep and cuts the later sweeps' iteration budget. Both recursions are
-Python loops of [N]-sized tensor steps. Not here yet: the device mesh.
+Python loops of [N]-sized tensor steps. ``mesh`` (a ``parallel.mesh``
+mesh) shards the dates of every sweep's solve over its data x scenario
+ranks; the recursion runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -362,12 +364,55 @@ def run_backtest(strategy, fd: FinanceData, config: BacktestConfig,
     return _history_to_dataframe(history, fd, ts)
 
 
+def _sharded_rebalance_fns(strategy, mesh, aux, T: int):
+    """Date-sharded all-dates solves (kmpc_tpu's ``jax.shard_map`` over the
+    dates): ``rebalance_all(guess)`` and ``rebalance_all_warm(guess, warm,
+    max_iters)``. The T dates are edge-padded up to a multiple of the
+    mesh's data x scenario ranks (a padded date solves a copy of the last
+    one and is dropped); each rank solves its block of dates and the
+    targets are gathered on every rank. The warm (primal, dual) carry is
+    this rank's block of the padded dates and stays on it from sweep to
+    sweep. None for a strategy with nothing dated to solve (buy-and-hold),
+    which runs whole on every rank (kmpc_tpu would set the first date of
+    every shard)."""
+    from kmpc_tpu_torch.parallel.mesh import gather_rows, shard_index
+
+    def dated(a):
+        return torch.is_tensor(a) and a.dim() >= 1 and a.shape[0] == T
+
+    if not any(dated(a) for a in aux.values()):
+        return None
+    i, n = shard_index(mesh)
+    b = -(-T // n)
+
+    def mine(a):
+        if not dated(a):
+            return a
+        if b * n > T:
+            a = torch.cat([a, a[-1:].expand(b * n - T, *a.shape[1:])])
+        return a[i * b:(i + 1) * b]
+
+    local_aux = {k: mine(v) for k, v in aux.items()}
+
+    def rebalance_all(guess):
+        return gather_rows(strategy.rebalance_all(local_aux, mine(guess)),
+                           mesh)[:T]
+
+    def rebalance_all_warm(guess, warm, max_iters=None):
+        target, warm = strategy.rebalance_all_warm(
+            local_aux, mine(guess), warm, max_iters=max_iters)
+        return gather_rows(target, mesh)[:T], warm
+
+    return rebalance_all, rebalance_all_warm
+
+
 def make_parallel_backtester(
     strategy,
     fd: FinanceData,
     config: BacktestConfig,
     num_sweeps: int = 8,
     warm_sweeps_iters: Optional[int] = None,
+    mesh=None,
 ):
     """Returns ``(run, ts)``: ``run()`` runs ``num_sweeps`` sweeps and
     returns the last one's history (a dict of tensors over the rebalance
@@ -376,7 +421,12 @@ def make_parallel_backtester(
     ``warm_sweeps_iters`` (for a strategy with ``rebalance_all_warm``):
     sweep 1 solves cold at the strategy's full iteration budget; every
     later sweep starts from the previous sweep's (primal, dual) iterates
-    and runs only this many iterations."""
+    and runs only this many iterations.
+
+    ``mesh``: each sweep's solve of every date is split by date over the
+    mesh's data x scenario ranks (each rank solves its dates, the targets
+    are gathered on every rank) and the wealth recursion runs whole on
+    every rank; the history equals the unsharded run's."""
     n_steps = fd.test.shape[0] - fd.sequence_length - config.HORIZON
     ts = np.arange(0, n_steps, config.REBALANCE_FREQ)
     T = len(ts)
@@ -398,6 +448,18 @@ def make_parallel_backtester(
         )
     if use_warm and num_sweeps < 2:
         raise ValueError("warm_sweeps_iters needs num_sweeps >= 2")
+
+    def rebalance_all(guess):
+        return strategy.rebalance_all(aux_t, guess)
+
+    def rebalance_all_warm(guess, warm, max_iters=None):
+        return strategy.rebalance_all_warm(aux_t, guess, warm,
+                                           max_iters=max_iters)
+
+    sharded = (_sharded_rebalance_fns(strategy, mesh, aux_t, T)
+               if mesh is not None else None)
+    if sharded is not None:
+        rebalance_all, rebalance_all_warm = sharded
 
     def recursion(targets: torch.Tensor) -> Dict[str, torch.Tensor]:
         value = torch.tensor(config.INITIAL_CAPITAL, dtype=torch.float32, device=dev)
@@ -423,15 +485,15 @@ def make_parallel_backtester(
     def run() -> Dict[str, torch.Tensor]:
         guess = torch.full((T, n), 1.0 / n, dtype=torch.float32, device=dev)
         if use_warm:
-            targets, warm = strategy.rebalance_all_warm(aux_t, guess, None)
+            targets, warm = rebalance_all_warm(guess, None)
             for _ in range(num_sweeps - 1):
                 guess = recursion(targets)["pre_trade"]
-                targets, warm = strategy.rebalance_all_warm(
-                    aux_t, guess, warm, max_iters=warm_sweeps_iters)
+                targets, warm = rebalance_all_warm(
+                    guess, warm, max_iters=warm_sweeps_iters)
             return recursion(targets)
         for _ in range(num_sweeps - 1):
-            guess = recursion(strategy.rebalance_all(aux_t, guess))["pre_trade"]
-        return recursion(strategy.rebalance_all(aux_t, guess))
+            guess = recursion(rebalance_all(guess))["pre_trade"]
+        return recursion(rebalance_all(guess))
 
     return run, ts
 
@@ -443,11 +505,14 @@ def run_backtest_parallel(
     num_sweeps: int = 8,
     return_dataframe: bool = True,
     warm_sweeps_iters: Optional[int] = None,
+    mesh=None,
 ):
     """Backtest by Jacobi sweeps; a DataFrame (date, portfolio_value,
-    return, turnover, cost) or the history as numpy arrays."""
+    return, turnover, cost) or the history as numpy arrays. ``mesh``
+    shards each sweep's dates (``make_parallel_backtester``)."""
     run, ts = make_parallel_backtester(strategy, fd, config, num_sweeps,
-                                       warm_sweeps_iters=warm_sweeps_iters)
+                                       warm_sweeps_iters=warm_sweeps_iters,
+                                       mesh=mesh)
     history = {k: v.detach().cpu().numpy() for k, v in run().items()}
     history["t"] = ts
     if not return_dataframe:

@@ -931,31 +931,24 @@ def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
                         device=r.device) if return_steps else None
     if B > 0:
         warm, warm_iters, cold_iters = _sweep_budgets(params, N)
-        fn = kernel.function()
 
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        with torch.cuda.device(r.device):
-            stream = torch.cuda.current_stream(r.device).cuda_stream
-            err = fn(
-                current_weights.data_ptr(), r.data_ptr(), ptr(w_warm),
-                ptr(p_warm), w.data_ptr(), fp.data_ptr(), ptr(dual),
-                *((ptr(steps),) if params.adaptive else ()),
-                *((B, S) if scen else (B,)), H, N, params.max_iters,
-                schedule, warm_iters, cold_iters,
-                params.cost_coeff, params.max_turnover, params.ridge,
-                params.over_relax, params.step_scale, params.sigma_scale,
-                int(params.precond), int(params.max_turnover > 0), int(warm),
-                *((int(body == "pipe"),) if kernel in _PIPE_FLAG else ()),
-                *((STORAGES.index(storage),) if kernel in _STORAGE_ARG
-                  else ()),
-                stream,
-            )
-        if err != 0:
-            raise RuntimeError(
-                f"{kernel.name} kernel launch failed: CUDA error {err}")
-        kernel.launches += 1
+        kernel.launch(
+            r.device,
+            current_weights.data_ptr(), r.data_ptr(), ptr(w_warm),
+            ptr(p_warm), w.data_ptr(), fp.data_ptr(), ptr(dual),
+            *((ptr(steps),) if params.adaptive else ()),
+            *((B, S) if scen else (B,)), H, N, params.max_iters,
+            schedule, warm_iters, cold_iters,
+            params.cost_coeff, params.max_turnover, params.ridge,
+            params.over_relax, params.step_scale, params.sigma_scale,
+            int(params.precond), int(params.max_turnover > 0), int(warm),
+            *((int(body == "pipe"),) if kernel in _PIPE_FLAG else ()),
+            *((STORAGES.index(storage),) if kernel in _STORAGE_ARG
+              else ()),
+        )
         if kernel in _STORAGE_ARG:
             key = (kernel.name, storage)
             STORAGE_LAUNCHES[key] = STORAGE_LAUNCHES.get(key, 0) + 1

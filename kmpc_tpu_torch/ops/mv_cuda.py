@@ -545,23 +545,17 @@ def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
     warm, warm_iters, cold_iters = _sweep_budgets(params, N)
     schedule = (params.adapt_every if params.adaptive
                 else params.proj_refresh_every)
-    fn = kernel.function()
-    with torch.cuda.device(mu.device):
-        stream = torch.cuda.current_stream(mu.device).cuda_stream
-        err = fn(
-            current_weights.data_ptr(), mu.data_ptr(), Sigma.data_ptr(),
-            w.data_ptr(), fp.data_ptr(),
-            *((None if steps is None else steps.data_ptr(),)
-              if params.adaptive else ()),
-            B, H, N, shared, *extra,
-            params.max_iters, schedule, warm_iters,
-            cold_iters, params.cost_coeff, params.gamma, params.over_relax,
-            params.step_scale, params.sigma_scale, int(warm), stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            f"{kernel.name} kernel launch failed: CUDA error {err}")
-    kernel.launches += 1
+    kernel.launch(
+        mu.device,
+        current_weights.data_ptr(), mu.data_ptr(), Sigma.data_ptr(),
+        w.data_ptr(), fp.data_ptr(),
+        *((None if steps is None else steps.data_ptr(),)
+          if params.adaptive else ()),
+        B, H, N, shared, *extra,
+        params.max_iters, schedule, warm_iters,
+        cold_iters, params.cost_coeff, params.gamma, params.over_relax,
+        params.step_scale, params.sigma_scale, int(warm),
+    )
     return out
 
 

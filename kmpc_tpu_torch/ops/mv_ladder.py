@@ -185,16 +185,10 @@ def mv_ladder_cuda(cw, mu, Sigma, variant: str, iters: int, unroll: int = 4,
     w = torch.empty_like(cw)
     if B == 0:
         return w
-    fn = MV_LADDER.function()
-    with torch.cuda.device(cw.device):
-        stream = torch.cuda.current_stream(cw.device).cuda_stream
-        err = fn(cw.data_ptr(), mu.data_ptr(), Sigma.data_ptr(), w.data_ptr(),
-                 B, N, iters, VARIANTS.index(variant),
-                 int(sweep == "inlane"), unroll, chains, warps,
-                 GAMMA, COST, SIGMA_SCALE, stream)
-    if err != 0:
-        raise RuntimeError(f"mv_ladder kernel launch failed: CUDA error {err}")
-    MV_LADDER.launches += 1
+    MV_LADDER.launch(cw.device, cw.data_ptr(), mu.data_ptr(),
+                     Sigma.data_ptr(), w.data_ptr(), B, N, iters,
+                     VARIANTS.index(variant), int(sweep == "inlane"), unroll,
+                     chains, warps, GAMMA, COST, SIGMA_SCALE)
     return w
 
 

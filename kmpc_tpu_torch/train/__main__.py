@@ -10,6 +10,10 @@ It runs on the CUDA device; ``--cpu`` is the only way onto the CPU.
 and master weights); ``--checkpoint`` takes a run's checkpoint directory
 or a reference ``.pt`` checkpoint; a systems run ends with the evaluation
 suite on its last and best checkpoints unless ``--no_final_eval``.
+
+Under ``torchrun --nproc_per_node=N -m kmpc_tpu_torch.train ...`` each rank
+joins the world (NCCL, one rank a card; gloo with ``--cpu``), and the
+config's ``PARALLEL`` mesh, where its product is N, shards the run.
 """
 
 from __future__ import annotations
@@ -101,10 +105,13 @@ def main(argv: Optional[List[str]] = None):
     import torch
 
     from kmpc_tpu_torch import default_device
+    from kmpc_tpu_torch.parallel.distributed import initialize_distributed
     from kmpc_tpu_torch.train.loop import train
 
     args = parse_args(argv)
     cfg = config_from_args(args)
+    # Under torchrun, join the world (one rank a card; gloo with --cpu).
+    initialize_distributed(device="cpu" if args.cpu else None)
     device = torch.device("cpu") if args.cpu else default_device()
     state, model, run_dir = train(
         cfg, log_dir=args.log_dir, checkpoint_path=args.checkpoint,

@@ -22,8 +22,14 @@ the finance and dynamical-system loops, evaluation and checkpoints.
   with ``final_eval`` evaluates its last and best checkpoints
   (``eval/evaluation.py``) into ``evaluation_{last,best}/`` and
   ``evaluation_results_{last,best}.json``.
-
-Not ported: a ``PARALLEL`` mesh (it raises).
+- A ``PARALLEL`` mesh other than 1 x 1 x 1 (its product the world's size:
+  one rank a card, ``torchrun`` or ``parallel/launch.py``) places the
+  parameters by ``parallel.mesh.param_specs`` over 'model' and shards each
+  batch over ('data', 'scenario'): every rank draws the same global batch
+  from the seeded streams and keeps its rows, so the run equals the
+  one-process run on the same batches up to the order of the sums. It
+  takes one step a dispatch. The logs, evaluations, checkpoints and
+  figures are rank 0's, from the state gathered on every rank.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kmpc_tpu_torch import default_device, stream_seed as _stream_seed
 from kmpc_tpu_torch.config import Config
@@ -56,12 +63,56 @@ Device = Union[str, torch.device]
 _INIT, _DATA, _EVAL = 0, 1, 2
 
 
-def _check_parallel(cfg: Config) -> None:
+def _parallel_mesh(cfg: Config, device: torch.device):
+    """The ``PARALLEL`` mesh, None at 1 x 1 x 1; ValueError where its
+    product is not the world's size (``parallel.mesh.make_mesh``)."""
     sizes = (cfg.PARALLEL.DATA, cfg.PARALLEL.SCENARIO, cfg.PARALLEL.MODEL)
-    if not all(s in (1, None) for s in sizes):
-        raise NotImplementedError(
-            f"PARALLEL {sizes}: kmpc_tpu_torch trains on one device; a mesh "
-            "is ROADMAP.md §1 item 3, multiple GPUs")
+    if all(s in (1, None) for s in sizes):
+        return None
+    from kmpc_tpu_torch.parallel.mesh import mesh_from_config
+
+    return mesh_from_config(cfg, device=device)
+
+
+def _maybe_shard(state: "TrainState", mesh) -> Tuple["TrainState", Callable]:
+    """(state, batch placement): without a mesh the state as it is and the
+    identity; with one the state placed on it (tensor-parallel parameters)
+    and batches sharded over ('data', 'scenario')."""
+    if mesh is None:
+        return state, lambda batch: batch
+    from kmpc_tpu_torch.parallel.mesh import (
+        BATCH_AXES, shard_batch, shard_train_state,
+    )
+
+    return shard_train_state(state, mesh), \
+        lambda batch: shard_batch(batch, mesh, BATCH_AXES)
+
+
+def _is_lead() -> bool:
+    """Whether this process writes the run's files: rank 0, or the only
+    process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def _whole(cfg: Config, state: "TrainState", mesh, device) -> Callable:
+    """A function (metrics) -> (state, metrics) with every tensor whole:
+    without a mesh, both as they are; with one, a plain copy of the state
+    and the metrics' values, gathered on every rank (a collective, so
+    every rank calls it at the same steps)."""
+    if mesh is None:
+        return lambda metrics: (state, metrics)
+    from kmpc_tpu_torch.parallel.mesh import full, gather_train_state
+
+    like = []
+
+    def gather(metrics):
+        if not like:
+            model = make_model(cfg, state.model.observation_size, device=device)
+            like.append(TrainState(model, build_optimizer(cfg, model)))
+        return (gather_train_state(state, like[0]),
+                {k: full(v) for k, v in metrics.items()})
+
+    return gather
 
 
 # ---------------------------------------------------------------------------
@@ -132,10 +183,12 @@ def make_train_step(cfg: Config, model: KoopmanModel, dt: float):
 
 
 def make_system_train_step(cfg: Config, model: KoopmanModel,
-                           system: DynamicalSystem):
+                           system: DynamicalSystem,
+                           shard: Optional[Callable] = None):
     """(state, generator) -> (state, metrics): the batch (sequence windows,
     or states and their RK4 successors) synthesised on the generator's
-    device, then the step."""
+    device, placed by ``shard`` where given (a mesh's batch sharding), then
+    the step."""
     loss_fn = _loss_fn(cfg, model, system.dt)
     B, T = cfg.TRAIN.BATCH_SIZE, cfg.TRAIN.SEQUENCE_LENGTH
 
@@ -146,7 +199,9 @@ def make_system_train_step(cfg: Config, model: KoopmanModel,
         return x, system.step(x)
 
     def train_step(state: TrainState, generator: torch.Generator):
-        return state, _update(state, loss_fn, batch_of(generator))
+        batch = batch_of(generator)
+        return state, _update(state, loss_fn,
+                              shard(batch) if shard is not None else batch)
 
     return train_step
 
@@ -171,11 +226,13 @@ def _dispatch_chunks(start: int, num_steps: int, spd: int, intervals):
 def _run_chunks(cfg: Config, start_step: int,
                 step_fn: Callable[[int], Dict[str, torch.Tensor]],
                 on_boundary: Callable[[int, Dict[str, torch.Tensor]], None],
-                intervals: Optional[Tuple[int, ...]] = None) -> None:
+                intervals: Optional[Tuple[int, ...]] = None,
+                steps_per_dispatch: Optional[int] = None) -> None:
     """Enqueue each chunk's steps with no host synchronisation, then hand
     the chunk's last metrics to ``on_boundary``; chunks end on the
-    multiples of ``intervals`` (default: the log and eval intervals)."""
-    spd = max(1, int(cfg.TRAIN.STEPS_PER_DISPATCH))
+    multiples of ``intervals`` (default: the log and eval intervals).
+    ``steps_per_dispatch`` overrides ``STEPS_PER_DISPATCH``."""
+    spd = max(1, int(steps_per_dispatch or cfg.TRAIN.STEPS_PER_DISPATCH))
     if intervals is None:
         intervals = (cfg.TRAIN.LOG_INTERVAL, cfg.TRAIN.EVAL_INTERVAL)
     for step0, chunk in _dispatch_chunks(start_step, cfg.TRAIN.NUM_STEPS,
@@ -291,9 +348,23 @@ def _val_loss(model: KoopmanModel, fd: FinanceData, cfg: Config,
 
 
 def _run_dir(log_dir: str) -> Path:
-    run_dir = Path(log_dir) / datetime.now().strftime("%Y%m%d-%H%M%S")
-    run_dir.mkdir(parents=True, exist_ok=True)
+    """The run's directory, named by rank 0's clock and made by it."""
+    name = [datetime.now().strftime("%Y%m%d-%H%M%S")]
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.broadcast_object_list(name, src=0)
+    run_dir = Path(log_dir) / name[0]
+    if _is_lead():
+        run_dir.mkdir(parents=True, exist_ok=True)
     return run_dir
+
+
+def _open_run(cfg: Config, log_dir: str) -> Tuple[Path, Optional[MetricsLogger]]:
+    """The run's directory, and on rank 0 its config and logger."""
+    run_dir = _run_dir(log_dir)
+    if not _is_lead():
+        return run_dir, None
+    cfg.to_json(str(run_dir / "config.json"))
+    return run_dir, MetricsLogger(run_dir)
 
 
 def _start(cfg: Config, model: KoopmanModel, device: torch.device,
@@ -331,17 +402,20 @@ def train_finance(
     device: Optional[Device] = None,
 ) -> Tuple[TrainState, KoopmanModel, Path]:
     """Finance training loop on ``device`` (default: the CUDA device).
-    Returns (state, model, run_dir)."""
+    Returns (state, model, run_dir); under a ``PARALLEL`` mesh the state and
+    model are this rank's, placed on the mesh."""
     device = torch.device(device) if device is not None else default_device()
-    _check_parallel(cfg)
-    run_dir = _run_dir(log_dir or "./runs/kae_finance")
-    cfg.to_json(str(run_dir / "config.json"))
-    logger = MetricsLogger(run_dir)
+    mesh = _parallel_mesh(cfg, device)
+    lead = _is_lead()
+    verbose = verbose and lead
+    run_dir, logger = _open_run(cfg, log_dir or "./runs/kae_finance")
 
     fd = (finance_data if finance_data is not None
           else load_finance_data(cfg, device=device))
     model = make_model(cfg, fd.observation_size, device=device)
     state, start_step = _start(cfg, model, device, checkpoint_path, verbose)
+    state, shard = _maybe_shard(state, mesh)
+    whole = _whole(cfg, state, mesh, device)
     train_step = make_train_step(cfg, model, dt=1.0)
     use_seq = cfg.TRAIN.USE_SEQUENCE_LOSS
     L = cfg.TRAIN.SEQUENCE_LENGTH if use_seq else 1
@@ -361,45 +435,58 @@ def train_finance(
     def step_fn(s):
         gen.manual_seed(_stream_seed(cfg.SEED, _DATA, s))
         win = fd.sample_batch(gen, "train", B, L)
-        return train_step(state, win if use_seq else (win[:, 0], win[:, 1]))[1]
+        batch = win if use_seq else (win[:, 0], win[:, 1])
+        return train_step(state, shard(batch))[1]
 
     best_val = float("inf")
     extra = {"finance_metadata": fd.metadata}
 
     def on_boundary(step, metrics):
         nonlocal best_val
-        if step % cfg.TRAIN.LOG_INTERVAL == 0:
-            _log_train(logger, state, metrics, step, verbose,
+        log = step % cfg.TRAIN.LOG_INTERVAL == 0
+        evaluate = (step % cfg.TRAIN.EVAL_INTERVAL == 0
+                    or step == cfg.TRAIN.NUM_STEPS - 1)
+        if not (log or evaluate):
+            return
+        now, metrics = whole(metrics)
+        if not lead:
+            return
+        if log:
+            _log_train(logger, now, metrics, step, verbose,
                        f"Step {{step}}/{cfg.TRAIN.NUM_STEPS} | Loss: {{loss:.4f}} | "
                        "Res: {residual_loss:.4f} | Recon: {reconst_loss:.4f} | "
                        "Pred: {prediction_loss:.4f} | Sparsity: {sparsity_ratio:.3f}")
-        if step % cfg.TRAIN.EVAL_INTERVAL == 0 or step == cfg.TRAIN.NUM_STEPS - 1:
-            ev = evaluate_finance(model, test_init, test_future, max_horizon=50)
+        if evaluate:
+            ev = evaluate_finance(now.model, test_init, test_future,
+                                  max_horizon=50)
             for key in ("mean_mse_reencode", "mean_mse_no_reencode",
                         "final_mse_reencode", "final_mse_no_reencode"):
                 logger.log_scalar(f"eval/{key}", ev[key], step)
-            val_loss = _val_loss(model, fd, cfg)
+            val_loss = _val_loss(now.model, fd, cfg)
             logger.log_scalar("val/loss", val_loss, step)
             if verbose:
                 print(f"  Eval | MSE (reencode): {ev['mean_mse_reencode']:.4f} | "
                       f"MSE (no reencode): {ev['mean_mse_no_reencode']:.4f} | "
                       f"Val: {val_loss:.4f}")
-            save_checkpoint(run_dir / "last", state, state.step, cfg.to_dict(),
+            save_checkpoint(run_dir / "last", now, now.step, cfg.to_dict(),
                             extra=extra)
             if val_loss < best_val:
                 best_val = val_loss
-                save_checkpoint(run_dir / "checkpoint", state, state.step,
+                save_checkpoint(run_dir / "checkpoint", now, now.step,
                                 cfg.to_dict(), extra=extra)
 
     t0 = time.time()
-    _run_chunks(cfg, start_step, step_fn, on_boundary)
+    _run_chunks(cfg, start_step, step_fn, on_boundary,
+                steps_per_dispatch=1 if mesh is not None else None)
     if verbose:
         steps_done = max(cfg.TRAIN.NUM_STEPS - start_step, 1)
         print(f"Training done in {time.time() - t0:.1f}s "
               f"({steps_done / max(time.time() - t0, 1e-9):.1f} steps/s)")
 
     # The final evaluation uses the best checkpoint when there is one.
-    eval_model = model
+    eval_model = whole({})[0].model
+    if not lead:
+        return state, model, run_dir
     if (run_dir / "checkpoint" / "arrays.npz").exists():
         eval_model = load_jax_checkpoint(run_dir, device=device)[1]
     final = evaluate_finance(eval_model, test_init, test_future,
@@ -443,17 +530,20 @@ def train_system(
 ) -> Tuple[TrainState, KoopmanModel, Path]:
     """Dynamical-systems training loop on ``device`` (default: the CUDA
     device). Returns (state, model, run_dir). ``final_eval`` runs the
-    evaluation suite on the last and best checkpoints after training."""
+    evaluation suite on the last and best checkpoints after training. Under
+    a ``PARALLEL`` mesh the state and model returned are this rank's."""
     device = torch.device(device) if device is not None else default_device()
-    _check_parallel(cfg)
-    run_dir = _run_dir(log_dir or "./runs/kae")
-    cfg.to_json(str(run_dir / "config.json"))
-    logger = MetricsLogger(run_dir)
+    mesh = _parallel_mesh(cfg, device)
+    lead = _is_lead()
+    verbose = verbose and lead
+    run_dir, logger = _open_run(cfg, log_dir or "./runs/kae")
 
     system = make_system(cfg)
     model = make_model(cfg, system.observation_size, device=device)
     state, start_step = _start(cfg, model, device, checkpoint_path, verbose)
-    train_step = make_system_train_step(cfg, model, system)
+    state, shard = _maybe_shard(state, mesh)
+    whole = _whole(cfg, state, mesh, device)
+    train_step = make_system_train_step(cfg, model, system, shard)
 
     if verbose:
         print(f"Training {cfg.MODEL.MODEL_NAME} on {cfg.ENV.ENV_NAME} ({device})")
@@ -472,29 +562,41 @@ def train_system(
 
     def on_boundary(step, metrics):
         nonlocal best_final_error
-        if step % cfg.TRAIN.LOG_INTERVAL == 0:
-            _log_train(logger, state, metrics, step, verbose,
+        log = step % cfg.TRAIN.LOG_INTERVAL == 0
+        evaluate = (step % cfg.TRAIN.EVAL_INTERVAL == 0
+                    or step == cfg.TRAIN.NUM_STEPS - 1)
+        if not (log or evaluate):
+            return
+        now, metrics = whole(metrics)
+        if not lead:
+            return
+        if log:
+            _log_train(logger, now, metrics, step, verbose,
                        f"Step {{step}}/{cfg.TRAIN.NUM_STEPS} | Loss: {{loss:.4f}} | "
                        "Res: {residual_loss:.4f} | Recon: {reconst_loss:.4f} | "
                        "Sparsity: {sparsity_ratio:.3f}")
-        if step % cfg.TRAIN.EVAL_INTERVAL == 0 or step == cfg.TRAIN.NUM_STEPS - 1:
-            ev = evaluate_system(model, system, eval_x0, num_steps=200)
+        if evaluate:
+            ev = evaluate_system(now.model, system, eval_x0, num_steps=200)
             logger.log_scalar("eval/mean_error", ev["mean_error"], step)
             logger.log_scalar("eval/final_error", ev["final_error"], step)
             if verbose:
                 print(f"  Eval | Mean error: {ev['mean_error']:.4f} | "
                       f"Final error: {ev['final_error']:.4f}")
-            save_checkpoint(run_dir / "last", state, state.step, cfg.to_dict())
+            save_checkpoint(run_dir / "last", now, now.step, cfg.to_dict())
             if ev["final_error"] < best_final_error:
                 best_final_error = ev["final_error"]
-                save_checkpoint(run_dir / "checkpoint", state, state.step,
+                save_checkpoint(run_dir / "checkpoint", now, now.step,
                                 cfg.to_dict())
 
-    _run_chunks(cfg, start_step, step_fn, on_boundary)
+    _run_chunks(cfg, start_step, step_fn, on_boundary,
+                steps_per_dispatch=1 if mesh is not None else None)
+    last_model = whole({})[0].model
+    if not lead:
+        return state, model, run_dir
     logger.close()
     _plot_training_metrics(run_dir, verbose)
     if final_eval:
-        _post_training_evaluation(cfg, model, run_dir, verbose)
+        _post_training_evaluation(cfg, last_model, run_dir, verbose)
     return state, model, run_dir
 
 

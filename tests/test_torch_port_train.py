@@ -458,14 +458,15 @@ def test_resume_continues_the_uninterrupted_run(tmp_path):
 
 
 def test_train_raises_where_the_slice_stops(tmp_path):
-    """A PARALLEL mesh is the one refusal left (the final evaluation and a
-    reference .pt resume run since they were ported), before any file is
-    written."""
+    """A PARALLEL mesh whose product is not the world's size raises
+    ValueError, as make_mesh does, before any file is written (a mesh that
+    matches the world trains: tests/test_torch_port_parallel.py)."""
     tc = _tiny(tcfg)
     tc.PARALLEL.DATA = 2
-    with pytest.raises(NotImplementedError, match="multiple GPUs"):
+    with pytest.raises(ValueError, match="needs 2 devices, have 1"):
         T.train(tc, log_dir=str(tmp_path), device="cpu")
     assert not any(Path(tmp_path).iterdir())
+    assert not torch.distributed.is_initialized()
 
 
 # ---------------------------------------------------------------------------
