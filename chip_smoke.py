@@ -14,7 +14,9 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    storages and rings) against the built kernels', and the one-forecast
    wide-row kernels' bits against WIDE_DIGESTS;
 2. ``kernels``: every CUDA kernel against its plain PyTorch version on the
-   card: the log-utility kernel over the parametrised cases of the CPU
+   card (untimed here and in ``layouts``: the plain versions replay their
+   loop as CUDA graphs, ``mpc_cuda.plain_replayed``): the log-utility
+   kernel over the parametrised cases of the CPU
    tests (each shape at two of the four refresh and precond pairs, each
    pair at three shapes), the edges of its register budget and the
    main-path and bench shapes; the same kernel with warm inputs and the
@@ -67,19 +69,21 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    every rung of the MV ladder (Sigma's rows in registers and in shared
    memory; ``proj`` in both sweeps up to 32 assets); then ``layouts``:
    every layout of kernels
-   A and B that takes the shape, timed at the exact scan's (B=1), the
-   comparison's (B=1028) and the headline's (B=65536) batch at H=5, at
-   H=1, and at the long path's H=20 (B=1013, S=16 too) and bench.py's long
-   shape, the wide-row layout against the block layout at N=150 and N=500
+   A and B that takes the shape, timed at the exact scan's (B=1) and the
+   comparison's (B=1028) batch at H=5, at H=1, and at the long path's
+   H=20 (B=1013, S=16 too), the wide-row layout against the block layout
+   at N=150 and N=500
    (B = 1, 1028, 4096) and on each side of the switch where routing
    leaves it for the block layout, kernel B's storages on each side of
    their switch and against the block and warp layouts at the shapes
    those took before (SCEN_LAYOUT_SHAPES), the layouts' outputs held to one
    another (``hold_layouts``), the routed layout required to be the
    fastest or, where ROUTED_SLOWER names the shape and body, within its
-   bound; and of kernel C (the lane layout in each sweep compiled for N,
+   bound (the shapes where it won by 1.5x or more held, not timed:
+   UNTIMED_LAYOUT_SHAPES); and of kernel C (the lane layout in each sweep compiled for N,
    warp, tile and block layouts) at the Markowitz path's shape (H=1, N=20) at B=1028 and
-   B=1, bench.py's H=1, N=30 at B=4096 and 65536 (the sweep's switch), at
+   B=1, bench.py's H=1, N=30 at B=4096 and 65536 (the sweep's switch; the
+   lane layout's two sweeps alone at 65536), at
    H=5, N=30 at B=1028 and B=1, and at
    the five ``mv_long_wide`` shapes at 200 iterations, the routed layout
    required to be the fastest;
@@ -198,10 +202,17 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    ``large_headline``: bench.py's ``long`` shape (B=16384, H=20, N=30, 1000
    iterations, and 4000 adaptive; the row layout) and ``assets500`` shape
    (B=4096, H=5, N=500, 1000 pipelined iterations, and 10000; the wide-row
-   layout, the block layout timed beside it), with the gap on the shape's
-   16 probe instances to the float64 references cached in
-   bench_probe_cache.json;
-12. the ``kernels`` line, the card's name and power limit, and last
+   layout), with the gap on the shape's 16 probe instances to the float64
+   references cached in bench_probe_cache.json;
+12. ``verify_path``: the verification stack. The float64 polished path
+   (``ops/mpc_polish.py``, its batched float64 stages on the card) on the
+   first 32 cached instances of each family of parity_cache/, every
+   certified record reproduced (certified, weights within 1e-7), the same
+   path on the host CPU after it (the same certified set, weights within
+   1e-7), the native host solver against
+   kernel A, the scipy oracle against its records, and the stage times;
+   then the one-forecast wide-row kernels' bits against WIDE_DIGESTS again;
+13. the ``kernels`` line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 
 Adaptive steps and discrete decisions. The adaptive body grows or shrinks
@@ -743,8 +754,9 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
         res["bound_ms"], res["bound_by"] = bound
         if S is not None:
             res["S"] = S
-        res["kernel_ms"] = cuda_ms(lambda: pinned(
-            layout, cw, r, params, return_dual=dual, **kw), time_reps)
+        if time_reps:
+            res["kernel_ms"] = cuda_ms(lambda: pinned(
+                layout, cw, r, params, return_dual=dual, **kw), time_reps)
         if plain_ms is not None:
             res["plain_ms"] = plain_ms
         results[layout], outs[layout] = res, out_k
@@ -1070,7 +1082,8 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
         res["sweep"] = sweep or V.mv_lanes_sweep(B, N)
     hold_mv(label, cw, mu, sig, params, out_k, out_p, res)
     res["bound_ms"], res["bound_by"] = mv_bound(B, H, N, params, shared)
-    res["kernel_ms"] = cuda_ms(lambda: run(False), time_reps)
+    if time_reps:
+        res["kernel_ms"] = cuda_ms(lambda: run(False), time_reps)
     if time_plain:
         res["plain_ms"] = plain_ms
     return res
@@ -1928,12 +1941,13 @@ def phase_kernel_vs_plain():
                          and M.layout_supports(x, S, H, N)]
 
     def run(label, B, H, N, p, s, S=None, layouts=None, **kw):
-        # The plain version is timed on the paths, whose times the kernels
-        # line reports, not here. The wide-row layout's adaptive cases (and
+        # The kernel and the plain version are timed on the paths, whose
+        # times the kernels line reports, not here. The wide-row layout's
+        # adaptive cases (and
         # the block layout's beside them) are at float32's limit as
         # ``block_path``'s are (LOG_UNSETTLED_FP): held as ``wide`` cases
         # where they start cold, past SPREAD_N assets by their spread.
-        kw["time_plain"] = False
+        kw["time_plain"], kw["time_reps"] = False, 0
         kw["wide"] = kw.get("wide", label.startswith("wide_")) \
             and not kw.get("warm")
         kw["spread"] = p.adaptive and N >= SPREAD_N and not kw.get("warm")
@@ -2166,8 +2180,8 @@ def phase_kernel_vs_plain():
     from kmpc_tpu_torch.ops import mv_cuda as V
 
     for label, B, H, N, p, s, kw in mv_cases:
-        record(routed(compare_mv_case(label, B, H, N, p, s,
-                                      **dict(kw, time_plain=False))))
+        record(routed(compare_mv_case(
+            label, B, H, N, p, s, **dict(kw, time_plain=False, time_reps=0))))
 
     # The lane layout at its plan's edges, pinned, in each sweep compiled
     # for N (both up to 32 assets, the butterfly past): one slot's row
@@ -2200,7 +2214,8 @@ def phase_kernel_vs_plain():
         for sweep in V.mv_lanes_sweeps(N):
             record(routed(compare_mv_case(
                 f"lanes_{name}_{sweep}", B, 1, N, p, seed, shared=shared,
-                scale=0.01, time_plain=False, layout="lanes", sweep=sweep)))
+                scale=0.01, time_plain=False, time_reps=0, layout="lanes",
+                sweep=sweep)))
 
     # C.2: the shapes past the warp layout at the edges of kmpc_tpu's
     # envelope (a per-problem covariance past the warp layout's registers
@@ -2239,11 +2254,11 @@ def phase_kernel_vs_plain():
         layout = V.mv_kernel_layout(H, N, shared, p.adaptive, B)
         record(routed(compare_mv_case(
             f"{layout}_{name}", B, H, N, p, seed, shared=shared, scale=0.01,
-            time_plain=False)))
+            time_plain=False, time_reps=0)))
         if layout != "block":
             record(routed(compare_mv_case(
                 f"block_{name}", B, H, N, p, seed, shared=shared, scale=0.01,
-                time_plain=False, layout="block")))
+                time_plain=False, time_reps=0, layout="block")))
 
     # The tile layout at its plan's edges, pinned: P > 1 with B not a
     # multiple of P (a ragged last CTA) and B=1; N off the multiples of 32
@@ -2293,7 +2308,8 @@ def phase_kernel_vs_plain():
         p = _params(**{"max_iters": 600, "gamma": 5.0, **kw})
         record(routed(compare_mv_case(
             f"tile_{name}", B, H, N, p, seed, shared=shared, scale=0.01,
-            time_plain=False, layout="tile", problems=P)))
+            time_plain=False, time_reps=0, layout="tile",
+            problems=P)))
 
     # The MV ladder: every variant, chains and unroll, on a batch that is no
     # multiple of the chains; two and four slots per lane.
@@ -2329,7 +2345,7 @@ def phase_kernel_vs_plain():
     return out
 
 
-def alternating_ms(kernels, run, rounds=2):
+def alternating_ms(kernels, run, rounds=1):
     """{layout: [ms, ...]}: ``run(kernel)`` for each of ``kernels`` timed in
     ``rounds`` rounds of 3 (``cuda_ms``), the layouts alternating; each
     warmed up once, in the first round."""
@@ -2355,9 +2371,12 @@ def confirmed_times(times, medians, routed, allowed, measure):
 
 
 # The shapes ``layouts`` times every layout at: (S, B, H, N, seed). The
-# exact scan (B=1) and the comparison path (B=1028) at H=5, N=20; the
-# headline batch (B=65536, N=30); one horizon row; the long path (B=1013,
-# H=20) and bench.py's ``long`` shape (B=16384, H=20, N=30). The wide-row
+# exact scan (B=1) and the comparison path (B=1028) at H=5, N=20; one
+# horizon row; the long path (B=1013, H=20). Not the headline batches
+# (B=65536, N=30; bench.py's ``long`` B=16384, H=20, N=30), whose
+# layouts routing never picks (the row layout 2.6-2.8x faster than the
+# next, PERF.md section 6; ``headline`` and ``large_headline`` time it
+# there). The wide-row
 # layout against the block layout: the block path's N=150 and bench.py's
 # assets500 N=500 at B = 1, 1028 and 4096; one row of 500 assets, three
 # rows of 1000 and four of 1600 (wide); one row of 1056 at B=1 and 1028
@@ -2368,9 +2387,8 @@ def confirmed_times(times, medians, routed, allowed, measure):
 LAYOUT_SHAPES = (
     (None, 1, 5, 20, 508), (16, 1, 5, 20, 606),
     (None, 1028, 5, 20, 105), (16, 1028, 5, 20, 314),
-    (None, 65536, 5, 30, 0), (None, 1028, 1, 20, 7),
+    (None, 1028, 1, 20, 7),
     (None, 1013, 20, 20, 9), (16, 1013, 20, 20, 10),
-    (None, 16384, 20, 30, 0),
     (None, 1, 5, 150, 1150), (None, 1028, 5, 150, 1150),
     (None, 4096, 5, 150, 1152), (None, 1, 5, 500, 0),
     (None, 1028, 5, 500, 0), (None, 4096, 5, 500, 0),
@@ -2381,6 +2399,17 @@ LAYOUT_SHAPES = (
     (None, 1028, 2, 1888, 21), (None, 1028, 2, 1920, 22),
     (None, 1, 1, 2730, 13), (None, 1, 2, 2730, 14),
 )
+# Shapes where the routed layout beat every other layout by 1.5x or more
+# in every body (2.4-12.3x, the narrowest three rows of 1000 assets at
+# 1.62x; PERF.md section 6): their layouts' outputs are held to one
+# another (``hold_layouts``), and not timed.
+UNTIMED_LAYOUT_SHAPES = {
+    (None, 1, 5, 20), (None, 1028, 5, 20), (None, 1013, 20, 20),
+    (None, 1, 5, 150), (None, 1028, 5, 150), (None, 4096, 5, 150),
+    (None, 1, 5, 500), (None, 1028, 5, 500), (None, 4096, 5, 500),
+    (None, 1028, 3, 1000), (None, 1028, 1, 1056), (113, 132, 8, 64),
+    (64, 1028, 5, 150),
+}
 # Kernel B past its registers: (S, B, H, N, seed, iterations). The row and
 # wide-row layouts' returns resident and streamed on each side of the
 # switch between them (``rows_storage``, ``wide_storage``: resident to S=84
@@ -2500,9 +2529,9 @@ def phase_layouts():
     """Every layout of kernels A and B that takes the shape (the row and
     wide-row layouts in every storage of the scenario returns that takes
     it), at each of LAYOUT_SHAPES and SCEN_LAYOUT_SHAPES and body, launched
-    in it (``pinned``), each timed in two rounds of 3, the layouts
+    in it (``pinned``), each timed in one round of 3, the layouts
     alternating (twice where the routed layout is measured slower,
-    ``confirmed_times``). The layouts'
+    ``confirmed_times``; not at UNTIMED_LAYOUT_SHAPES). The layouts'
     outputs must meet ``hold_layouts``, and the layout the wrapper routes
     the shape to must be the fastest measured there (the routing rule is
     the measurement), or within its bound where ROUTED_SLOWER names the
@@ -2532,16 +2561,22 @@ def phase_layouts():
             def run(layout):
                 return pinned(layout, cw, r, p)
 
-            times = alternating_ms({lay: lay for lay in taken}, run)
+            timed = (S, B, H, N) not in UNTIMED_LAYOUT_SHAPES
+            if timed:
+                times = alternating_ms({lay: lay for lay in taken}, run)
             outs = {lay: run(lay) for lay in taken}
             torch.cuda.synchronize()
-            medians = {lay: float(np.median(t)) for lay, t in times.items()}
             held = {}
             try:
                 hold_layouts(f"layouts S={S} B={B} H={H} N={N} {body}", cw,
                              r, p, outs, routed, held)
             except AssertionError as e:
                 disagree.append(str(e))
+            if not timed:
+                emit("layouts", S=S, B=B, H=H, N=N, body=body,
+                     iters=p.max_iters, routed=routed, timed=False, **held)
+                continue
+            medians = {lay: float(np.median(t)) for lay, t in times.items()}
             allowed = ROUTED_SLOWER.get((S, B, H, N, body), 1.0)
             times, medians = confirmed_times(
                 times, medians, routed, allowed,
@@ -2604,15 +2639,15 @@ def mv_layout_shapes():
     65536 (the lane layout's sweep switch), and at H=5, N=30 at
     B=1028 and B=1; the
     switches (``MV_SWITCH_SHAPES``, "switch" up to 128 assets, else "wide");
-    the five MV_LONG_WIDE shapes at 200 iterations of bench.py's settings,
-    one round (``mv_long_wide`` times them at 1000)."""
-    return ((1028, 1, 20, False, 410, "path", 2),
-            (1, 1, 20, False, 724, "path", 2),
-            (4096, 1, 30, False, 414, "bench", 2),
+    the five MV_LONG_WIDE shapes at 200 iterations of bench.py's settings
+    (``mv_long_wide`` times them at 1000); each in one round of 3."""
+    return ((1028, 1, 20, False, 410, "path", 1),
+            (1, 1, 20, False, 724, "path", 1),
+            (4096, 1, 30, False, 414, "bench", 1),
             (65536, 1, 30, False, 416, "bench", 1),
-            (1028, 5, 30, False, 412, "bench", 2),
-            (1, 5, 30, False, 413, "bench", 2)) + tuple(
-        (B, H, N, shared, 940 + i, "switch" if N <= 128 else "wide", 2)
+            (1028, 5, 30, False, 412, "bench", 1),
+            (1, 5, 30, False, 413, "bench", 1)) + tuple(
+        (B, H, N, shared, 940 + i, "switch" if N <= 128 else "wide", 1)
         for i, (B, H, N, shared) in enumerate(MV_SWITCH_SHAPES)) + tuple(
         (B, H, N, shared, 900 + i, "wide", 1)
         for i, (_, B, H, N, shared) in enumerate(MV_LONG_WIDE))
@@ -2662,9 +2697,13 @@ def mv_layouts():
             routed, _ = V._mv_route(H, N, p, shared, B)
             if routed == "lanes":
                 routed = f"lanes:{V.mv_lanes_sweep(B, N)}"
+            # At bench.py's B=65536 only the lane layout's two sweeps: the
+            # sweep is the choice there (the warp and tile layouts, which
+            # routing never picks at one row, 1.26x and more behind).
             taken = {lay: (V._MV_KERNELS[(lay, p.adaptive)], None)
                      for lay in ("warp", "tile", "block")
-                     if (lay != "warp" or V.mv_kernel_supports(H, N))
+                     if B < 65536
+                     and (lay != "warp" or V.mv_kernel_supports(H, N))
                      and (lay != "tile"
                           or V.mv_tile_problems(B, H, N, shared, p.adaptive))}
             if V.mv_kernel_layout(H, N, shared, p.adaptive, B) == "lanes":
@@ -3818,70 +3857,21 @@ def mv_min_objective(w, mu, sig, cw, gamma=5.0, cost_coeff=0.001):
             + cost_coeff * np.abs(w - prev).sum((-2, -1)))
 
 
-def graph_replay(chunk, eager):
-    """An ``ops.mpc._iterate`` (the eager solvers' loop over ``step``) that
-    runs the iterations on CUDA tensors as replays of one CUDA graph of
-    ``chunk`` iterations, captured on the current stream: the kernels of
-    the eager loop in its order on the same values, without the host's cost
-    per operation, and the remainder eagerly. ``chunk`` is a multiple of
-    the solve's ``adapt_every``, so each replay follows the loop's
-    schedule. CPU tensors and solves shorter than ``chunk`` run ``eager``."""
-
-    def iterate(step, state, n):
-        trips = n // chunk
-        if trips == 0 or not state[0].is_cuda:
-            return eager(step, state, n)
-        static = [x.clone(memory_format=torch.contiguous_format)
-                  for x in state]
-        # A warm-up step on a side stream sets up the libraries' handles
-        # and workspaces outside the capture.
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            step(0, *[x.clone() for x in static])
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = tuple(static)
-            for j in range(chunk):
-                out = step(j, *out)
-            for s, o in zip(static, out):
-                s.copy_(o)
-        for _ in range(trips):
-            graph.replay()
-        state = tuple(static)
-        for i in range(trips * chunk, n):
-            state = step(i, *state)
-        return state
-
-    return iterate
-
-
-@contextlib.contextmanager
-def graph_replayed(chunk):
-    """The eager solvers' loop replayed as CUDA graphs (``graph_replay``)
-    within the block."""
-    from kmpc_tpu_torch.ops import mpc as M
-
-    eager = M._iterate
-    M._iterate = graph_replay(chunk, eager)
-    try:
-        yield
-    finally:
-        M._iterate = eager
-
-
 def mv_references(shapes):
     """Float64 reference objectives of each (H, N)'s probe instances, as
     bench.py's ``_ref_objectives("mv", ...)`` builds them: adaptive PDHG
     (k=2, sigma_scale 2, gamma 5) at 40000 iterations, here the port's
     eager solver in float64 on the card. Its loop replays one CUDA graph of
-    MV_REF_GRAPH iterations (``graph_replayed``), each shape on a stream of
+    MV_REF_GRAPH iterations (``ops.mpc.graph_replayed``), each shape on a stream of
     its own so that the shapes' small kernels overlap; nothing is timed
     meanwhile."""
     from dataclasses import replace
 
-    from kmpc_tpu_torch.ops.mpc import MPCParams, solve_mpc_mean_variance_batch
+    from kmpc_tpu_torch.ops.mpc import (
+        MPCParams,
+        graph_replayed,
+        solve_mpc_mean_variance_batch,
+    )
 
     p = MPCParams(max_iters=40000, sigma_scale=2.0, gamma=5.0, adaptive=True,
                   adapt_every=2)
@@ -4099,8 +4089,7 @@ def phase_large_headlines():
     N=30: 1000 iterations at refresh 16, and the accurate co-row, 4000
     adaptive; the row layout) and ``assets500`` shape (B=4096, H=5, N=500:
     1000 iterations pipelined, and the 10000-iteration co-row; the
-    wide-row layout, with the block layout's time on the same inputs
-    beside it): time, solves/s and bound, and the objective gap on
+    wide-row layout): time, solves/s and bound, and the objective gap on
     bench.py's 16 probe instances of the shape (seed 1241) against the
     float64 references cached in bench_probe_cache.json (an adaptive PDHG
     run in float64, as the keys say); at 1000 iterations the kernel's
@@ -4128,9 +4117,6 @@ def phase_large_headlines():
         if with_plain:
             res["plain_ms"] = timed_once(
                 lambda: M.pdhg_log_utility_plain(cw, r, p))[1]
-        if layout == "wide":
-            res["block_ms"] = cuda_ms(lambda: pinned("block", cw, r, p),
-                                      reps)
 
         # The probe: bench.py's 16 instances of the shape.
         rng = np.random.default_rng(1241)
@@ -5535,6 +5521,223 @@ def phase_parallel_path(seed: int):
     return launches
 
 
+# The verification stack (``phase_verify_path``). The polished path on
+# the first VERIFY_N instances of ``polish_order`` of each family of the
+# repository's parity_cache/, at the records' own settings: ridge 1e-3,
+# sigma_scale 2, 3 cycles, 4 Newton steps a polish, and VERIFY_ITERS
+# first-solve iterations (at 2000 the first polish certifies no instance,
+# and every one reaches its certificate only in the deep float64
+# continuation, 100k iterations a chunk and instance). A certified record
+# (residual below VERIFY_CERT) is a KKT point of a program the ridge makes
+# strongly convex, so its point is unique: the card must certify it too
+# and land within VERIFY_W_TOL of it in every row. The card runs both
+# families, then the host CPU runs VERIFY_HOST (positions in the order),
+# torch on one thread there (the CPU tests' setting); in this process, one
+# after the other (the forward-mode levels of torch.func, which the Newton
+# steps' Jacobians use, are global to a process: two threads in them at
+# once fail).
+# Position 0, the equal-weight first rebalance, takes the deep
+# continuation in the realistic family, whose eager loop takes a minute or
+# more on a CPU for each of its 100k-iteration chunks: the host run takes
+# the positions after it.
+VERIFY_N = 32
+VERIFY_HOST = range(1, 5)
+VERIFY_ITERS = 30000
+VERIFY_CERT = 1e-10
+VERIFY_W_TOL = 1e-7
+# The native host solver against kernel A (tests/test_native.py's case):
+# B, H, N, iterations, seed, and its weight bar.
+NATIVE_CASE = (6, 5, 15, 8000, 1)
+NATIVE_W_TOL = 2e-3
+ORACLE_OBJ_TOL = 1e-8     # the oracle's ridged objective against its record
+VERIFY_STAGES = ("first_solve", "newton", "active_set", "svd", "continuation",
+                 "tail", "boundary", "deep_continuation", "interior_point",
+                 "extended")
+
+
+def verify_run(family, positions, device):
+    """The polished path on the instances at ``positions`` of
+    ``polish_order`` of ``family`` on ``device``, with a StageTimer:
+    {family, device, ids, w, res (residual_after), seconds, stage_s,
+    stage_count}."""
+    from kmpc_tpu_torch.ops.mpc import MPCParams
+    from kmpc_tpu_torch.ops.mpc_polish import (
+        solve_mpc_log_utility_batch_polished,
+    )
+    from kmpc_tpu_torch.parity_cdf import REPO_CACHE, polish_order
+    from kmpc_tpu_torch.utils.profiler import StageTimer
+
+    d = np.load(REPO_CACHE / f"instances_{family}_1000.npz")
+    ids = [polish_order(d["cw"].shape[0])[k] for k in positions]
+    params = MPCParams(max_iters=VERIFY_ITERS, sigma_scale=2.0, ridge=1e-3,
+                       polish=True, polish_newton=4)
+    timer = StageTimer()
+    t0 = time.perf_counter()
+    w, info = solve_mpc_log_utility_batch_polished(
+        torch.as_tensor(d["cw"][ids], device=device),
+        torch.as_tensor(d["ys"][ids], device=device), params, cycles=3,
+        timer=timer)
+    assert w.dtype == torch.float64 and w.device.type == \
+        torch.device(device).type, (w.dtype, w.device)
+    res = info["residual_after"].cpu().numpy()
+    secs = time.perf_counter() - t0
+    summary = timer.summary()
+    return {"family": family, "device": device, "ids": ids,
+            "w": w.cpu().numpy(), "res": res, "seconds": secs,
+            "stage_s": {k: v["total_s"] for k, v in summary.items()},
+            "stage_count": {k: v["count"] for k, v in summary.items()}}
+
+
+def phase_verify_path():
+    """The verification stack: ``solve_mpc_log_utility_batch_polished``
+    (its float64 stages on the card) on VERIFY_N cached instances of each
+    family, every instance whose record is certified required certified on
+    the card and within VERIFY_W_TOL of its record (an uncertified record
+    is reported with both residuals, not held); the same path on the host
+    CPU (VERIFY_HOST), the same certified set and weights within
+    VERIFY_W_TOL where both certify; the port's native host solver (built
+    with g++ from the checkout) against kernel A on NATIVE_CASE, weights
+    within NATIVE_W_TOL; the port's scipy oracle on one instance of each
+    family, its ridged objective within ORACLE_OBJ_TOL of its record. One
+    line of the card's stage times (``utils.profiler.StageTimer``) with
+    instances a second on the card and on the host, and the card's name and
+    power limit."""
+    from kmpc_tpu_torch.native import (
+        library_path,
+        num_threads,
+        solve_mpc_log_utility_native,
+    )
+    from kmpc_tpu_torch.ops.mpc import MPCParams
+    from kmpc_tpu_torch.ops.mpc_cuda import solve_mpc_log_utility_packed
+    from kmpc_tpu_torch.ops.mpc_oracle import solve_mpc_log_utility_oracle
+    from kmpc_tpu_torch.ops.mpc_polish import SVD_STREAMS, _svd
+    from kmpc_tpu_torch.parity_cdf import (
+        REPO_CACHE,
+        _read_jsonl,
+        polish_order,
+        ridged_objective,
+    )
+
+    t_phase = time.perf_counter()
+    failures = []
+    families = ("random", "realistic")
+    card = {f: verify_run(f, range(VERIFY_N), "cuda") for f in families}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        host = [verify_run(f, VERIFY_HOST, "cpu") for f in families]
+    finally:
+        torch.set_num_threads(threads)
+
+    # The native host solver against kernel A.
+    B, H, N, iters, seed = NATIVE_CASE
+    rng = np.random.default_rng(seed)
+    cw = rng.dirichlet(np.ones(N), size=B).astype(np.float32)
+    ys = (rng.standard_normal((B, H, N)) * 0.01).astype(np.float32)
+    t0 = time.perf_counter()
+    w_nat, _ = solve_mpc_log_utility_native(cw, ys, max_iters=iters)
+    native_s = time.perf_counter() - t0
+    assert library_path().parent == ROOT / "kmpc_tpu_torch" / "_build"
+    w_a, _ = solve_mpc_log_utility_packed(
+        torch.as_tensor(cw, device="cuda"), torch.as_tensor(ys, device="cuda"),
+        MPCParams(max_iters=iters, sigma_scale=2.0), device="cuda")
+    dw_native = float(np.abs(w_nat - w_a.cpu().numpy()).max())
+    if not dw_native <= NATIVE_W_TOL:
+        failures.append(f"native against kernel A: {dw_native:.3e}")
+
+    # The oracle on one instance of each family against its record.
+    oracle = {}
+    for family in families:
+        d = np.load(REPO_CACHE / f"instances_{family}_1000.npz")
+        recs = _read_jsonl(REPO_CACHE / f"oracle_{family}.jsonl")
+        i = polish_order(d["cw"].shape[0])[1]
+        cw_i, ys_i = d["cw"][i], d["ys"][i]
+        t0 = time.perf_counter()
+        w_or, info = solve_mpc_log_utility_oracle(
+            cw_i.astype(np.float64), ys_i.astype(np.float64), ridge=1e-3)
+        secs = time.perf_counter() - t0
+        w_rec = np.asarray(recs[i]["w"]).reshape(ys_i.shape)
+        dobj = float(abs(
+            ridged_objective(w_or[None], ys_i[None], cw_i[None], 1e-3)[0]
+            - ridged_objective(w_rec[None], ys_i[None], cw_i[None], 1e-3)[0]))
+        oracle[family] = {"idx": i, "status": info["status"],
+                          "abs_dobj_record": dobj, "seconds": secs}
+        if not (info["status"] == "optimal" and dobj <= ORACLE_OBJ_TOL):
+            failures.append(f"oracle {family} idx {i}: {info['status']}, "
+                            f"objective {dobj:.3e} from its record")
+
+    stage_s, stage_count = {}, {}
+    rate = {"card": {}, "host": {}}
+    for family, run in card.items():
+        ids, w, res = run["ids"], run["w"], run["res"]
+        rate["card"][family] = len(ids) / run["seconds"]
+        for k, v in run["stage_s"].items():
+            stage_s[k] = stage_s.get(k, 0.0) + v
+            stage_count[k] = stage_count.get(k, 0) + run["stage_count"][k]
+        recs = _read_jsonl(REPO_CACHE / f"polish_{family}.jsonl")
+        held, uncertified = 0, []
+        max_dw = 0.0
+        for k, i in enumerate(ids):
+            rec = recs[i]
+            dw = float(np.abs(w[k].ravel() - np.asarray(rec["w"])).max())
+            if rec["residual_after"] >= VERIFY_CERT:
+                uncertified.append({"idx": i, "record": rec["residual_after"],
+                                    "card": float(res[k]), "max_abs_dw": dw})
+                continue
+            held += 1
+            max_dw = max(max_dw, dw)
+            if not (res[k] < VERIFY_CERT and dw <= VERIFY_W_TOL):
+                failures.append(f"{family} idx {i}: residual {res[k]:.3e}, "
+                                f"{dw:.3e} from its certified record")
+        emit("verify_path", family=family, instances=len(ids),
+             held_to_record=held,
+             certified_on_card=int((res < VERIFY_CERT).sum()),
+             max_residual_after=float(res.max()), max_abs_dw_record=max_dw,
+             uncertified_records=uncertified, seconds=run["seconds"],
+             stage_s=run["stage_s"])
+
+    # The host run against the card's on the same instances.
+    for run in host:
+        family = run["family"]
+        rate["host"][family] = len(run["ids"]) / run["seconds"]
+        at = {i: k for k, i in enumerate(card[family]["ids"])}
+        pick = [at[i] for i in run["ids"]]
+        w_c, res_c = card[family]["w"][pick], card[family]["res"][pick]
+        w_h, res_h = run["w"], run["res"]
+        same = bool(np.array_equal(res_c < VERIFY_CERT, res_h < VERIFY_CERT))
+        both = (res_c < VERIFY_CERT) & (res_h < VERIFY_CERT)
+        dw = float(np.abs(w_c - w_h)[both].max()) if both.any() else 0.0
+        if not same or dw > VERIFY_W_TOL:
+            failures.append(f"{family}: card and host certify "
+                            f"{res_c.tolist()} / {res_h.tolist()}, "
+                            f"{dw:.3e} apart")
+        emit("verify_host", family=family, ids=run["ids"],
+             same_certified_set=same, max_abs_dw_card_host=dw,
+             residual_card=res_c.tolist(), residual_host=res_h.tolist(),
+             seconds=run["seconds"], host_stage_s=run["stage_s"])
+
+    # cuSOLVER's SVD on a batch of the random family's size (32 matrices
+    # of 2HN + 2H = 310 rows, float64), in one call and split over the
+    # polished path's streams (``mpc_polish._svd``): ms each, and the bits.
+    J = torch.randn(32, 310, 310, dtype=torch.float64, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    _svd(J[:8])                    # the library's and the threads' set-up
+    one, one_ms = timed_once(lambda: torch.linalg.svd(J, full_matrices=False))
+    split, split_ms = timed_once(lambda: _svd(J))
+    svd_batch = {"matrices": 32, "rows": 310, "one_call_ms": one_ms,
+                 "split_ms": split_ms, "streams": SVD_STREAMS,
+                 "bits_equal": all(torch.equal(a, b)
+                                   for a, b in zip(one, split))}
+    emit("verify_times", smi=smi_line(), svd_batch=svd_batch,
+         stage_s={k: stage_s.get(k, 0.0) for k in VERIFY_STAGES},
+         stage_count={k: stage_count.get(k, 0) for k in VERIFY_STAGES},
+         instances_per_s_card=rate["card"], instances_per_s_host=rate["host"],
+         native={"max_abs_dw_kernel_a": dw_native, "seconds": native_s,
+                 "threads": num_threads()},
+         oracle=oracle, seconds=time.perf_counter() - t_phase)
+    assert not failures, f"verify_path: {failures}"
+
+
 _LOG, _MV = "kmpc_tpu_torch/csrc/pdhg_log_utility", \
     "kmpc_tpu_torch/csrc/pdhg_mean_variance"
 _PALLAS = "kmpc_tpu/ops/mpc_pallas.py"
@@ -5607,6 +5810,7 @@ def main():
     if args.parallel_rank:
         parallel_rank(args.seed)
         return
+    from kmpc_tpu_torch.ops.mpc_cuda import plain_replayed
 
     t0 = time.perf_counter()
     marks = {}
@@ -5617,11 +5821,14 @@ def main():
 
     phase_build()
     done("build")
-    cases = phase_kernel_vs_plain()
-    done("kernels")
-    phase_layouts()
-    mv_layouts()
-    done("layouts")
+    # The holds' plain versions, untimed in these phases, replay their
+    # loops as CUDA graphs (the same kernels on the same values).
+    with plain_replayed():
+        cases = phase_kernel_vs_plain()
+        done("kernels")
+        phase_layouts()
+        mv_layouts()
+        done("layouts")
     phase_nan_row()
     phase_probe()
     ctx = phase_main_path(args.seed)
@@ -5658,6 +5865,11 @@ def main():
     phase_headline()
     phase_large_headlines()
     done("headlines")
+    phase_verify_path()
+    # The wide kernels' bits again, after every phase and the verified
+    # path's float64 work on the same card.
+    check_wide_digests()
+    done("verify_path")
 
     # One entry per kernel: launches on the path that runs it (the
     # comparison path for the fixed-step kernels, A and B in the row

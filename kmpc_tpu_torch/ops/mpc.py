@@ -20,6 +20,7 @@ fused CUDA solves are in ops/mpc_cuda.py and ops/mv_cuda.py.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -56,7 +57,7 @@ class MPCParams:
     proj_warm_iters: int = 3      # Michelot sweeps per projection from the
                                   # carried threshold; 0 = cold full-budget
                                   # projections every iteration
-    polish: bool = False          # float64 host polish (not in this package)
+    polish: bool = False          # float64 verification path (ops/mpc_polish.py)
     polish_newton: int = 4
     adaptive: bool = False        # residual-balancing adaptive steps
     adapt_every: int = 1
@@ -67,13 +68,15 @@ class MPCParams:
 
 
 def reject_unhonored_polish(params: MPCParams, entry: str) -> None:
-    """Refuse ``params.polish``: the float64 host polish is a verification
-    path that a batched solve cannot run."""
+    """Refuse ``params.polish``: the float64 polish is a verification path
+    that a batched solve does not run; ``solve_mpc_log_utility`` and
+    ``mpc_polish.solve_mpc_log_utility_batch_polished`` run it."""
     if params.polish:
         raise ValueError(
-            f"MPCParams.polish is a float64 host verification path that "
-            f"{entry} cannot run; unset cfg.MPC.SOLVER.POLISH for "
-            "hot-path solves."
+            f"MPCParams.polish is the float64 verification path, which "
+            f"{entry} does not run: call solve_mpc_log_utility or "
+            "mpc_polish.solve_mpc_log_utility_batch_polished, or unset "
+            "cfg.MPC.SOLVER.POLISH for hot-path solves."
         )
 
 
@@ -278,11 +281,63 @@ def _pdhg_loop(params: MPCParams, grad_g, w_init, w0, p0, tau_p, sigma,
 def _iterate(step, state, n: int):
     """``state = step(i, *state)`` for i = 0 .. n - 1: the loop of
     ``_pdhg_loop``. It is looked up at each solve, so that a caller may run
-    the same steps another way (chip_smoke.py replays them as CUDA graphs
-    for its long float64 reference solves)."""
+    the same steps another way (``graph_replayed``)."""
     for i in range(n):
         state = step(i, *state)
     return state
+
+
+def graph_replay(chunk: int, eager=_iterate):
+    """An ``_iterate`` that runs the iterations on CUDA tensors as replays
+    of one CUDA graph of ``chunk`` iterations, captured on the current
+    stream of the tensors' card: the kernels of the eager loop in its order
+    on the same values, without the host's cost per operation, and the
+    remainder eagerly. ``chunk`` is a multiple of the solve's
+    ``adapt_every``, so each replay follows the loop's schedule. CPU tensors
+    and solves shorter than ``chunk`` run ``eager``."""
+
+    def iterate(step, state, n):
+        trips = n // chunk
+        if trips == 0 or not state[0].is_cuda:
+            return eager(step, state, n)
+        with torch.cuda.device(state[0].device):
+            static = [x.clone(memory_format=torch.contiguous_format)
+                      for x in state]
+            # A warm-up step on a side stream sets up the libraries'
+            # handles and workspaces outside the capture.
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step(0, *[x.clone() for x in static])
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                out = tuple(static)
+                for j in range(chunk):
+                    out = step(j, *out)
+                for s, o in zip(static, out):
+                    s.copy_(o)
+            for _ in range(trips):
+                graph.replay()
+        state = tuple(static)
+        for i in range(trips * chunk, n):
+            state = step(i, *state)
+        return state
+
+    return iterate
+
+
+@contextlib.contextmanager
+def graph_replayed(chunk: int):
+    """The eager solvers' loop replayed as CUDA graphs (``graph_replay``)
+    within the block."""
+    global _iterate
+    eager = _iterate
+    _iterate = graph_replay(chunk, eager)
+    try:
+        yield
+    finally:
+        _iterate = eager
 
 
 def _log_utility_tail(params: MPCParams, w, w_last, w_init):
@@ -437,11 +492,29 @@ def solve_mpc_log_utility(
     device="cuda",
 ) -> Tuple[np.ndarray, Dict]:
     """One log-utility problem, numpy in and out: (weights [H, N],
-    {status, value, turnover_violation}). ``params.polish`` raises: the
-    float64 polish is not in this package."""
-    w, info = solve_mpc_log_utility_batch(
-        _as_f32(current_weights, device),
-        _as_f32(predicted_log_returns, device), params)
+    {status, value, turnover_violation}). With ``params.polish``
+    (cfg.MPC.SOLVER.POLISH=True) the solve is the float64 verification
+    path (ops/mpc_polish.py), its status banded on the polish residual,
+    and the info adds ``polish_residual_before``,
+    ``polish_residual_after`` and ``polish_accepted``."""
+    cw = _as_f32(current_weights, device)
+    y = _as_f32(predicted_log_returns, device)
+    if params.polish:
+        from kmpc_tpu_torch.ops.mpc_polish import (
+            solve_mpc_log_utility_batch_polished,
+        )
+
+        w, info = solve_mpc_log_utility_batch_polished(cw, y, params)
+        code = int(_status_code(info["residual_after"], params.feas_tol))
+        return w.cpu().numpy(), {
+            "status": STATUS_STRINGS[code],
+            "value": float(info["objective"]),
+            "turnover_violation": float(info["turnover_violation"]),
+            "polish_residual_before": float(info["residual_before"]),
+            "polish_residual_after": float(info["residual_after"]),
+            "polish_accepted": bool(info["accepted"]),
+        }
+    w, info = solve_mpc_log_utility_batch(cw, y, params)
     return w.cpu().numpy(), {
         "status": STATUS_STRINGS[int(info["status_code"])],
         "value": float(info["objective"]),

@@ -54,6 +54,7 @@ caller who wants shorts calls the eager solvers by name.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, Optional, Tuple
 
@@ -67,6 +68,7 @@ from kmpc_tpu_torch.ops.mpc import (
     _pdhg_steps,
     _prev_rows,
     _status_code,
+    graph_replay,
     reject_unhonored_polish,
     restore_turnover_feasibility,
 )
@@ -566,6 +568,43 @@ def _moved(pr: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
     return (pr > 1.5 * dr).to(pr.dtype) - (dr > 1.5 * pr).to(pr.dtype)
 
 
+def _plain_iterate(step, carry, n: int, period: int):
+    """``carry = step(i, *carry)`` for i = 0 .. n - 1: the plain versions'
+    loop, whose steps depend on i only through i mod ``period``. It is
+    looked up at each call, so that a caller may run the same steps as
+    replays of a CUDA graph (``plain_replayed``)."""
+    for i in range(n):
+        carry = step(i, *carry)
+    return carry
+
+
+# The fewest iterations a CUDA graph of ``plain_replayed`` holds.
+PLAIN_GRAPH_CHUNK = 96
+
+
+@contextlib.contextmanager
+def plain_replayed():
+    """Within the block, the plain versions (``pdhg_log_utility_plain``,
+    ``mv_cuda.pdhg_mean_variance_plain``) on CUDA tensors run their loop as
+    replays of one CUDA graph of at least PLAIN_GRAPH_CHUNK iterations, a
+    multiple of the loop's period (``ops.mpc.graph_replay``): the kernels
+    of the eager loop in its order on the same values, without the host's
+    cost per operation."""
+    global _plain_iterate
+    eager = _plain_iterate
+
+    def replayed(step, carry, n, period):
+        chunk = period * max(1, -(-PLAIN_GRAPH_CHUNK // period))
+        return graph_replay(chunk, lambda st, c, m: eager(st, c, m, period))(
+            step, carry, n)
+
+    _plain_iterate = replayed
+    try:
+        yield
+    finally:
+        _plain_iterate = eager
+
+
 def _check_return_steps(params: MPCParams, return_steps: bool) -> None:
     if return_steps and not params.adaptive:
         raise ValueError("return_steps needs params.adaptive: the "
@@ -665,12 +704,15 @@ def pdhg_log_utility_plain(
     th_p = torch.zeros_like(th_w)
     zero = torch.zeros_like(w_init)
 
-    def adaptive_iteration(i, w, p, th_w, th_p, tau_c, sig_c, alpha_c, res):
+    def adaptive_iteration(i, w, p, th_w, th_p, tau_c, sig_c, alpha_c, res,
+                           count):
         """``body_adaptive``: the smooth gradient with the carried tau
         outside the portfolio reciprocal, the dual prox on the a-scale
         (v = q / sig_c, ball radius tau_to), and the residual balancing of
         the steps on every ``adapt_every``-th iteration, from the iterates'
-        moves before over-relaxation."""
+        moves before over-relaxation. ``count`` carries i as a tensor (the
+        signed sum of the iterations that moved the steps reads it)."""
+        count = count + 1.0
         grad = scaled_returns(w, -1.0)
         if ridge != 0.0:
             grad = grad + ridge * w
@@ -703,12 +745,12 @@ def pdhg_log_utility_plain(
                             .sum(dim=(1, 2)))
             tau_c, sig_c, alpha_c = _balance_steps(
                 pr[:, None, None], dr[:, None, None], tau_c, sig_c, alpha_c)
-            res = torch.stack([pr, dr, res[:, 2] + (i + 1) * _moved(pr, dr)],
+            res = torch.stack([pr, dr, res[:, 2] + count * _moved(pr, dr)],
                               dim=1)
         if rho != 1.0:
             w_new = w + rho * (w_new - w)
             p_new = p + rho * (p_new - p)
-        return w_new, p_new, th_w, th_p, tau_c, sig_c, alpha_c, res
+        return w_new, p_new, th_w, th_p, tau_c, sig_c, alpha_c, res, count
 
     def ball_bound(l1, th_p):
         """c inside the turnover ball, c + max(theta, 0) outside."""
@@ -774,9 +816,10 @@ def pdhg_log_utility_plain(
 
     if params.adaptive:
         carry = (w, p, th_w, th_p, tau, sigma.expand_as(tau),
-                 torch.full_like(tau[:, :1], 0.5), tau.new_zeros((B, 3)))
-        for i in range(params.max_iters):
-            carry = adaptive_iteration(i, *carry)
+                 torch.full_like(tau[:, :1], 0.5), tau.new_zeros((B, 3)),
+                 tau.new_zeros(()))
+        carry = _plain_iterate(adaptive_iteration, carry, params.max_iters,
+                               max(1, params.adapt_every))
         w, p, tau = carry[0], carry[1], carry[4]   # the tail steps by tau_f
         steps = torch.cat([x.expand(B, H, 1)[..., 0] for x in carry[4:6]]
                           + [carry[6][:, :, 0], carry[7]], dim=1)
@@ -786,18 +829,18 @@ def pdhg_log_utility_plain(
         # synchronous iterations.
         k = min(refresh, 8)
         full = params.max_iters // k * k
-        carry = (w, p, th_w, th_p, torch.zeros_like(th_p))
-        for i in range(params.max_iters):
+
+        def pipe_step(i, *carry):
             if i >= full or i % k == k - 1:
-                carry = fixed_iteration(i, *carry, n_sw=warm_iters)
-            else:
-                carry = pipe_iteration(*carry)
-        w, p = carry[0], carry[1]
+                return fixed_iteration(i, *carry, n_sw=warm_iters)
+            return pipe_iteration(*carry)
+
+        carry = (w, p, th_w, th_p, torch.zeros_like(th_p))
+        w, p = _plain_iterate(pipe_step, carry, params.max_iters, k)[:2]
     else:
         carry = (w, p, th_w, th_p, torch.zeros_like(th_p))
-        for i in range(params.max_iters):
-            carry = fixed_iteration(i, *carry)
-        w, p = carry[0], carry[1]
+        w, p = _plain_iterate(fixed_iteration, carry, params.max_iters,
+                              refresh if cond else 1)[:2]
 
     grad = scaled_returns(w, -1.0)
     if ridge != 0.0:

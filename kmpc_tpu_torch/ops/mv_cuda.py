@@ -67,6 +67,7 @@ from kmpc_tpu_torch.ops.mpc import (
     mean_variance_objective,
     reject_unhonored_polish,
 )
+from kmpc_tpu_torch.ops import mpc_cuda
 from kmpc_tpu_torch.ops.mpc_cuda import (
     MAX_SLOTS,
     SMEM_PER_BLOCK,
@@ -422,7 +423,11 @@ def pdhg_mean_variance_plain(
     k = params.adapt_every
     zero = torch.zeros_like(w_init)
     res = mu.new_zeros((B, 3))
-    for i in range(params.max_iters):
+
+    def iteration(i, w, p, th_w, tau, sigma, alpha, res, count):
+        """One iteration; ``count`` carries i as a tensor (the signed sum
+        of the iterations that moved the steps reads it)."""
+        count = count + 1.0
         if not warm:
             n_sw = cold_iters
         elif cond:
@@ -443,12 +448,17 @@ def pdhg_mean_variance_plain(
                             .sum(dim=(1, 2)))
             tau, sigma, alpha = _balance_steps(
                 pr[:, None, None], dr[:, None, None], tau, sigma, alpha)
-            res = torch.stack([pr, dr, res[:, 2] + (i + 1) * _moved(pr, dr)],
+            res = torch.stack([pr, dr, res[:, 2] + count * _moved(pr, dr)],
                               dim=1)
         if rho != 1.0:
             w_new = w + rho * (w_new - w)
             p_new = p + rho * (p_new - p)
-        w, p = w_new, p_new
+        return w_new, p_new, th_w, tau, sigma, alpha, res, count
+
+    period = refresh if cond else max(1, k) if params.adaptive else 1
+    w, p, _, tau, sigma, alpha, res, _ = mpc_cuda._plain_iterate(
+        iteration, (w, p, th_w, tau, sigma, alpha, res, mu.new_zeros(())),
+        params.max_iters, period)
     v = w - tau * (grad_g(w) + Dt(p))
     w_last = torch.clamp(v - michelot_threshold(v, 1.0, cold_iters), min=0.0)
     fp = (w_last - w).abs().amax(dim=(1, 2))

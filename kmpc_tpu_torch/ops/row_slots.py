@@ -64,9 +64,23 @@ bench.py's assets500 (B=4096, H=5, N=500, 1000 pipelined iterations), on
 inputs made with numpy from fixed seeds; it uses only the launch the
 package has had since the wide layout came, so the same script run
 against an earlier checkout (``PYTHONPATH``) gives that tree's digest.
+``--busy SECONDS`` adds: the digests with every block of the caching
+allocator filled with NaN first (an output or a read past an input that
+the kernel leaves unwritten would change them), then again and again for
+SECONDS beside two processes that run the float64 polished path
+(``mpc_polish.solve_mpc_log_utility_batch_polished``, parity_cache/'s
+first 32 instances of a family each) on the same card; a round whose
+digest differs reports its distance from the first round's outputs and
+from the plain version's.
+
+With ``--plain-replay``, the plain versions (kernels A, B and C, float32
+and float64, each body) at the comparison path's shape (B=1028, H=5,
+N=20; S=16; C at H=1) run eagerly and replayed as CUDA graphs
+(``mpc_cuda.plain_replayed``): the same bits required, with both times.
 
     python -m kmpc_tpu_torch.ops.row_slots [--layouts warp,rows] [--wide]
-        [--boundary 1,2,3:1024,1056] [--mv] [--scen] [--digest]
+        [--boundary 1,2,3:1024,1056] [--mv] [--scen]
+        [--digest [--busy SECONDS]] [--plain-replay]
 
 One JSON line per measurement; needs the card.
 """
@@ -78,6 +92,8 @@ import json
 import re
 import shutil
 import subprocess
+import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -890,13 +906,9 @@ DIGEST_CASES = (("block_path_N150", 1028, 5, 150, 1150,
                 ("assets500", 4096, 5, 500, 0, ("pipe",)))
 
 
-def wide_digests() -> dict:
-    """{case_body: SHA-256 hex of the wide kernel's outputs}, through the
-    private launch ``M._launch`` of ``M._KERNELS[(False, "wide", body)]``
-    (whose signature the wide layout has kept since it came)."""
-    import hashlib
-
-    out = {}
+def _digest_inputs():
+    """[(case_body, cw, r, body)] of DIGEST_CASES on the card."""
+    out = []
     for label, B, H, N_, seed, bodies in DIGEST_CASES:
         rng = np.random.default_rng(seed)
         cw = torch.as_tensor(rng.dirichlet(np.ones(N_), size=B)
@@ -904,17 +916,173 @@ def wide_digests() -> dict:
         ys = (rng.standard_normal((B, H, N_)) * 0.01 + 0.0005)
         r = torch.exp(torch.as_tensor(ys.astype(np.float32),
                                       device="cuda")).contiguous()
-        for body in bodies:
-            p = WIDE_BODIES[body]
-            kernel = M._KERNELS[(False, "wide", body)]
-            res = M._launch(kernel, body, cw, r, p, None, None, True,
-                            p.adaptive)
-            torch.cuda.synchronize()
-            h = hashlib.sha256()
-            for x in res:
-                h.update(x.cpu().numpy().tobytes())
-            out[f"{label}_{body}"] = h.hexdigest()
+        out += [(f"{label}_{body}", cw, r, body) for body in bodies]
     return out
+
+
+def _digest_outputs(cases) -> dict:
+    """{case_body: (SHA-256 hex, the outputs as numpy arrays)}."""
+    import hashlib
+
+    out = {}
+    for name, cw, r, body in cases:
+        p = WIDE_BODIES[body]
+        kernel = M._KERNELS[(False, "wide", body)]
+        res = M._launch(kernel, body, cw, r, p, None, None, True, p.adaptive)
+        torch.cuda.synchronize()
+        host = [x.cpu().numpy() for x in res]
+        h = hashlib.sha256()
+        for x in host:
+            h.update(x.tobytes())
+        out[name] = (h.hexdigest(), host)
+    return out
+
+
+def wide_digests() -> dict:
+    """{case_body: SHA-256 hex of the wide kernel's outputs}, through the
+    private launch ``M._launch`` of ``M._KERNELS[(False, "wide", body)]``
+    (whose signature the wide layout has kept since it came)."""
+    return {k: v[0] for k, v in _digest_outputs(_digest_inputs()).items()}
+
+
+# The load of ``digests_beside_busy``: the float64 polished path on the
+# card, over and over, until the process is killed.
+_BUSY = """
+import numpy as np, torch
+from kmpc_tpu_torch.ops.mpc import MPCParams
+from kmpc_tpu_torch.ops.mpc_polish import solve_mpc_log_utility_batch_polished
+from kmpc_tpu_torch.parity_cdf import REPO_CACHE, polish_order
+d = np.load(REPO_CACHE / "instances_{family}_1000.npz")
+ids = polish_order(d["cw"].shape[0])[:32]
+p = MPCParams(max_iters=30000, sigma_scale=2.0, ridge=1e-3, polish=True,
+              polish_newton=4)
+cw = torch.as_tensor(d["cw"][ids], device="cuda")
+ys = torch.as_tensor(d["ys"][ids], device="cuda")
+while True:
+    solve_mpc_log_utility_batch_polished(cw, ys, p, cycles=3)
+"""
+
+
+def digests_beside_busy(seconds: float) -> None:
+    """``--digest --busy``: one JSON line a step (module docstring)."""
+    def far(a, b):
+        return [float(np.abs(x.astype(np.float64) - y).max())
+                for x, y in zip(a, b)]
+
+    def report(step, got, base, **kw):
+        print(json.dumps({"phase": "wide_digest_busy", "step": step,
+                          "same_bits": {k: v[0] == base[k][0]
+                                        for k, v in got.items()}, **kw}),
+              flush=True)
+
+    cases = _digest_inputs()
+    base = _digest_outputs(cases)
+    report("alone", _digest_outputs(cases), base)
+    plain = {}
+    for name, cw, r, body in cases:
+        out = M.pdhg_log_utility_plain(cw, r, WIDE_BODIES[body],
+                                       return_dual=True)
+        plain[name] = [x.cpu().numpy().astype(np.float64) for x in out]
+    print(json.dumps({"phase": "wide_digest_busy", "step": "plain",
+                      "max_abs_diff_w_fp_dual": {
+                          k: far(v[1][:3], plain[k])
+                          for k, v in base.items()}}), flush=True)
+    del cases
+    torch.cuda.empty_cache()
+    junk = [torch.full((1 << 28,), float("nan"), device="cuda")]
+    junk += [torch.full((1 << 17,), float("nan"), device="cuda")
+             for _ in range(2000)]
+    del junk
+    cases = _digest_inputs()
+    report("nan_filled_allocator", _digest_outputs(cases), base)
+    procs = [subprocess.Popen([sys.executable, "-c",
+                               _BUSY.format(family=f)],
+                              stdout=subprocess.DEVNULL,
+                              stderr=subprocess.PIPE, text=True)
+             for f in ("realistic", "random")]
+    rounds, changed = 0, []
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            got = _digest_outputs(cases)
+            rounds += 1
+            changed += [{"round": rounds, "case": k,
+                         "from_alone": far(v[1], base[k][1]),
+                         "from_plain": far(v[1][:3], plain[k])}
+                        for k, v in got.items() if v[0] != base[k][0]]
+        running = [p.poll() is None for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+        errs = [p.communicate()[1][-400:] for p in procs]
+    print(json.dumps({"phase": "wide_digest_busy", "step": "beside_busy",
+                      "seconds": seconds, "rounds": rounds,
+                      "busy_running_at_end": running,
+                      "changed_rounds": len(changed),
+                      "changed": changed[:40], "busy_stderr": errs}),
+          flush=True)
+    report("after", _digest_outputs(cases), base)
+
+
+def plain_replay_bits() -> None:
+    """``--plain-replay``: one JSON line (module docstring)."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    def ms(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        out = fn()
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end)
+
+    rng = np.random.default_rng(0)
+    B, S, H, N = 1028, 16, 5, 20
+    cw = rng.dirichlet(np.ones(N), size=B)
+    r = np.exp(rng.standard_normal((B, H, N)) * 0.01 + 5e-4)
+    rs = np.exp(rng.standard_normal((B, S, H, N)) * 0.01 + 5e-4)
+    mu = rng.standard_normal((B, 1, N)) * 0.01
+    a = rng.standard_normal((B, N, N))
+    sig = a @ a.transpose(0, 2, 1) * 0.01
+    bodies = {
+        "fixed": MPCParams(max_iters=2000, sigma_scale=2.0),
+        "refresh": MPCParams(max_iters=1003, sigma_scale=2.0,
+                             proj_refresh_every=16, precond=True),
+        "pipe": MPCParams(max_iters=1003, sigma_scale=2.0,
+                          proj_refresh_every=16, precond=True,
+                          pipeline_reduces=True),
+        "adaptive": MPCParams(max_iters=801, sigma_scale=2.0, adaptive=True,
+                              adapt_every=2, precond=True),
+    }
+    rows = []
+    for body, p in bodies.items():
+        for dt in (torch.float32, torch.float64):
+            def t(x):
+                return torch.as_tensor(x, dtype=dt, device="cuda")
+
+            runs = {
+                "A": lambda: M.pdhg_log_utility_plain(
+                    t(cw), t(r), p, return_dual=True,
+                    return_steps=p.adaptive),
+                "B": lambda: M.pdhg_log_utility_plain(
+                    t(cw), t(rs), p, return_dual=True,
+                    return_steps=p.adaptive),
+                "C": lambda: V.pdhg_mean_variance_plain(
+                    t(cw), t(mu), t(sig), p, return_steps=p.adaptive)}
+            for kernel, run in runs.items():
+                eager, eager_ms = ms(run)
+                with M.plain_replayed():
+                    replayed, replayed_ms = ms(run)
+                rows.append({"kernel": kernel, "body": body,
+                             "dtype": str(dt).split(".")[-1],
+                             "bits_equal": all(torch.equal(x, y) for x, y
+                                               in zip(eager, replayed)),
+                             "eager_ms": eager_ms,
+                             "replayed_ms": replayed_ms})
+    print(json.dumps({"phase": "plain_replay", "B": B, "S": S, "H": H,
+                      "N": N, "all_bits_equal": all(
+                          x["bits_equal"] for x in rows), "runs": rows}),
+          flush=True)
 
 
 def main(argv=None):
@@ -935,18 +1103,30 @@ def main(argv=None):
     parser.add_argument("--digest", action="store_true",
                         help="a digest of the one-forecast wide kernels' "
                              "outputs")
+    parser.add_argument("--plain-replay", action="store_true",
+                        help="the plain versions eager and replayed as "
+                             "CUDA graphs: bits and times")
+    parser.add_argument("--busy", type=float, metavar="SECONDS",
+                        help="with --digest: the digests with a NaN-filled "
+                             "allocator, then for SECONDS beside two "
+                             "processes running the polished path")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("row_slots: CUDA is not available")
     if args.wide or args.boundary or args.mv or args.scen or args.digest \
-            or args.h1:
+            or args.h1 or args.plain_replay:
         print(json.dumps({"phase": "device", "smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip()}), flush=True)
+    if args.plain_replay:
+        plain_replay_bits()
+        return
     if args.digest:
         print(json.dumps({"phase": "wide_digest", **wide_digests()}),
               flush=True)
+        if args.busy:
+            digests_beside_busy(args.busy)
         return
     if args.scen:
         time_scen()

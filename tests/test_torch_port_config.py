@@ -7,6 +7,7 @@ them as numpy arrays.
 
 import ast
 import dataclasses
+import re
 from pathlib import Path
 
 import jax
@@ -260,9 +261,49 @@ PORT_FILES = sorted(
 ) + ["chip_smoke.py"]
 
 
+# A path under the JAX package or its native/ directory, in a string.
+_REFERENCE_PATH = re.compile(r"(^|[^\w])(kmpc_tpu|native)(/|$)")
+# chip_smoke.py's ``kernels`` line names the TPU kernel each kernel
+# replaces: the one path of the JAX package the port may spell out.
+_NAMED_KERNEL_FILES = {"kmpc_tpu/ops/mpc_pallas.py"}
+
+
+def _path_strings(path):
+    """The string constants of a file that are not docstrings."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.FunctionDef,
+                             ast.AsyncFunctionDef, ast.ClassDef)) \
+                and node.body and isinstance(node.body[0], ast.Expr) \
+                and isinstance(node.body[0].value, ast.Constant):
+            docs.add(id(node.body[0].value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
 @pytest.mark.parametrize("rel", PORT_FILES)
 def test_port_imports_neither_jax_nor_kmpc_tpu(rel):
+    """No import of JAX or kmpc_tpu, and no path under kmpc_tpu/ or
+    native/ in a string (the port builds and reads only its own files)."""
     banned = {"jax", "jaxlib", "kmpc_tpu"}
     for name in _imports(ROOT / rel):
         top = name.split(".")[0]
         assert top not in banned, f"{rel} imports {name}"
+    for text in _path_strings(ROOT / rel):
+        if text in _NAMED_KERNEL_FILES and rel == "chip_smoke.py":
+            continue
+        assert not _REFERENCE_PATH.search(text), \
+            f"{rel} names a path of the reference: {text!r}"
+
+
+def test_native_source_and_library_lie_in_the_port():
+    from kmpc_tpu_torch import native
+
+    pkg = ROOT / "kmpc_tpu_torch"
+    assert native.SOURCE.is_relative_to(pkg) and native.SOURCE.exists()
+    assert native.BUILD_DIR == pkg / "_build"
+    assert native.library_path().parent == pkg / "_build"
+    assert "kmpc_tpu/" not in native.SOURCE.read_text().replace(
+        "kmpc_tpu_torch/", "")

@@ -830,3 +830,60 @@ def test_n500_parting_is_classified_on_the_plain_versions():
     alone = P.classify(cw, r, params, {
         "other_order": P.permuted(M.pdhg_log_utility_plain, 1)}, sample=1)
     assert alone["verdict"] == "float32"
+
+
+# The plain versions' loop goes through ``mpc_cuda._plain_iterate``, which
+# ``plain_replayed`` swaps for replays of a CUDA graph whose length is a
+# multiple of the loop's period (the iterations' schedule repeats with it).
+# Each case: the parameters, and the period of the log-utility and the
+# mean-variance loop (kernel C has no pipelined body: its refresh schedule).
+_PERIOD_CASES = {
+    "fixed": (dict(max_iters=37), 1, 1),
+    "refresh": (dict(max_iters=37, proj_refresh_every=16, precond=True),
+                16, 16),
+    "pipelined": (dict(max_iters=37, proj_refresh_every=16, precond=True,
+                       pipeline_reduces=True), 8, 16),
+    "adaptive": (dict(max_iters=37, adaptive=True, adapt_every=2,
+                      precond=True), 2, 2),
+    "adaptive_k1": (dict(max_iters=37, adaptive=True, adapt_every=1), 1, 1),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_PERIOD_CASES))
+def test_plain_loop_hook_takes_the_schedule_period(name, monkeypatch):
+    """Each plain version hands the hook every iteration and its period;
+    under ``plain_replayed`` on CPU tensors (no graph: the eager loop) the
+    outputs are the same bits, and the hook is restored after the block."""
+    kw, period, mv_period = _PERIOD_CASES[name]
+    p = _params(kw)
+    rng = np.random.default_rng(7)
+    cw = _t(rng.dirichlet(np.ones(9), size=3).astype(np.float32))
+    r = torch.exp(_t((rng.standard_normal((3, 4, 9)) * 0.01)
+                     .astype(np.float32)))
+    mu = _t((rng.standard_normal((3, 4, 9)) * 0.01).astype(np.float32))
+    a = rng.standard_normal((3, 9, 9)).astype(np.float32)
+    sig = _t(a @ a.transpose(0, 2, 1) * 0.01)
+    steps = dict(return_steps=True) if p.adaptive else {}
+
+    def run():
+        return (M.pdhg_log_utility_plain(cw, r, p, return_dual=True, **steps)
+                + V.pdhg_mean_variance_plain(cw, mu, sig, p, **steps))
+
+    before = run()
+    seen = []
+    eager = M._plain_iterate
+
+    def recording(step, carry, n, per):
+        seen.append((n, per))
+        return eager(step, carry, n, per)
+
+    monkeypatch.setattr(M, "_plain_iterate", recording)
+    recorded = run()
+    monkeypatch.setattr(M, "_plain_iterate", eager)
+    assert seen == [(37, period), (37, mv_period)]
+    with M.plain_replayed():
+        assert M._plain_iterate is not eager
+        replayed = run()
+    assert M._plain_iterate is eager
+    for x, y, z in zip(before, recorded, replayed):
+        assert torch.equal(x, y) and torch.equal(x, z)

@@ -260,19 +260,18 @@ def test_a_cuda_solve_beyond_both_layouts_raises():
 
 
 def test_the_eager_solver_ignores_graph_chunk_on_the_cpu():
-    """chip_smoke.py replays the eager solvers' loop as CUDA graphs of a
-    chunk of iterations for its float64 references (and holds the replay to
-    the loop bit for bit on the card); with that replay in place, CPU
-    tensors run the loop itself, and the eager solver is as before after
-    it."""
+    """``ops.mpc.graph_replayed`` replays the eager solvers' loop as CUDA
+    graphs of a chunk of iterations (chip_smoke.py's float64 references,
+    which it holds to the loop bit for bit on the card, and the polished
+    path's PDHG loops); with that replay in place, CPU tensors run the loop
+    itself, and the eager solver is as before after it."""
     from kmpc_tpu_torch.ops import mpc as M
 
-    C = _chip_smoke()
     cw, mu, sig = _inputs(3, 2, 8, 5, False)
     p = _params(dict(max_iters=61, adaptive=True, adapt_every=2))
     eager = M._iterate
     a = M.solve_mpc_mean_variance_batch(_t(cw), _t(mu), _t(sig), p)
-    with C.graph_replayed(20):
+    with M.graph_replayed(20):
         assert M._iterate is not eager
         b = M.solve_mpc_mean_variance_batch(_t(cw), _t(mu), _t(sig), p)
     assert M._iterate is eager

@@ -179,17 +179,26 @@ def test_reference_signature_wrappers_match():
 @pytest.mark.parametrize("solver", ["log", "scenarios", "mean_variance",
                                     "log_single"])
 def test_eager_solvers_refuse_polish(solver):
+    """The batch solvers refuse ``polish`` and name the entries that run
+    it; the single-problem solver runs it (ops/mpc_polish.py), as
+    kmpc_tpu's does."""
     cw, ys, scen, sig = _inputs(8)
     p = TM.MPCParams(max_iters=5, polish=True)
-    with pytest.raises(ValueError, match="polish"):
+    if solver == "log_single":
+        p = TM.MPCParams(max_iters=3000, sigma_scale=2.0, ridge=1e-3,
+                         polish=True)
+        w, info = TM.solve_mpc_log_utility(cw[0], ys[0], p, device="cpu")
+        assert w.dtype == np.float64 and w.shape == ys[0].shape
+        assert info["polish_residual_after"] < 1e-10
+        return
+    with pytest.raises(ValueError,
+                       match="solve_mpc_log_utility_batch_polished"):
         if solver == "log":
             TM.solve_mpc_log_utility_batch(_t(cw), _t(ys), p)
         elif solver == "scenarios":
             TS.solve_mpc_log_utility_scenarios(_t(cw), _t(scen), p)
-        elif solver == "mean_variance":
-            TM.solve_mpc_mean_variance_batch(_t(cw), _t(ys), _t(sig), p)
         else:
-            TM.solve_mpc_log_utility(cw[0], ys[0], p, device="cpu")
+            TM.solve_mpc_mean_variance_batch(_t(cw), _t(ys), _t(sig), p)
 
 
 def test_balance_steps_matches():
