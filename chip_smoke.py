@@ -6,16 +6,19 @@
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
 1. ``build``: the card, torch and CUDA versions, the build of the
-   twenty-seven kernel sources (one nvcc per source, started together, from
+   thirty-three kernel sources (one nvcc per source, started together, from
    the sources in this checkout) with each build's seconds, registers and
    spills (every instantiation but the ladder's), the wrappers' copies
-   of the block, tile, lane, ladder, row and wide-row layouts' plans (the
+   of the block, global, tile, lane, ladder, row and wide-row layouts' plans
+   (the
    tile layout's problems a CTA, the row and wide-row layouts' scenario
    storages and rings) against the built kernels', and the one-forecast
    wide-row kernels' bits against WIDE_DIGESTS;
 2. ``kernels``: every CUDA kernel against its plain PyTorch version on the
-   card (untimed here and in ``layouts``: the plain versions replay their
-   loop as CUDA graphs, ``mpc_cuda.plain_replayed``): the log-utility
+   card (untimed here and in ``layouts``; from here through the headlines
+   the plain versions replay their loop as CUDA graphs,
+   ``mpc_cuda.plain_replayed``, so a path's ``plain_ms`` is the replayed
+   time with one capture in it): the log-utility
    kernel over the parametrised cases of the CPU
    tests (each shape at two of the four refresh and precond pairs, each
    pair at three shapes), the edges of its register budget and the
@@ -65,7 +68,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    its registers in the row and wide-row layouts, every case in every
    storage of the returns that takes its shape (registers, resident,
    streamed: the same bits required of all) beside the warp or block
-   layout, every body and option;
+   layout, every body and option; the global layout of A, B and C (the
+   block layout's body, its iterates in a global workspace) at a shape no
+   shared-memory layout takes, both bodies, and beside the block layout
+   at shapes both take, where it must give the block kernel's bits; the
+   block and global layouts' hyperplane projection (``allow_short``) of
+   A, B and C (``global_cases``); and the global layout's persistent loop,
+   a batch past its grid beside the block layout, for the same bits on
+   every problem (``global_past_grid``);
    every rung of the MV ladder (Sigma's rows in registers and in shared
    memory; ``proj`` in both sweeps up to 32 assets); then ``layouts``:
    every layout of kernels
@@ -168,6 +178,18 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    through their packed entry points to the wide-row layout's kernels (the
    scenario returns resident) and the same problems launched in the block
    layout, each launch counted and each held against its plain version;
+   then ``global_path`` (``phase_global_path``): the comparison on a
+   universe of 1000 synthetic names at H=20 with 16 scenarios (observation
+   20000), one sweep a strategy, Koopman-MPC and DMD through kernel A's
+   global layout, scenario Kelly through B's, Markowitz (H=1) through C's
+   block layout, the global kernels held against their plain versions on
+   the first 32 dates; the packed entry points on those dates at the
+   accurate configuration (A and B adaptive, by their spread) and kernel C
+   at H=20 (fixed, per-date covariances; adaptive, one shared), one launch
+   each of the global kernels; and ``MPC.ALLOW_SHORT`` at the main path's
+   shape through the block layout's hyperplane projection (Koopman-MPC,
+   DMD, scenario Kelly, Markowitz), every row checked for its sum and
+   turnover cap, the first solves held;
    then ``scenarios_path``: scenario Kelly alone as ``run_experiment
    --scenarios 512`` builds it (H=5, the comparison's fixed steps) and at
    ``--horizon 20 --scenarios 128`` with the pipeline configuration, 2
@@ -206,7 +228,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    references cached in bench_probe_cache.json;
 12. ``verify_path``: the verification stack. The float64 polished path
    (``ops/mpc_polish.py``, its batched float64 stages on the card) on the
-   first 32 cached instances of each family of parity_cache/, every
+   first 16 cached instances of each family of parity_cache/, every
    certified record reproduced (certified, weights within 1e-7), the same
    path on the host CPU after it (the same certified set, weights within
    1e-7), the native host solver against
@@ -519,6 +541,13 @@ def _sweeps(params, N):
     return per_iter, cold
 
 
+def _projection_ops(params, n) -> int:
+    """Operations per element of a primal projection of n Michelot sweeps
+    (compare, select, count, sum each); under ``allow_short`` the
+    hyperplane's one sum and no sweep."""
+    return 1 if params.allow_short else 4 * n
+
+
 def _balancings(params) -> int:
     """Iterations on which the adaptive body takes its residuals."""
     if not params.adaptive:
@@ -543,16 +572,21 @@ def pdhg_ops(B, H, N, params, S=None) -> float:
     a-scale (5 more: the two scalings by 1 / sigma, the difference to the
     clip, the scaling back and the subtraction) and, on each balancing
     iteration, 14 for the two residuals (the moves of w and p, their
-    neighbours' differences, two divisions, two squares and sums)."""
+    neighbours' differences, two divisions, two squares and sums). Under
+    ``allow_short`` the primal projection is one sum and no sweep (the
+    hyperplane's shift), and the ball's sweeps are the cold budget's."""
     per_iter, cold = _sweeps(params, N)
     ball = params.max_turnover > 0
     primal = 7 if S is None else 4 * S + 5
+
     base = primal + 14 + (1 if params.ridge else 0) \
         + (4 if params.over_relax != 1.0 else 0) \
         + (5 if params.adaptive else 0)
-    total = sum(base + 4 * n + (1 + 4 * n if ball else 0) for n in per_iter)
+    total = sum(base + _projection_ops(params, n)
+                + (1 + 4 * n if ball else 0) for n in per_iter)
     total += 14 * _balancings(params)
-    total += (3 + 4 * cold) + (primal + 5 + 4 * cold)
+    total += (3 + _projection_ops(params, cold)) \
+        + (primal + 5 + _projection_ops(params, cold))
     return float(B) * H * N * total
 
 
@@ -575,12 +609,14 @@ def mv_ops(B, H, N, params) -> float:
     extrapolation, the dual input and the clip, 4 per Michelot sweep, 4 for
     over-relaxation. Once: the initial cold projection 3 + 4 * cold, the
     final half-step 2 N + 10 + 4 * cold, and the Frobenius norm 2 N. On
-    each balancing iteration of the adaptive body 14 for the residuals."""
+    each balancing iteration of the adaptive body 14 for the residuals.
+    Under ``allow_short`` the projection is one sum and no sweep."""
     per_iter, cold = _sweeps(params, N)
     base = 2 * N + 15 + (4 if params.over_relax != 1.0 else 0)
-    total = sum(base + 4 * n for n in per_iter)
+    total = sum(base + _projection_ops(params, n) for n in per_iter)
     total += 14 * _balancings(params)
-    total += (3 + 4 * cold) + (2 * N + 10 + 4 * cold)
+    total += (3 + _projection_ops(params, cold)) \
+        + (2 * N + 10 + _projection_ops(params, cold))
     return float(B) * H * N * total + 2.0 * B * N * N
 
 
@@ -599,11 +635,14 @@ def simplex_error(w):
 
 
 def check_feasible(w, cw, params, label, sum_tol=FEAS_TOL):
+    """Each row sums to 1 and lies within the turnover cap; without
+    ``allow_short`` no weight is negative."""
     w = w.double()
     s = w.sum(-1)
     assert torch.all((s - 1.0).abs() <= sum_tol), \
         f"{label}: simplex sum off by {(s - 1.0).abs().max().item()}"
-    assert torch.all(w >= -FEAS_TOL), f"{label}: negative weight"
+    assert params.allow_short or torch.all(w >= -FEAS_TOL), \
+        f"{label}: negative weight"
     if params.max_turnover > 0:
         prev = torch.cat([cw.double()[:, None], w[:, :-1]], dim=1)
         to = (w - prev).abs().sum(-1)
@@ -632,15 +671,17 @@ def compare_case(label, B, H, N, params, seed, S=None, warm=False,
 
 
 def compare_tensors(label, cw, r, params, warm=False, dual=False,
-                    time_reps=3, time_plain=True, wide=False):
+                    time_reps=3, time_plain=True, wide=False, spread=False,
+                    rows=None):
     """``compare_layouts`` for the layout the wrapper routes the shape to;
     returns that layout's case."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     S = r.shape[1] if r.dim() == 4 else None
-    layout = M.kernel_layout(S, r.shape[-2], r.shape[-1])
+    layout = M.kernel_layout(S, r.shape[-2], r.shape[-1], params.allow_short)
     return compare_layouts(label, cw, r, params, warm, dual, time_reps,
-                           time_plain, [layout], wide)[layout]
+                           time_plain, [layout], wide, spread,
+                           rows)[layout]
 
 
 def split_layout(layout):
@@ -663,7 +704,7 @@ def pinned_kernel(layout, r, params):
     name, storage = split_layout(layout)
     if name not in M.LAYOUTS:
         raise ValueError(f"layout must be one of {M.LAYOUTS}, got {layout!r}")
-    if not M.layout_supports(name, S, H, N) or (
+    if not M.layout_supports(name, S, H, N, params.allow_short) or (
             storage and not M.storage_supports(name, storage, S, H, N)):
         raise ValueError(
             f"the {layout} layout does not take S={S}, H={H}, N={N}")
@@ -692,7 +733,7 @@ def pinned(layout, cw, r, params, w_warm=None, p_warm=None,
 
 def compare_layouts(label, cw, r, params, warm=False, dual=False,
                     time_reps=3, time_plain=True, layouts=None,
-                    wide=False, spread=False):
+                    wide=False, spread=False, rows=None):
     """Each of ``layouts`` (default: the one the wrapper routes to) on given
     card tensors, launched in that layout (``pinned``), against one
     run of the plain version: current weights [B, N] and gross returns
@@ -711,7 +752,10 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
     difference between the two (``max_abs_dw_block``). Where one layout
     runs in several storages of the scenario returns (``layout:storage``),
     every storage must give the first one's bits (``bits_equal_storage``).
-    Returns {layout: case}."""
+    With ``rows`` (indices of problems) the kernels solve the whole batch
+    and the plain version those problems alone, which are held
+    (``plain_batch``). A kernel that ran twice is timed without a further
+    warm-up. Returns {layout: case}."""
     from dataclasses import replace
 
     from kmpc_tpu_torch.ops import mpc_cuda as M
@@ -719,7 +763,7 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
     S = r.shape[1] if r.dim() == 4 else None
     B, H, N = r.shape[0], r.shape[-2], r.shape[-1]
     if layouts is None:
-        layouts = [M.kernel_layout(S, H, N)]
+        layouts = [M.kernel_layout(S, H, N, params.allow_short)]
     kw = {}
     if warm:
         w0, _, p0 = M.pdhg_log_utility_plain(cw, r, params, return_dual=True)
@@ -727,8 +771,13 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
         kw = dict(w_warm=w0.contiguous(), p_warm=p0.contiguous())
     dual = dual or warm or params.adaptive
     steps = params.adaptive
+
+    def sub(x):
+        return x if rows is None else x[rows].contiguous()
+
+    cw_h, r_h, kw_h = sub(cw), sub(r), {k: sub(v) for k, v in kw.items()}
     out_p, plain_ms = timed_once(lambda: M.pdhg_log_utility_plain(
-        cw, r, params, return_dual=dual, return_steps=steps, **kw))
+        cw_h, r_h, params, return_dual=dual, return_steps=steps, **kw_h))
     plain_ms = plain_ms if time_plain else None
     bound = pdhg_bound(B, H, N, params, S, warm, dual)
     results, outs, refs = {}, {}, None
@@ -738,6 +787,8 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
                        return_steps=steps, **kw)
         res = {"case": label, "layout": layout, "kernel": kernel.name,
                "B": B, "H": H, "N": N, "iters": params.max_iters}
+        if params.allow_short:
+            res["allow_short"] = True
         if layout != "warp":
             again = pinned(layout, cw, r, params, return_dual=dual,
                            return_steps=steps, **kw)
@@ -746,17 +797,22 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
                 f"{label}: two runs of the {layout} kernel differ"
             res["deterministic"] = True
         torch.cuda.synchronize()
+        out_h = tuple(sub(x) for x in out_k)
+        if rows is not None:
+            res["plain_batch"] = len(rows)
         if spread:
-            refs = refs or spread_refs(cw, r, params, out_p)
-            hold_spread(label, cw, r, params, out_k, out_p, refs, res)
+            refs = refs or spread_refs(cw_h, r_h, params, out_p)
+            hold_spread(label, cw_h, r_h, params, out_h, out_p, refs, res)
         else:
-            hold_to_plain(label, cw, r, params, kw, out_k, out_p, res, wide)
+            hold_to_plain(label, cw_h, r_h, params, kw_h, out_h, out_p, res,
+                          wide)
         res["bound_ms"], res["bound_by"] = bound
         if S is not None:
             res["S"] = S
         if time_reps:
             res["kernel_ms"] = cuda_ms(lambda: pinned(
-                layout, cw, r, params, return_dual=dual, **kw), time_reps)
+                layout, cw, r, params, return_dual=dual, **kw), time_reps,
+                warmup=layout == "warp")
         if plain_ms is not None:
             res["plain_ms"] = plain_ms
         results[layout], outs[layout] = res, out_k
@@ -766,6 +822,14 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
         if not all(same):
             results["rows"]["bits_equal_outputs"] = same
             results["rows"]["bits_part"] = rows_bits_part(H, N, params, S)
+    if "global" in outs and "block" in outs:
+        # One body over two placements of the iterates (shared memory, the
+        # global workspace): the same operations in the same order.
+        same = [torch.equal(x, y)
+                for x, y in zip(outs["block"], outs["global"])]
+        assert all(same), f"{label}: the global layout's bits differ from " \
+            f"the block layout's (weights, fp, dual, steps equal: {same})"
+        results["global"]["bits_equal_block"] = True
     if "wide" in outs and "block" in outs:
         # Other summation orders, so other bits: each layout meets the
         # bars against the plain version; how far apart the two are.
@@ -1073,6 +1137,8 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
         cw, mu, sig, params, return_steps=steps))
     res = {"case": label, "kernel": kernel.name, "B": B, "H": H, "N": N,
            "iters": params.max_iters, "shared_sigma": shared}
+    if params.allow_short:
+        res["allow_short"] = True
     if layout != routed:
         res["pinned"] = True
     if layout == "tile":
@@ -1095,7 +1161,7 @@ def mv_kernel_twice(label, layout, run):
     stage sums, the rows' exchanges or the broadcast vectors in shared
     memory: a missing barrier shows as a run-to-run difference)."""
     out = run()
-    if layout in ("block", "tile", "lanes"):
+    if layout in ("block", "tile", "lanes", "global"):
         again = run()
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(out, again)), \
@@ -1119,7 +1185,8 @@ def hold_mv(label, cw, mu, sig, params, out_k, out_p, res):
     wp_f, ip = V._finalize_mv(wp, fpp, mu, sig, cw, params)
     dw_all = (wk_f - wp_f).abs().amax(dim=(1, 2))
     dobj_all = ik["objective"] - ip["objective"]
-    if any(x in res.get("kernel", "") for x in ("block", "tile", "lanes")):
+    if any(x in res.get("kernel", "")
+           for x in ("block", "tile", "lanes", "global")):
         res["deterministic"] = True
     rest = torch.ones_like(dw_all, dtype=torch.bool)
     held = rest.clone()
@@ -1148,7 +1215,7 @@ def hold_mv(label, cw, mu, sig, params, out_k, out_p, res):
     assert bool(ik["converged"].all()), f"{label}: not converged"
     w64 = wk_f.double()
     assert torch.all((w64.sum(-1) - 1.0).abs() <= FEAS_TOL), label
-    assert torch.all(w64 >= 0), label
+    assert params.allow_short or torch.all(w64 >= 0), label
 
 
 def hold_unsettled(label, cw, r, params, astray, fpk, fpp, obj_k, obj_p,
@@ -1395,6 +1462,7 @@ def phase_build():
         emit("build", kernel=name, seconds=secs[name], registers=regs,
              spill_store_bytes={k: v for k, v in spills.items() if v})
     check_mv_block_plan()
+    check_global_plan()
     check_mv_tile_plan()
     check_mv_lanes_plan()
     check_rows_plan()
@@ -1526,6 +1594,39 @@ def check_mv_block_plan():
     emit("mv_block_plan", shapes=len(shapes), agree=True)
 
 
+def check_global_plan():
+    """The wrappers' copies of the global layout's plans
+    (``global_workspace_bytes``, ``global_smem_bytes`` and kernel C's, which
+    size the workspace the wrappers allocate) against the plans the built
+    kernels launch with, as their libraries report them, on both sides of
+    the small plan's fit in shared memory."""
+    import ctypes
+
+    from kmpc_tpu_torch._build import library_path
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    ll = ctypes.c_longlong
+    lib = ctypes.CDLL(str(library_path("pdhg_log_utility_global")))
+    slot, smem = lib.kmpc_log_global_slot_bytes, lib.kmpc_log_global_smem_bytes
+    mv = ctypes.CDLL(str(library_path("pdhg_mean_variance_global")))
+    mv_slot, mv_smem = mv.kmpc_mv_global_slot_bytes, mv.kmpc_mv_global_smem_bytes
+    for f, n in ((slot, 3), (smem, 3), (mv_slot, 2), (mv_smem, 2)):
+        f.argtypes, f.restype = [ctypes.c_int] * n, ll
+    shapes = [(S, H, N) for S in (None, 1, 16, 512)
+              for H in (1, 5, 20, 33, 252, 1800)
+              for N in (1, 64, 500, 1000, 2400)]
+    wrong = [(S, H, N) for S, H, N in shapes
+             if M.global_workspace_bytes(S, H, N, 1) != slot(S or 0, H, N)
+             or M.global_smem_bytes(S, H, N) != smem(S or 0, H, N)]
+    wrong += [("mv", H, N) for S, H, N in shapes if S is None and (
+        V.mv_global_workspace_bytes(H, N, 1) != mv_slot(H, N)
+        or V.mv_global_smem_bytes(H, N) != mv_smem(H, N))]
+    assert not wrong, \
+        f"the wrappers' global plans differ from the kernels': {wrong[:5]}"
+    emit("global_plan", shapes=len(shapes), agree=True)
+
+
 def check_mv_tile_plan():
     """The wrapper's copy of the tile layout's plan (``mv_tile_plan``: the
     bytes of a CTA of P problems and the rows of a ring stage, which decide
@@ -1626,6 +1727,171 @@ def _params(**kw):
     from kmpc_tpu_torch.ops.mpc import MPCParams
 
     return MPCParams(sigma_scale=2.0, **kw)
+
+
+def global_cases(record):
+    """The ``kernels`` cases of the global layout (the block layout's body,
+    its iterates in a global workspace) and of ``allow_short``: at one shape
+    each that no shared-memory layout takes, both bodies (adaptive cases by
+    their float64 rules: past SPREAD_N assets by the spread, else as the
+    wide cases); at shapes the block layout also takes, beside it for the
+    same bits; and the hyperplane projection in the block layout of A, B
+    and C and in the global layout. ``record(res, S=S)`` takes each case."""
+    quick = dict(time_plain=False)
+    warm = dict(warm=True, time_plain=False)
+    acc = dict(adaptive=True, adapt_every=2, precond=True)
+    pipe = dict(pipeline_reduces=True)
+    short = dict(allow_short=True)
+    for label, B, S, H, N, p, s, layouts, kw in (
+            ("global_A_H20N1000", 4, None, 20, 1000, _params(
+                max_iters=300, proj_refresh_every=16, precond=True), 1501,
+             ["global"], quick),
+            ("global_A_H20N1000_adaptive", 4, None, 20, 1000, _params(
+                max_iters=300, **acc), 1502, ["global"], quick),
+            ("global_B_S16H20N500", 3, 16, 20, 500, _params(max_iters=300),
+             1503, ["global"], quick),
+            ("global_B_S16H20N500_adaptive", 3, 16, 20, 500, _params(
+                max_iters=300, **acc), 1504, ["global"],
+             dict(wide=True, **quick)),
+            ("global_A_H20N30_pipe_warm_dual", 5, None, 20, 30, _params(
+                max_iters=400, proj_refresh_every=16, precond=True, **pipe),
+             1505, ["block", "global"], warm),
+            ("global_A_H5N150_adaptive", 5, None, 5, 150, _params(
+                max_iters=300, **acc), 1506, ["block", "global"],
+             dict(wide=True, **quick)),
+            ("global_B_S4H17N30", 5, 4, 17, 30, _params(max_iters=300),
+             1507, ["block", "global"], quick),
+            ("global_B_S4H5N40_adaptive_dual", 5, 4, 5, 40, _params(
+                max_iters=300, **acc), 1508, ["block", "global"],
+             dict(dual=True, time_plain=False)),
+            ("short_A_H5N20", 6, None, 5, 20, _params(max_iters=400, **short),
+             1511, ["block", "global"], quick),
+            ("short_A_H5N20_adaptive_warm", 6, None, 5, 20, _params(
+                max_iters=400, **short, **acc), 1512, ["block", "global"],
+             warm),
+            ("short_A_H5N20_no_ball_dual", 6, None, 5, 20, _params(
+                max_iters=400, max_turnover=0.0, **short), 1513,
+             ["block"], dict(dual=True, time_plain=False)),
+            ("short_A_H20N1000", 3, None, 20, 1000, _params(
+                max_iters=300, **short), 1514, ["global"], quick),
+            ("short_B_S3H5N20", 6, 3, 5, 20, _params(max_iters=400, **short),
+             1515, ["block", "global"], quick),
+            ("short_B_S3H5N20_adaptive", 6, 3, 5, 20, _params(
+                max_iters=400, **short, **acc), 1516, ["block"], quick)):
+        kw = dict(kw, time_reps=0)
+        kw["wide"] = kw.get("wide", False) and not kw.get("warm")
+        kw["spread"] = p.adaptive and N >= SPREAD_N and not kw.get("warm")
+        for layout, res in compare_case(label, B, H, N, p, s, S=S,
+                                        layouts=layouts, **kw).items():
+            record(res, S=S)
+
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    mv_acc = dict(adaptive=True, adapt_every=2)
+    for label, B, H, N, shared, kw, layouts, seed in (
+            ("global_C_H20N1000", 3, 20, 1000, False, dict(max_iters=300),
+             ["global"], 1521),
+            ("global_C_H20N1000_shared_adaptive", 3, 20, 1000, True, dict(
+                max_iters=300, **mv_acc), ["global"], 1522),
+            ("global_C_H33N500_shared", 3, 33, 500, True, dict(
+                max_iters=300, proj_refresh_every=16), ["global"], 1523),
+            ("global_C_H20N1000_adaptive", 3, 20, 1000, False, dict(
+                max_iters=300, **mv_acc), ["global"], 1524),
+            ("global_C_H20N30_vs_block", 4, 20, 30, False, dict(
+                max_iters=300), ["block", "global"], 1525),
+            ("short_C_H3N8", 6, 3, 8, False, dict(max_iters=400, **short),
+             ["block", "global"], 1526),
+            ("short_C_H3N8_shared_adaptive", 6, 3, 8, True, dict(
+                max_iters=400, **short, **mv_acc), ["block", "global"], 1527),
+            ("short_C_H20N1000_shared", 3, 20, 1000, True, dict(
+                max_iters=300, **short), ["global"], 1528)):
+        p = _params(**{"gamma": 5.0, **kw})
+        cases = [compare_mv_case(label, B, H, N, p, seed, shared=shared,
+                                 scale=0.01, time_reps=0, time_plain=False,
+                                 layout=layout) for layout in layouts]
+        if len(layouts) == 2:
+            # One body over two placements of the iterates: the same bits.
+            cw, mu, sig = (torch.as_tensor(x, device="cuda") for x in
+                           mv_instance(B, H, N, seed, shared, 0.01))
+            sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+            a, b = (V._mv_launch(V._MV_KERNELS[(lay, p.adaptive)], cw, mu,
+                                 sig, p, return_steps=p.adaptive)
+                    for lay in layouts)
+            torch.cuda.synchronize()
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), \
+                f"{label}: the global layout's bits differ from the block " \
+                "layout's"
+            cases[-1]["bits_equal_block"] = True
+        for res in cases:
+            record(res)
+
+
+def global_past_grid():
+    """The global layout's persistent loop: CTA k solves problems k,
+    k + grid, ... through one workspace slot and its shared memory, so at a
+    batch past the grid (2 x SMs x GLOBAL_CTAS_PER_SM + 5 problems: every
+    CTA solves two or three) a problem's state left there for the next
+    would part the global kernel from the block kernel, which runs one CTA
+    a problem. At shapes both layouts take, kernels A, B and C, each body
+    and ``allow_short``: the same bits on every problem (weights, the
+    fixed-point residual, the dual and the steps). One line."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    B = 2 * sms * M.GLOBAL_CTAS_PER_SM + 5
+    acc = dict(adaptive=True, adapt_every=2, precond=True)
+    cases = []
+
+    def held(label, kernel, shape, p, outs):
+        grid = M.global_grid(kernel, B, shape, p.allow_short, dev)
+        assert B > grid, (label, B, grid)
+        torch.cuda.synchronize()
+        same = [torch.equal(x, y) for x, y in zip(*outs)]
+        assert all(same), f"global_past_grid {label}: the global layout's " \
+            f"bits differ from the block layout's at B={B} past its grid " \
+            f"of {grid} (weights, fp, dual, steps equal: {same})"
+        cases.append({"case": label, "kernel": kernel.name, "B": B,
+                      "grid": grid, "allow_short": p.allow_short})
+
+    for label, S, H, N, p, seed in (
+            ("A_H20N30_pipe", None, 20, 30, _params(
+                max_iters=300, proj_refresh_every=16, precond=True,
+                pipeline_reduces=True), 1531),
+            ("A_H5N150_adaptive", None, 5, 150, _params(max_iters=300, **acc),
+             1532),
+            ("A_H5N20_short", None, 5, 20, _params(
+                max_iters=300, allow_short=True), 1533),
+            ("B_S4H5N40", 4, 5, 40, _params(max_iters=300), 1534),
+            ("B_S4H5N40_adaptive", 4, 5, 40, _params(max_iters=300, **acc),
+             1535),
+            ("B_S3H5N20_short", 3, 5, 20, _params(
+                max_iters=300, allow_short=True), 1536)):
+        cw_np, ys_np = (instance(B, H, N, seed) if S is None
+                        else scenario_instance(B, S, H, N, seed))
+        cw = torch.as_tensor(cw_np, device=dev)
+        r = torch.exp(torch.as_tensor(ys_np, device=dev)).contiguous()
+        outs = [pinned(layout, cw, r, p, return_dual=True,
+                       return_steps=p.adaptive)
+                for layout in ("block", "global")]
+        held(label, pinned_kernel("global", r, p), (S or 0, H, N), p, outs)
+    for label, H, N, shared, p, seed in (
+            ("C_H20N30", 20, 30, False, _params(gamma=5.0, max_iters=300),
+             1537),
+            ("C_H5N150_shared_adaptive", 5, 150, True, _params(
+                gamma=5.0, max_iters=300, adaptive=True, adapt_every=2), 1538),
+            ("C_H3N8_short", 3, 8, False, _params(
+                gamma=5.0, max_iters=300, allow_short=True), 1539)):
+        cw, mu, sig = (torch.as_tensor(x, device=dev) for x in mv_instance(
+            B, H, N, seed, shared, 0.01))
+        sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+        kernels = [V._MV_KERNELS[(lay, p.adaptive)]
+                   for lay in ("block", "global")]
+        outs = [V._mv_launch(k, cw, mu, sig, p, return_steps=p.adaptive)
+                for k in kernels]
+        held(label, kernels[1], (H, N), p, outs)
+    emit("global_past_grid", cases=cases, bits_equal_block=True)
 
 
 def phase_kernel_vs_plain():
@@ -1921,6 +2187,8 @@ def phase_kernel_vs_plain():
                              res.get("N"))
         if f"{kernel}:{storage}" in out:
             out[f"{kernel}:{storage}"].append(res)
+        if res.get("allow_short") and f"{kernel}:short" in out:
+            out[f"{kernel}:short"].append(res)
 
     def routed(res):
         assert ("block" in res["case"]) == ("block" in res["kernel"]), \
@@ -2311,6 +2579,9 @@ def phase_kernel_vs_plain():
             time_plain=False, time_reps=0, layout="tile",
             problems=P)))
 
+    global_cases(record)
+    global_past_grid()
+
     # The MV ladder: every variant, chains and unroll, on a batch that is no
     # multiple of the chains; two and four slots per lane.
     from kmpc_tpu_torch.ops import mv_ladder as D
@@ -2547,7 +2818,10 @@ def phase_layouts():
                         else scenario_instance(B, S, H, N, seed))
         cw = torch.as_tensor(cw_np, device="cuda")
         r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
-        taken = [lay for lay in M.LAYOUTS if M.layout_supports(lay, S, H, N)]
+        # The global layout takes every shape and is routed to none of
+        # these: ``global_path`` and ``row_slots --global`` time it.
+        taken = [lay for lay in M.LAYOUTS if lay != "global"
+                 and M.layout_supports(lay, S, H, N)]
         # The row and wide-row layouts in the storages routing does not
         # give the shape, too.
         taken += [f"{lay}:{st}" for lay in ("rows", "wide") if lay in taken
@@ -2598,13 +2872,16 @@ def phase_layouts():
 
 # Kernel C's switches between layouts (``mv_kernel_layout``), each timed at
 # bench.py's settings (1000 iterations; 200 past 128 assets) on each side:
-# (B, H, N, shared). The warp layout at one row of up to 128 assets (per
+# (B, H, N, shared). The lane layout at one row of up to 128 assets (per
 # problem at B=1028 and 1, shared at B=5 and 1028), the tile layout past
-# it (two rows at N=30 and 128; one row shared at N=129, per problem at
-# N=200, one-warp CTAs); the tile layout streaming Sigma per problem at
-# H >= 3, the block layout below (N=250 and 300); a shared Sigma streamed
-# at one row for more than 132 problems, the block layout up to 132 (N=960
-# at B=1, 132 and 264), and at H >= 3 for any batch (N=320 at B=5).
+# it (two rows at N=30 and 128); past 128 assets the block layout's fixed
+# body and the tile layout's adaptive one at one row with Sigma resident
+# (shared at N=129, per problem at N=200, one-warp CTAs); the tile layout
+# streaming Sigma per problem at H >= 3 for more than 132 problems, the
+# block layout below (N=250 and 300 at B=264 and 528; N=300 at B=5); a
+# shared Sigma streamed at one row for more than 132 problems, the block
+# layout up to 132 (N=960 at B=1, 132 and 264), and the block layout at
+# H >= 3 for at most 132 (N=320 at B=5).
 MV_SWITCH_SHAPES = (
     (1028, 1, 128, False), (1, 1, 128, False), (5, 1, 20, True),
     (1028, 1, 128, True), (1028, 2, 30, False), (1, 2, 30, False),
@@ -2615,18 +2892,12 @@ MV_SWITCH_SHAPES = (
     (5, 5, 320, True))
 # Where the routed layout is measured slower than another, the rule kept
 # for its simplicity: (B, H, N, shared, body) -> the largest routed-over-
-# fastest ratio allowed (PERF.md section 6, PR 8). Two rows per problem
-# streamed at B=264: the tile layout's fixed-step body 1.04x faster. Small
-# batches streamed at H=5: the block layout's adaptive body 1.05-1.08x
-# faster.
+# fastest ratio allowed (PERF.md section 6).
 MV_ROUTED_SLOWER = {
     # The lane layout's two sweeps within 1% of each other, either one
     # faster from run to run (PERF.md section 6): the Markowitz path's
     # fixed body (B=1028, N=20).
     (1028, 1, 20, False, "fixed"): 1.05,
-    (264, 2, 300, False, "fixed"): 1.15,
-    (5, 5, 300, False, "adaptive"): 1.2,
-    (5, 5, 320, True, "adaptive"): 1.15,
 }
 
 
@@ -2956,9 +3227,10 @@ class Timed:
     """Wraps a strategy's all-dates solves: records each call's seconds
     (synchronised) and checks every returned weight row."""
 
-    def __init__(self, name, strategy, max_turnover):
+    def __init__(self, name, strategy, max_turnover, allow_short=False):
         self.name, self.strategy = name, strategy
         self.max_turnover = max_turnover
+        self.allow_short = allow_short
         self.solve_s = []
         self.guesses = []
         self.outs = []
@@ -2972,8 +3244,10 @@ class Timed:
         t64 = targets.double()
         assert torch.isfinite(t64).all(), f"{self.name}: non-finite weights"
         assert torch.all((t64.sum(-1) - 1.0).abs() <= FEAS_TOL), \
-            f"{self.name}: a weight row is off the simplex"
-        assert torch.all(t64 >= -FEAS_TOL), f"{self.name}: negative weight"
+            f"{self.name}: a weight row does not sum to 1"
+        # Under allow_short the sum and the turnover cap only.
+        assert self.allow_short or torch.all(t64 >= -FEAS_TOL), \
+            f"{self.name}: negative weight"
         if self.max_turnover is not None:
             to = (t64 - current.double()).abs().sum(-1)
             assert torch.all(to <= self.max_turnover + FEAS_TOL), \
@@ -3046,14 +3320,16 @@ def kernel_counters():
 
 
 def reset_counts():
-    """Every kernel's launch count, and the scenario kernels' counts by
-    storage, set to 0; returns the counters by name."""
+    """Every kernel's launch count, the scenario kernels' counts by
+    storage and the counts of ``allow_short`` launches, set to 0; returns
+    the counters by name."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     kernels = kernel_counters()
     for k in kernels.values():
         k.launches = 0
     M.STORAGE_LAUNCHES.clear()
+    M.SHORT_LAUNCHES.clear()
     return kernels
 
 
@@ -3084,7 +3360,8 @@ def run_strategies(ctx, cfg, sweeps, reach, horizon=None, names=None,
     frames, timing, koopman = {}, {}, None
     for name, strat in strategies.items():
         timed = Timed(name, strat,
-                      mpc.max_turnover if name in CAPPED else None)
+                      mpc.max_turnover if name in CAPPED else None,
+                      allow_short=mpc.allow_short)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         frames[name] = run_backtest_parallel(strat, fd, bt, num_sweeps=sweeps)
@@ -3113,15 +3390,20 @@ def run_strategies(ctx, cfg, sweeps, reach, horizon=None, names=None,
 
 
 def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label, reach,
-                 scenarios=SCENARIOS, dates=None):
-    """The path's first solves (pre-trade guess 1/N on every date, or on
-    the first ``dates``) of the named strategies, by each kernel and by its
-    plain version on the same card inputs: {kernel name (``reach``): the
-    case}."""
+                 scenarios=SCENARIOS, held=None):
+    """The path's first solves (pre-trade guess 1/N on every date) of the
+    named strategies, by each kernel and by its plain version on the same
+    card inputs: {kernel name (``reach``): the case}. With ``held`` (the
+    log-utility strategies of a path whose kernel is of the global
+    layout), the kernel solves every date once more, timed once, and the
+    plain version the first ``held`` dates and ``held`` dates spread over
+    those past the kernel's persistent grid, whose CTAs solve them after
+    others through the same workspace slot (``rows_past_grid``)."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
     fd = ctx["fd"]
     n = fd.n_assets
     n_dates = fd.test.shape[0] - fd.sequence_length - bt.HORIZON
-    n_dates = min(n_dates, dates or n_dates)
     cw = torch.full((n_dates, n), 1.0 / n, device=fd.device)
     first = {}
     for name in names:
@@ -3134,7 +3416,20 @@ def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label, reach,
             key = ("scenario_log_returns" if name == "ScenarioKelly"
                    else "pred_log_returns")
             r = torch.exp(aux[key][:n_dates]).contiguous()
-            res = compare_tensors(label, cw, r, mpc, time_reps=5)
+            if held:
+                S = r.shape[1] if r.dim() == 4 else None
+                layout, _, kernel = M._route(S, bt.HORIZON, n, mpc)
+                grid = M.global_grid(kernel, n_dates, (S or 0, bt.HORIZON, n),
+                                     mpc.allow_short, fd.device)
+                assert layout == "global" and n_dates > grid + held, \
+                    (name, layout, n_dates, grid)
+                past = torch.linspace(grid, n_dates - 1, held).round().long()
+                rows = torch.cat([torch.arange(held), past]).to(fd.device)
+                res = compare_tensors(label, cw, r, mpc, time_reps=1,
+                                      rows=rows)
+                res.update(grid=grid, rows_past_grid=past.tolist())
+            else:
+                res = compare_tensors(label, cw, r, mpc, time_reps=5)
         first[expect_kernel(reach, name, mpc, mv_mpc, n, scenarios)] = res
     return first
 
@@ -3717,6 +4012,192 @@ def phase_block_path():
     emit("block_path", B=B, H=H, N=N, S=[None, SCENARIOS],
          layouts=["wide", "block"], launches=launches,
          launches_by_storage=by_storage)
+    return launches, first
+
+
+# The global path: the five-strategy comparison on a universe of
+# GLOBAL_ASSETS synthetic names at H=GLOBAL_HORIZON with 16 scenarios,
+# shapes no shared-memory layout holds; each strategy's solve must reach
+# the kernel named here. Its global kernels are held against their plain
+# versions on the first GLOBAL_HELD_DATES dates and on as many past their
+# persistent grids; the entry points run on the first dates.
+GLOBAL_ASSETS = 1000
+GLOBAL_HORIZON = 20
+GLOBAL_HELD_DATES = 32
+GLOBAL_MV_ITERS = 400
+GLOBAL_REACH = {"Markowitz": "pdhg_mean_variance_block",
+                "DMD": "pdhg_log_utility_global",
+                "KoopmanMPC": "pdhg_log_utility_global",
+                "ScenarioKelly": "pdhg_log_utility_scenarios_global"}
+# ``allow_short`` at the main path's shape (H=5, N=20): the block layout's
+# kernels, projecting on the hyperplane by their flag.
+SHORT_REACH = {"Markowitz": "pdhg_mean_variance_block",
+               "DMD": "pdhg_log_utility_block",
+               "KoopmanMPC": "pdhg_log_utility_block",
+               "ScenarioKelly": "pdhg_log_utility_scenarios_block"}
+
+
+def global_config(cfg):
+    """A copy of ``cfg`` whose universe is GLOBAL_ASSETS synthetic names
+    (``ENV.FINANCE.TICKERS``, as a ``--config`` file lists them)."""
+    import copy
+
+    big = copy.deepcopy(cfg)
+    big.ENV.FINANCE.TICKERS = [f"SYN{i:04d}" for i in range(GLOBAL_ASSETS)]
+    return big
+
+
+def short_config(cfg):
+    """A copy of ``cfg`` with ``MPC.ALLOW_SHORT``."""
+    import copy
+
+    short = copy.deepcopy(cfg)
+    short.MPC.ALLOW_SHORT = True
+    return short
+
+
+def phase_global_path(seed, ctx):
+    """The shapes past every shared-memory layout and ``allow_short``, on
+    the card. (1) ``run_experiment --config <GLOBAL_ASSETS names> --horizon
+    20 --scenarios 16``: finance_sparse with its random weights from
+    ``seed`` (observation GLOBAL_ASSETS x EMBEDDING_DIM), the five
+    strategies one sweep each, DMD and Koopman-MPC through kernel A's
+    global layout, scenario Kelly through B's, Markowitz (H=1) through C's
+    block layout; launches asserted, every weight row feasible; Koopman-MPC's
+    and scenario Kelly's first solves on every date, held against the plain
+    versions on the first GLOBAL_HELD_DATES dates and on GLOBAL_HELD_DATES
+    past the kernels' persistent grids. (2) The packed entry points on those
+    dates' forecasts at the accurate configuration (A and B adaptive, held
+    by their spread past SPREAD_N assets) and kernel C at H=20 (the
+    Markowitz path's per-date covariances, fixed steps; one shared
+    covariance, adaptive; GLOBAL_MV_ITERS iterations): one launch each of
+    the four global kernels, then each held (timed once). (3) ``MPC.ALLOW_SHORT`` at the main path's shape (``ctx``:
+    H=5, N=20): Koopman-MPC, DMD, scenario Kelly and Markowitz one sweep
+    each through the block layout's hyperplane projection, every row
+    checked for its sum and turnover (not its sign), the first solves held.
+    Returns the launches by kernel (``name:short`` for the allow_short
+    ones) and the held cases."""
+    import pandas as pd
+
+    from dataclasses import replace
+
+    from kmpc_tpu_torch.backtest.engine import calculate_metrics
+    from kmpc_tpu_torch.data.finance import load_finance_data
+    from kmpc_tpu_torch.models.koopman import make_model
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+    from kmpc_tpu_torch.ops import mv_cuda as V
+    from kmpc_tpu_torch.run_experiment import (
+        backtest_settings, markowitz_settings,
+    )
+
+    dev = torch.device("cuda")
+    cfg = global_config(ctx["cfg"])
+    t0 = time.perf_counter()
+    fd = load_finance_data(cfg, device=dev)
+    model = make_model(cfg, fd.observation_size, device=dev)
+    model.init_params(torch.Generator(device=dev).manual_seed(seed)).eval()
+    load_s = time.perf_counter() - t0
+    assert fd.n_assets == GLOBAL_ASSETS
+    assert fd.observation_size == GLOBAL_ASSETS * cfg.ENV.FINANCE.EMBEDDING_DIM
+    big = {"fd": fd, "model": model, "cfg": cfg}
+    strategies, frames, timing, launched, _, (mpc, mv_mpc, bt) = \
+        run_strategies(big, cfg, 1, GLOBAL_REACH, horizon=GLOBAL_HORIZON)
+    launches = {k: n for k, n in launched.items() if n}
+    first = first_solves(big, strategies, mpc, mv_mpc, bt,
+                         ("KoopmanMPC", "ScenarioKelly"), "global_path",
+                         GLOBAL_REACH, held=GLOBAL_HELD_DATES)
+    for name, res in first.items():
+        emit("global_path_first_solve", **dict(res, kernel=name))
+    table = pd.DataFrame({k: calculate_metrics(v)
+                          for k, v in frames.items()}).T
+    print(table.to_string(), flush=True)
+
+    # The entry points on the held dates' forecasts.
+    n, N, H = GLOBAL_HELD_DATES, GLOBAL_ASSETS, GLOBAL_HORIZON
+    acc = backtest_settings(accurate_config(cfg), horizon=H)[1]
+    # Kernel C at H=20 at the Markowitz settings cut to GLOBAL_MV_ITERS
+    # iterations (each CTA streams its 4 MB covariance three times an
+    # iteration: 2000 iterations took 4.4 s a launch).
+    mv_fixed = replace(mv_mpc, max_iters=GLOBAL_MV_ITERS)
+    mv_acc = replace(markowitz_settings(accurate_config(cfg)),
+                     max_iters=GLOBAL_MV_ITERS)
+    y = strategies["KoopmanMPC"].precompute(fd, H)["pred_log_returns"][:n]
+    ys = strategies["ScenarioKelly"].precompute(fd, H)[
+        "scenario_log_returns"][:n]
+    sig = strategies["Markowitz"].precompute(fd, 1)["sigma"][:n]
+    y, ys = y.contiguous(), ys.contiguous()
+    sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+    shared = sig[0].contiguous()
+    cw = torch.full((n, N), 1.0 / N, device=dev)
+    uncapped = replace(mv_fixed, max_turnover=0.0)  # C has no turnover cap
+    entry = (
+        ("A_adaptive", acc, lambda: M.solve_mpc_log_utility_packed(
+            cw, y, acc)),
+        ("B_adaptive", acc, lambda: M.solve_mpc_log_utility_scenarios_packed(
+            cw, ys, acc)),
+        ("C", uncapped, lambda: V.solve_mpc_mean_variance_packed(
+            cw, y, sig, mv_fixed)),
+        ("C_shared_adaptive", uncapped, lambda: V.solve_mpc_mean_variance_packed(
+            cw, y, shared, mv_acc)))
+    kernels = reset_counts()
+    weights = [solve()[0] for _, _, solve in entry]
+    entry_launches = {k: v.launches for k, v in kernels.items()
+                      if v.launches}
+    assert entry_launches == {
+        "pdhg_log_utility_global_adaptive": 1,
+        "pdhg_log_utility_scenarios_global_adaptive": 1,
+        "pdhg_mean_variance_global": 1,
+        "pdhg_mean_variance_global_adaptive": 1}, entry_launches
+    held = [compare_tensors("global_path_entry_A_adaptive", cw, torch.exp(y),
+                            acc, time_reps=1, spread=True),
+            compare_tensors("global_path_entry_B_adaptive", cw,
+                            torch.exp(ys).contiguous(), acc, time_reps=1,
+                            spread=True),
+            compare_mv_tensors("global_path_entry_C", cw, y, sig, mv_fixed,
+                               time_reps=1),
+            compare_mv_tensors("global_path_entry_C_shared_adaptive", cw, y,
+                               shared, mv_acc, time_reps=1)]
+    for (label, p, _), w, res in zip(entry, weights, held):
+        # The sum to FEAS_TOL, or to twice the plain version's own error
+        # where that is larger (the adaptive body past 500 assets, as
+        # ``hold_to_plain`` allows).
+        check_feasible(w, cw, p, f"global_path_entry_{label}", max(
+            FEAS_TOL, 2.0 * res.get("plain_simplex_error", 0.0)))
+        emit("global_path_entry_solve", **res)
+        first.setdefault(res["kernel"], res)
+    launches.update(entry_launches)
+
+    # allow_short at the main path's shape.
+    names = ("KoopmanMPC", "DMD", "ScenarioKelly", "Markowitz")
+    s_strats, s_frames, s_timing, s_launched, s_koopman, (
+        s_mpc, s_mv, s_bt) = run_strategies(
+            ctx, short_config(ctx["cfg"]), 1, SHORT_REACH, names=names)
+    assert s_mpc.allow_short and s_mv.allow_short
+    short = {f"{k}:short": c for k, c in M.SHORT_LAUNCHES.items()}
+    assert short == {f"{k}:short": c for k, c in s_launched.items() if c}, \
+        short
+    s_first = first_solves(ctx, s_strats, s_mpc, s_mv, s_bt,
+                           ("KoopmanMPC", "ScenarioKelly", "Markowitz"),
+                           "global_path_short", SHORT_REACH)
+    for name, res in s_first.items():
+        emit("global_path_short_solve", **dict(res, kernel=name))
+        first[f"{name}:short"] = res
+    launches.update(short)
+    # The least weight Koopman-MPC's short solves took: shorts do occur.
+    min_weight = min((o[0] if isinstance(o, tuple) else o).min().item()
+                     for o in s_koopman.outs)
+    emit("global_path", assets=N, horizon=H, scenarios=SCENARIOS,
+         observation_size=fd.observation_size, dates=len(frames["DMD"]),
+         mpc_iters=mpc.max_iters, load_s=load_s, launches=launches,
+         per_strategy=timing,
+         final_values={k: float(v["portfolio_value"].iloc[-1])
+                       for k, v in frames.items()},
+         metrics={k: {m: float(x) for m, x in row.items()}
+                  for k, row in table.iterrows()},
+         short_per_strategy=s_timing,
+         short_final_values={k: float(v["portfolio_value"].iloc[-1])
+                             for k, v in s_frames.items()},
+         short_min_weight=min_weight)
     return launches, first
 
 
@@ -4347,11 +4828,15 @@ def phase_headline():
                                    **common)),
             ("accurate_headline", MPCParams(max_iters=800, adaptive=True,
                                             adapt_every=2, **common))):
+        kernel = M._route(None, H, N, p)[2]
+        kernel.launches = 0
         ms = cuda_ms(lambda: M.pdhg_log_utility_cuda(cw, r, p), 5)
+        launches = kernel.launches      # a warm-up and 5 timed
         plain_ms = timed_once(lambda: M.pdhg_log_utility_plain(cw, r, p))[1]
         bound_ms, bound_by = pdhg_bound(B, H, N, p)
         emit(phase, B=B, H=H, N=N, iters=p.max_iters, adaptive=p.adaptive,
-             kernel=M._route(None, H, N, p)[2].name, kernel_ms=ms, solves_per_s=B / (ms / 1e3), plain_ms=plain_ms,
+             kernel=kernel.name, launches=launches, kernel_ms=ms,
+             solves_per_s=B / (ms / 1e3), plain_ms=plain_ms,
              bound_ms=bound_ms, bound_by=bound_by,
              fp32_ops=pdhg_ops(B, H, N, p), bound_share=bound_ms / ms)
 
@@ -5531,17 +6016,19 @@ def phase_parallel_path(seed: int):
 # (residual below VERIFY_CERT) is a KKT point of a program the ridge makes
 # strongly convex, so its point is unique: the card must certify it too
 # and land within VERIFY_W_TOL of it in every row. The card runs both
-# families, then the host CPU runs VERIFY_HOST (positions in the order),
-# torch on one thread there (the CPU tests' setting); in this process, one
-# after the other (the forward-mode levels of torch.func, which the Newton
-# steps' Jacobians use, are global to a process: two threads in them at
-# once fail).
+# families while the host CPU runs VERIFY_HOST (positions in the order) in
+# a process of this script (``--verify-host``), torch on one thread there
+# (the CPU tests' setting): a process, not a thread (the forward-mode
+# levels of torch.func, which the Newton steps' Jacobians use, are global
+# to a process: two threads in them at once fail).
 # Position 0, the equal-weight first rebalance, takes the deep
 # continuation in the realistic family, whose eager loop takes a minute or
 # more on a CPU for each of its 100k-iteration chunks: the host run takes
 # the positions after it.
 VERIFY_N = 32
 VERIFY_HOST = range(1, 5)
+VERIFY_HOST_TAG = "VERIFY_HOST_RESULT "
+VERIFY_HOST_TIMEOUT = 420
 VERIFY_ITERS = 30000
 VERIFY_CERT = 1e-10
 VERIFY_W_TOL = 1e-7
@@ -5568,7 +6055,7 @@ def verify_run(family, positions, device):
     from kmpc_tpu_torch.utils.profiler import StageTimer
 
     d = np.load(REPO_CACHE / f"instances_{family}_1000.npz")
-    ids = [polish_order(d["cw"].shape[0])[k] for k in positions]
+    ids = [int(polish_order(d["cw"].shape[0])[k]) for k in positions]
     params = MPCParams(max_iters=VERIFY_ITERS, sigma_scale=2.0, ridge=1e-3,
                        polish=True, polish_newton=4)
     timer = StageTimer()
@@ -5588,13 +6075,51 @@ def verify_run(family, positions, device):
             "stage_count": {k: v["count"] for k, v in summary.items()}}
 
 
+def verify_host():
+    """``--verify-host``: ``verify_run`` of each family at VERIFY_HOST on
+    the host CPU, torch on one thread; one line, VERIFY_HOST_TAG and the
+    runs as JSON."""
+    torch.set_num_threads(1)
+    runs = []
+    for family in ("random", "realistic"):
+        run = verify_run(family, VERIFY_HOST, "cpu")
+        runs.append(dict(run, w=run["w"].tolist(), res=run["res"].tolist()))
+    print(VERIFY_HOST_TAG + json.dumps(runs), flush=True)
+
+
+def start_verify_host():
+    """The ``--verify-host`` process, started."""
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--verify-host"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=ROOT)
+
+
+def verify_host_runs(proc):
+    """The host's runs from the ``--verify-host`` process (killed if it
+    outlives VERIFY_HOST_TIMEOUT), each with its weights and residuals as
+    arrays; raises where it failed."""
+    try:
+        out, err = proc.communicate(timeout=VERIFY_HOST_TIMEOUT)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, \
+        f"verify_path: the host run exited {proc.returncode}: {err[-2000:]}"
+    line = next(ln for ln in out.splitlines()
+                if ln.startswith(VERIFY_HOST_TAG))
+    return [dict(run, w=np.asarray(run["w"]), res=np.asarray(run["res"]))
+            for run in json.loads(line[len(VERIFY_HOST_TAG):])]
+
+
 def phase_verify_path():
     """The verification stack: ``solve_mpc_log_utility_batch_polished``
     (its float64 stages on the card) on VERIFY_N cached instances of each
     family, every instance whose record is certified required certified on
     the card and within VERIFY_W_TOL of its record (an uncertified record
     is reported with both residuals, not held); the same path on the host
-    CPU (VERIFY_HOST), the same certified set and weights within
+    CPU (VERIFY_HOST, in a process of this script beside the card's run),
+    the same certified set and weights within
     VERIFY_W_TOL where both certify; the port's native host solver (built
     with g++ from the checkout) against kernel A on NATIVE_CASE, weights
     within NATIVE_W_TOL; the port's scipy oracle on one instance of each
@@ -5621,13 +6146,14 @@ def phase_verify_path():
     t_phase = time.perf_counter()
     failures = []
     families = ("random", "realistic")
-    card = {f: verify_run(f, range(VERIFY_N), "cuda") for f in families}
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
+    proc = start_verify_host()
     try:
-        host = [verify_run(f, VERIFY_HOST, "cpu") for f in families]
-    finally:
-        torch.set_num_threads(threads)
+        card = {f: verify_run(f, range(VERIFY_N), "cuda") for f in families}
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    host = verify_host_runs(proc)
 
     # The native host solver against kernel A.
     B, H, N, iters, seed = NATIVE_CASE
@@ -5793,6 +6319,25 @@ KERNELS = {
         _LOG + "_scenarios_rows_adaptive.cu", _PALLAS + ":593"),
     "pdhg_log_utility_scenarios_rows:resident": (
         _LOG + "_scenarios_rows.cu", _PALLAS + ":226"),
+    # The global layout (the block layout's body, its iterates in a global
+    # workspace): A and B on ``global_path``'s comparison, their adaptive
+    # bodies and kernel C on its entry-point runs.
+    "pdhg_log_utility_global": (_LOG + "_global.cu", _PALLAS + ":226"),
+    "pdhg_log_utility_global_adaptive": (_LOG + "_global_adaptive.cu",
+                                         _PALLAS + ":593"),
+    "pdhg_log_utility_scenarios_global": (_LOG + "_scenarios_global.cu",
+                                          _PALLAS + ":226"),
+    "pdhg_log_utility_scenarios_global_adaptive": (
+        _LOG + "_scenarios_global_adaptive.cu", _PALLAS + ":593"),
+    "pdhg_mean_variance_global": (_MV + "_global.cu", _PALLAS + ":1089"),
+    "pdhg_mean_variance_global_adaptive": (_MV + "_global_adaptive.cu",
+                                           _PALLAS + ":1196"),
+    # The block layout's hyperplane projection (``allow_short``), a line
+    # each, on ``global_path``'s allow_short comparison.
+    "pdhg_log_utility_block:short": (_LOG + "_block.cu", _PALLAS + ":226"),
+    "pdhg_log_utility_scenarios_block:short": (
+        _LOG + "_scenarios_block.cu", _PALLAS + ":226"),
+    "pdhg_mean_variance_block:short": (_MV + "_block.cu", _PALLAS + ":1089"),
 }
 
 
@@ -5803,12 +6348,18 @@ def main():
     parser.add_argument("--parallel-rank", action="store_true",
                         help="run as one rank of parallel_path's world "
                              "(started by the phase itself)")
+    parser.add_argument("--verify-host", action="store_true",
+                        help="run verify_path's host CPU part (started by "
+                             "the phase itself)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         sys.exit(1)
     if args.parallel_rank:
         parallel_rank(args.seed)
+        return
+    if args.verify_host:
+        verify_host()
         return
     from kmpc_tpu_torch.ops.mpc_cuda import plain_replayed
 
@@ -5821,50 +6372,55 @@ def main():
 
     phase_build()
     done("build")
-    # The holds' plain versions, untimed in these phases, replay their
-    # loops as CUDA graphs (the same kernels on the same values).
+    # The plain versions that hold the kernels replay their loops as CUDA
+    # graphs (the same kernels on the same values): untimed in ``kernels``
+    # and ``layouts``; on the paths ``plain_ms`` is the replayed time, one
+    # capture of PLAIN_GRAPH_CHUNK iterations included.
     with plain_replayed():
         cases = phase_kernel_vs_plain()
         done("kernels")
         phase_layouts()
         mv_layouts()
         done("layouts")
-    phase_nan_row()
-    phase_probe()
-    ctx = phase_main_path(args.seed)
-    done("main_path")
-    phase_train_path(args.seed)
-    done("train_path")
-    eval_launches, eval_held = phase_eval_path(args.seed)
-    for case in eval_held:
-        cases[case["kernel"]].append(case)
-    done("eval_path")
-    parallel_launches = phase_parallel_path(args.seed)
-    done("parallel_path")
-    comparison_launches, path, fixed_values = phase_comparison(ctx)
-    path[ctx["kernel"]] = ctx["first"]
-    accurate_launches, accurate_first = phase_accurate_path(ctx, fixed_values)
-    scan_launches = phase_scan_path(ctx)
-    long_launches, long_first = phase_long_path(ctx)
-    done("paths")
-    warp_launches, warp_first, warp_extra = phase_warp_path(ctx)
-    for name, extra in warp_extra.items():
-        cases[name] += extra
-    block_launches, block_first = phase_block_path()
-    done("warp_block_paths")
-    scen_launches, scen_first = phase_scenarios_path(ctx)
-    done("scenarios_path")
-    mv_launches, mv_first, mv_cases = phase_mv_long_wide()
-    for name, rows in mv_cases.items():
-        cases[name] += [c for c in rows if c is not mv_first[name]]
-    ladder_launches, ladder_case = phase_mv_ladder()
-    done("mv")
-    mk_launches, mk_first, mk_cases = phase_markowitz()
-    for name, rows in mk_cases.items():
-        cases[name] += [c for c in rows if c is not mk_first.get(name)]
-    phase_headline()
-    phase_large_headlines()
-    done("headlines")
+        phase_nan_row()
+        phase_probe()
+        ctx = phase_main_path(args.seed)
+        done("main_path")
+        phase_train_path(args.seed)
+        done("train_path")
+        eval_launches, eval_held = phase_eval_path(args.seed)
+        for case in eval_held:
+            cases[case["kernel"]].append(case)
+        done("eval_path")
+        parallel_launches = phase_parallel_path(args.seed)
+        done("parallel_path")
+        comparison_launches, path, fixed_values = phase_comparison(ctx)
+        path[ctx["kernel"]] = ctx["first"]
+        accurate_launches, accurate_first = phase_accurate_path(
+            ctx, fixed_values)
+        scan_launches = phase_scan_path(ctx)
+        long_launches, long_first = phase_long_path(ctx)
+        done("paths")
+        warp_launches, warp_first, warp_extra = phase_warp_path(ctx)
+        for name, extra in warp_extra.items():
+            cases[name] += extra
+        block_launches, block_first = phase_block_path()
+        done("warp_block_paths")
+        global_launches, global_first = phase_global_path(args.seed, ctx)
+        done("global_path")
+        scen_launches, scen_first = phase_scenarios_path(ctx)
+        done("scenarios_path")
+        mv_launches, mv_first, mv_cases = phase_mv_long_wide()
+        for name, rows in mv_cases.items():
+            cases[name] += [c for c in rows if c is not mv_first[name]]
+        ladder_launches, ladder_case = phase_mv_ladder()
+        done("mv")
+        mk_launches, mk_first, mk_cases = phase_markowitz()
+        for name, rows in mk_cases.items():
+            cases[name] += [c for c in rows if c is not mk_first.get(name)]
+        phase_headline()
+        phase_large_headlines()
+        done("headlines")
     phase_verify_path()
     # The wide kernels' bits again, after every phase and the verified
     # path's float64 work on the same card.
@@ -5891,6 +6447,7 @@ def main():
             (comparison_launches, {}), (accurate_launches, accurate_first),
             (long_launches, long_first), (warp_launches, warp_first),
             (block_launches, block_first), (scen_launches, scen_first),
+            (global_launches, global_first),
             (mv_launches, mv_first),
             ({"mv_ladder": ladder_launches}, {"mv_ladder": ladder_case}),
             (mk_launches, mk_first)):
@@ -5932,19 +6489,27 @@ def main():
                     "plain_apart_from_float64", "unsettled_apart",
                     "kernel_unsettled_apart", "plain_unsettled_apart")}})
         if any(x in name for x in ("block", "rows", "wide", "tile",
-                                   "lanes")):
+                                   "lanes", "global")):
             entry["deterministic_cases"] = sum(
                 1 for c in every if c.get("deterministic"))
         if "wide" in name or "tile" in name:
             entry["max_abs_dw_block"] = max(
                 c.get("max_abs_dw_block", 0.0) for c in every)
-        if ":" in name:
+        if "global" in name:
+            entry["bits_equal_block_cases"] = sum(
+                1 for c in every if c.get("bits_equal_block"))
+        if name.endswith(":short"):
+            entry["allow_short"] = True
+        elif ":" in name:
             entry["storage_bits_cases"] = sum(
                 1 for c in every if c.get("bits_equal_storage"))
         if "storage" in at_path:
             entry.update({k: at_path[k] for k in (
                 "storage", "S", "returns_bytes_per_iter",
-                "returns_tb_per_s", "plain_batch") if k in at_path})
+                "returns_tb_per_s") if k in at_path})
+        if "plain_batch" in at_path:
+            # ``plain_ms`` on that many of the batch's problems.
+            entry["plain_batch"] = at_path["plain_batch"]
         if "rows" in name:
             entry["bits_equal_warp_cases"] = [
                 sum(1 for c in every if c.get("bits_equal_warp")),

@@ -68,6 +68,15 @@ SOURCES = {
     "pdhg_mean_variance_lanes": "pdhg_mean_variance_lanes.cu",
     "pdhg_mean_variance_lanes_adaptive":
         "pdhg_mean_variance_lanes_adaptive.cu",
+    "pdhg_log_utility_global": "pdhg_log_utility_global.cu",
+    "pdhg_log_utility_global_adaptive": "pdhg_log_utility_global_adaptive.cu",
+    "pdhg_log_utility_scenarios_global":
+        "pdhg_log_utility_scenarios_global.cu",
+    "pdhg_log_utility_scenarios_global_adaptive":
+        "pdhg_log_utility_scenarios_global_adaptive.cu",
+    "pdhg_mean_variance_global": "pdhg_mean_variance_global.cu",
+    "pdhg_mean_variance_global_adaptive":
+        "pdhg_mean_variance_global_adaptive.cu",
 }
 
 

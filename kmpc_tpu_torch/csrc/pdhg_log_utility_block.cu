@@ -8,7 +8,8 @@
 #include "pdhg_log_utility_block.cuh"
 
 // w_warm, p_warm and p_out may be null: a cold start, a zero warm dual, no
-// dual output. pipe != 0 runs `make_trip_pipe` (warm and refresh > 1).
+// dual output. pipe != 0 runs `make_trip_pipe` (warm and refresh > 1); short_ != 0 projects the primal
+// on the hyperplane sum(w) = 1 (allow_short, with warm = 0).
 // Returns the launch's cudaError_t.
 extern "C" int kmpc_pdhg_log_utility_block(
     const void* cw, const void* r, const void* w_warm, const void* p_warm,
@@ -16,10 +17,11 @@ extern "C" int kmpc_pdhg_log_utility_block(
     int max_iters, int refresh, int warm_iters, int cold_iters, float c,
     float tau_to, float ridge, float rho, float step_scale,
     float sigma_scale, int precond, int use_ball, int warm, int pipe,
-    void* stream) {
+    int short_, void* stream) {
   const Args a = make_args(cw, r, w_warm, p_warm, w_out, fp_out, p_out, B, 0,
                            H, N, max_iters, refresh, warm_iters, cold_iters,
                            c, tau_to, ridge, rho, step_scale, sigma_scale,
                            precond, use_ball, warm);
-  return block_dispatch<false, false>(a, AdaptArgs{nullptr, 0}, pipe, stream);
+  return block_dispatch<false, false>(a, AdaptArgs{nullptr, 0}, pipe,
+                                     short_, stream);
 }

@@ -48,6 +48,30 @@
 // Shared memory per problem: block_plan below (5 [H][N] arrays and S - 1
 // more with scenarios); a block of 512 threads holds 16 warps, so at N=500
 // the SM runs two to four problems at once.
+//
+// The global layout (pdhg_log_utility_global_kernel, beside the block
+// kernel, both over block_solve) runs the
+// same body for every shape whose problem does not fit a block's shared
+// memory (kmpc_tpu's wrapper hands those to its XLA solver): the four
+// [H][N] iterates live in the CTA's slot of a global-memory workspace
+// (global_plan), the returns [S][H][N] and the current weights are read in
+// place from the inputs, and the per-row values and the reduce staging stay
+// in shared memory where they fit (else they join the slot). The grid is
+// persistent: min(B, the CTAs the card holds at once), each CTA looping over
+// problems blockIdx.x, blockIdx.x + gridDim.x, ..., so the workspace is
+// sized by the grid. The same operations in the same order as the block
+// layout: at a shape both take, the two give the same bits. Bound: every
+// iterate access goes to L1/L2 (about 320 KB a problem at H=20 N=1000, the
+// grid's slots near the 50 MB L2 at one CTA an SM); with S scenarios the
+// returns are read from global memory twice an iteration (the portfolio
+// values and the gradient), S H N floats each, which binds B at S=16.
+//
+// SHORT (``allow_short``, both layouts): the primal projection is onto the
+// hyperplane sum(w) = 1, kmpc_tpu's `project_hyperplane_sum`: a cold
+// threshold (sum - 1) / N with no sweeps and no clip; no threshold is
+// carried (the wrapper passes warm = 0, so the dual's ball threshold starts
+// cold too), and the start is the hyperplane projection of the current
+// weights, as kmpc_tpu/ops/mpc.py's solver does.
 
 #pragma once
 
@@ -63,25 +87,21 @@ __host__ __device__ inline int block_threads(int N) {
   return 32 * ((n + 31) / 32);
 }
 
-// Offsets (in floats) of one problem's shared-memory arrays, for S1
-// scenarios (1 without), and their total. M is the most quantities one
-// stacked reduce stages per warp: the portfolio values of every scenario
-// and row with the ball's count, sum and l1 of every row.
-struct BlockPlan {
-  long long r, w, p, vm, q, cw, tau, sig, sig_tau, c1, inv_s, thw, thp, l1s,
-      pf, rat, res, red, M, total;
+// Offsets (in floats) of one problem's per-row values and reduce staging,
+// for S1 scenarios (1 without), and their total: the steps, thresholds and
+// the ball's l1 per row, the portfolio reciprocals and curvature ratios per
+// scenario and row, four residual slots, and each warp's staging of the
+// largest stacked reduce (M: the portfolio values of every scenario and row
+// with the ball's count, sum and l1 of every row).
+struct SmallPlan {
+  long long tau, sig, sig_tau, c1, inv_s, thw, thp, l1s, pf, rat, res, red, M,
+      total;
 };
 
-__host__ __device__ inline BlockPlan block_plan(int S1, int H, int N) {
-  BlockPlan P;
-  const long long HN = (long long)H * N, SH = (long long)S1 * H;
+__host__ __device__ inline SmallPlan small_plan(int S1, int H, int N) {
+  SmallPlan P;
+  const long long SH = (long long)S1 * H;
   long long o = 0;
-  P.r = o; o += S1 * HN;
-  P.w = o; o += HN;
-  P.p = o; o += HN;
-  P.vm = o; o += HN;
-  P.q = o; o += HN;
-  P.cw = o; o += N;
   P.tau = o; o += H;
   P.sig = o; o += H;
   P.sig_tau = o; o += H;
@@ -97,6 +117,57 @@ __host__ __device__ inline BlockPlan block_plan(int S1, int H, int N) {
   P.red = o; o += (block_threads(N) / 32) * P.M;
   P.total = o;
   return P;
+}
+
+// Offsets (in floats) of one problem's shared-memory arrays in the block
+// layout and their total: r per scenario, w, p, the projection input and the
+// dual input as [H][N], the current weights, then the small plan.
+struct BlockPlan {
+  long long r, w, p, vm, q, cw, small, total;
+};
+
+__host__ __device__ inline BlockPlan block_plan(int S1, int H, int N) {
+  BlockPlan P;
+  const long long HN = (long long)H * N;
+  long long o = 0;
+  P.r = o; o += S1 * HN;
+  P.w = o; o += HN;
+  P.p = o; o += HN;
+  P.vm = o; o += HN;
+  P.q = o; o += HN;
+  P.cw = o; o += N;
+  P.small = o; o += small_plan(S1, H, N).total;
+  P.total = o;
+  return P;
+}
+
+// The global layout's plan, per CTA of a persistent grid: w, p, the
+// projection input and the dual input as [H][N] in the CTA's slot of a
+// global-memory workspace (the returns and the current weights are read in
+// place from the inputs); the small plan in shared memory where it fits a
+// block's, else in the slot after the four arrays (smem 0).
+struct GlobalPlan {
+  long long w, p, vm, q, small, slot, smem;
+};
+
+__host__ __device__ inline GlobalPlan global_plan(int S1, int H, int N) {
+  GlobalPlan G;
+  const long long HN = (long long)H * N;
+  const long long small = small_plan(S1, H, N).total;
+  G.w = 0;
+  G.p = HN;
+  G.vm = 2 * HN;
+  G.q = 3 * HN;
+  if (small * (long long)sizeof(float) <= kSmemPerBlock) {
+    G.small = -1;
+    G.slot = 4 * HN;
+    G.smem = small;
+  } else {
+    G.small = 4 * HN;
+    G.slot = 4 * HN + small;
+    G.smem = 0;
+  }
+  return G;
 }
 
 // Sum (OP 0), min (1) or max (2); min and max propagate NaN as jmin / jmax.
@@ -260,32 +331,46 @@ __device__ __forceinline__ void block_ball(const BlockCtx& c, Val val,
   }
 }
 
-template <bool SCEN, bool ADAPT>
-__global__ void __launch_bounds__(kBlockMaxThreads)
-pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
-  extern __shared__ float smem[];
+// Where one problem's arrays live while its CTA solves it: the returns and
+// the current weights (in shared memory in the block layout, in place in
+// the inputs in the global layout), the four [H][N] iterates, and the small
+// plan's arrays.
+struct BlockMem {
+  const float *r, *cw;
+  float *w, *p, *vm, *q;
+  float *small;
+};
+
+// The solve of problem b by the whole CTA. SHORT (``allow_short``): the
+// primal projection is onto the hyperplane sum(w) = 1 (a cold threshold of
+// no sweeps, unclipped); the wrapper passes warm = 0 with it, so the
+// dual's ball threshold starts cold every iteration, as the reference's
+// solver does.
+template <bool SCEN, bool ADAPT, bool SHORT>
+__device__ __forceinline__ void block_solve(const Args& a,
+                                            const AdaptArgs& ad, int pipe,
+                                            int b, const BlockMem& m) {
   const int tid = threadIdx.x, T = blockDim.x;
-  const int b = blockIdx.x;
   const int H = a.H, N = a.N, S1 = SCEN ? a.S : 1;
-  const BlockPlan P = block_plan(S1, H, N);
-  float* const r = smem + P.r;
-  float* const w = smem + P.w;
-  float* const p = smem + P.p;
-  float* const vm = smem + P.vm;  // the projection input, then w_new
-  float* const q = smem + P.q;    // the dual input (pipelined: its magnitudes)
-  float* const cw = smem + P.cw;
-  float* const tau = smem + P.tau;
-  float* const sig = smem + P.sig;
-  float* const sig_tau = smem + P.sig_tau;
-  float* const c1 = smem + P.c1;
-  float* const inv_s = smem + P.inv_s;
-  float* const thw = smem + P.thw;
-  float* const thp = smem + P.thp;
-  float* const l1s = smem + P.l1s;
-  float* const pf = smem + P.pf;  // scale / max(w . r^s, 1e-12) per (s, t)
-  float* const rat = smem + P.rat;
-  float* const res = smem + P.res;
-  const BlockCtx ctx{tid, T, H, N, smem + P.red};
+  const SmallPlan P = small_plan(S1, H, N);
+  const float* const r = m.r;
+  const float* const cw = m.cw;
+  float* const w = m.w;
+  float* const p = m.p;
+  float* const vm = m.vm;  // the projection input, then w_new
+  float* const q = m.q;    // the dual input (pipelined: its magnitudes)
+  float* const tau = m.small + P.tau;
+  float* const sig = m.small + P.sig;
+  float* const sig_tau = m.small + P.sig_tau;
+  float* const c1 = m.small + P.c1;
+  float* const inv_s = m.small + P.inv_s;
+  float* const thw = m.small + P.thw;
+  float* const thp = m.small + P.thp;
+  float* const l1s = m.small + P.l1s;
+  float* const pf = m.small + P.pf;  // scale / max(w . r^s, 1e-12) per (s, t)
+  float* const rat = m.small + P.rat;
+  float* const res = m.small + P.res;
+  const BlockCtx ctx{tid, T, H, N, m.small + P.red};
   const int SH = S1 * H;
   const float fS = (float)S1;
   const bool ridge0 = a.ridge == 0.f;
@@ -304,13 +389,17 @@ pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
   auto excess = [=](int t, float rad) {
     return l1s[t] <= rad ? 0.f : jmax(thp[t], 0.f);
   };
-
-  // Inputs, by the thread that owns the column.
-  for (int i = tid; i < N; i += T) {
-    cw[i] = a.cw[(size_t)b * N + i];
-    for (int e = 0; e < SH; ++e)
-      r[e * N + i] = a.r[((size_t)b * SH + e) * N + i];
-  }
+  // The primal projection of x = v - theta: the simplex's clip, or none
+  // on the hyperplane.
+  auto proj = [](float x) { return SHORT ? x : jmax(x, 0.f); };
+  // The primal projection's threshold of the values in vm: cold or from
+  // the carried theta with n sweeps; on the hyperplane (sum - 1) / N.
+  auto primal_threshold = [=](bool cold, int n) {
+    if constexpr (SHORT)
+      block_threshold(ctx, at_vm, thw, one, true, 0);
+    else
+      block_threshold(ctx, at_vm, thw, one, cold, n);
+  };
 
   // Curvature: ratio = ||r_t||^2 / max(min_i r_t[i], 1e-12)^2 per scenario
   // and row.
@@ -384,11 +473,11 @@ pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
       p[t * N + i] = (warm_start && a.p_warm != nullptr) ? a.p_warm[g] : 0.f;
     }
   }
-  block_threshold(ctx, at_vm, thw, one, true, a.cold_iters);
+  primal_threshold(true, a.cold_iters);
   if (!warm_start) {
     for (int i = tid; i < N; i += T)
       for (int t = 0; t < H; ++t)
-        w[t * N + i] = jmax(vm[t * N + i] - thw[t], 0.f);
+        w[t * N + i] = proj(vm[t * N + i] - thw[t]);
   }
 
   // g_t = r_t * pf_t, or the scenario mean of r^s_t * pf^s_t in s order.
@@ -437,7 +526,7 @@ pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
       float wbp = cw[i];
       for (int t = 0; t < H; ++t) {
         const int e = t * N + i;
-        const float wn = jmax(vm[e] - thw[t], 0.f);
+        const float wn = proj(vm[e] - thw[t]);
         const float wb = 2.f * wn - w[e];
         q[e] = p[e] + sig[t] * (wb - wbp);
         vm[e] = wn;
@@ -488,7 +577,7 @@ pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
           vm[e] = base + (scaled(t, i) - tau[t] * (p[e] - nxt));
         }
       }
-      block_threshold(ctx, at_vm, thw, one, !warm, n_sw);
+      primal_threshold(!warm, n_sw);
 
       if (!sync) {
         // Pipelined: clip with the carried ball pair, keep the magnitudes
@@ -498,7 +587,7 @@ pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
           float wbp = cw[i];
           for (int t = 0; t < H; ++t) {
             const int e = t * N + i;
-            const float wn = jmax(vm[e] - thw[t], 0.f);
+            const float wn = proj(vm[e] - thw[t]);
             const float wb = 2.f * wn - w[e];
             const float qq = p[e] + sig[t] * (wb - wbp);
             wbp = wb;
@@ -547,7 +636,7 @@ pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
           vm[e] = w[e] - tau[t] * (gg + (p[e] - nxt));
         }
       }
-      block_threshold(ctx, at_vm, thw, one, !warm, n_sw);
+      primal_threshold(!warm, n_sw);
       extrapolate();
 
       // Dual prox on the a-scale: v = q / sigma, the ball of radius
@@ -646,13 +735,13 @@ pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
       vm[e] = w[e] - tau[t] * (gg + (p[e] - nxt));
     }
   }
-  block_threshold(ctx, at_vm, thw, one, true, a.cold_iters);
+  primal_threshold(true, a.cold_iters);
   float fp = 0.f;
   for (int i = tid; i < N; i += T) {
     for (int t = 0; t < H; ++t) {
       const int e = t * N + i;
       const size_t g = ((size_t)b * H + t) * N + i;
-      const float wl = jmax(vm[e] - thw[t], 0.f);
+      const float wl = proj(vm[e] - thw[t]);
       fp = jmax(fp, fabsf(wl - w[e]));
       a.w_out[g] = wl;
       if (a.p_out != nullptr) a.p_out[g] = p[e];
@@ -663,25 +752,135 @@ pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
       [=](int, auto tot) { a.fp_out[b] = tot(0); });
 }
 
+// The block layout: one CTA per problem, its arrays in shared memory at
+// the offsets of block_plan. The inputs are copied in by the thread that
+// owns the column (the body's first reduce reads only its own columns).
+template <bool SCEN, bool ADAPT, bool SHORT>
+__global__ void __launch_bounds__(kBlockMaxThreads)
+pdhg_log_utility_block_kernel(Args a, AdaptArgs ad, int pipe) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int b = blockIdx.x;
+  const int H = a.H, N = a.N, SH = (SCEN ? a.S : 1) * H;
+  const BlockPlan P = block_plan(SCEN ? a.S : 1, H, N);
+  float* const r = smem + P.r;
+  float* const cw = smem + P.cw;
+  for (int i = tid; i < N; i += T) {
+    cw[i] = a.cw[(size_t)b * N + i];
+    for (int e = 0; e < SH; ++e)
+      r[e * N + i] = a.r[((size_t)b * SH + e) * N + i];
+  }
+  const BlockMem m{r, cw, smem + P.w, smem + P.p, smem + P.vm, smem + P.q,
+                   smem + P.small};
+  block_solve<SCEN, ADAPT, SHORT>(a, ad, pipe, b, m);
+}
+
+// The global layout: the same body for the shapes whose problem does not
+// fit a block's shared memory. A persistent grid; CTA k solves problems
+// k, k + gridDim.x, ... with its iterates in slot k of the workspace
+// (global_plan) and reads each problem's returns and current weights in
+// place. The workspace is sized by the grid, never by the batch.
+template <bool SCEN, bool ADAPT, bool SHORT>
+__global__ void __launch_bounds__(kBlockMaxThreads)
+pdhg_log_utility_global_kernel(Args a, AdaptArgs ad, int pipe, float* ws) {
+  extern __shared__ float smem[];
+  const int H = a.H, N = a.N, S1 = SCEN ? a.S : 1;
+  const long long HN = (long long)H * N;
+  const GlobalPlan G = global_plan(S1, H, N);
+  float* const slot = ws + (size_t)blockIdx.x * G.slot;
+  float* const small = G.small < 0 ? smem : slot + G.small;
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    const BlockMem m{a.r + (size_t)b * S1 * HN, a.cw + (size_t)b * N,
+                     slot + G.w, slot + G.p, slot + G.vm, slot + G.q, small};
+    block_solve<SCEN, ADAPT, SHORT>(a, ad, pipe, b, m);
+  }
+}
+
+inline bool bad_shape(const Args& a, bool scen) {
+  return a.B <= 0 || a.H <= 0 || a.N <= 0 || (scen && a.S <= 0);
+}
+
 // One block per problem; the shared memory of block_plan, above 48 KB by
 // opt-in. Shapes beyond a block's shared memory return
 // cudaErrorInvalidValue (the wrapper checks first).
-template <bool SCEN, bool ADAPT>
-int block_dispatch(const Args& a, const AdaptArgs& ad, int pipe,
-                   void* stream) {
-  if (a.B <= 0 || a.H <= 0 || a.N <= 0 || (SCEN && a.S <= 0))
-    return (int)cudaErrorInvalidValue;
+template <bool SCEN, bool ADAPT, bool SHORT>
+int block_launch(const Args& a, const AdaptArgs& ad, int pipe,
+                 void* stream) {
+  if (bad_shape(a, SCEN)) return (int)cudaErrorInvalidValue;
   const BlockPlan P = block_plan(SCEN ? a.S : 1, a.H, a.N);
   const long long smem = P.total * (long long)sizeof(float);
   if (smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
-      pdhg_log_utility_block_kernel<SCEN, ADAPT>,
+      pdhg_log_utility_block_kernel<SCEN, ADAPT, SHORT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  pdhg_log_utility_block_kernel<SCEN, ADAPT>
+  pdhg_log_utility_block_kernel<SCEN, ADAPT, SHORT>
       <<<a.B, block_threads(a.N), (size_t)smem,
          static_cast<cudaStream_t>(stream)>>>(a, ad, pipe);
   return (int)cudaGetLastError();
+}
+
+// short_ != 0: the hyperplane projection (allow_short).
+template <bool SCEN, bool ADAPT>
+int block_dispatch(const Args& a, const AdaptArgs& ad, int pipe, int short_,
+                   void* stream) {
+  return short_ ? block_launch<SCEN, ADAPT, true>(a, ad, pipe, stream)
+                : block_launch<SCEN, ADAPT, false>(a, ad, pipe, stream);
+}
+
+// A grid of min(grid, B) CTAs over the workspace ws of grid slots of
+// global_plan's floats (the wrapper allocates it).
+template <bool SCEN, bool ADAPT, bool SHORT>
+int global_launch(const Args& a, const AdaptArgs& ad, int pipe, float* ws,
+                  int grid, void* stream) {
+  if (bad_shape(a, SCEN) || grid <= 0 || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const GlobalPlan G = global_plan(SCEN ? a.S : 1, a.H, a.N);
+  const long long smem = G.smem * (long long)sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      pdhg_log_utility_global_kernel<SCEN, ADAPT, SHORT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ctas = grid < a.B ? grid : a.B;
+  pdhg_log_utility_global_kernel<SCEN, ADAPT, SHORT>
+      <<<ctas, block_threads(a.N), (size_t)smem,
+         static_cast<cudaStream_t>(stream)>>>(a, ad, pipe, ws);
+  return (int)cudaGetLastError();
+}
+
+template <bool SCEN, bool ADAPT>
+int global_dispatch(const Args& a, const AdaptArgs& ad, int pipe,
+                    int short_, void* ws, int grid, void* stream) {
+  float* const w = static_cast<float*>(ws);
+  return short_
+      ? global_launch<SCEN, ADAPT, true>(a, ad, pipe, w, grid, stream)
+      : global_launch<SCEN, ADAPT, false>(a, ad, pipe, w, grid, stream);
+}
+
+// CTAs of the global layout's kernel an SM holds at once (by its threads,
+// registers and shared memory), for the wrapper's grid; 0 on an error.
+template <bool SCEN, bool ADAPT>
+int global_ctas_per_sm(int S, int H, int N, int short_) {
+  const GlobalPlan G = global_plan(SCEN ? S : 1, H, N);
+  const size_t smem = (size_t)G.smem * sizeof(float);
+  int n = 0;
+  cudaError_t e;
+  if (short_) {
+    auto k = pdhg_log_utility_global_kernel<SCEN, ADAPT, true>;
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, k, block_threads(N), smem);
+  } else {
+    auto k = pdhg_log_utility_global_kernel<SCEN, ADAPT, false>;
+    e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, k, block_threads(N), smem);
+  }
+  return e == cudaSuccess ? n : 0;
 }
 
 }  // namespace

@@ -9,18 +9,19 @@
 #include "pdhg_log_utility_block.cuh"
 
 // r is [B, S, H, N]. w_warm, p_warm, p_out and steps_out may be null (see
-// pdhg_log_utility_block_adaptive.cu). Returns the launch's cudaError_t.
+// pdhg_log_utility_block_adaptive.cu). short_ != 0 projects the primal on the hyperplane
+// sum(w) = 1 (allow_short, with warm = 0). Returns the launch's cudaError_t.
 extern "C" int kmpc_pdhg_log_utility_scenarios_block_adaptive(
     const void* cw, const void* r, const void* w_warm, const void* p_warm,
     void* w_out, void* fp_out, void* p_out, void* steps_out, int B, int S,
     int H, int N, int max_iters, int adapt_every, int warm_iters,
     int cold_iters, float c, float tau_to, float ridge, float rho,
     float step_scale, float sigma_scale, int precond, int use_ball, int warm,
-    void* stream) {
+    int short_, void* stream) {
   const Args a = make_args(cw, r, w_warm, p_warm, w_out, fp_out, p_out, B, S,
                            H, N, max_iters, 0, warm_iters, cold_iters, c,
                            tau_to, ridge, rho, step_scale, sigma_scale,
                            precond, use_ball, warm);
   const AdaptArgs ad = {static_cast<float*>(steps_out), adapt_every};
-  return block_dispatch<true, true>(a, ad, 0, stream);
+  return block_dispatch<true, true>(a, ad, 0, short_, stream);
 }

@@ -7,17 +7,20 @@
 
 #include "pdhg_mean_variance_block.cuh"
 
-// sigma is [B, N, N], or [N, N] with `shared` = 1, and symmetric. Returns
-// the launch's cudaError_t.
+// sigma is [B, N, N], or [N, N] with `shared` = 1, and symmetric. short_
+// != 0 projects the primal on the hyperplane sum(w) = 1 (allow_short, with
+// warm = 0). Returns the launch's cudaError_t.
 extern "C" int kmpc_pdhg_mean_variance_block(
     const void* cw, const void* mu, const void* sigma, void* w_out,
     void* fp_out, int B, int H, int N, int shared, int max_iters,
     int refresh, int warm_iters, int cold_iters, float c, float gamma,
-    float rho, float step_scale, float sigma_scale, int warm, void* stream) {
+    float rho, float step_scale, float sigma_scale, int warm, int short_,
+    void* stream) {
   return mv_block_dispatch<false>(cw, mu, sigma, w_out, fp_out, nullptr, B,
                                   H, N, shared, max_iters, refresh,
                                   warm_iters, cold_iters, c, gamma, rho,
-                                  step_scale, sigma_scale, warm, stream);
+                                  step_scale, sigma_scale, warm, short_,
+                                  stream);
 }
 
 // Bytes of shared memory one problem of this shape takes in the block

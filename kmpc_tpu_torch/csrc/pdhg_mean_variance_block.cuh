@@ -34,6 +34,16 @@
 // iteration: a shared Sigma then stays resident in the 50 MB L2 and every
 // problem-iteration reads its N^2 floats from there.
 //
+// The global layout runs the same body for the shapes whose iterates do not
+// fit a block's shared memory (H=20 N=1000, H >= 33 N >= 500): w, p and the
+// projection and dual inputs in the CTA's slot of a global-memory
+// workspace (mv_global_plan), mu, the current weights and Sigma read in
+// place, a persistent grid of min(B, the CTAs the card holds at once).
+// SHORT (``allow_short``, both layouts): the primal projection is onto the
+// hyperplane sum(w) = 1 (a cold threshold of no sweeps, no clip), no
+// threshold carried, the start the hyperplane projection of the current
+// weights (kmpc_tpu/ops/mpc.py's mean-variance solver).
+//
 // Barriers per iteration: 1 for the product, 2 per Michelot sweep (a cold
 // projection 2 (cold_iters + 1)), 2 more on a balancing iteration (the two
 // residuals in one stacked reduce).
@@ -87,41 +97,72 @@ __host__ __device__ inline MvBlockPlan mv_block_plan(int H, int N) {
   return P;
 }
 
-template <bool ADAPT>
-__global__ void __launch_bounds__(kBlockMaxThreads)
-pdhg_mean_variance_block_kernel(MvArgs a, MvAdaptArgs ad) {
-  extern __shared__ float smem[];
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int b = blockIdx.x;
-  const int H = a.H, N = a.N;
-  const MvBlockPlan P = mv_block_plan(H, N);
-  float* const w = smem + P.w;
-  float* const p = smem + P.p;
-  float* const mu = smem + P.mu;
-  float* const vm = smem + P.vm;  // the projection input, then w_new
-  float* const q = smem + P.q;    // p_new (adaptive body)
-  float* const cw = smem + P.cw;
-  float* const thw = smem + P.thw;
-  float* const res = smem + P.res;
-  const BlockCtx ctx{tid, T, H, N, smem + P.red};
+// The global layout's plan for kernel C, per CTA of a persistent grid: w,
+// p, the projection input and the dual input as [H][N] in the CTA's slot of
+// a global-memory workspace (mu, the current weights and Sigma are read in
+// place); the thresholds, the residuals and the reduce staging (mv_block_plan's
+// thw, res and red: H + 4 + (warps) 2 H floats) in shared memory where they
+// fit a block's, else in the slot after the four arrays (smem 0).
+struct MvGlobalPlan {
+  long long w, p, vm, q, small, slot, smem;
+};
 
-  // Sigma: staged by the whole block, or this problem's (or the shared)
-  // matrix in global memory.
-  const float* const src = a.sigma + (a.shared ? 0 : (size_t)b * N * N);
-  const float* Sg = src;
-  if (P.staged) {
-    float* const s = smem + P.sg;
-    for (int k = tid; k < N * N; k += T) s[k] = src[k];
-    Sg = s;
+__host__ __device__ inline long long mv_small_floats(int H, int N) {
+  return H + 4 + (block_threads(N) / 32) * 2LL * H;
+}
+
+__host__ __device__ inline MvGlobalPlan mv_global_plan(int H, int N) {
+  MvGlobalPlan G;
+  const long long HN = (long long)H * N;
+  const long long small = mv_small_floats(H, N);
+  G.w = 0;
+  G.p = HN;
+  G.vm = 2 * HN;
+  G.q = 3 * HN;
+  if (small * (long long)sizeof(float) <= kSmemPerBlock) {
+    G.small = -1;
+    G.slot = 4 * HN;
+    G.smem = small;
+  } else {
+    G.small = 4 * HN;
+    G.slot = 4 * HN + small;
+    G.smem = 0;
   }
-  // Inputs, by the thread that owns the column.
-  for (int i = tid; i < N; i += T) {
-    cw[i] = a.cw[(size_t)b * N + i];
-    for (int t = 0; t < H; ++t) {
-      mu[t * N + i] = a.mu[((size_t)b * H + t) * N + i];
-      p[t * N + i] = 0.f;
-    }
-  }
+  return G;
+}
+
+// Where one problem's arrays live while its CTA solves it: mu, the current
+// weights and Sigma (in shared memory in the block layout where staged, in
+// place in the inputs in the global layout), the four [H][N] iterates, and
+// the thresholds, residuals and reduce staging (thw, res, red in order).
+struct MvMem {
+  const float *mu, *cw, *Sg;
+  float *w, *p, *vm, *q;
+  float *small;
+};
+
+// The solve of problem b by the whole CTA; SHORT (``allow_short``): the
+// primal projection is onto the hyperplane sum(w) = 1 (a cold threshold of
+// no sweeps, unclipped), with warm = 0 from the wrapper.
+template <bool ADAPT, bool SHORT>
+__device__ __forceinline__ void mv_block_solve(const MvArgs& a,
+                                               const MvAdaptArgs& ad, int b,
+                                               const MvMem& m) {
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int H = a.H, N = a.N;
+  float* const w = m.w;
+  float* const p = m.p;
+  const float* const mu = m.mu;
+  float* const vm = m.vm;  // the projection input, then w_new
+  float* const q = m.q;    // p_new (adaptive body)
+  const float* const cw = m.cw;
+  float* const thw = m.small;
+  float* const res = m.small + H;
+  const BlockCtx ctx{tid, T, H, N, m.small + H + 4};
+  const float* const Sg = m.Sg;
+
+  for (int i = tid; i < N; i += T)
+    for (int t = 0; t < H; ++t) p[t * N + i] = 0.f;
   __syncthreads();
 
   // L = max(2 gamma ||Sigma||_F, 1e-6); sigma = sigma_scale sqrt(L + 1) / 2;
@@ -148,14 +189,21 @@ pdhg_mean_variance_block_kernel(MvArgs a, MvAdaptArgs ad) {
 
   auto one = [](int) { return 1.f; };
   auto at_vm = [=](int t, int i) { return vm[t * N + i]; };
+  auto proj = [](float x) { return SHORT ? x : jmax(x, 0.f); };
+  auto primal_threshold = [=](bool cold, int n) {
+    if constexpr (SHORT)
+      block_threshold(ctx, at_vm, thw, one, true, 0);
+    else
+      block_threshold(ctx, at_vm, thw, one, cold, n);
+  };
 
   // w0 = cold simplex projection of the current weights on every row.
   for (int i = tid; i < N; i += T)
     for (int t = 0; t < H; ++t) vm[t * N + i] = cw[i];
-  block_threshold(ctx, at_vm, thw, one, true, a.cold_iters);
+  primal_threshold(true, a.cold_iters);
   for (int i = tid; i < N; i += T)
     for (int t = 0; t < H; ++t)
-      w[t * N + i] = jmax(vm[t * N + i] - thw[t], 0.f);
+      w[t * N + i] = proj(vm[t * N + i] - thw[t]);
 
   // v = w - tau ((2 gamma Sigma w_t - mu_t) + D'p) into vm, down the
   // thread's columns; the barrier orders the product after every column's
@@ -211,14 +259,14 @@ pdhg_mean_variance_block_kernel(MvArgs a, MvAdaptArgs ad) {
       else
         n_sw = a.warm_iters;
       primal(tau);
-      block_threshold(ctx, at_vm, thw, one, !warm, n_sw);
+      primal_threshold(!warm, n_sw);
       // The new primal, the dual q = p + sigma D(2 w_new - w) clipped to
       // [-c, c], and the update, row by row down the thread's columns.
       for (int i = tid; i < N; i += T) {
         float wbp = cw[i];
         for (int t = 0; t < H; ++t) {
           const int e = t * N + i;
-          const float wn = jmax(vm[e] - thw[t], 0.f);
+          const float wn = proj(vm[e] - thw[t]);
           const float wb = 2.f * wn - w[e];
           const float pn = jmin(jmax(p[e] + sig * (wb - wbp), -a.c), a.c);
           wbp = wb;
@@ -230,12 +278,12 @@ pdhg_mean_variance_block_kernel(MvArgs a, MvAdaptArgs ad) {
     const int n_sw = warm ? a.warm_iters : a.cold_iters;
     for (int it = 0; it < a.max_iters; ++it) {
       primal(tau);
-      block_threshold(ctx, at_vm, thw, one, !warm, n_sw);
+      primal_threshold(!warm, n_sw);
       for (int i = tid; i < N; i += T) {
         float wbp = cw[i];
         for (int t = 0; t < H; ++t) {
           const int e = t * N + i;
-          const float wn = jmax(vm[e] - thw[t], 0.f);
+          const float wn = proj(vm[e] - thw[t]);
           const float wb = 2.f * wn - w[e];
           q[e] = jmin(jmax(p[e] + sig * (wb - wbp), -a.c), a.c);
           vm[e] = wn;
@@ -305,12 +353,12 @@ pdhg_mean_variance_block_kernel(MvArgs a, MvAdaptArgs ad) {
   // Extra primal half-step with a cold full-budget projection: the
   // returned iterate is w_last and fp = max |w_last - w|.
   primal(tau);
-  block_threshold(ctx, at_vm, thw, one, true, a.cold_iters);
+  primal_threshold(true, a.cold_iters);
   float fp = 0.f;
   for (int i = tid; i < N; i += T) {
     for (int t = 0; t < H; ++t) {
       const int e = t * N + i;
-      const float wl = jmax(vm[e] - thw[t], 0.f);
+      const float wl = proj(vm[e] - thw[t]);
       fp = jmax(fp, fabsf(wl - w[e]));
       a.w_out[((size_t)b * H + t) * N + i] = wl;
     }
@@ -320,20 +368,67 @@ pdhg_mean_variance_block_kernel(MvArgs a, MvAdaptArgs ad) {
       [=](int, auto tot) { a.fp_out[b] = tot(0); });
 }
 
-// One block per problem, the shared memory of mv_block_plan (above 48 KB
-// by opt-in). `shared` = 1: sigma is one [N, N] matrix for the whole
-// batch; `schedule` is `refresh` for the fixed-step body and `adapt_every`
-// for the adaptive one; `steps_out` may be null. Shapes whose iterates do
-// not fit a block's shared memory return cudaErrorInvalidValue (the
-// wrapper checks first).
+// The block layout: one CTA per problem, its arrays in shared memory at the
+// offsets of mv_block_plan; Sigma staged there where it fits, else read
+// from global memory. The inputs are copied in by the thread that owns the
+// column; the body's first barrier orders them before any other read.
+template <bool ADAPT, bool SHORT>
+__global__ void __launch_bounds__(kBlockMaxThreads)
+pdhg_mean_variance_block_kernel(MvArgs a, MvAdaptArgs ad) {
+  extern __shared__ float smem[];
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int b = blockIdx.x;
+  const int H = a.H, N = a.N;
+  const MvBlockPlan P = mv_block_plan(H, N);
+  const float* const src = a.sigma + (a.shared ? 0 : (size_t)b * N * N);
+  const float* Sg = src;
+  if (P.staged) {
+    float* const s = smem + P.sg;
+    for (int k = tid; k < N * N; k += T) s[k] = src[k];
+    Sg = s;
+  }
+  float* const mu = smem + P.mu;
+  float* const cw = smem + P.cw;
+  for (int i = tid; i < N; i += T) {
+    cw[i] = a.cw[(size_t)b * N + i];
+    for (int t = 0; t < H; ++t)
+      mu[t * N + i] = a.mu[((size_t)b * H + t) * N + i];
+  }
+  const MvMem m{mu, cw, Sg, smem + P.w, smem + P.p, smem + P.vm,
+                smem + P.q, smem + P.thw};
+  mv_block_solve<ADAPT, SHORT>(a, ad, b, m);
+}
+
+// The global layout: the same body for the shapes whose iterates do not
+// fit a block's shared memory. A persistent grid; CTA k solves problems
+// k, k + gridDim.x, ... with its iterates in slot k of the workspace
+// (mv_global_plan), mu and the current weights read in place and Sigma
+// read from global memory (the shared one stays resident in L2).
+template <bool ADAPT, bool SHORT>
+__global__ void __launch_bounds__(kBlockMaxThreads)
+pdhg_mean_variance_global_kernel(MvArgs a, MvAdaptArgs ad, float* ws) {
+  extern __shared__ float smem[];
+  const int H = a.H, N = a.N;
+  const MvGlobalPlan G = mv_global_plan(H, N);
+  float* const slot = ws + (size_t)blockIdx.x * G.slot;
+  float* const small = G.small < 0 ? smem : slot + G.small;
+  for (int b = blockIdx.x; b < a.B; b += gridDim.x) {
+    const MvMem m{a.mu + (size_t)b * H * N, a.cw + (size_t)b * N,
+                  a.sigma + (a.shared ? 0 : (size_t)b * N * N), slot + G.w,
+                  slot + G.p, slot + G.vm, slot + G.q, small};
+    mv_block_solve<ADAPT, SHORT>(a, ad, b, m);
+  }
+}
+
+// `shared` = 1: sigma is one [N, N] matrix for the whole batch; `schedule`
+// is `refresh` for the fixed-step body and `adapt_every` for the adaptive
+// one; `steps_out` may be null.
 template <bool ADAPT>
-int mv_block_dispatch(
-    const void* cw, const void* mu, const void* sigma, void* w_out,
-    void* fp_out, void* steps_out, int B, int H, int N, int shared,
-    int max_iters, int schedule, int warm_iters, int cold_iters, float c,
-    float gamma, float rho, float step_scale, float sigma_scale, int warm,
-    void* stream) {
-  if (B <= 0 || H <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+MvArgs make_mv_args(const void* cw, const void* mu, const void* sigma,
+                    void* w_out, void* fp_out, int B, int H, int N,
+                    int shared, int max_iters, int schedule, int warm_iters,
+                    int cold_iters, float c, float gamma, float rho,
+                    float step_scale, float sigma_scale, int warm) {
   MvArgs a;
   a.cw = static_cast<const float*>(cw);
   a.mu = static_cast<const float*>(mu);
@@ -354,19 +449,80 @@ int mv_block_dispatch(
   a.step_scale = step_scale;
   a.sigma_scale = sigma_scale;
   a.warm = warm;
+  return a;
+}
+
+// One block per problem, the shared memory of mv_block_plan (above 48 KB
+// by opt-in); short_ != 0 projects on the hyperplane (allow_short). Shapes
+// whose iterates do not fit a block's shared memory return
+// cudaErrorInvalidValue (the wrapper checks first).
+template <bool ADAPT>
+int mv_block_dispatch(
+    const void* cw, const void* mu, const void* sigma, void* w_out,
+    void* fp_out, void* steps_out, int B, int H, int N, int shared,
+    int max_iters, int schedule, int warm_iters, int cold_iters, float c,
+    float gamma, float rho, float step_scale, float sigma_scale, int warm,
+    int short_, void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0) return (int)cudaErrorInvalidValue;
+  const MvArgs a = make_mv_args<ADAPT>(
+      cw, mu, sigma, w_out, fp_out, B, H, N, shared, max_iters, schedule,
+      warm_iters, cold_iters, c, gamma, rho, step_scale, sigma_scale, warm);
   const MvAdaptArgs ad = {static_cast<float*>(steps_out),
                           ADAPT ? schedule : 0};
   const MvBlockPlan P = mv_block_plan(H, N);
   const long long smem = P.total * (long long)sizeof(float);
   if (smem > kSmemPerBlock) return (int)cudaErrorInvalidValue;
+  auto k = short_ ? &pdhg_mean_variance_block_kernel<ADAPT, true>
+                  : &pdhg_mean_variance_block_kernel<ADAPT, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      pdhg_mean_variance_block_kernel<ADAPT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  pdhg_mean_variance_block_kernel<ADAPT>
-      <<<B, block_threads(N), (size_t)smem,
-         static_cast<cudaStream_t>(stream)>>>(a, ad);
+  k<<<B, block_threads(N), (size_t)smem,
+      static_cast<cudaStream_t>(stream)>>>(a, ad);
   return (int)cudaGetLastError();
+}
+
+// A grid of min(grid, B) CTAs over the workspace ws of grid slots of
+// mv_global_plan's floats (the wrapper allocates it).
+template <bool ADAPT>
+int mv_global_dispatch(
+    const void* cw, const void* mu, const void* sigma, void* w_out,
+    void* fp_out, void* steps_out, int B, int H, int N, int shared,
+    int max_iters, int schedule, int warm_iters, int cold_iters, float c,
+    float gamma, float rho, float step_scale, float sigma_scale, int warm,
+    int short_, void* ws, int grid, void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0 || grid <= 0 || ws == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const MvArgs a = make_mv_args<ADAPT>(
+      cw, mu, sigma, w_out, fp_out, B, H, N, shared, max_iters, schedule,
+      warm_iters, cold_iters, c, gamma, rho, step_scale, sigma_scale, warm);
+  const MvAdaptArgs ad = {static_cast<float*>(steps_out),
+                          ADAPT ? schedule : 0};
+  const long long smem = mv_global_plan(H, N).smem * (long long)sizeof(float);
+  auto k = short_ ? &pdhg_mean_variance_global_kernel<ADAPT, true>
+                  : &pdhg_mean_variance_global_kernel<ADAPT, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  const int ctas = grid < B ? grid : B;
+  k<<<ctas, block_threads(N), (size_t)smem,
+      static_cast<cudaStream_t>(stream)>>>(a, ad, static_cast<float*>(ws));
+  return (int)cudaGetLastError();
+}
+
+// CTAs of the global layout's kernel an SM holds at once; 0 on an error.
+template <bool ADAPT>
+int mv_global_ctas_per_sm(int H, int N, int short_) {
+  const size_t smem = (size_t)mv_global_plan(H, N).smem * sizeof(float);
+  auto k = short_ ? &pdhg_mean_variance_global_kernel<ADAPT, true>
+                  : &pdhg_mean_variance_global_kernel<ADAPT, false>;
+  int n = 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, k,
+                                                      block_threads(N), smem);
+  return e == cudaSuccess ? n : 0;
 }
 
 }  // namespace

@@ -26,16 +26,20 @@ take warm primal/dual iterates (the simplex threshold then starts cold on
 the warm primal, the ball threshold from zero) and can write the loop's
 last dual.
 
-Four layouts: one CTA per problem and one warp per horizon row
+Five layouts: one CTA per problem and one warp per horizon row
 (``csrc/pdhg_log_utility_rows.cuh``, up to 32 rows of ceil(N/32) <= 4
 slots, any number of scenarios), one warp per problem with the iterates in
 registers (``csrc/pdhg_log_utility.cuh``, up to pow2ceil(H) * ceil(N/32) =
 16), the wide-row layout past 128 assets, one warp per horizon row with the
 row in shared memory (``csrc/pdhg_log_utility_wide.cuh``, up to 32 rows, as
 many slots as the shared memory holds, one forecast or any number of
-scenarios), and one block per problem with the iterates in shared memory
+scenarios), one block per problem with the iterates in shared memory
 (``csrc/pdhg_log_utility_block.cuh``, every shape whose problem fits a
-block's shared memory: long horizons, hundreds of assets). In the row and
+block's shared memory: long horizons, hundreds of assets), and the global
+layout, the block layout's body with its iterates in a global-memory
+workspace, one slot a CTA of a persistent grid (the same header; every
+other shape: S=16 at H=20 N=500, one forecast at H=20 N=1000, H=252). In the
+row and
 wide-row layouts a problem's scenario returns sit in registers (the row
 layout, S ceil(N/32) <= 16), resident in the CTA's shared memory, or
 streamed through each warp's ring of chunk stages (``STORAGES``;
@@ -43,13 +47,17 @@ streamed through each warp's ring of chunk stages (``STORAGES``;
 not grow with S. A CUDA tensor launches the row kernel where it fits (the
 fastest layout at every shape measured), else the wide kernel where it
 measured faster than the block kernel (``wide_preferred``), else the block
-kernel, else the wide kernel where it takes the shape, else raises; no
-shape routes to the warp layout, which the row layout takes wherever both
-fit (the private launch of chip_smoke.py still runs it). A CPU tensor runs
-``pdhg_log_utility_plain``, the same iteration as plain tensor code, the
-plain version of every layout.
-``allow_short`` raises here (the kernels project on the simplex only): a
-caller who wants shorts calls the eager solvers by name.
+kernel, else the wide kernel where it takes the shape, else the global
+kernel; no shape routes to the warp layout, which the row layout takes
+wherever both fit (the private launch of chip_smoke.py still runs it). So
+every input kmpc_tpu's packed wrappers answer runs on the card, where
+kmpc_tpu hands some to its XLA solver; only a global workspace past the
+card's free memory raises. ``allow_short`` (shorts: the primal projected on
+the hyperplane sum(w) = 1, no threshold carried, as kmpc_tpu's XLA solver
+does it) runs in the block layout where one problem fits a block's shared
+memory, else in the global layout, by a flag of their kernels. A CPU tensor
+runs ``pdhg_log_utility_plain``, the same iteration as plain tensor code,
+the plain version of every layout.
 """
 
 from __future__ import annotations
@@ -112,27 +120,55 @@ PDHG_LOG_UTILITY_SCENARIOS_PIPE = CudaKernel(
     "pdhg_log_utility_scenarios_pipe", "kmpc_pdhg_log_utility_scenarios_pipe",
     [_P] * 7 + [_I, _I] + _TAIL,
 )
-# The block-per-problem layout: the fixed-step kernels take a last int
-# before the stream, 1 for the pipelined body; the adaptive ones take the
-# adaptive kernels' arguments.
+# The row and wide-row layouts' fixed-step kernels take a last int before
+# the stream, 1 for the pipelined body.
 _TAIL_BLOCK = _TAIL[:-1] + [_I, _P]
+# The block-per-problem layout: the fixed-step kernels take the pipelined
+# body's int and then the ``allow_short`` int (1: the hyperplane
+# projection) before the stream, the adaptive ones the adaptive kernels'
+# arguments and then the ``allow_short`` int.
+_TAIL_SHORT = _TAIL[:-1] + [_I, _I, _P]
+_TAIL_SHORT_ADAPTIVE = _TAIL[:-1] + [_I, _P]
 PDHG_LOG_UTILITY_BLOCK = CudaKernel(
     "pdhg_log_utility_block", "kmpc_pdhg_log_utility_block",
-    [_P] * 7 + [_I] + _TAIL_BLOCK,
+    [_P] * 7 + [_I] + _TAIL_SHORT,
 )
 PDHG_LOG_UTILITY_SCENARIOS_BLOCK = CudaKernel(
     "pdhg_log_utility_scenarios_block",
     "kmpc_pdhg_log_utility_scenarios_block",
-    [_P] * 7 + [_I, _I] + _TAIL_BLOCK,
+    [_P] * 7 + [_I, _I] + _TAIL_SHORT,
 )
 PDHG_LOG_UTILITY_BLOCK_ADAPTIVE = CudaKernel(
     "pdhg_log_utility_block_adaptive", "kmpc_pdhg_log_utility_block_adaptive",
-    [_P] * 8 + [_I] + _TAIL,
+    [_P] * 8 + [_I] + _TAIL_SHORT_ADAPTIVE,
 )
 PDHG_LOG_UTILITY_SCENARIOS_BLOCK_ADAPTIVE = CudaKernel(
     "pdhg_log_utility_scenarios_block_adaptive",
     "kmpc_pdhg_log_utility_scenarios_block_adaptive",
-    [_P] * 8 + [_I, _I] + _TAIL,
+    [_P] * 8 + [_I, _I] + _TAIL_SHORT_ADAPTIVE,
+)
+# The global layout: the block layout's arguments, then the workspace and
+# the grid before the stream.
+_TAIL_GLOBAL = _TAIL_SHORT[:-1] + [_P, _I, _P]
+_TAIL_GLOBAL_ADAPTIVE = _TAIL_SHORT_ADAPTIVE[:-1] + [_P, _I, _P]
+PDHG_LOG_UTILITY_GLOBAL = CudaKernel(
+    "pdhg_log_utility_global", "kmpc_pdhg_log_utility_global",
+    [_P] * 7 + [_I] + _TAIL_GLOBAL,
+)
+PDHG_LOG_UTILITY_SCENARIOS_GLOBAL = CudaKernel(
+    "pdhg_log_utility_scenarios_global",
+    "kmpc_pdhg_log_utility_scenarios_global",
+    [_P] * 7 + [_I, _I] + _TAIL_GLOBAL,
+)
+PDHG_LOG_UTILITY_GLOBAL_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_global_adaptive",
+    "kmpc_pdhg_log_utility_global_adaptive",
+    [_P] * 8 + [_I] + _TAIL_GLOBAL_ADAPTIVE,
+)
+PDHG_LOG_UTILITY_SCENARIOS_GLOBAL_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_scenarios_global_adaptive",
+    "kmpc_pdhg_log_utility_scenarios_global_adaptive",
+    [_P] * 8 + [_I, _I] + _TAIL_GLOBAL_ADAPTIVE,
 )
 # The scenario kernels of the row and wide-row layouts take one more int
 # before the stream: the storage of the returns (STORAGES' index).
@@ -202,15 +238,35 @@ _KERNELS = {
     (True, "wide", "fixed"): PDHG_LOG_UTILITY_SCENARIOS_WIDE,
     (True, "wide", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_WIDE,
     (True, "wide", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_WIDE_ADAPTIVE,
+    (False, "global", "fixed"): PDHG_LOG_UTILITY_GLOBAL,
+    (False, "global", "pipe"): PDHG_LOG_UTILITY_GLOBAL,
+    (False, "global", "adaptive"): PDHG_LOG_UTILITY_GLOBAL_ADAPTIVE,
+    (True, "global", "fixed"): PDHG_LOG_UTILITY_SCENARIOS_GLOBAL,
+    (True, "global", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_GLOBAL,
+    (True, "global", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_GLOBAL_ADAPTIVE,
 }
 KERNELS = tuple(dict.fromkeys(_KERNELS.values()))
-# In the order routing prefers them.
-LAYOUTS = ("rows", "warp", "wide", "block")
-# The block, row and wide layouts' fixed-step kernels run the pipelined
-# body by a flag.
+# In the order routing prefers them; the global layout takes every shape.
+LAYOUTS = ("rows", "warp", "wide", "block", "global")
+# The block, row, wide and global layouts' fixed-step kernels run the
+# pipelined body by a flag.
 _PIPE_FLAG = (PDHG_LOG_UTILITY_BLOCK, PDHG_LOG_UTILITY_SCENARIOS_BLOCK,
               PDHG_LOG_UTILITY_ROWS, PDHG_LOG_UTILITY_SCENARIOS_ROWS,
-              PDHG_LOG_UTILITY_WIDE, PDHG_LOG_UTILITY_SCENARIOS_WIDE)
+              PDHG_LOG_UTILITY_WIDE, PDHG_LOG_UTILITY_SCENARIOS_WIDE,
+              PDHG_LOG_UTILITY_GLOBAL, PDHG_LOG_UTILITY_SCENARIOS_GLOBAL)
+# The global layout's kernels, which take a workspace and a grid.
+_GLOBAL = (PDHG_LOG_UTILITY_GLOBAL, PDHG_LOG_UTILITY_SCENARIOS_GLOBAL,
+           PDHG_LOG_UTILITY_GLOBAL_ADAPTIVE,
+           PDHG_LOG_UTILITY_SCENARIOS_GLOBAL_ADAPTIVE)
+# The kernels that take the ``allow_short`` flag: the block and global
+# layouts' (the layouts that ``allow_short`` routes to).
+_SHORT_ARG = (PDHG_LOG_UTILITY_BLOCK, PDHG_LOG_UTILITY_SCENARIOS_BLOCK,
+              PDHG_LOG_UTILITY_BLOCK_ADAPTIVE,
+              PDHG_LOG_UTILITY_SCENARIOS_BLOCK_ADAPTIVE) + _GLOBAL
+SHORT_LAYOUTS = ("block", "global")
+# Launches with ``allow_short`` by kernel name, counted beside each
+# kernel's ``launches``.
+SHORT_LAUNCHES: Dict[str, int] = {}
 # The kernels that take the storage of the scenario returns.
 _STORAGE_ARG = (PDHG_LOG_UTILITY_SCENARIOS_ROWS,
                 PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE,
@@ -279,6 +335,35 @@ def block_smem_bytes(S: Optional[int], H: int, N: int) -> int:
     floats = (s1 + 4) * H * N + N + 8 * H + 2 * s1 * H + 4 \
         + block_threads(N) // 32 * (s1 * H + 3 * H)
     return 4 * floats
+
+
+def _small_floats(S: Optional[int], H: int, N: int) -> int:
+    """Floats of ``small_plan`` in csrc/pdhg_log_utility_block.cuh: eight
+    per-row values, the portfolio reciprocals and curvature ratios per
+    scenario and row, four residual slots and each warp's staging of the
+    largest stacked reduce."""
+    s1 = S or 1
+    return 8 * H + 2 * s1 * H + 4 + block_threads(N) // 32 * (s1 * H + 3 * H)
+
+
+def global_smem_bytes(S: Optional[int], H: int, N: int) -> int:
+    """Shared memory of one CTA in the global layout (``global_plan`` in
+    csrc/pdhg_log_utility_block.cuh): the small plan where it fits a
+    block's shared memory, else none."""
+    small = 4 * _small_floats(S, H, N)
+    return small if small <= SMEM_PER_BLOCK else 0
+
+
+def global_workspace_bytes(S: Optional[int], H: int, N: int,
+                           grid: int) -> int:
+    """Bytes of the global layout's workspace for a grid of ``grid`` CTAs
+    (``global_plan``): each CTA's slot holds w, p, the projection input and
+    the dual input as [H][N] (the returns and the current weights are read
+    in place), and the small plan where it does not fit shared memory."""
+    floats = 4 * H * N
+    if global_smem_bytes(S, H, N) == 0:
+        floats += _small_floats(S, H, N)
+    return 4 * floats * grid
 
 
 def block_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
@@ -507,8 +592,15 @@ def wide_preferred(H: int, N: int, S: Optional[int] = None) -> bool:
     return wide_resident_warps(H, N, S) >= WIDE_MIN_WARPS
 
 
-def layout_supports(layout: str, S: Optional[int], H: int, N: int) -> bool:
-    """Whether ``layout``'s kernels take a problem of this shape."""
+def layout_supports(layout: str, S: Optional[int], H: int, N: int,
+                    allow_short: bool = False) -> bool:
+    """Whether ``layout``'s kernels take a problem of this shape (with
+    ``allow_short``: and project on the hyperplane, which only the block
+    and global layouts do)."""
+    if allow_short and layout not in SHORT_LAYOUTS:
+        return False
+    if layout == "global":
+        return H >= 1 and N >= 1 and (S is None or S >= 1)
     if layout == "warp":
         return kernel_supports(H, N) and (
             S is None or scenario_kernel_supports(S, H, N))
@@ -519,7 +611,8 @@ def layout_supports(layout: str, S: Optional[int], H: int, N: int) -> bool:
     return layout == "block" and block_kernel_supports(S, H, N)
 
 
-def kernel_layout(S: Optional[int], H: int, N: int) -> Optional[str]:
+def kernel_layout(S: Optional[int], H: int, N: int,
+                  allow_short: bool = False) -> Optional[str]:
     """The layout a CUDA solve of this shape runs in: ``"rows"`` (one CTA
     per problem, one warp per horizon row) wherever it fits, which at
     H <= 32 and N <= 128 is every shape, any S (the warp layout, one warp
@@ -528,7 +621,13 @@ def kernel_layout(S: Optional[int], H: int, N: int) -> Optional[str]:
     shared memory) where it fits and ``wide_preferred``, else ``"block"``
     (one block per problem, the iterates in shared memory), else
     ``"wide"`` where it fits (a scenario shape the block layout cannot
-    hold), else None. By measurement: the row layout was faster than the
+    hold), else ``"global"`` (the block layout's body with its iterates in a
+    global-memory workspace: every shape, whatever S, H and N; a workspace
+    past the card's free memory raises at launch and names its bytes).
+    With ``allow_short`` (the hyperplane projection, in the block and global
+    layouts only) ``"block"`` where one problem fits a block's shared
+    memory, else ``"global"``. None only for S, H or N below 1. By
+    measurement: the row layout was faster than the
     warp and block layouts at every shape and batch chip_smoke.py's
     ``layouts`` phase times (B from 1 to 65536, H from 1 to 20, S up to
     501), the wide layout faster than the block layout at N=150 and N=500
@@ -538,28 +637,24 @@ def kernel_layout(S: Optional[int], H: int, N: int) -> Optional[str]:
     so a batch of one problem at one or two rows past 1000 assets, where
     the block layout's pipelined and adaptive bodies are faster, runs wide
     (PERF.md section 6)."""
-    for layout in LAYOUTS:
+    if not layout_supports("global", S, H, N):
+        return None
+    if allow_short:
+        return "block" if block_kernel_supports(S, H, N) else "global"
+    for layout in LAYOUTS[:-1]:
         if layout_supports(layout, S, H, N) and (
                 layout != "wide" or wide_preferred(H, N, S)):
             return layout
-    return "wide" if layout_supports("wide", S, H, N) else None
-
-
-def _check_params(params: MPCParams, entry: str) -> None:
-    reject_unhonored_polish(params, entry)
-    if params.allow_short:
-        raise NotImplementedError(
-            f"{entry}: the kernel projects on the simplex only; "
-            "allow_short is solved by the eager solvers "
-            "(solve_mpc_log_utility_batch, solve_mpc_log_utility_scenarios)"
-        )
+    return "wide" if layout_supports("wide", S, H, N) else "global"
 
 
 def _pipelined(params: MPCParams) -> bool:
     """Whether the solve runs ``make_trip_pipe``: pipelined reductions with
-    a refresh schedule and warm thresholds, never under ``adaptive``."""
+    a refresh schedule and warm thresholds, never under ``adaptive`` or
+    ``allow_short`` (which carries no threshold)."""
     return (params.pipeline_reduces and not params.adaptive
-            and params.proj_warm_iters >= 1 and params.proj_refresh_every > 1)
+            and _sweep_budgets(params, 1)[0]
+            and params.proj_refresh_every > 1)
 
 
 def _moved(pr: torch.Tensor, dr: torch.Tensor) -> torch.Tensor:
@@ -613,9 +708,11 @@ def _check_return_steps(params: MPCParams, return_steps: bool) -> None:
 
 def _sweep_budgets(params: MPCParams, N: int) -> Tuple[bool, int, int]:
     """(warm, warm_iters, cold_iters): sweeps per projection from a carried
-    threshold, and the cold budget (8 / 12 / 16 by N)."""
+    threshold, and the cold budget (8 / 12 / 16 by N). ``allow_short``
+    carries no threshold (kmpc_tpu's ``warm = ... and not allow_short``):
+    the dual's ball threshold then starts cold every iteration."""
     cold_iters = michelot_iters_for(N)
-    warm = params.proj_warm_iters >= 1
+    warm = params.proj_warm_iters >= 1 and not params.allow_short
     return warm, params.proj_warm_iters if warm else cold_iters, cold_iters
 
 
@@ -640,9 +737,11 @@ def pdhg_log_utility_plain(
     iterations that moved the steps (+(i + 1) where tau grew, -(i + 1) where
     it shrank). Two runs whose balancing decisions were the same end on the
     same steps and the same sum; where they part, the residuals show how
-    close to a tie (pr = 1.5 dr or dr = 1.5 pr) the decision was.
+    close to a tie (pr = 1.5 dr or dr = 1.5 pr) the decision was. With
+    ``allow_short`` the primal projection is onto the hyperplane sum(w) = 1
+    (a cold threshold of no sweeps, unclipped) and no threshold is carried.
     """
-    _check_params(params, "pdhg_log_utility_plain")
+    reject_unhonored_polish(params, "pdhg_log_utility_plain")
     _check_return_steps(params, return_steps)
     scen = r.dim() == 4
     B, H, N = r.shape[0], r.shape[-2], r.shape[-1]
@@ -653,6 +752,7 @@ def pdhg_log_utility_plain(
     ridge = params.ridge
     rho = params.over_relax
     warm, warm_iters, cold_iters = _sweep_budgets(params, N)
+    short = params.allow_short
     refresh = params.proj_refresh_every
     # Under ``adaptive`` the refresh schedule is off: every iteration runs
     # the full projection budget.
@@ -692,9 +792,8 @@ def pdhg_log_utility_plain(
         return base + (g - tau * Dt(p))
 
     if w_warm is None:
-        v0 = w_init[:, None, :].expand(B, H, N)
-        th_w = michelot_threshold(v0, 1.0, cold_iters)
-        w = torch.clamp(v0 - th_w, min=0.0)
+        w, th_w = project_primal(
+            w_init[:, None, :].expand(B, H, N), short, cold_iters)
         p = torch.zeros_like(w)
     else:
         # A cold threshold on the warm primal; the iterate itself is kept.
@@ -717,8 +816,8 @@ def pdhg_log_utility_plain(
         if ridge != 0.0:
             grad = grad + ridge * w
         v = w - tau_c * (grad + Dt(p))
-        th_w = michelot_threshold(v, 1.0, warm_iters, th_w if warm else None)
-        w_new = torch.clamp(v - th_w, min=0.0)
+        w_new, th_w = project_primal(v, short, warm_iters,
+                                     th_w if warm else None)
         q = p + sig_c * D(2.0 * w_new - w)
         inv_s = 1.0 / sig_c
         v = q * inv_s
@@ -770,8 +869,8 @@ def pdhg_log_utility_plain(
             else:
                 n_sw = warm_iters
         v = primal_pre(w, p)
-        th_w = michelot_threshold(v, 1.0, n_sw, th_w if warm else None)
-        w_new = torch.clamp(v - th_w, min=0.0)
+        w_new, th_w = project_primal(v, short, n_sw,
+                                     th_w if warm else None)
         q = p + sigma * D(2.0 * w_new - w)
         aq = torch.clamp(q.abs() - c, min=0.0)
         if use_ball:
@@ -846,10 +945,23 @@ def pdhg_log_utility_plain(
     if ridge != 0.0:
         grad = grad + ridge * w
     v = w - tau * (grad + Dt(p))
-    w_last = torch.clamp(v - michelot_threshold(v, 1.0, cold_iters), min=0.0)
+    w_last = project_primal(v, short, cold_iters)[0]
     fp = (w_last - w).abs().amax(dim=(1, 2))
     out = (w_last, fp) + ((p,) if return_dual else ())
     return out + ((steps,) if return_steps else ())
+
+
+def project_primal(v: torch.Tensor, allow_short: bool, n_sw: int,
+                   theta0: Optional[torch.Tensor] = None):
+    """(the primal projection of v on each row, its threshold), as the
+    kernels project: onto the simplex by ``n_sw`` Michelot sweeps from
+    ``theta0`` or a cold start; with ``allow_short`` onto the hyperplane
+    sum(w) = 1 (the cold threshold, (sum - 1) / N, unclipped)."""
+    if allow_short:
+        theta = michelot_threshold(v, 1.0, 0)
+        return v - theta, theta
+    theta = michelot_threshold(v, 1.0, n_sw, theta0)
+    return torch.clamp(v - theta, min=0.0), theta
 
 
 def _require_cuda_f32(**tensors) -> None:
@@ -874,24 +986,12 @@ def _body(params: MPCParams) -> str:
 def _route(S: Optional[int], H: int, N: int,
            params: MPCParams) -> Tuple[str, str, CudaKernel]:
     """(layout, body, kernel) of a CUDA solve: the layout ``kernel_layout``
-    gives the shape and the loop body the parameters select; raises
-    ``ValueError`` for a shape beyond every layout's budget, naming the
-    eager solver that takes it."""
-    layout = kernel_layout(S, H, N)
+    gives the shape (and ``allow_short``) and the loop body the parameters
+    select; raises ``ValueError`` only for S, H or N below 1."""
+    layout = kernel_layout(S, H, N, params.allow_short)
     if layout is None:
-        eager = ("solve_mpc_log_utility_batch" if S is None
-                 else "solve_mpc_log_utility_scenarios")
-        wide = wide_smem_bytes(H, N, True, S, S and "streamed")
-        raise ValueError(
-            f"S={S}, H={H}, N={N} exceeds the kernels' budgets: the row "
-            f"layout needs ceil(N/32) <= {MAX_SLOTS} and H <= {ROWS_MAX_H} "
-            f"(any S), the wide-row layout H <= {WIDE_MAX_H} and its plan, "
-            f"the scenario returns streamed, within {SMEM_PER_BLOCK} bytes "
-            f"of shared memory (here {wide}), the block layout one problem "
-            f"with its returns within them (here "
-            f"{block_smem_bytes(S, H, N)}); the eager solver {eager} takes "
-            f"any shape"
-        )
+        raise ValueError(f"S={S}, H={H}, N={N}: a problem needs S, H and N "
+                         f"of at least 1")
     body = _body(params)
     return layout, body, _KERNELS[(S is not None, layout, body)]
 
@@ -911,12 +1011,15 @@ def pdhg_log_utility_cuda(
     ``..._scenarios`` sources), in the layout ``kernel_layout`` gives the
     shape: ``pdhg_log_utility{,_scenarios}_rows`` where the row layout
     fits, else ``pdhg_log_utility{,_scenarios}_wide`` where preferred,
-    else the ``..._block`` kernel, else the wide kernel; scenario returns in
-    the storage ``rows_storage`` or ``wide_storage`` gives; with
-    ``params.adaptive`` the ``..._adaptive`` kernel of each, with the
-    pipelined body (``pipeline_reduces``) their fixed-step kernel by a
-    flag. A shape beyond every layout raises ``ValueError``."""
-    _check_params(params, "pdhg_log_utility_cuda")
+    else the ``..._block`` kernel, else the wide kernel where it fits, else
+    the ``..._global`` kernel; scenario returns in the storage
+    ``rows_storage`` or ``wide_storage`` gives; with ``params.adaptive``
+    the ``..._adaptive`` kernel of each, with the pipelined body
+    (``pipeline_reduces``) their fixed-step kernel by a flag. With
+    ``allow_short`` the block kernel where it fits, else the global one,
+    by a flag. A global workspace past the card's free memory raises
+    ``ValueError``."""
+    reject_unhonored_polish(params, "pdhg_log_utility_cuda")
     _check_return_steps(params, return_steps)
     scen = r.dim() == 4
     if r.dim() not in (3, 4) or \
@@ -952,15 +1055,80 @@ def _storage(kernel: CudaKernel, S: int, H: int, N: int) -> str:
     return (rows_storage if rows else wide_storage)(S, H, N)
 
 
+def _library_function(name: str, symbol: str, argtypes, restype):
+    """A function of the built library of source ``name`` other than its
+    kernel's entry point (a plan's size, an occupancy), built at first
+    use."""
+    from kmpc_tpu_torch._build import build_all, library_path
+
+    build_all([name])
+    fn = getattr(ctypes.CDLL(str(library_path(name))), symbol)
+    fn.argtypes, fn.restype = argtypes, restype
+    return fn
+
+
+# The most CTAs of the global layout an SM runs (the grid is at most this
+# many a streaming multiprocessor, and at most what the SM holds at once).
+# By measurement (``python -m kmpc_tpu_torch.ops.row_slots --global``, B=1013
+# H=20 N=1000): two CTAs an SM ran B at S=16 1.46x and C 1.57x faster than
+# one, though their workspace (84 MB) then spills the 50 MB L2; kernel A's
+# SM holds one CTA (its registers), so both grids are one CTA an SM there.
+GLOBAL_CTAS_PER_SM = 2
+_OCCUPANCY: Dict[tuple, int] = {}
+
+
+def global_grid(kernel: CudaKernel, B: int, shape: tuple, allow_short: bool,
+                device) -> int:
+    """The persistent grid of a global-layout kernel for B problems:
+    min(B, SMs x the CTAs an SM holds at once, at most
+    GLOBAL_CTAS_PER_SM). ``shape`` is the kernel's occupancy
+    query's (S, H, N), or (H, N) for kernel C; the built library answers
+    it."""
+    key = (kernel.name, shape, allow_short)
+    if key not in _OCCUPANCY:
+        fn = _library_function(kernel.name, kernel.symbol + "_ctas",
+                               [_I] * (len(shape) + 1), ctypes.c_int)
+        with torch.cuda.device(device):
+            _OCCUPANCY[key] = fn(*shape, int(allow_short))
+    resident = _OCCUPANCY[key]
+    if resident < 1:
+        raise RuntimeError(f"{kernel.name}: no CTA of shape {shape} fits an "
+                           f"SM (occupancy query gave {resident})")
+    per_sm = min(resident, GLOBAL_CTAS_PER_SM)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return max(1, min(B, per_sm * sms))
+
+
+def global_workspace(nbytes: int, device, entry: str) -> torch.Tensor:
+    """The global layout's workspace of ``nbytes`` on ``device``, or
+    ``ValueError`` naming the bytes asked for where the card's free memory
+    (and what the caching allocator holds unused) is less."""
+    free = torch.cuda.mem_get_info(device)[0] + (
+        torch.cuda.memory_reserved(device)
+        - torch.cuda.memory_allocated(device))
+    if nbytes > free:
+        raise ValueError(
+            f"{entry}: the global layout's workspace needs {nbytes} bytes, "
+            f"more than the {free} bytes free on {device}")
+    return torch.empty(max(nbytes // 4, 1), dtype=torch.float32,
+                       device=device)
+
+
 def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
             w_warm, p_warm, return_dual, return_steps, storage=None):
     """Launch ``kernel`` (running ``body``) on checked CUDA tensors and
     count the launch; a scenario kernel of the row or wide-row layout keeps
     the returns in ``storage`` (default: the one routing gives the
-    shape)."""
+    shape); a global-layout kernel runs its persistent grid (``global_grid``)
+    over a workspace of ``global_workspace_bytes``.
+    ``allow_short`` needs a kernel of the block or global layout."""
     scen = r.dim() == 4
     B, H, N = r.shape[0], r.shape[-2], r.shape[-1]
     S = r.shape[1] if scen else 0
+    short = params.allow_short
+    if short and kernel not in _SHORT_ARG:
+        raise ValueError(f"{kernel.name} projects on the simplex only: "
+                         f"allow_short runs in the {SHORT_LAYOUTS} layouts")
     if kernel in _STORAGE_ARG:
         storage = storage or _storage(kernel, S, H, N)
     elif storage not in (None, "registers"):
@@ -978,6 +1146,13 @@ def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
         def ptr(t):
             return None if t is None else t.data_ptr()
 
+        gmem = ()
+        if kernel in _GLOBAL:
+            grid = global_grid(kernel, B, (S, H, N), short, r.device)
+            ws = global_workspace(
+                global_workspace_bytes(S or None, H, N, grid), r.device,
+                kernel.name)
+            gmem = (ws.data_ptr(), grid)
         kernel.launch(
             r.device,
             current_weights.data_ptr(), r.data_ptr(), ptr(w_warm),
@@ -991,10 +1166,15 @@ def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
             *((int(body == "pipe"),) if kernel in _PIPE_FLAG else ()),
             *((STORAGES.index(storage),) if kernel in _STORAGE_ARG
               else ()),
+            *((int(short),) if kernel in _SHORT_ARG else ()),
+            *gmem,
         )
         if kernel in _STORAGE_ARG:
             key = (kernel.name, storage)
             STORAGE_LAUNCHES[key] = STORAGE_LAUNCHES.get(key, 0) + 1
+        if short:
+            SHORT_LAUNCHES[kernel.name] = SHORT_LAUNCHES.get(kernel.name,
+                                                             0) + 1
     out = (w, fp) + ((dual,) if return_dual else ())
     return out + ((steps,) if return_steps else ())
 
@@ -1055,7 +1235,7 @@ def _finalize_packed(w, r, w_init, params: MPCParams, fp_res):
 
 def _solve_packed(entry, current_weights, log_returns, params, device,
                   w_warm, p_warm, return_dual):
-    _check_params(params, entry)
+    reject_unhonored_polish(params, entry)
     dev = torch.device(device)
 
     def f32(t):

@@ -37,18 +37,22 @@ the iterates in shared memory (``csrc/pdhg_mean_variance_block.cu``,
 ``..._block_adaptive.cu``) where they fit a block's 227 KB
 (``mv_block_smem_bytes``: five [H, N] arrays and the reduce staging; Sigma
 is staged beside them where it fits, else read from global memory); else
-the tile layout where its plan fits; else ``ValueError`` naming
-``solve_mpc_mean_variance_batch``. Together they take every shape
-kmpc_tpu's wrapper sends to its Pallas kernel (a working set within 8 MiB
-at the 128-lane tile). The warp layout before the lane layout
+the tile layout where its plan fits; else the global layout, the block
+layout's body with its iterates in a global-memory workspace, one slot a
+CTA of a persistent grid (``csrc/pdhg_mean_variance_global.cu``,
+``..._global_adaptive.cu``: H=20 N=1000, H >= 33 N >= 500, where kmpc_tpu's
+wrapper hands the solve to its XLA solver). Together they take every shape:
+only a global workspace past the card's free memory raises. The warp layout before the lane layout
 (``csrc/pdhg_mean_variance.cu``, ``..._adaptive.cu``: one warp per problem,
 Sigma in shared memory, w broadcast by shuffles, the sweeps by butterflies)
 takes the same shapes and is launched only by ``_mv_launch``, to be
 compared with it.
 
-A CUDA tensor launches a kernel or raises; a CPU tensor runs
-``pdhg_mean_variance_plain``. ``allow_short`` raises here: a caller who
-wants shorts calls ``solve_mpc_mean_variance_batch`` by name.
+``allow_short`` (the primal projected on the hyperplane sum(w) = 1, no
+threshold carried, as kmpc_tpu's XLA solver does it) runs in the block
+layout where one problem's iterates fit a block's shared memory, else in
+the global layout, by a flag of their kernels. A CUDA tensor launches a
+kernel or raises; a CPU tensor runs ``pdhg_mean_variance_plain``.
 """
 
 from __future__ import annotations
@@ -77,8 +81,8 @@ from kmpc_tpu_torch.ops.mpc_cuda import (
     _sweep_budgets,
     block_threads,
     kernel_supports,
+    project_primal,
 )
-from kmpc_tpu_torch.ops.projections import michelot_threshold
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
@@ -94,13 +98,23 @@ PDHG_MEAN_VARIANCE = CudaKernel(
 PDHG_MEAN_VARIANCE_ADAPTIVE = CudaKernel(
     "pdhg_mean_variance_adaptive", "kmpc_pdhg_mean_variance_adaptive",
     [_P] * 6 + _ARGTYPES)
-# The block-per-problem layout, with the same C interfaces.
+# The block-per-problem layout, with the same C interfaces and the
+# ``allow_short`` int (1: the hyperplane projection) before the stream; the
+# global layout, with the workspace and the grid after it.
+_SHORT_ARGTYPES = _ARGTYPES[:-1] + [_I, _P]
+_GLOBAL_ARGTYPES = _SHORT_ARGTYPES[:-1] + [_P, _I, _P]
 PDHG_MEAN_VARIANCE_BLOCK = CudaKernel(
     "pdhg_mean_variance_block", "kmpc_pdhg_mean_variance_block",
-    [_P] * 5 + _ARGTYPES)
+    [_P] * 5 + _SHORT_ARGTYPES)
 PDHG_MEAN_VARIANCE_BLOCK_ADAPTIVE = CudaKernel(
     "pdhg_mean_variance_block_adaptive",
-    "kmpc_pdhg_mean_variance_block_adaptive", [_P] * 6 + _ARGTYPES)
+    "kmpc_pdhg_mean_variance_block_adaptive", [_P] * 6 + _SHORT_ARGTYPES)
+PDHG_MEAN_VARIANCE_GLOBAL = CudaKernel(
+    "pdhg_mean_variance_global", "kmpc_pdhg_mean_variance_global",
+    [_P] * 5 + _GLOBAL_ARGTYPES)
+PDHG_MEAN_VARIANCE_GLOBAL_ADAPTIVE = CudaKernel(
+    "pdhg_mean_variance_global_adaptive",
+    "kmpc_pdhg_mean_variance_global_adaptive", [_P] * 6 + _GLOBAL_ARGTYPES)
 # The tile layout.
 PDHG_MEAN_VARIANCE_TILE = CudaKernel(
     "pdhg_mean_variance_tile", "kmpc_pdhg_mean_variance_tile",
@@ -126,8 +140,14 @@ _MV_KERNELS = {
     ("tile", True): PDHG_MEAN_VARIANCE_TILE_ADAPTIVE,
     ("lanes", False): PDHG_MEAN_VARIANCE_LANES,
     ("lanes", True): PDHG_MEAN_VARIANCE_LANES_ADAPTIVE,
+    ("global", False): PDHG_MEAN_VARIANCE_GLOBAL,
+    ("global", True): PDHG_MEAN_VARIANCE_GLOBAL_ADAPTIVE,
 }
 MV_KERNELS = tuple(_MV_KERNELS.values())
+_MV_GLOBAL = (PDHG_MEAN_VARIANCE_GLOBAL, PDHG_MEAN_VARIANCE_GLOBAL_ADAPTIVE)
+# The kernels that take the ``allow_short`` flag.
+_MV_SHORT_ARG = (PDHG_MEAN_VARIANCE_BLOCK,
+                 PDHG_MEAN_VARIANCE_BLOCK_ADAPTIVE) + _MV_GLOBAL
 
 
 def mv_smem_bytes(N: int) -> int:
@@ -228,6 +248,33 @@ def mv_block_smem_bytes(H: int, N: int) -> int:
     return 4 * (_mv_block_iterate_floats(H, N) + sigma)
 
 
+def _mv_small_floats(H: int, N: int) -> int:
+    """Floats of the thresholds, residuals and reduce staging of one CTA
+    (``mv_small_floats`` in csrc/pdhg_mean_variance_block.cuh)."""
+    return H + 4 + block_threads(N) // 32 * 2 * H
+
+
+def mv_global_smem_bytes(H: int, N: int) -> int:
+    """Shared memory of one CTA in the global layout (``mv_global_plan``):
+    the thresholds, residuals and reduce staging where they fit a block's
+    shared memory, else none."""
+    small = 4 * _mv_small_floats(H, N)
+    return small if small <= SMEM_PER_BLOCK else 0
+
+
+def mv_global_workspace_bytes(H: int, N: int, grid: int) -> int:
+    """Bytes of kernel C's global-layout workspace for a grid of ``grid``
+    CTAs (``mv_global_plan`` in csrc/pdhg_mean_variance_block.cuh): each
+    CTA's slot holds w, p, the projection input and the dual input as
+    [H][N] (mu, the current weights and Sigma are read in place), and the
+    thresholds, residuals and reduce staging where they do not fit shared
+    memory."""
+    floats = 4 * H * N
+    if mv_global_smem_bytes(H, N) == 0:
+        floats += _mv_small_floats(H, N)
+    return 4 * floats * grid
+
+
 # The tile layout's plan (``mv_tile_layout`` and ``mv_tile_problems`` in
 # csrc/pdhg_mean_variance_tile.cuh, whose values the built library reports
 # as ``kmpc_mv_tile_smem_bytes``, ``kmpc_mv_tile_ring_rows`` and
@@ -326,6 +373,14 @@ def mv_tile_problems(B: int, H: int, N: int, shared: bool,
 # Sigma for more than TILE_SMS problems (below that the block layout's one
 # CTA a problem measured faster at one row).
 TILE_STREAM_H = 3
+# Past BLOCK_FIRST_N assets the block layout, where one problem fits a
+# block, is taken before the tile layout: by the fixed-step body unless more
+# than TILE_SMS problems share Sigma or run H >= TILE_STREAM_H rows; by the
+# adaptive body for at most TILE_SMS problems at H >= TILE_STREAM_H
+# (``chip_smoke.py``'s ``mv_layouts``: the block body 1.05-1.2x ahead of
+# the tile layout there, the tile layout 1.05-1.7x ahead at the other
+# switch shapes).
+BLOCK_FIRST_N = 128
 
 
 def mv_tile_streams(H: int, N: int, adaptive: bool) -> bool:
@@ -336,36 +391,43 @@ def mv_tile_streams(H: int, N: int, adaptive: bool) -> bool:
 
 
 def mv_kernel_layout(H: int, N: int, shared: bool = False,
-                     adaptive: bool = False, B: int = 1) -> Optional[str]:
+                     adaptive: bool = False, B: int = 1,
+                     allow_short: bool = False) -> Optional[str]:
     """The layout a CUDA mean-variance solve of B problems of this shape
     runs in, as measured fastest (``chip_smoke.py``'s ``mv_layouts``):
     ``"lanes"`` at one horizon row where its plan takes N (at most 128
     assets: ``mv_lanes_plan``; the warp layout, which takes the same
-    shapes, measured slower); else ``"tile"`` where its plan takes the batch
-    (``mv_tile_problems``) and holds Sigma resident, or streams it at
-    H >= TILE_STREAM_H or with a shared Sigma for more than TILE_SMS
-    problems; else ``"block"`` where one problem's iterates fit a block's
-    shared memory; else ``"tile"`` where its plan takes the batch; else
-    None."""
+    shapes, measured slower); else ``"block"`` past BLOCK_FIRST_N assets
+    where one problem's iterates fit a block's shared memory and the body
+    and batch are those BLOCK_FIRST_N names; else ``"tile"`` where its plan
+    takes the batch (``mv_tile_problems``) and holds Sigma resident, or
+    streams it at H >= TILE_STREAM_H or with a shared Sigma for more than
+    TILE_SMS problems; else ``"block"`` where one problem's iterates fit a
+    block's shared memory; else ``"tile"`` where its plan takes the batch;
+    else
+    ``"global"`` (the block layout's body with its iterates in a
+    global-memory workspace: every shape). With ``allow_short`` (the
+    hyperplane projection, in the block and global layouts only)
+    ``"block"`` where one problem's iterates fit a block's shared memory,
+    else ``"global"``. None only for H or N below 1."""
+    if H < 1 or N < 1:
+        return None
+    block = mv_block_smem_bytes(H, N) <= SMEM_PER_BLOCK
+    if allow_short:
+        return "block" if block else "global"
     if H == 1 and mv_lanes_plan(N, shared) is not None:
         return "lanes"
+    few, rows = B <= TILE_SMS, H >= TILE_STREAM_H
+    if block and N > BLOCK_FIRST_N and (
+            few and rows if adaptive else few or not (shared or rows)):
+        return "block"
     tile = mv_tile_problems(max(B, 1), H, N, shared, adaptive) > 0
     if tile and (not mv_tile_streams(H, N, adaptive) or H >= TILE_STREAM_H
                  or (shared and B > TILE_SMS)):
         return "tile"
-    if H >= 1 and N >= 1 and mv_block_smem_bytes(H, N) <= SMEM_PER_BLOCK:
+    if block:
         return "block"
-    return "tile" if tile else None
-
-
-def _check_params(params: MPCParams, entry: str) -> None:
-    reject_unhonored_polish(params, entry)
-    if params.allow_short:
-        raise NotImplementedError(
-            f"{entry}: the kernel projects on the simplex only; "
-            "allow_short is solved by the eager solver "
-            "(solve_mpc_mean_variance_batch)"
-        )
+    return "tile" if tile else "global"
 
 
 def _is_shared(cov: torch.Tensor) -> bool:
@@ -385,8 +447,10 @@ def pdhg_mean_variance_plain(
     (the adaptive body only), the steps the loop ended on, [B, 6]: tau,
     sigma, alpha, the primal and dual residual of the last balancing and the
     signed sum of the iterations that moved the steps (as
-    ``pdhg_log_utility_plain``'s)."""
-    _check_params(params, "pdhg_mean_variance_plain")
+    ``pdhg_log_utility_plain``'s). With ``allow_short`` the primal
+    projection is onto the hyperplane sum(w) = 1 and no threshold is
+    carried."""
+    reject_unhonored_polish(params, "pdhg_mean_variance_plain")
     _check_return_steps(params, return_steps)
     B, H, N = mu.shape
     w_init = current_weights
@@ -394,6 +458,7 @@ def pdhg_mean_variance_plain(
     gamma = params.gamma
     rho = params.over_relax
     warm, warm_iters, cold_iters = _sweep_budgets(params, N)
+    short = params.allow_short
     refresh = params.proj_refresh_every
     cond = warm and refresh > 1 and not params.adaptive
 
@@ -407,15 +472,19 @@ def pdhg_mean_variance_plain(
         nxt = torch.cat([p[:, 1:], torch.zeros_like(p[:, :1])], dim=1)
         return p - nxt
 
+    # The products of one horizon row, [B, N, N], reused row by row.
+    prod = torch.empty((B, N, N), dtype=mu.dtype, device=mu.device)
+
     def grad_g(w):
         # (Sigma w_t)[i] = sum_j Sigma[i, j] w_t[j], as a multiply and a
-        # sum over j (the kernel's order of operations, no matmul).
-        quad = (Sigma[..., None, :, :] * w[:, :, None, :]).sum(dim=-1)
+        # sum over j (the kernel's order of operations, no matmul), one
+        # horizon row at a time: the same sums as over [B, H, N, N] at once.
+        quad = torch.stack([torch.mul(Sigma, w[:, t, None, :], out=prod)
+                            .sum(dim=-1) for t in range(H)], dim=1)
         return 2.0 * gamma * quad - mu
 
-    v0 = w_init[:, None, :].expand(B, H, N)
-    th_w = michelot_threshold(v0, 1.0, cold_iters)
-    w = torch.clamp(v0 - th_w, min=0.0)
+    w, th_w = project_primal(w_init[:, None, :].expand(B, H, N), short,
+                              cold_iters)
     p = torch.zeros_like(w)
     # The carried steps are per problem, also with a shared covariance.
     ones = torch.ones((B, 1, 1), dtype=mu.dtype, device=mu.device)
@@ -435,8 +504,8 @@ def pdhg_mean_variance_plain(
         else:
             n_sw = warm_iters
         v = w - tau * (grad_g(w) + Dt(p))
-        th_w = michelot_threshold(v, 1.0, n_sw, th_w if warm else None)
-        w_new = torch.clamp(v - th_w, min=0.0)
+        w_new, th_w = project_primal(v, short, n_sw,
+                                     th_w if warm else None)
         w_bar = 2.0 * w_new - w
         p_new = torch.clamp(p + sigma * (w_bar - _prev_rows(w_bar, w_init)),
                             -c, c)
@@ -460,7 +529,7 @@ def pdhg_mean_variance_plain(
         iteration, (w, p, th_w, tau, sigma, alpha, res, mu.new_zeros(())),
         params.max_iters, period)
     v = w - tau * (grad_g(w) + Dt(p))
-    w_last = torch.clamp(v - michelot_threshold(v, 1.0, cold_iters), min=0.0)
+    w_last = project_primal(v, short, cold_iters)[0]
     fp = (w_last - w).abs().amax(dim=(1, 2))
     if not return_steps:
         return w_last, fp
@@ -471,20 +540,14 @@ def pdhg_mean_variance_plain(
 def _mv_route(H: int, N: int, params: MPCParams, shared: bool = False,
               B: int = 1) -> Tuple[str, CudaKernel]:
     """(layout, kernel) of a CUDA mean-variance solve of B problems: the
-    layout ``mv_kernel_layout`` gives the shape, the body the parameters
-    select; raises ``ValueError`` for a shape beyond every layout's budget,
-    naming the eager solver."""
-    layout = mv_kernel_layout(H, N, shared, params.adaptive, B)
+    layout ``mv_kernel_layout`` gives the shape (and ``allow_short``), the
+    body the parameters select; raises ``ValueError`` only for H or N below
+    1."""
+    layout = mv_kernel_layout(H, N, shared, params.adaptive, B,
+                              params.allow_short)
     if layout is None:
-        raise ValueError(
-            f"H={H}, N={N} exceeds the mean-variance kernels' budgets: the "
-            f"lane layout needs H = 1 and ceil(N/32) <= {MAX_SLOTS} (its "
-            f"Sigma within {SMEM_PER_BLOCK} bytes of shared memory past 32 "
-            f"assets), the tile layout H <= "
-            f"{TILE_MAX_WARPS} and its plan within {SMEM_PER_BLOCK} bytes "
-            "of shared memory, the block layout one problem's iterates "
-            f"within them, here {mv_block_smem_bytes(H, N)}; the eager "
-            "solver solve_mpc_mean_variance_batch takes any shape")
+        raise ValueError(f"H={H}, N={N}: a problem needs H and N of at "
+                         f"least 1")
     return layout, _MV_KERNELS[(layout, params.adaptive)]
 
 
@@ -498,12 +561,13 @@ def pdhg_mean_variance_cuda(
     """One launch of a CUDA kernel on the current stream: the contract of
     ``pdhg_mean_variance_plain``, for CUDA float32 tensors.
     ``pdhg_mean_variance_lanes`` (``..._lanes_adaptive`` with
-    ``params.adaptive``), ``..._tile`` or ``..._block`` (``..._tile_adaptive``,
-    ``..._block_adaptive``) as ``mv_kernel_layout`` routes the batch, else
-    ``ValueError``. The warp layout's kernels (``pdhg_mean_variance``,
+    ``params.adaptive``), ``..._tile``, ``..._block`` or ``..._global``
+    (``..._tile_adaptive``, ``..._block_adaptive``, ``..._global_adaptive``)
+    as ``mv_kernel_layout`` routes the batch; a global workspace past the
+    card's free memory raises ``ValueError``. The warp layout's kernels (``pdhg_mean_variance``,
     ``..._adaptive``) take the lane layout's shapes and are launched only by
     ``_mv_launch``, to be compared with it."""
-    _check_params(params, "pdhg_mean_variance_cuda")
+    reject_unhonored_polish(params, "pdhg_mean_variance_cuda")
     _check_return_steps(params, return_steps)
     if mu.dim() != 3 or current_weights.shape != (mu.shape[0], mu.shape[2]):
         raise ValueError(
@@ -529,9 +593,15 @@ def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
     tile kernel takes the problems a CTA its library chooses for the batch
     (``mv_tile_problems``), or ``problems`` where given (a plan's edge, for
     a check); a lane kernel the sweep ``mv_lanes_sweep`` gives the batch,
-    or ``sweep`` (one of ``mv_lanes_sweeps(N)``) where given."""
+    or ``sweep`` (one of ``mv_lanes_sweeps(N)``) where given; a global
+    kernel its persistent grid (``mpc_cuda.global_grid``) over a workspace
+    of ``mv_global_workspace_bytes``. ``allow_short`` needs a kernel of the block or global layout."""
     B, H, N = mu.shape
     shared = int(Sigma.dim() == 2)
+    short = params.allow_short
+    if short and kernel not in _MV_SHORT_ARG:
+        raise ValueError(f"{kernel.name} projects on the simplex only: "
+                         "allow_short runs in the block and global layouts")
     tile = kernel in (PDHG_MEAN_VARIANCE_TILE,
                       PDHG_MEAN_VARIANCE_TILE_ADAPTIVE)
     lanes = kernel in (PDHG_MEAN_VARIANCE_LANES,
@@ -555,6 +625,13 @@ def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
     warm, warm_iters, cold_iters = _sweep_budgets(params, N)
     schedule = (params.adapt_every if params.adaptive
                 else params.proj_refresh_every)
+    if kernel in _MV_GLOBAL:
+        grid = mpc_cuda.global_grid(kernel, B, (H, N), short, mu.device)
+        ws = mpc_cuda.global_workspace(mv_global_workspace_bytes(H, N, grid),
+                                       mu.device, kernel.name)
+        tail = (int(short), ws.data_ptr(), grid)
+    else:
+        tail = (int(short),) if kernel in _MV_SHORT_ARG else ()
     kernel.launch(
         mu.device,
         current_weights.data_ptr(), mu.data_ptr(), Sigma.data_ptr(),
@@ -564,8 +641,11 @@ def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
         B, H, N, shared, *extra,
         params.max_iters, schedule, warm_iters,
         cold_iters, params.cost_coeff, params.gamma, params.over_relax,
-        params.step_scale, params.sigma_scale, int(warm),
+        params.step_scale, params.sigma_scale, int(warm), *tail,
     )
+    if short:
+        mpc_cuda.SHORT_LAUNCHES[kernel.name] = \
+            mpc_cuda.SHORT_LAUNCHES.get(kernel.name, 0) + 1
     return out
 
 
@@ -602,7 +682,7 @@ def solve_mpc_mean_variance_packed(
     ``status_code`` and ``objective`` per problem. A CUDA ``device``
     launches the kernel, ``"cpu"`` runs the plain version. An unbatched (or
     size-1-batched) covariance is not expanded to the batch."""
-    _check_params(params, "solve_mpc_mean_variance_packed")
+    reject_unhonored_polish(params, "solve_mpc_mean_variance_packed")
     dev = torch.device(device)
     mu = predicted_log_returns.to(device=dev, dtype=torch.float32).contiguous()
     w_init = current_weights.to(device=dev, dtype=torch.float32).contiguous()

@@ -78,9 +78,26 @@ and float64, each body) at the comparison path's shape (B=1028, H=5,
 N=20; S=16; C at H=1) run eagerly and replayed as CUDA graphs
 (``mpc_cuda.plain_replayed``): the same bits required, with both times.
 
+With ``--global``, the global layout at the global path's shape (B=1013
+problems of H=20 and N=1000, the path's fixed steps, 400 iterations):
+kernel A, kernel B at S=16 and kernel C with a shared covariance, each with
+a persistent grid of one and of two CTAs an SM (as far as the SM holds
+them), timed in turns (1, 2, 2, 1); each line with the CTAs an SM holds,
+the workspace's bytes at each grid and, for B, the bytes of returns read
+an iteration.
+
+With ``--mv-switch``, kernel C's block and tile layouts, both bodies (200
+iterations), at ``chip_smoke.py``'s switch shapes where the two run close,
+with a SHA-256 of the block kernel's outputs (weights and fixed-point
+residuals), then the block kernels' registers, spills and SASS opcode
+counts (whole function and each loop); run as ``PYTHONPATH=<an earlier checkout> python
+kmpc_tpu_torch/ops/row_slots.py --mv-switch`` it times and reads that
+checkout's kernels by the same launches.
+
     python -m kmpc_tpu_torch.ops.row_slots [--layouts warp,rows] [--wide]
         [--boundary 1,2,3:1024,1056] [--mv] [--scen]
-        [--digest [--busy SECONDS]] [--plain-replay]
+        [--digest [--busy SECONDS]] [--plain-replay] [--global]
+        [--mv-switch]
 
 One JSON line per measurement; needs the card.
 """
@@ -88,6 +105,7 @@ One JSON line per measurement; needs the card.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import re
 import shutil
@@ -922,8 +940,6 @@ def _digest_inputs():
 
 def _digest_outputs(cases) -> dict:
     """{case_body: (SHA-256 hex, the outputs as numpy arrays)}."""
-    import hashlib
-
     out = {}
     for name, cw, r, body in cases:
         p = WIDE_BODIES[body]
@@ -1024,6 +1040,122 @@ def digests_beside_busy(seconds: float) -> None:
     report("after", _digest_outputs(cases), base)
 
 
+# The global path's shape: (B, H, N), the synthetic 1000-name universe's
+# test dates at H=20; kernel B at GLOBAL_S scenarios.
+GLOBAL_SHAPE = (1013, 20, 1000)
+GLOBAL_S = 16
+
+
+def _one_launch_ms(fn) -> float:
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def time_global(iters: int = 400) -> None:
+    """``--global``: one JSON line a kernel (module docstring)."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    B, H, N = GLOBAL_SHAPE
+    rng = np.random.default_rng(1513)
+    p = MPCParams(sigma_scale=2.0, max_iters=iters)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cw = torch.as_tensor(rng.dirichlet(np.ones(N), size=B).astype(np.float32),
+                         device="cuda")
+    runs = []
+    for S in (None, GLOBAL_S):
+        shape = (B, H, N) if S is None else (B, S, H, N)
+        ys = rng.standard_normal(shape) * 0.01 + (0.0005 if S is None else 0)
+        r = torch.exp(torch.as_tensor(ys.astype(np.float32), device="cuda"))
+        kernel = M._KERNELS[(S is not None, "global", "fixed")]
+        runs.append((kernel, S, (S or 0, H, N), lambda k, r=r, kernel=kernel:
+                     M._launch(kernel, "fixed", cw, r, p, None, None, False,
+                               False),
+                     M.global_workspace_bytes(S, H, N, 1)))
+    mu = torch.as_tensor((rng.standard_normal((B, H, N)) * 0.01)
+                         .astype(np.float32), device="cuda")
+    A = rng.standard_normal((N, N)) * 0.01
+    sig = torch.as_tensor((A @ A.T + np.eye(N) * 1e-4).astype(np.float32),
+                          device="cuda")
+    pm = MPCParams(sigma_scale=2.0, max_iters=iters, gamma=1.0)
+    runs.append((V.PDHG_MEAN_VARIANCE_GLOBAL, None, (H, N),
+                 lambda k: V._mv_launch(V.PDHG_MEAN_VARIANCE_GLOBAL, cw, mu,
+                                        sig, pm),
+                 V.mv_global_workspace_bytes(H, N, 1)))
+    keep = M.GLOBAL_CTAS_PER_SM
+    for kernel, S, shape, launch, slot in runs:
+        launch(kernel)                         # build, warm
+        resident = M._OCCUPANCY[(kernel.name, shape, False)]
+        times = {1: [], 2: []}
+        try:
+            for c in (1, 2, 2, 1):
+                # The grid policy's one constant, set for this launch.
+                M.GLOBAL_CTAS_PER_SM = c
+                times[c].append(_one_launch_ms(lambda: launch(kernel)))
+        finally:
+            M.GLOBAL_CTAS_PER_SM = keep
+        grids = {c: min(B, min(c, resident) * sms) for c in (1, 2)}
+        line = {"phase": "global_layout", "kernel": kernel.name, "B": B,
+                "S": S, "H": H, "N": N, "iters": iters,
+                "resident_ctas_per_sm": resident, "sms": sms,
+                "grid": grids, "workspace_bytes": {
+                    c: slot * g for c, g in grids.items()},
+                "ms": times, "us_per_iter": {
+                    c: 1e3 * min(t) / iters for c, t in times.items()}}
+        if S:
+            line["returns_bytes_per_iter"] = 2 * 4 * B * S * H * N
+        print(json.dumps(line), flush=True)
+
+
+# (B, H, N, shared Sigma): the switch shapes of chip_smoke.py's mv_layouts
+# where the block and tile layouts run close, and two on either side.
+MV_SWITCH = ((5, 1, 129, True), (1028, 1, 200, False), (1, 1, 200, False),
+             (5, 5, 300, False), (5, 5, 320, True), (264, 3, 300, False),
+             (1028, 5, 320, True), (1, 1, 960, True))
+
+
+def time_mv_switch(iters: int = 200) -> None:
+    """``--mv-switch``: one JSON line a shape and body."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    rng = np.random.default_rng(129)
+    for B, H, N, shared in MV_SWITCH:
+        cw = torch.as_tensor(rng.dirichlet(np.ones(N), size=B)
+                             .astype(np.float32), device="cuda")
+        mu = torch.as_tensor((rng.standard_normal((B, H, N)) * 0.01)
+                             .astype(np.float32), device="cuda")
+        A = rng.standard_normal((N, N) if shared else (B, N, N)) * 0.01
+        sig = torch.as_tensor((A @ np.swapaxes(A, -1, -2) + np.eye(N) * 1e-4)
+                              .astype(np.float32), device="cuda")
+        for adaptive in (False, True):
+            p = MPCParams(sigma_scale=2.0, gamma=1.0, max_iters=iters,
+                          adaptive=adaptive, adapt_every=2)
+            ms = {}
+            for layout in ("block", "tile"):
+                kernel = V._MV_KERNELS[(layout, adaptive)]
+                ms[layout] = cuda_ms(
+                    lambda: V._mv_launch(kernel, cw, mu, sig, p))
+            out = V._mv_launch(V._MV_KERNELS[("block", adaptive)], cw, mu,
+                               sig, p)
+            digest = hashlib.sha256(b"".join(
+                t.cpu().numpy().tobytes() for t in out)).hexdigest()[:16]
+            print(json.dumps({"phase": "mv_switch", "B": B, "H": H, "N": N,
+                              "shared": shared, "adaptive": adaptive,
+                              "iters": iters, "ms": ms,
+                              "block_digest": digest}), flush=True)
+    # The block kernels' registers, spills and SASS (the simplex
+    # projection's instantiation, in either checkout's mangling).
+    for adaptive in (False, True):
+        name = "pdhg_mean_variance_block" + ("_adaptive" if adaptive else "")
+        print(json.dumps(sass_report(
+            name, rf"pdhg_mean_variance_block_kernelILb{int(adaptive)}E"
+            r"(Lb0E)?E")), flush=True)
+
+
 def plain_replay_bits() -> None:
     """``--plain-replay``: one JSON line (module docstring)."""
     from kmpc_tpu_torch.ops import mv_cuda as V
@@ -1106,6 +1238,12 @@ def main(argv=None):
     parser.add_argument("--plain-replay", action="store_true",
                         help="the plain versions eager and replayed as "
                              "CUDA graphs: bits and times")
+    parser.add_argument("--global", dest="global_", action="store_true",
+                        help="the global layout at the global path's shape, "
+                             "one and two CTAs an SM")
+    parser.add_argument("--mv-switch", action="store_true",
+                        help="kernel C's block and tile layouts at the "
+                             "switch shapes where they run close")
     parser.add_argument("--busy", type=float, metavar="SECONDS",
                         help="with --digest: the digests with a NaN-filled "
                              "allocator, then for SECONDS beside two "
@@ -1114,13 +1252,20 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("row_slots: CUDA is not available")
     if args.wide or args.boundary or args.mv or args.scen or args.digest \
-            or args.h1 or args.plain_replay:
+            or args.h1 or args.plain_replay or args.global_ \
+            or args.mv_switch:
         print(json.dumps({"phase": "device", "smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip()}), flush=True)
     if args.plain_replay:
         plain_replay_bits()
+        return
+    if args.global_:
+        time_global()
+        return
+    if args.mv_switch:
+        time_mv_switch()
         return
     if args.digest:
         print(json.dumps({"phase": "wide_digest", **wide_digests()}),

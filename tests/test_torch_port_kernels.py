@@ -15,6 +15,7 @@ mean-variance weights <= 5e-5, objective <= 1e-6 (a real QP, no flat
 faces). Measured differences are about 1e-6.
 """
 
+import contextlib
 import dataclasses
 
 import jax.numpy as jnp
@@ -605,68 +606,85 @@ def test_cuda_wrappers_check_shapes_before_launch(bad):
 
 
 @pytest.mark.parametrize("field,value,exc", [
-    ("allow_short", True, NotImplementedError),
+    ("allow_short", True, None),
     ("polish", True, ValueError),
 ])
 @pytest.mark.parametrize("solver", ["scenarios", "mean_variance"])
 def test_unported_parameters_raise(solver, field, value, exc):
+    """``polish`` (the float64 verified path of the one-problem solver)
+    raises on the packed wrappers; ``allow_short``, which raised until the
+    block and global layouts projected on the hyperplane, is answered:
+    every row sums to 1."""
     p = dataclasses.replace(MPCParams(max_iters=10), **{field: value})
-    with pytest.raises(exc):
+    with pytest.raises(exc) if exc else contextlib.nullcontext():
         if solver == "scenarios":
             cw, scen = _log_inputs(3, 5, 20, seed=0, S=2)
-            M.solve_mpc_log_utility_scenarios_packed(_t(cw), _t(scen), p,
-                                                     device="cpu")
+            w, _ = M.solve_mpc_log_utility_scenarios_packed(
+                _t(cw), _t(scen), p, device="cpu")
         else:
             cw, mu, sig = _mv_inputs(3, 1, 20, 0, False)
-            V.solve_mpc_mean_variance_packed(_t(cw), _t(mu), _t(sig), p,
-                                             device="cpu")
+            w, _ = V.solve_mpc_mean_variance_packed(_t(cw), _t(mu), _t(sig),
+                                                    p, device="cpu")
+    if exc is None:
+        assert torch.allclose(w.double().sum(-1), torch.ones((), dtype=
+                                                             torch.float64),
+                              atol=1e-5)
 
 
 @pytest.mark.parametrize("solver", ["log", "scenarios", "mean_variance"])
 def test_allow_short_raises_and_names_the_eager_solver(solver):
-    """The kernels project on the simplex only: the packed wrappers raise
-    on ``allow_short``, with warm inputs and the dual output too, instead
-    of returning a long-only solution or another solver's; the eager
-    solver named in the message does take shorts on the same inputs."""
+    """The packed wrappers, which raised on ``allow_short`` and named the
+    eager solver, answer it now (the block and global layouts project on
+    the hyperplane): with warm inputs and the dual output too, within the
+    kernel-vs-XLA bars of the eager solver they named, on the same inputs
+    (the eager solvers run kmpc_tpu's XLA iteration)."""
     from kmpc_tpu_torch.ops.mpc import (
         solve_mpc_log_utility_batch, solve_mpc_mean_variance_batch,
     )
     from kmpc_tpu_torch.ops.scenario import solve_mpc_log_utility_scenarios
 
     p = _params(dict(max_iters=200, allow_short=True, gamma=5.0))
+    w_tol, obj_tol = W_TOL, OBJ_TOL
     if solver == "log":
         cw, ys = _log_inputs(4, 5, 10, seed=6)
-        w_e, _ = solve_mpc_log_utility_batch(_t(cw), _t(ys), p)
-        with pytest.raises(NotImplementedError,
-                           match="solve_mpc_log_utility_batch"):
-            M.solve_mpc_log_utility_packed(_t(cw), _t(ys), p, device="cpu",
-                                           w_warm=w_e, return_dual=True)
+        w_e, i_e = solve_mpc_log_utility_batch(_t(cw), _t(ys), p)
+        w_c, i_c = solve_mpc_log_utility_batch(_t(cw), _t(ys), p, w_warm=w_e)
+        w_k, i_k = M.solve_mpc_log_utility_packed(_t(cw), _t(ys), p,
+                                                  device="cpu", w_warm=w_e,
+                                                  return_dual=True)
+        assert (i_k["dual"] - i_c["dual"]).abs().max().item() <= W_TOL
     elif solver == "scenarios":
         cw, scen = _log_inputs(4, 5, 10, seed=6, S=3)
-        w_e, _ = solve_mpc_log_utility_scenarios(_t(cw), _t(scen), p)
-        with pytest.raises(NotImplementedError,
-                           match="solve_mpc_log_utility_scenarios"):
-            M.solve_mpc_log_utility_scenarios_packed(_t(cw), _t(scen), p,
-                                                     device="cpu")
+        w_c, i_c = solve_mpc_log_utility_scenarios(_t(cw), _t(scen), p)
+        w_k, i_k = M.solve_mpc_log_utility_scenarios_packed(
+            _t(cw), _t(scen), p, device="cpu")
     else:
         cw, mu, sig = _mv_inputs(4, 3, 8, 6, False)
-        w_e, _ = solve_mpc_mean_variance_batch(_t(cw), _t(mu), _t(sig), p)
-        with pytest.raises(NotImplementedError,
-                           match="solve_mpc_mean_variance_batch"):
-            V.solve_mpc_mean_variance_packed(_t(cw), _t(mu), _t(sig), p,
-                                             device="cpu")
-    assert w_e.min().item() < -1e-6       # shorts do occur
-    assert torch.allclose(w_e.sum(-1), torch.ones(()), atol=1e-5)
+        w_c, i_c = solve_mpc_mean_variance_batch(_t(cw), _t(mu), _t(sig), p)
+        w_k, i_k = V.solve_mpc_mean_variance_packed(_t(cw), _t(mu), _t(sig),
+                                                    p, device="cpu")
+        w_tol, obj_tol = MV_W_TOL, MV_OBJ_TOL
+    assert (w_k - w_c).abs().max().item() <= w_tol
+    assert (i_k["objective"] - i_c["objective"]).abs().max().item() \
+        <= obj_tol
+    assert w_k.min().item() < -1e-6       # shorts do occur
+    assert torch.allclose(w_k.sum(-1), torch.ones(()), atol=1e-5)
 
 
 def test_direct_kernel_entry_points_refuse_allow_short():
+    """The plain versions, which refused ``allow_short``, project on the
+    hyperplane under it: each returned row sums to 1 and may go short."""
     cw, ys = _log_inputs(3, 5, 10, seed=0)
-    p = MPCParams(max_iters=5, allow_short=True)
-    with pytest.raises(NotImplementedError, match="simplex"):
-        M.pdhg_log_utility_plain(_t(cw), torch.exp(_t(ys)), p)
+    p = MPCParams(max_iters=50, allow_short=True)
+    w, fp = M.pdhg_log_utility_plain(_t(cw), torch.exp(_t(ys)), p)
+    assert torch.allclose(w.sum(-1), torch.ones(()), atol=1e-5)
+    assert w.min().item() < 0.0 and torch.isfinite(fp).all()
     cw, mu, sig = _mv_inputs(3, 1, 10, 0, False)
-    with pytest.raises(NotImplementedError, match="simplex"):
-        V.pdhg_mean_variance_plain(_t(cw), _t(mu), _t(sig), p)
+    w, fp = V.pdhg_mean_variance_plain(
+        _t(cw), _t(mu), _t(0.5 * (sig + np.swapaxes(sig, -1, -2))),
+        dataclasses.replace(p, gamma=5.0))
+    assert torch.allclose(w.sum(-1), torch.ones(()), atol=1e-5)
+    assert w.min().item() < 0.0 and torch.isfinite(fp).all()
 
 
 def test_every_kernel_has_a_source_and_a_launch_counter():
@@ -675,7 +693,7 @@ def test_every_kernel_has_a_source_and_a_launch_counter():
     from kmpc_tpu_torch.ops.mv_ladder import MV_LADDER
 
     kernels = M.KERNELS + V.MV_KERNELS + (MV_LADDER,)
-    assert len(kernels) == 27
+    assert len(kernels) == 33
     assert {k.name for k in kernels} == set(SOURCES)
     for k in kernels:
         assert k.launches == 0          # nothing launches on the CPU

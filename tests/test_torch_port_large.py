@@ -274,12 +274,13 @@ def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
 @pytest.mark.parametrize("S", [None, 16])
 def test_a_cuda_tensor_beyond_both_layouts_raises(S):
     """The route the CUDA wrapper takes before any launch: a shape beyond
-    every layout's budget raises ``ValueError`` naming the eager solver."""
+    every shared-memory layout's budget (which raised until the global
+    layout took it) routes to the global layout's kernel of the body."""
     H, N = 20, 2000
-    assert M.kernel_layout(S, H, N) is None
-    eager = "scenarios" if S else "batch"
-    with pytest.raises(ValueError, match=f"solve_mpc_log_utility_{eager}"):
-        M._route(S, H, N, MPCParams())
+    assert M.kernel_layout(S, H, N) == "global"
+    for p, body in ((MPCParams(), "fixed"), (_params(ACCURATE), "adaptive")):
+        assert M._route(S, H, N, p) == (
+            "global", body, M._KERNELS[(S is not None, "global", body)])
     # The shape picks the layout, the parameters the body.
     pipe = _params(dict(proj_refresh_every=16, **PIPE))
     assert M._route(S, 5, 20, pipe)[:2] == ("rows", "pipe")

@@ -239,46 +239,59 @@ def test_kernel_register_budget(S, H, N, warp, block):
                     and H >= 1)
     rows = M.rows_kernel_supports(S, H, N)
     wide = M.wide_kernel_supports(S, H, N) and M.wide_preferred(H, N)
+    # Past a block's shared memory the global layout takes the shape.
     want = "rows" if rows else (
         "warp" if warp else ("wide" if wide else (
-            "block" if block else None)))
+            "block" if block else ("global" if H >= 1 else None))))
     assert M.kernel_layout(S, H, N) == want
 
 
 def test_allow_short_is_solved_by_the_eager_solver_by_name():
-    """allow_short needs the hyperplane projection, which the kernel lacks:
-    the packed wrapper raises, and the eager solver, called by name, gives
-    the solution that kmpc_tpu's wrapper returns for the parameter (it
-    hands the solve to its own eager solver). Weights atol 2e-5, objective
-    atol 1e-5."""
+    """allow_short needs the hyperplane projection: the packed wrapper
+    (which raised on it until the block and global layouts took it) and the
+    eager solver, called by name, both give the solution that kmpc_tpu's
+    wrapper returns for the parameter (it hands the solve to its own eager
+    solver): the eager solver within weights atol 2e-5, objective atol
+    1e-5; the packed wrapper within the kernel-vs-XLA bars (weights 5e-4,
+    objective 1e-5)."""
     from kmpc_tpu.ops.mpc_pallas import solve_mpc_log_utility_pallas_packed
     from kmpc_tpu_torch.ops.mpc import solve_mpc_log_utility_batch
 
     cw, ys = _instance(6, 5, 10, seed=3)
     kw = dict(max_iters=400, allow_short=True)
-    with pytest.raises(NotImplementedError, match="eager"):
-        M.solve_mpc_log_utility_packed(
-            torch.as_tensor(cw), torch.as_tensor(ys), _params(kw),
-            device="cpu")
+    w_k, info_k = M.solve_mpc_log_utility_packed(
+        torch.as_tensor(cw), torch.as_tensor(ys), _params(kw), device="cpu")
     w, info = solve_mpc_log_utility_batch(torch.as_tensor(cw),
                                           torch.as_tensor(ys), _params(kw))
-    assert w.min().item() < -1e-6
+    assert w.min().item() < -1e-6 and w_k.min().item() < -1e-6
     w_j, info_j = solve_mpc_log_utility_pallas_packed(
         jnp.asarray(cw), jnp.asarray(ys), _params(kw, JParams))
-    assert set(info_j) <= set(info)
+    assert set(info_j) <= set(info) and set(info_j) == set(info_k)
     np.testing.assert_allclose(w.numpy(), np.asarray(w_j), atol=2e-5, rtol=0)
     np.testing.assert_allclose(info["objective"].numpy(),
+                               np.asarray(info_j["objective"]), atol=OBJ_TOL,
+                               rtol=0)
+    np.testing.assert_allclose(w_k.numpy(), np.asarray(w_j), atol=5e-4,
+                               rtol=0)
+    np.testing.assert_allclose(info_k["objective"].numpy(),
                                np.asarray(info_j["objective"]), atol=OBJ_TOL,
                                rtol=0)
 
 
 @pytest.mark.parametrize("field,value,exc", [
-    ("allow_short", True, NotImplementedError),
+    ("allow_short", True, None),
     ("polish", True, ValueError),
 ])
 def test_unported_parameters_raise(field, value, exc):
+    """``polish`` raises on the packed wrapper; ``allow_short``, which
+    raised until the block and global layouts took it, is answered."""
     cw, ys = _instance(3, 5, 20, seed=0)
     p = dataclasses.replace(MPCParams(max_iters=10), **{field: value})
+    if exc is None:
+        w, _ = M.solve_mpc_log_utility_packed(
+            torch.as_tensor(cw), torch.as_tensor(ys), p, device="cpu")
+        assert torch.allclose(w.sum(-1), torch.ones(()), atol=1e-5)
+        return
     with pytest.raises(exc):
         M.solve_mpc_log_utility_packed(torch.as_tensor(cw),
                                        torch.as_tensor(ys), p, device="cpu")

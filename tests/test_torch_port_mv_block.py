@@ -91,9 +91,11 @@ CASES = {
 def test_block_shapes_match_pallas(name):
     B, H, N, shared, kw = CASES[name]
     # Past the warp layout: every one of these (H <= 32) routes to the tile
-    # layout, and the block layout keeps H > 32.
-    assert V.mv_kernel_layout(H, N, shared, kw.get("adaptive", False)) \
-        == "tile"
+    # layout but the fixed body's one row past BLOCK_FIRST_N assets, which
+    # the block layout takes first; the block layout keeps H > 32.
+    adaptive = kw.get("adaptive", False)
+    want = "block" if N > V.BLOCK_FIRST_N and not adaptive else "tile"
+    assert V.mv_kernel_layout(H, N, shared, adaptive) == want
     cw, mu, sig = _inputs(B, H, N, 301 + H + N, shared)
     w_ref, info_ref = JP.solve_mpc_mean_variance_pallas_packed(
         jnp.asarray(cw), jnp.asarray(mu), jnp.asarray(sig),
@@ -161,9 +163,11 @@ def test_every_shape_the_pallas_kernel_takes_routes_to_a_cuda_kernel(
     the lane layout every shape ``mv_kernel_supports`` gives the warp
     layout (one row up to 128 assets; the warp layout measured slower
     there and is launched only privately), the block
-    layout the longer horizons and, at most 32 rows, only the shapes whose
+    layout the longer horizons and, at most 32 rows, the shapes whose
     Sigma the tile layout would stream at fewer than TILE_STREAM_H rows (a
-    shared one for at most 132 problems), the tile layout the rest. The
+    shared one for at most 132 problems) and those past BLOCK_FIRST_N
+    assets that ``mv_kernel_layout`` gives the block layout first, the
+    tile layout the rest. The
     envelope's edges show in the grid: per problem N=80 is the last at
     H=20 (64 adaptive), a shared Sigma N=1112 at H=1 (976 adaptive) and
     N=128 at H=20 (88 adaptive)."""
@@ -195,8 +199,15 @@ def test_every_shape_the_pallas_kernel_takes_routes_to_a_cuda_kernel(
                         V.mv_tile_streams(H, N, adaptive)
                         and H < V.TILE_STREAM_H
                         and not (shared and B > V.TILE_SMS))
+                    few, rows = B <= V.TILE_SMS, H >= V.TILE_STREAM_H
+                    block_first = (
+                        V.mv_block_smem_bytes(H, N) <= V.SMEM_PER_BLOCK
+                        and N > V.BLOCK_FIRST_N
+                        and ((few and rows) if adaptive
+                             else (few or not (shared or rows))))
                     assert (layout == "block") == (
-                        H > V.TILE_MAX_WARPS or streamed_few), (
+                        H > V.TILE_MAX_WARPS or streamed_few
+                        or block_first), (
                         H, N, shared, adaptive, B, layout)
                     routed[layout] += 1
     assert all(routed.values()) and not all(taken.values())
@@ -234,14 +245,14 @@ def test_block_shared_memory_plan(H, N, floats, staged):
 
 def test_a_cuda_solve_beyond_both_layouts_raises():
     """The route the CUDA wrapper takes before any launch: a shape whose
-    iterates exceed a block's shared memory (and the tile plan's) raises
-    ``ValueError`` naming the eager solver; the shape picks the layout,
-    the parameters the body."""
+    iterates exceed a block's shared memory (and the tile plan's), which
+    raised until the global layout took it, routes to the global layout;
+    the shape picks the layout, the parameters the body."""
     H, N = 20, 800
-    assert V.mv_kernel_layout(H, N) is None
-    assert V.mv_kernel_layout(H, N, shared=True) is None
-    with pytest.raises(ValueError, match="solve_mpc_mean_variance_batch"):
-        V._mv_route(H, N, MPCParams())
+    assert V.mv_kernel_layout(H, N) == "global"
+    assert V.mv_kernel_layout(H, N, shared=True) == "global"
+    assert V._mv_route(H, N, MPCParams()) == (
+        "global", V.PDHG_MEAN_VARIANCE_GLOBAL)
     assert V._mv_route(1, 20, MPCParams()) == (
         "lanes", V.PDHG_MEAN_VARIANCE_LANES)
     assert V._mv_route(20, 30, MPCParams(adaptive=True)) == (

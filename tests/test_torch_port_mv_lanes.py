@@ -182,8 +182,13 @@ def test_the_markowitz_path_and_headline_route_to_the_lane_kernels():
 
 
 def test_routing_error_names_the_lane_budget():
-    with pytest.raises(ValueError, match="lane layout needs H = 1"):
-        V._mv_route(20, 800, MPCParams())
+    """A shape past every shared-memory plan (which raised, naming the lane
+    layout's budget, before the global layout) routes to the global layout;
+    only a shape below one row or asset raises."""
+    assert V._mv_route(20, 800, MPCParams()) == (
+        "global", V.PDHG_MEAN_VARIANCE_GLOBAL)
+    with pytest.raises(ValueError, match="at least 1"):
+        V._mv_route(0, 800, MPCParams())
 
 
 def test_a_launch_refuses_an_unknown_sweep():

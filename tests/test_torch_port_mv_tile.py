@@ -156,12 +156,16 @@ GRID_N = [1, 8, 20, 30, 33, 64, 100, 128, 129, 320, 600, 960, 1112, 1200]
 def test_routing_grid(shared, adaptive):
     """``mv_kernel_layout`` over (H, N) for one problem and for 1028: the
     lane layout at one row of at most 128 assets (the shapes the warp
-    layout takes, ``mv_kernel_supports``); else the tile layout
+    layout takes, ``mv_kernel_supports``); else the block layout past
+    BLOCK_FIRST_N assets where one problem fits a block, for the fixed body
+    unless the batch is past TILE_SMS and shares Sigma or runs
+    TILE_STREAM_H rows or more, for the adaptive body at TILE_STREAM_H rows
+    or more and at most TILE_SMS problems; else the tile layout
     where its plan takes the batch and holds Sigma resident, or streams it
     at H >= TILE_STREAM_H or, shared, for more than TILE_SMS problems; else
     the block layout where one problem fits a block; else the tile layout
-    where its plan takes the batch; else None. ``_mv_route`` names the
-    body's kernel of that layout."""
+    where its plan takes the batch; else the global layout (None before
+    it). ``_mv_route`` names the body's kernel of that layout."""
     p = MPCParams(adaptive=adaptive)
     seen = set()
     for B in (1, 1028):
@@ -170,28 +174,29 @@ def test_routing_grid(shared, adaptive):
                 layout = V.mv_kernel_layout(H, N, shared, adaptive, B)
                 tile = V.mv_tile_problems(B, H, N, shared, adaptive) > 0
                 streams = V.mv_tile_streams(H, N, adaptive)
+                block = V.mv_block_smem_bytes(H, N) <= V.SMEM_PER_BLOCK
+                few, rows = B <= V.TILE_SMS, H >= V.TILE_STREAM_H
                 if H == 1 and N <= 128:
                     want = "lanes"
+                elif block and N > V.BLOCK_FIRST_N and (
+                        (few and rows) if adaptive
+                        else (few or not (shared or rows))):
+                    want = "block"
                 elif tile and (not streams or H >= V.TILE_STREAM_H
                                or (shared and B > V.TILE_SMS)):
                     want = "tile"
                 elif V.mv_block_smem_bytes(H, N) <= V.SMEM_PER_BLOCK:
                     want = "block"
                 else:
-                    want = "tile" if tile else None
+                    want = "tile" if tile else "global"
                 assert layout == want, (B, H, N)
                 assert (layout == "lanes") == V.mv_kernel_supports(H, N)
                 if H > V.TILE_MAX_WARPS:
-                    assert layout in ("block", None), (H, N)
+                    assert layout in ("block", "global"), (H, N)
                 seen.add(layout)
-                if layout is None:
-                    with pytest.raises(ValueError,
-                                       match="solve_mpc_mean_variance_batch"):
-                        V._mv_route(H, N, p, shared, B)
-                else:
-                    assert V._mv_route(H, N, p, shared, B) == (
-                        layout, V._MV_KERNELS[(layout, adaptive)])
-    assert {"lanes", "tile", "block", None} <= seen
+                assert V._mv_route(H, N, p, shared, B) == (
+                    layout, V._MV_KERNELS[(layout, adaptive)])
+    assert {"lanes", "tile", "block", "global"} <= seen
     # The mv_long_wide shapes all take the tile layout.
     for B, H, N, sh in ((1028, 1, 960, True), (1028, 5, 320, True),
                         (4096, 5, 100, False), (4096, 20, 30, False),
@@ -204,24 +209,30 @@ def test_routing_grid(shared, adaptive):
     # One row up to 128 assets: lanes (the tile layout 1.13-1.88x slower
     # than the warp layout there, which the lane layout replaced).
     (1028, 1, 128, False, "lanes"), (5, 1, 20, True, "lanes"),
-    # Past one row, or 128 assets, with Sigma resident: tile.
+    # Past one row, up to 128 assets, with Sigma resident: tile.
     (1028, 2, 30, False, "tile"), (1, 2, 30, False, "tile"),
-    (5, 1, 129, True, "tile"), (1028, 1, 200, False, "tile"),
+    # One row past 128 assets with Sigma resident: block for the fixed
+    # body (1.05-1.1x ahead), tile for the adaptive one (1.05-1.12x).
+    (5, 1, 129, True, ("block", "tile")),
+    (1028, 1, 200, False, ("block", "tile")),
     # A per-problem Sigma streamed: block below three rows (the tile 4-5x
-    # slower at one row of 250), tile from three rows.
+    # slower at one row of 250), tile from three rows past 132 problems,
+    # block below them.
     (528, 1, 250, False, "block"), (264, 2, 300, False, "block"),
-    (264, 3, 300, False, "tile"), (5, 5, 300, False, "tile"),
+    (264, 3, 300, False, "tile"), (5, 5, 300, False, "block"),
     # A shared Sigma streamed at one row: block up to 132 problems, tile
-    # past them; tile at H=5 for any batch.
+    # past them; block at H=5 up to 132 problems.
     (1, 1, 960, True, "block"), (132, 1, 960, True, "block"),
     (264, 1, 960, True, "tile"),
-    (5, 5, 320, True, "tile"),
+    (5, 5, 320, True, "block"),
 ])
 def test_routing_at_the_measured_switches(B, H, N, shared, layout):
     """The layout each side of a switch ``chip_smoke.py``'s ``mv_layouts``
-    times (``MV_SWITCH_SHAPES``) is routed to, both bodies."""
-    for adaptive in (False, True):
-        assert V.mv_kernel_layout(H, N, shared, adaptive, B) == layout
+    times (``MV_SWITCH_SHAPES``) is routed to, both bodies (a pair: the
+    fixed body's, the adaptive body's)."""
+    both = layout if isinstance(layout, tuple) else (layout, layout)
+    for adaptive, want in zip((False, True), both):
+        assert V.mv_kernel_layout(H, N, shared, adaptive, B) == want
 
 
 def test_chip_smoke_times_each_side_of_every_switch():

@@ -135,14 +135,11 @@ def test_rows_layout_shapes_match_pallas(name):
     # S=120 H=8 N=33, which the block layout took): the row layout takes
     # any S.
     (64, 8, 64, "rows"), (113, 8, 64, "rows"), (120, 8, 33, "rows"),
-    (None, 40, 2000, None),
+    # Past every shared-memory plan, the global layout (refused before it).
+    (None, 40, 2000, "global"),
 ])
 def test_routing_table(S, H, N, layout):
     assert M.kernel_layout(S, H, N) == layout
-    if layout is None:
-        with pytest.raises(ValueError, match="eager solver"):
-            M._route(S, H, N, MPCParams())
-        return
     for params, body in ((MPCParams(), "fixed"),
                          (_params(PIPE), "pipe"),
                          (_params(ACCURATE), "adaptive")):
@@ -155,8 +152,8 @@ def test_rows_layout_takes_only_four_slots_and_32_rows():
     the adaptive plan within a block's shared memory, which the streamed
     storage meets at any S, and every shape it takes routes there; the
     others go to the wide-row layout where it fits and is preferred, else
-    to the block layout, else to the wide-row layout where it fits; the
-    warp layout is reached by no shape."""
+    to the block layout, else to the wide-row layout where it fits, else
+    to the global layout; the warp layout is reached by no shape."""
     for S in (None, 1, 16, 64, 113, 512, 4096):
         for H in (1, 2, 5, 8, 9, 17, 20, 21, 32, 33):
             for N in (1, 20, 32, 33, 64, 100, 128, 129, 500):
@@ -168,7 +165,7 @@ def test_rows_layout_takes_only_four_slots_and_32_rows():
                 want = "rows" if fits else (
                     "wide" if wide and M.wide_preferred(H, N, S) else
                     "block" if M.block_kernel_supports(S, H, N) else
-                    "wide" if wide else None)
+                    "wide" if wide else "global")
                 assert M.kernel_layout(S, H, N) == want
 
 

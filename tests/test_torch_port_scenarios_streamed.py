@@ -71,8 +71,9 @@ def test_any_number_of_scenarios_has_a_kernel_where_one_forecast_does(S):
     """At H <= 32 a scenario shape has a kernel wherever one forecast of the
     same H and N has one, but where one forecast itself takes the block
     layout (the wide plan too large: 20 rows of 500 assets) and the block
-    layout cannot hold S scenarios' returns; no shape goes to the warp
-    layout; at N <= 128 the row layout takes every S."""
+    layout cannot hold S scenarios' returns, where the global layout takes
+    it (and every shape one forecast takes there); no shape goes to the
+    warp layout; at N <= 128 the row layout takes every S."""
     refused = []
     for H in ROUTING_H:
         for N in ROUTING_N:
@@ -80,12 +81,12 @@ def test_any_number_of_scenarios_has_a_kernel_where_one_forecast_does(S):
             assert got != "warp", (S, H, N)
             if H <= 32 and N <= 128:
                 assert got == "rows", (S, H, N)
-            if H <= 32 and one is not None and got is None:
+            if H <= 32 and one != "global" and got == "global":
                 assert one == "block" and not M.layout_supports(
                     "wide", S, H, N) and not M.block_kernel_supports(S, H, N)
                 refused.append((H, N))
-            if one is None:
-                assert got is None, (S, H, N)
+            if one == "global":
+                assert got == "global", (S, H, N)
     assert refused == ([] if S == 1 else [(20, 500)])
 
 
