@@ -6,10 +6,11 @@
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
 1. ``build``: the card, torch and CUDA versions, the build of the
-   thirty-three kernel sources (one nvcc per source, started together, from
+   thirty-seven kernel sources (one nvcc per source, started together, from
    the sources in this checkout) with each build's seconds, registers and
    spills (every instantiation but the ladder's), the wrappers' copies
-   of the block, global, tile, lane, ladder, row and wide-row layouts' plans
+   of the block, global, cluster, tile, lane, ladder, row and wide-row
+   layouts' plans
    (the
    tile layout's problems a CTA, the row and wide-row layouts' scenario
    storages and rings) against the built kernels', and the one-forecast
@@ -73,9 +74,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    shared-memory layout takes, both bodies, and beside the block layout
    at shapes both take, where it must give the block kernel's bits; the
    block and global layouts' hyperplane projection (``allow_short``) of
-   A, B and C (``global_cases``); and the global layout's persistent loop,
+   A, B and C (``global_cases``); the global layout's persistent loop,
    a batch past its grid beside the block layout, for the same bits on
-   every problem (``global_past_grid``);
+   every problem (``global_past_grid``); and the cluster layout of A and B
+   (the wide body over a thread-block cluster, B's returns streamed by
+   TMA) beside the wide layout at its shapes, launched at two to five CTAs
+   a problem, every body and option and both storages, where it must give
+   the wide kernel's bits, and at the shapes routing gives it
+   (``cluster_cases``);
    every rung of the MV ladder (Sigma's rows in registers and in shared
    memory; ``proj`` in both sweeps up to 32 assets); then ``layouts``:
    every layout of kernels
@@ -181,12 +187,14 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    then ``global_path`` (``phase_global_path``): the comparison on a
    universe of 1000 synthetic names at H=20 with 16 scenarios (observation
    20000), one sweep a strategy, Koopman-MPC and DMD through kernel A's
-   global layout, scenario Kelly through B's, Markowitz (H=1) through C's
-   block layout, the global kernels held against their plain versions on
-   the first 32 dates; the packed entry points on those dates at the
-   accurate configuration (A and B adaptive, by their spread) and kernel C
-   at H=20 (fixed, per-date covariances; adaptive, one shared), one launch
-   each of the global kernels; and ``MPC.ALLOW_SHORT`` at the main path's
+   cluster layout, scenario Kelly through B's, Markowitz (H=1) through C's
+   block layout, the cluster kernels held against their plain versions on
+   the first and last 32 dates, the global kernels of the same bodies
+   pinned on those dates and held beside them; the packed entry points on
+   the first 32 dates at the accurate configuration (A and B adaptive in
+   the cluster layout and, pinned, the global one, by their spread) and
+   kernel C at H=20 (fixed, per-date covariances; adaptive, one shared),
+   one launch each of the routed kernels; and ``MPC.ALLOW_SHORT`` at the main path's
    shape through the block layout's hyperplane projection (Koopman-MPC,
    DMD, scenario Kelly, Markowitz), every row checked for its sum and
    turnover cap, the first solves held;
@@ -652,7 +660,7 @@ def check_feasible(w, cw, params, label, sum_tol=FEAS_TOL):
 
 def compare_case(label, B, H, N, params, seed, S=None, warm=False,
                  dual=False, time_reps=3, time_plain=True, layouts=None,
-                 wide=False, spread=False):
+                 wide=False, spread=False, ctas=None):
     """A log-utility kernel and the plain version on the same card inputs,
     through the same finalisation; returns the case's JSON fields by
     layout (``compare_layouts``). With S the scenario kernel. ``dual``
@@ -667,7 +675,7 @@ def compare_case(label, B, H, N, params, seed, S=None, warm=False,
     cw = torch.as_tensor(cw_np, device="cuda")
     r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
     return compare_layouts(label, cw, r, params, warm, dual, time_reps,
-                           time_plain, layouts, wide, spread)
+                           time_plain, layouts, wide, spread, ctas=ctas)
 
 
 def compare_tensors(label, cw, r, params, warm=False, dual=False,
@@ -712,14 +720,15 @@ def pinned_kernel(layout, r, params):
 
 
 def pinned(layout, cw, r, params, w_warm=None, p_warm=None,
-           return_dual=False, return_steps=False):
+           return_dual=False, return_steps=False, ctas=None, ring=None):
     """``pdhg_log_utility_cuda`` in ``layout`` (which must take the shape;
     ``layout:storage`` also names where the scenario returns live) instead
     of the one routing gives: that layout's kernel for the parameters'
     body, launched and counted as the entry point launches it. For the
     phases that compare layouts and storages, and for ``warp_path``, which
     drives the warp layout's kernels A and B at the paths' shapes, where
-    routing takes the row layout."""
+    routing takes the row layout. ``ctas`` and ``ring`` set a cluster
+    launch's CTAs and streamed ring (default: its plan's)."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     kernel = pinned_kernel(layout, r, params)
@@ -728,12 +737,14 @@ def pinned(layout, cw, r, params, w_warm=None, p_warm=None,
     M._require_cuda_f32(current_weights=cw, r=r, **warm)
     return M._launch(kernel, M._body(params), cw, r, params, w_warm, p_warm,
                      return_dual, return_steps,
-                     storage=split_layout(layout)[1])
+                     storage=split_layout(layout)[1], cluster_ctas=ctas,
+                     ring=ring)
 
 
 def compare_layouts(label, cw, r, params, warm=False, dual=False,
                     time_reps=3, time_plain=True, layouts=None,
-                    wide=False, spread=False, rows=None):
+                    wide=False, spread=False, rows=None, ctas=None,
+                    rows_only=()):
     """Each of ``layouts`` (default: the one the wrapper routes to) on given
     card tensors, launched in that layout (``pinned``), against one
     run of the plain version: current weights [B, N] and gross returns
@@ -752,10 +763,15 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
     difference between the two (``max_abs_dw_block``). Where one layout
     runs in several storages of the scenario returns (``layout:storage``),
     every storage must give the first one's bits (``bits_equal_storage``).
+    Where the wide and the cluster layout both run (the same storage), the
+    cluster kernel's outputs must equal the wide kernel's bit for bit
+    (``bits_equal_wide``: the same operations in the same order, the rows
+    split over a cluster of ``ctas`` CTAs, default its plan's).
     With ``rows`` (indices of problems) the kernels solve the whole batch
     and the plain version those problems alone, which are held
-    (``plain_batch``). A kernel that ran twice is timed without a further
-    warm-up. Returns {layout: case}."""
+    (``plain_batch``); a layout in ``rows_only`` solves those problems
+    alone too. A kernel that ran twice is timed without a further warm-up.
+    Returns {layout: case}."""
     from dataclasses import replace
 
     from kmpc_tpu_torch.ops import mpc_cuda as M
@@ -783,21 +799,28 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
     results, outs, refs = {}, {}, None
     for layout in layouts:
         kernel = pinned_kernel(layout, r, params)
-        out_k = pinned(layout, cw, r, params, return_dual=dual,
-                       return_steps=steps, **kw)
+        few = layout in rows_only
+        cw_l, r_l, kw_l = (cw_h, r_h, kw_h) if few else (cw, r, kw)
+        kw_l = dict(kw_l, ctas=ctas) if layout.startswith("cluster") else kw_l
+        out_k = pinned(layout, cw_l, r_l, params, return_dual=dual,
+                       return_steps=steps, **kw_l)
         res = {"case": label, "layout": layout, "kernel": kernel.name,
-               "B": B, "H": H, "N": N, "iters": params.max_iters}
+               "B": r_l.shape[0], "H": H, "N": N, "iters": params.max_iters}
+        if layout.startswith("cluster"):
+            res["ctas"] = M.cluster_plan(
+                S, H, N, params.adaptive, split_layout(layout)[1], None,
+                ctas)[0]
         if params.allow_short:
             res["allow_short"] = True
         if layout != "warp":
-            again = pinned(layout, cw, r, params, return_dual=dual,
-                           return_steps=steps, **kw)
+            again = pinned(layout, cw_l, r_l, params, return_dual=dual,
+                           return_steps=steps, **kw_l)
             torch.cuda.synchronize()
             assert all(torch.equal(x, y) for x, y in zip(out_k, again)), \
                 f"{label}: two runs of the {layout} kernel differ"
             res["deterministic"] = True
         torch.cuda.synchronize()
-        out_h = tuple(sub(x) for x in out_k)
+        out_h = out_k if few else tuple(sub(x) for x in out_k)
         if rows is not None:
             res["plain_batch"] = len(rows)
         if spread:
@@ -806,13 +829,14 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
         else:
             hold_to_plain(label, cw_h, r_h, params, kw_h, out_h, out_p, res,
                           wide)
-        res["bound_ms"], res["bound_by"] = bound
+        res["bound_ms"], res["bound_by"] = bound if not few else pdhg_bound(
+            r_l.shape[0], H, N, params, S, warm, dual)
         if S is not None:
             res["S"] = S
         if time_reps:
             res["kernel_ms"] = cuda_ms(lambda: pinned(
-                layout, cw, r, params, return_dual=dual, **kw), time_reps,
-                warmup=layout == "warp")
+                layout, cw_l, r_l, params, return_dual=dual, **kw_l),
+                time_reps, warmup=layout == "warp")
         if plain_ms is not None:
             res["plain_ms"] = plain_ms
         results[layout], outs[layout] = res, out_k
@@ -830,6 +854,18 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
         assert all(same), f"{label}: the global layout's bits differ from " \
             f"the block layout's (weights, fp, dual, steps equal: {same})"
         results["global"]["bits_equal_block"] = True
+    for layout in outs:
+        name, storage = split_layout(layout)
+        wide_lay = "wide" + (f":{storage}" if storage else "")
+        if name == "cluster" and wide_lay in outs:
+            # The wide body over a cluster: the same operations in the
+            # same order as the wide kernel's.
+            same = [torch.equal(x, y)
+                    for x, y in zip(outs[wide_lay], outs[layout])]
+            assert all(same), f"{label}: the cluster layout's bits differ " \
+                f"from the wide layout's (weights, fp, dual, steps equal: " \
+                f"{same})"
+            results[layout]["bits_equal_wide"] = True
     if "wide" in outs and "block" in outs:
         # Other summation orders, so other bits: each layout meets the
         # bars against the plain version; how far apart the two are.
@@ -850,15 +886,16 @@ def compare_layouts(label, cw, r, params, warm=False, dual=False,
 
 def storage_of(layout, S, H, N):
     """Where a case of ``layout`` (or ``layout:storage``) kept the scenario
-    returns: the storage it names, else the one routing gives the row or
-    wide-row layout; None for one forecast and the other layouts."""
+    returns: the storage it names, else the one routing gives the row,
+    wide-row or cluster layout; None for one forecast and the other
+    layouts."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     name, storage = split_layout(layout)
-    if S is None or name not in ("rows", "wide"):
+    if S is None or name not in ("rows", "wide", "cluster"):
         return None
-    return storage or (M.rows_storage if name == "rows"
-                       else M.wide_storage)(S, H, N)
+    return storage or {"rows": M.rows_storage, "wide": M.wide_storage,
+                       "cluster": M.cluster_storage}[name](S, H, N)
 
 
 def check_bits(results):
@@ -1463,6 +1500,7 @@ def phase_build():
              spill_store_bytes={k: v for k, v in spills.items() if v})
     check_mv_block_plan()
     check_global_plan()
+    check_cluster_plan()
     check_mv_tile_plan()
     check_mv_lanes_plan()
     check_rows_plan()
@@ -1625,6 +1663,54 @@ def check_global_plan():
     assert not wrong, \
         f"the wrappers' global plans differ from the kernels': {wrong[:5]}"
     emit("global_plan", shapes=len(shapes), agree=True)
+
+
+def check_cluster_plan():
+    """The wrapper's copy of the cluster layout's plan (``cluster_cta_bytes``
+    and ``cluster_size``, which decide whether the layout takes a shape and
+    with how many CTAs) against the plan each of the four built kernels
+    launches with, as its library reports it: a CTA's bytes at every
+    cluster of 1 to 8 CTAs, and the fewest CTAs, for one forecast or S
+    scenarios resident and streamed through each of CLUSTER_RINGS."""
+    import ctypes
+
+    from kmpc_tpu_torch._build import library_path
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    checked, wrong = 0, []
+    for kernel in M._CLUSTER:
+        lib = ctypes.CDLL(str(library_path(kernel.name)))
+        nbytes = getattr(lib, kernel.symbol + "_bytes")
+        size = getattr(lib, kernel.symbol + "_size")
+        nbytes.argtypes, nbytes.restype = [ctypes.c_int] * 7, ctypes.c_longlong
+        size.argtypes, size.restype = [ctypes.c_int] * 6, ctypes.c_int
+        adaptive = kernel.name.endswith("_adaptive")
+        plans = ([(None, "registers", (0, 1))]
+                 if "scenarios" not in kernel.name else
+                 [(S, st, ring) for S in (1, 16, 512)
+                  for st, rings in (("resident", [(0, M.WIDE_CHUNK)]),
+                                    ("streamed", M.CLUSTER_RINGS))
+                  for ring in rings])
+        for S, st, ring in plans:
+            for H in (1, 5, 20, 33, 60, 252):
+                for N in (1, 64, 141, 500, 1000, 2400):
+                    args = (S or 0, H, N, M.STORAGES.index(st))
+                    want = M.cluster_size(S, H, N, adaptive, st, *ring)
+                    got = size(*args, *ring)
+                    checked += 1
+                    if want != got:
+                        wrong.append((kernel.name, S, H, N, st, ring, want,
+                                      got))
+                    for c in range(1, M.CLUSTER_MAX + 1):
+                        want = M.cluster_cta_bytes(S, -(-H // c), N,
+                                                   adaptive, st, *ring)
+                        got = nbytes(*args, c, *ring)
+                        if want != got:
+                            wrong.append((kernel.name, S, H, N, st, ring, c,
+                                          want, got))
+    assert not wrong, \
+        f"the wrapper's cluster plan differs from the kernels': {wrong[:5]}"
+    emit("cluster_plan", shapes=checked, agree=True)
 
 
 def check_mv_tile_plan():
@@ -1892,6 +1978,90 @@ def global_past_grid():
                 for k in kernels]
         held(label, kernels[1], (H, N), p, outs)
     emit("global_past_grid", cases=cases, bits_equal_block=True)
+
+
+# Kernel A's and B's cluster layout (the wide body over a thread-block
+# cluster): (label, B, S, H, N, params, seed, layouts, CTAs, case keywords).
+# Beside the wide layout at its shapes, launched at two or more CTAs a
+# problem, every body and option, B's returns in both storages (N=141: the
+# returns padded to 144 columns for the bulk copies; S=7: a last chunk of
+# fewer scenarios): the wide kernel's bits. At shapes routing gives it (the
+# global path's H=20 N=1000, one forecast and S=16 streamed, fixed and
+# pipelined, whose adaptive bodies ``global_path``'s entry points hold by
+# their spread; S=16 resident at 33 rows, adaptive; 60 rows of 64 assets,
+# where the block layout is routed): held against the plain version.
+CLUSTER_CASES = (
+    ("cluster_A_H5N150", 6, None, 5, 150, dict(
+        max_iters=300, proj_refresh_every=16, precond=True), 1601,
+     ["wide", "cluster"], 2, {}),
+    ("cluster_A_H5N150_pipe_warm_dual", 6, None, 5, 150, dict(
+        max_iters=400, proj_refresh_every=16, precond=True,
+        pipeline_reduces=True), 1602, ["wide", "cluster"], 3,
+     dict(warm=True)),
+    ("cluster_A_H5N150_adaptive", 6, None, 5, 150, dict(
+        max_iters=300, adaptive=True, adapt_every=2, precond=True), 1603,
+     ["wide", "cluster"], 2, dict(wide=True)),
+    ("cluster_A_H5N150_adaptive_k1_warm", 6, None, 5, 150, dict(
+        max_iters=400, adaptive=True, adapt_every=1), 1604,
+     ["wide", "cluster"], 5, dict(warm=True)),
+    ("cluster_A_H4N500_no_ball_cold", 4, None, 4, 500, dict(
+        max_iters=200, max_turnover=0.0, proj_warm_iters=0), 1605,
+     ["wide", "cluster"], 4, dict(dual=True)),
+    ("cluster_A_H5N300_ridge_relax", 4, None, 5, 300, dict(
+        max_iters=300, ridge=1e-3, over_relax=1.5), 1606,
+     ["wide", "cluster"], 3, {}),
+    ("cluster_B_S16H5N150", 6, 16, 5, 150, dict(max_iters=300), 1611,
+     ["wide:streamed", "cluster:streamed", "wide:resident",
+      "cluster:resident"], 2, {}),
+    ("cluster_B_S16H5N150_pipe_dual", 6, 16, 5, 150, dict(
+        max_iters=400, proj_refresh_every=16, precond=True,
+        pipeline_reduces=True), 1612, ["wide:streamed", "cluster:streamed"],
+     3, dict(dual=True)),
+    ("cluster_B_S5H5N141_adaptive", 6, 5, 5, 141, dict(
+        max_iters=300, adaptive=True, adapt_every=1), 1613,
+     ["wide:streamed", "cluster:streamed", "cluster:resident"], 2,
+     dict(wide=True)),
+    ("cluster_B_S7H5N141_adaptive_warm", 6, 7, 5, 141, dict(
+        max_iters=400, adaptive=True, adapt_every=2, precond=True), 1614,
+     ["wide:streamed", "cluster:streamed"], 3, dict(warm=True)),
+    ("cluster_A_H20N1000", 4, None, 20, 1000, dict(
+        max_iters=300, proj_refresh_every=16, precond=True), 1621,
+     ["cluster"], None, {}),
+    ("cluster_B_S16H20N1000", 3, 16, 20, 1000, dict(max_iters=300), 1623,
+     ["cluster"], None, {}),
+    ("cluster_B_S16H20N1000_pipe", 3, 16, 20, 1000, dict(
+        max_iters=300, proj_refresh_every=16, precond=True,
+        pipeline_reduces=True), 1624, ["cluster"], None, {}),
+    ("cluster_B_S16H33N128_resident_adaptive", 4, 16, 33, 128, dict(
+        max_iters=300, adaptive=True, adapt_every=2, precond=True), 1626,
+     ["cluster"], None, {}),
+    ("cluster_A_H60N64", 4, None, 60, 64, dict(
+        max_iters=300, proj_refresh_every=16, precond=True), 1627,
+     ["block", "cluster"], None, {}),
+)
+
+
+def cluster_cases(record):
+    """The ``kernels`` cases of the cluster layout (CLUSTER_CASES): each
+    layout against the plain version, run twice for the same bits, the
+    cluster kernel against the wide kernel for the same bits wherever both
+    run (``compare_layouts``). ``record(res, S=S)`` takes each case;
+    returns the count of cases with the wide kernel's bits."""
+    from kmpc_tpu_torch.ops import mpc_cuda as M
+
+    same = 0
+    for label, B, S, H, N, kw, seed, layouts, ctas, extra in CLUSTER_CASES:
+        p = _params(**kw)
+        routed = M.kernel_layout(S, H, N)
+        assert ctas or routed == "cluster" or layouts[0] == routed, \
+            (label, routed)
+        kw_case = dict(time_plain=False, time_reps=0, ctas=ctas, **extra)
+        for layout, res in compare_case(label, B, H, N, p, seed, S=S,
+                                        layouts=layouts,
+                                        **kw_case).items():
+            same += int(res.get("bits_equal_wide", False))
+            record(res, S=S)
+    return same
 
 
 def phase_kernel_vs_plain():
@@ -2581,6 +2751,8 @@ def phase_kernel_vs_plain():
 
     global_cases(record)
     global_past_grid()
+    emit("cluster_cases", cases=len(CLUSTER_CASES),
+         bits_equal_wide=cluster_cases(record))
 
     # The MV ladder: every variant, chains and unroll, on a batch that is no
     # multiple of the chains; two and four slots per lane.
@@ -2818,9 +2990,10 @@ def phase_layouts():
                         else scenario_instance(B, S, H, N, seed))
         cw = torch.as_tensor(cw_np, device="cuda")
         r = torch.exp(torch.as_tensor(ys_np, device="cuda")).contiguous()
-        # The global layout takes every shape and is routed to none of
-        # these: ``global_path`` and ``row_slots --global`` time it.
-        taken = [lay for lay in M.LAYOUTS if lay != "global"
+        # The cluster and global layouts take nearly every shape and are
+        # routed to none of these: ``global_path`` and ``row_slots
+        # --global`` time them.
+        taken = [lay for lay in M.LAYOUTS if lay not in ("cluster", "global")
                  and M.layout_supports(lay, S, H, N)]
         # The row and wide-row layouts in the storages routing does not
         # give the shape, too.
@@ -3390,15 +3563,16 @@ def run_strategies(ctx, cfg, sweeps, reach, horizon=None, names=None,
 
 
 def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label, reach,
-                 scenarios=SCENARIOS, held=None):
+                 scenarios=SCENARIOS, held=None, pinned_launches=None):
     """The path's first solves (pre-trade guess 1/N on every date) of the
     named strategies, by each kernel and by its plain version on the same
     card inputs: {kernel name (``reach``): the case}. With ``held`` (the
-    log-utility strategies of a path whose kernel is of the global
+    log-utility strategies of a path whose kernel is of the cluster
     layout), the kernel solves every date once more, timed once, and the
-    plain version the first ``held`` dates and ``held`` dates spread over
-    those past the kernel's persistent grid, whose CTAs solve them after
-    others through the same workspace slot (``rows_past_grid``)."""
+    plain version the first ``held`` and the last ``held`` dates; the global
+    layout's kernel of the same body solves those dates alone, once counted
+    into ``pinned_launches`` and then held beside it against the same plain
+    run (its case under its own name)."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     fd = ctx["fd"]
@@ -3418,16 +3592,33 @@ def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label, reach,
             r = torch.exp(aux[key][:n_dates]).contiguous()
             if held:
                 S = r.shape[1] if r.dim() == 4 else None
-                layout, _, kernel = M._route(S, bt.HORIZON, n, mpc)
-                grid = M.global_grid(kernel, n_dates, (S or 0, bt.HORIZON, n),
-                                     mpc.allow_short, fd.device)
-                assert layout == "global" and n_dates > grid + held, \
-                    (name, layout, n_dates, grid)
-                past = torch.linspace(grid, n_dates - 1, held).round().long()
-                rows = torch.cat([torch.arange(held), past]).to(fd.device)
-                res = compare_tensors(label, cw, r, mpc, time_reps=1,
-                                      rows=rows)
-                res.update(grid=grid, rows_past_grid=past.tolist())
+                layout = M._route(S, bt.HORIZON, n, mpc)[0]
+                assert layout == "cluster" and n_dates > 2 * held, \
+                    (name, layout, n_dates)
+                rows = torch.cat([torch.arange(held), torch.arange(
+                    n_dates - held, n_dates)]).to(fd.device)
+                glob = pinned_kernel("global", r, mpc)
+                before = glob.launches
+                pinned("global", cw[rows].contiguous(), r[rows].contiguous(),
+                       mpc)
+                pinned_launches[glob.name] = pinned_launches.get(
+                    glob.name, 0) + glob.launches - before
+                cases = compare_layouts(label, cw, r, mpc, time_reps=1,
+                                        rows=rows,
+                                        layouts=[layout, "global"],
+                                        rows_only=("global",))
+                res = cases[layout]
+                first[glob.name] = cases["global"]
+                for case in cases.values():
+                    case["held_dates"] = [0, held, n_dates - held, n_dates]
+                if S:
+                    # The returns read once an iteration, at the rate the
+                    # timed launch reached.
+                    res.update(storage=M.cluster_storage(S, bt.HORIZON, n),
+                               S=S, returns_bytes_per_iter=4 * r.numel())
+                    res["returns_tb_per_s"] = (
+                        res["returns_bytes_per_iter"] * mpc.max_iters
+                        / (res["kernel_ms"] * 1e-3) / 1e12)
             else:
                 res = compare_tensors(label, cw, r, mpc, time_reps=5)
         first[expect_kernel(reach, name, mpc, mv_mpc, n, scenarios)] = res
@@ -4026,9 +4217,9 @@ GLOBAL_HORIZON = 20
 GLOBAL_HELD_DATES = 32
 GLOBAL_MV_ITERS = 400
 GLOBAL_REACH = {"Markowitz": "pdhg_mean_variance_block",
-                "DMD": "pdhg_log_utility_global",
-                "KoopmanMPC": "pdhg_log_utility_global",
-                "ScenarioKelly": "pdhg_log_utility_scenarios_global"}
+                "DMD": "pdhg_log_utility_cluster",
+                "KoopmanMPC": "pdhg_log_utility_cluster",
+                "ScenarioKelly": "pdhg_log_utility_scenarios_cluster"}
 # ``allow_short`` at the main path's shape (H=5, N=20): the block layout's
 # kernels, projecting on the hyperplane by their flag.
 SHORT_REACH = {"Markowitz": "pdhg_mean_variance_block",
@@ -4057,21 +4248,24 @@ def short_config(cfg):
 
 
 def phase_global_path(seed, ctx):
-    """The shapes past every shared-memory layout and ``allow_short``, on
-    the card. (1) ``run_experiment --config <GLOBAL_ASSETS names> --horizon
-    20 --scenarios 16``: finance_sparse with its random weights from
-    ``seed`` (observation GLOBAL_ASSETS x EMBEDDING_DIM), the five
-    strategies one sweep each, DMD and Koopman-MPC through kernel A's
-    global layout, scenario Kelly through B's, Markowitz (H=1) through C's
-    block layout; launches asserted, every weight row feasible; Koopman-MPC's
-    and scenario Kelly's first solves on every date, held against the plain
-    versions on the first GLOBAL_HELD_DATES dates and on GLOBAL_HELD_DATES
-    past the kernels' persistent grids. (2) The packed entry points on those
-    dates' forecasts at the accurate configuration (A and B adaptive, held
-    by their spread past SPREAD_N assets) and kernel C at H=20 (the
-    Markowitz path's per-date covariances, fixed steps; one shared
-    covariance, adaptive; GLOBAL_MV_ITERS iterations): one launch each of
-    the four global kernels, then each held (timed once). (3) ``MPC.ALLOW_SHORT`` at the main path's shape (``ctx``:
+    """The shapes past one CTA's shared memory and ``allow_short``, on the
+    card. (1) ``run_experiment --config <GLOBAL_ASSETS names> --horizon 20
+    --scenarios 16 --parallel --sweeps 1``: finance_sparse with its random
+    weights from ``seed`` (observation GLOBAL_ASSETS x EMBEDDING_DIM), the
+    five strategies one sweep each, DMD and Koopman-MPC through kernel A's
+    cluster layout, scenario Kelly through B's (its returns streamed by
+    TMA), Markowitz (H=1) through C's block layout; launches asserted,
+    every weight row feasible; Koopman-MPC's and scenario Kelly's first
+    solves on every date, held against the plain versions on the first and
+    the last GLOBAL_HELD_DATES dates, and the global layout's kernels of the
+    same bodies pinned on those dates (one counted launch each) and held
+    beside them. (2) The packed entry points on the first dates' forecasts
+    at the accurate configuration (A and B adaptive: the cluster layout's
+    adaptive kernels, and the global layout's pinned beside them, held by
+    their spread past SPREAD_N assets) and kernel C at H=20 (the Markowitz
+    path's per-date covariances, fixed steps; one shared covariance,
+    adaptive; GLOBAL_MV_ITERS iterations): one launch of each routed
+    kernel, then each held (timed once). (3) ``MPC.ALLOW_SHORT`` at the main path's shape (``ctx``:
     H=5, N=20): Koopman-MPC, DMD, scenario Kelly and Markowitz one sweep
     each through the block layout's hyperplane projection, every row
     checked for its sum and turnover (not its sign), the first solves held.
@@ -4103,9 +4297,14 @@ def phase_global_path(seed, ctx):
     strategies, frames, timing, launched, _, (mpc, mv_mpc, bt) = \
         run_strategies(big, cfg, 1, GLOBAL_REACH, horizon=GLOBAL_HORIZON)
     launches = {k: n for k, n in launched.items() if n}
+    pinned_global = {}
     first = first_solves(big, strategies, mpc, mv_mpc, bt,
                          ("KoopmanMPC", "ScenarioKelly"), "global_path",
-                         GLOBAL_REACH, held=GLOBAL_HELD_DATES)
+                         GLOBAL_REACH, held=GLOBAL_HELD_DATES,
+                         pinned_launches=pinned_global)
+    assert pinned_global == {"pdhg_log_utility_global": 1,
+                             "pdhg_log_utility_scenarios_global": 1}, \
+        pinned_global
     for name, res in first.items():
         emit("global_path_first_solve", **dict(res, kernel=name))
     table = pd.DataFrame({k: calculate_metrics(v)
@@ -4144,15 +4343,25 @@ def phase_global_path(seed, ctx):
     entry_launches = {k: v.launches for k, v in kernels.items()
                       if v.launches}
     assert entry_launches == {
-        "pdhg_log_utility_global_adaptive": 1,
-        "pdhg_log_utility_scenarios_global_adaptive": 1,
+        "pdhg_log_utility_cluster_adaptive": 1,
+        "pdhg_log_utility_scenarios_cluster_adaptive": 1,
         "pdhg_mean_variance_global": 1,
         "pdhg_mean_variance_global_adaptive": 1}, entry_launches
-    held = [compare_tensors("global_path_entry_A_adaptive", cw, torch.exp(y),
-                            acc, time_reps=1, spread=True),
-            compare_tensors("global_path_entry_B_adaptive", cw,
-                            torch.exp(ys).contiguous(), acc, time_reps=1,
-                            spread=True),
+    # The global layout's adaptive kernels on the same problems.
+    r_a, r_b = torch.exp(y), torch.exp(ys).contiguous()
+    for r_e in (r_a, r_b):
+        glob = pinned_kernel("global", r_e, acc)
+        before = glob.launches
+        pinned("global", cw, r_e, acc)
+        pinned_global[glob.name] = glob.launches - before
+    both = [compare_layouts(f"global_path_entry_{k}_adaptive", cw, r_e, acc,
+                            time_reps=1, spread=True,
+                            layouts=["cluster", "global"])
+            for k, r_e in (("A", r_a), ("B", r_b))]
+    for cases in both:
+        first.setdefault(cases["global"]["kernel"], cases["global"])
+        emit("global_path_entry_solve", **cases["global"])
+    held = [both[0]["cluster"], both[1]["cluster"],
             compare_mv_tensors("global_path_entry_C", cw, y, sig, mv_fixed,
                                time_reps=1),
             compare_mv_tensors("global_path_entry_C_shared_adaptive", cw, y,
@@ -4166,6 +4375,7 @@ def phase_global_path(seed, ctx):
         emit("global_path_entry_solve", **res)
         first.setdefault(res["kernel"], res)
     launches.update(entry_launches)
+    launches.update(pinned_global)
 
     # allow_short at the main path's shape.
     names = ("KoopmanMPC", "DMD", "ScenarioKelly", "Markowitz")
@@ -5674,7 +5884,7 @@ def phase_eval_path(seed: int):
     rows = M.PDHG_LOG_UTILITY_ROWS
     before = rows.launches
     t0 = time.perf_counter()
-    table = RE.main(["--torch_ckpt", str(pt), "--sweeps", "1",
+    table = RE.main(["--torch_ckpt", str(pt), "--parallel", "--sweeps", "1",
                      "--output", str(EVAL_DIR / "reference")])
     experiment_s = time.perf_counter() - t0
     assert rows.launches - before == 2, rows.launches - before  # DMD, KMPC
@@ -6332,6 +6542,16 @@ KERNELS = {
     "pdhg_mean_variance_global": (_MV + "_global.cu", _PALLAS + ":1089"),
     "pdhg_mean_variance_global_adaptive": (_MV + "_global_adaptive.cu",
                                            _PALLAS + ":1196"),
+    # The cluster layout (the wide body over a thread-block cluster): A and
+    # B on ``global_path``'s comparison, their adaptive bodies on its
+    # entry-point runs.
+    "pdhg_log_utility_cluster": (_LOG + "_cluster.cu", _PALLAS + ":226"),
+    "pdhg_log_utility_cluster_adaptive": (_LOG + "_cluster_adaptive.cu",
+                                          _PALLAS + ":593"),
+    "pdhg_log_utility_scenarios_cluster": (_LOG + "_scenarios_cluster.cu",
+                                           _PALLAS + ":226"),
+    "pdhg_log_utility_scenarios_cluster_adaptive": (
+        _LOG + "_scenarios_cluster_adaptive.cu", _PALLAS + ":593"),
     # The block layout's hyperplane projection (``allow_short``), a line
     # each, on ``global_path``'s allow_short comparison.
     "pdhg_log_utility_block:short": (_LOG + "_block.cu", _PALLAS + ":226"),
@@ -6489,7 +6709,7 @@ def main():
                     "plain_apart_from_float64", "unsettled_apart",
                     "kernel_unsettled_apart", "plain_unsettled_apart")}})
         if any(x in name for x in ("block", "rows", "wide", "tile",
-                                   "lanes", "global")):
+                                   "lanes", "global", "cluster")):
             entry["deterministic_cases"] = sum(
                 1 for c in every if c.get("deterministic"))
         if "wide" in name or "tile" in name:
@@ -6498,6 +6718,9 @@ def main():
         if "global" in name:
             entry["bits_equal_block_cases"] = sum(
                 1 for c in every if c.get("bits_equal_block"))
+        if "cluster" in name:
+            entry["bits_equal_wide_cases"] = sum(
+                1 for c in every if c.get("bits_equal_wide"))
         if name.endswith(":short"):
             entry["allow_short"] = True
         elif ":" in name:

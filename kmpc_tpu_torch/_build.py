@@ -77,18 +77,27 @@ SOURCES = {
     "pdhg_mean_variance_global": "pdhg_mean_variance_global.cu",
     "pdhg_mean_variance_global_adaptive":
         "pdhg_mean_variance_global_adaptive.cu",
+    "pdhg_log_utility_cluster": "pdhg_log_utility_cluster.cu",
+    "pdhg_log_utility_cluster_adaptive":
+        "pdhg_log_utility_cluster_adaptive.cu",
+    "pdhg_log_utility_scenarios_cluster":
+        "pdhg_log_utility_scenarios_cluster.cu",
+    "pdhg_log_utility_scenarios_cluster_adaptive":
+        "pdhg_log_utility_scenarios_cluster_adaptive.cu",
 }
 
 
 # The sources whose builds take longest (alone on the H100 machine's 8
 # cores: mv_ladder 84 s, pdhg_log_utility_scenarios_wide 54 s,
-# pdhg_log_utility_scenarios_rows 50 s; every other one under 40 s; all 27
+# pdhg_log_utility_scenarios_cluster 54-69 s, pdhg_log_utility_scenarios_rows
+# 50 s; every other one under 40 s; all 27
 # together 423 CPU seconds, 119 s of wall time, the ladder last) split their
 # device compilation over threads (nvcc's and ptxas' --split-compile; the
 # ladder's registers and spills measured the same), so that the cores the
 # shorter builds leave idle shorten them.
 SLOWEST = ("mv_ladder", "pdhg_log_utility_scenarios_wide",
-           "pdhg_log_utility_scenarios_rows")
+           "pdhg_log_utility_scenarios_rows",
+           "pdhg_log_utility_scenarios_cluster")
 SPLIT_FLAGS = ["--split-compile=0", "-Xptxas", "--split-compile=0"]
 
 

@@ -258,15 +258,17 @@ __device__ __forceinline__ float wide_port(const Slots& s, const float* w,
 
 // g <- the scenario mean of r_s * scale / max(w . r_s, 1e-12) over the
 // row's S returns, resident (rs: [S][N] at this lane's column) or streamed
-// (ring): CW scenarios a chunk, their portfolio values two-stage (each lane
-// over its slots, then `chunk_factors`' transposing butterfly), the
-// gradient summed slot by slot over s = 0..S-1.
-template <int CW, int ST>
+// (ring, a RowRing or the cluster layout's TmaRing: its next() gives the
+// next chunk at this lane's column): CW scenarios a chunk, their portfolio
+// values two-stage (each lane over its slots, then `chunk_factors`'
+// transposing butterfly), the gradient summed slot by slot over
+// s = 0..S-1.
+template <int CW, int ST, class Ring>
 __device__ __forceinline__ void wide_scen_returns(const Slots& sl,
                                                   const float* w, float* g,
                                                   const float* rs,
-                                                  RowRing<CW>& ring,
-                                                  float scale, int S) {
+                                                  Ring& ring, float scale,
+                                                  int S) {
   const int K = sl.K, N = sl.N;
 #pragma unroll 4
   for (int k = 0; k < K; ++k) g[k * 32] = 0.f;

@@ -26,7 +26,7 @@ take warm primal/dual iterates (the simplex threshold then starts cold on
 the warm primal, the ball threshold from zero) and can write the loop's
 last dual.
 
-Five layouts: one CTA per problem and one warp per horizon row
+Six layouts: one CTA per problem and one warp per horizon row
 (``csrc/pdhg_log_utility_rows.cuh``, up to 32 rows of ceil(N/32) <= 4
 slots, any number of scenarios), one warp per problem with the iterates in
 registers (``csrc/pdhg_log_utility.cuh``, up to pow2ceil(H) * ceil(N/32) =
@@ -35,20 +35,25 @@ row in shared memory (``csrc/pdhg_log_utility_wide.cuh``, up to 32 rows, as
 many slots as the shared memory holds, one forecast or any number of
 scenarios), one block per problem with the iterates in shared memory
 (``csrc/pdhg_log_utility_block.cuh``, every shape whose problem fits a
-block's shared memory: long horizons, hundreds of assets), and the global
-layout, the block layout's body with its iterates in a global-memory
-workspace, one slot a CTA of a persistent grid (the same header; every
-other shape: S=16 at H=20 N=500, one forecast at H=20 N=1000, H=252). In the
-row and
-wide-row layouts a problem's scenario returns sit in registers (the row
-layout, S ceil(N/32) <= 16), resident in the CTA's shared memory, or
-streamed through each warp's ring of chunk stages (``STORAGES``;
-``rows_storage``, ``wide_storage``): the plan of the streamed storage does
-not grow with S. A CUDA tensor launches the row kernel where it fits (the
-fastest layout at every shape measured), else the wide kernel where it
-measured faster than the block kernel (``wide_preferred``), else the block
-kernel, else the wide kernel where it takes the shape, else the global
-kernel; no shape routes to the warp layout, which the row layout takes
+block's shared memory: long horizons, hundreds of assets), the cluster
+layout, the wide-row body with one problem's rows split over a
+thread-block cluster of at most 8 CTAs, the rows that meet across CTAs
+read through distributed shared memory
+(``csrc/pdhg_log_utility_cluster.cuh``; one forecast at H=20 N=1000, S=16
+there), and the global layout, the block layout's body with its iterates
+in a global-memory workspace, one slot a CTA of a persistent grid (the
+block header; every other shape: H=252 at N=1000, say). In the row,
+wide-row and cluster layouts a problem's scenario returns sit in registers
+(the row layout, S ceil(N/32) <= 16), resident in the CTA's shared memory,
+or streamed through each warp's ring of chunk stages, by ``cp.async`` or,
+in the cluster layout, TMA bulk copies (``STORAGES``; ``rows_storage``,
+``wide_storage``, ``cluster_storage``): the plan of the streamed storage
+does not grow with S. A CUDA tensor launches the row kernel where it fits
+(the fastest layout at every shape measured), else the wide kernel where
+it measured faster than the block kernel (``wide_preferred``), else the
+block kernel, else the wide kernel where it takes the shape, else the
+cluster kernel where a cluster holds it, else the global kernel; no shape
+routes to the warp layout, which the row layout takes
 wherever both fit (the private launch of chip_smoke.py still runs it). So
 every input kmpc_tpu's packed wrappers answer runs on the card, where
 kmpc_tpu hands some to its XLA solver; only a global workspace past the
@@ -212,6 +217,32 @@ PDHG_LOG_UTILITY_SCENARIOS_WIDE_ADAPTIVE = CudaKernel(
     "kmpc_pdhg_log_utility_scenarios_wide_adaptive",
     [_P] * 8 + [_I, _I] + _TAIL_STORE_ADAPTIVE,
 )
+# The cluster layout: the wide-row layout's arguments, then the cluster's
+# CTAs before the stream; kernel B's also the streamed ring's stages and
+# scenarios a stage and the returns' row stride.
+_TAIL_CLUSTER = _TAIL_BLOCK[:-1] + [_I, _P]
+_TAIL_CLUSTER_ADAPTIVE = _TAIL[:-1] + [_I, _P]
+_TAIL_CLUSTER_STORE = _TAIL_STORE[:-1] + [_I] * 4 + [_P]
+_TAIL_CLUSTER_STORE_ADAPTIVE = _TAIL_STORE_ADAPTIVE[:-1] + [_I] * 4 + [_P]
+PDHG_LOG_UTILITY_CLUSTER = CudaKernel(
+    "pdhg_log_utility_cluster", "kmpc_pdhg_log_utility_cluster",
+    [_P] * 7 + [_I] + _TAIL_CLUSTER,
+)
+PDHG_LOG_UTILITY_CLUSTER_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_cluster_adaptive",
+    "kmpc_pdhg_log_utility_cluster_adaptive",
+    [_P] * 8 + [_I] + _TAIL_CLUSTER_ADAPTIVE,
+)
+PDHG_LOG_UTILITY_SCENARIOS_CLUSTER = CudaKernel(
+    "pdhg_log_utility_scenarios_cluster",
+    "kmpc_pdhg_log_utility_scenarios_cluster",
+    [_P] * 7 + [_I, _I] + _TAIL_CLUSTER_STORE,
+)
+PDHG_LOG_UTILITY_SCENARIOS_CLUSTER_ADAPTIVE = CudaKernel(
+    "pdhg_log_utility_scenarios_cluster_adaptive",
+    "kmpc_pdhg_log_utility_scenarios_cluster_adaptive",
+    [_P] * 8 + [_I, _I] + _TAIL_CLUSTER_STORE_ADAPTIVE,
+)
 # (scenarios, layout, body) -> kernel
 _KERNELS = {
     (False, "warp", "fixed"): PDHG_LOG_UTILITY,
@@ -244,16 +275,25 @@ _KERNELS = {
     (True, "global", "fixed"): PDHG_LOG_UTILITY_SCENARIOS_GLOBAL,
     (True, "global", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_GLOBAL,
     (True, "global", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_GLOBAL_ADAPTIVE,
+    (False, "cluster", "fixed"): PDHG_LOG_UTILITY_CLUSTER,
+    (False, "cluster", "pipe"): PDHG_LOG_UTILITY_CLUSTER,
+    (False, "cluster", "adaptive"): PDHG_LOG_UTILITY_CLUSTER_ADAPTIVE,
+    (True, "cluster", "fixed"): PDHG_LOG_UTILITY_SCENARIOS_CLUSTER,
+    (True, "cluster", "pipe"): PDHG_LOG_UTILITY_SCENARIOS_CLUSTER,
+    (True, "cluster", "adaptive"): PDHG_LOG_UTILITY_SCENARIOS_CLUSTER_ADAPTIVE,
 }
 KERNELS = tuple(dict.fromkeys(_KERNELS.values()))
-# In the order routing prefers them; the global layout takes every shape.
-LAYOUTS = ("rows", "warp", "wide", "block", "global")
+# In the order routing prefers them (``kernel_layout``: the wide layout
+# where preferred before the block layout, else where it fits after it);
+# the global layout takes every shape.
+LAYOUTS = ("rows", "warp", "wide", "block", "cluster", "global")
 # The block, row, wide and global layouts' fixed-step kernels run the
 # pipelined body by a flag.
 _PIPE_FLAG = (PDHG_LOG_UTILITY_BLOCK, PDHG_LOG_UTILITY_SCENARIOS_BLOCK,
               PDHG_LOG_UTILITY_ROWS, PDHG_LOG_UTILITY_SCENARIOS_ROWS,
               PDHG_LOG_UTILITY_WIDE, PDHG_LOG_UTILITY_SCENARIOS_WIDE,
-              PDHG_LOG_UTILITY_GLOBAL, PDHG_LOG_UTILITY_SCENARIOS_GLOBAL)
+              PDHG_LOG_UTILITY_GLOBAL, PDHG_LOG_UTILITY_SCENARIOS_GLOBAL,
+              PDHG_LOG_UTILITY_CLUSTER, PDHG_LOG_UTILITY_SCENARIOS_CLUSTER)
 # The global layout's kernels, which take a workspace and a grid.
 _GLOBAL = (PDHG_LOG_UTILITY_GLOBAL, PDHG_LOG_UTILITY_SCENARIOS_GLOBAL,
            PDHG_LOG_UTILITY_GLOBAL_ADAPTIVE,
@@ -271,7 +311,13 @@ SHORT_LAUNCHES: Dict[str, int] = {}
 _STORAGE_ARG = (PDHG_LOG_UTILITY_SCENARIOS_ROWS,
                 PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE,
                 PDHG_LOG_UTILITY_SCENARIOS_WIDE,
-                PDHG_LOG_UTILITY_SCENARIOS_WIDE_ADAPTIVE)
+                PDHG_LOG_UTILITY_SCENARIOS_WIDE_ADAPTIVE,
+                PDHG_LOG_UTILITY_SCENARIOS_CLUSTER,
+                PDHG_LOG_UTILITY_SCENARIOS_CLUSTER_ADAPTIVE)
+# The cluster layout's kernels, which take the cluster's CTAs.
+_CLUSTER = (PDHG_LOG_UTILITY_CLUSTER, PDHG_LOG_UTILITY_CLUSTER_ADAPTIVE,
+            PDHG_LOG_UTILITY_SCENARIOS_CLUSTER,
+            PDHG_LOG_UTILITY_SCENARIOS_CLUSTER_ADAPTIVE)
 # Where a problem's scenario returns live in the row and wide-row layouts
 # (the kernels' ``storage``, by index): in registers (the row layout at
 # S ceil(N/32) <= ROWS_REG_SLOTS, and every one-forecast launch), resident
@@ -545,6 +591,117 @@ def wide_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
             and wide_smem_bytes(H, N, True, S) <= SMEM_PER_BLOCK)
 
 
+# The cluster layout: the wide-row body with one problem's rows split over
+# a thread-block cluster of at most CLUSTER_MAX CTAs, their arrays in each
+# CTA's shared memory, the rows that meet across CTAs read through
+# distributed shared memory (csrc/pdhg_log_utility_cluster.cuh); kernel B's
+# returns resident, or streamed through each warp's ring by TMA bulk copies.
+CLUSTER_MAX = 8
+# A streamed ring's (stages, scenarios a stage) in the order routing tries
+# them, the first whose plan a cluster holds (CLUSTER_MAX CTAs): a deeper
+# ring takes more CTAs a problem. By measurement (PERF.md section 6, kernel
+# B at S=16 B=1013 H=20 N=1000): (2, 2) at four CTAs ran 1.02x faster than
+# (2, 1) at three, 1.14x than (2, 4) at five, 1.66x than (3, 4) at seven;
+# the kernels are built for these two (a ring of four scenarios a stage
+# would be tried only where (2, 1), the smallest, does not fit).
+CLUSTER_RINGS = ((2, 2), (2, 1))
+
+
+def cluster_cta_bytes(S: Optional[int], span: int, N: int, adaptive: bool,
+                      storage: str = "registers", stages: int = 0,
+                      chunk: int = 1) -> int:
+    """Shared memory of one CTA of ``span`` rows in the cluster layout
+    (``cluster_plan`` in csrc/pdhg_log_utility_cluster.cuh): the returns
+    first (one forecast [span][K * 32]; S scenarios resident [span][S][N],
+    or each warp's ring of ``stages`` x ``chunk`` x K * 32 floats), rounded
+    to 16 bytes; w, p, the projection and dual input and wbar (one more
+    row); with ``adaptive`` the moves dw and dp and the residual partials
+    [2][span][32]; the curvature ratios (of WIDE_CHUNK scenarios), fp and
+    the rows' bounds, rounded to 8 bytes; the ring's mbarriers."""
+    kw = 32 * -(-N // 32)
+    sr = span * kw
+    scen = bool(S)
+    ring = scen and storage == "streamed"
+    o = sr if not scen else (span * stages * chunk * kw if ring
+                             else span * S * N)
+    o = -(-o // 4) * 4 + 4 * sr + kw
+    if adaptive:
+        o += 2 * sr + 2 * span * 32
+    o += span * (WIDE_CHUNK if scen else 1) + 2 * span
+    o = -(-o // 2) * 2 + (2 * span * stages if ring else 0)
+    return 4 * o
+
+
+def cluster_size(S: Optional[int], H: int, N: int, adaptive: bool,
+                 storage: str = "registers", stages: int = 0,
+                 chunk: int = 1) -> int:
+    """The fewest CTAs, at most CLUSTER_MAX, whose CTA of ceil(H / C) <=
+    WIDE_MAX_H rows fits a block's shared memory, given as ceil(H / span)
+    so that every CTA holds a row (``cluster_size`` in the header); 0 where
+    none does."""
+    for c in range(1, CLUSTER_MAX + 1):
+        span = -(-H // c)
+        if span <= WIDE_MAX_H and cluster_cta_bytes(
+                S, span, N, adaptive, storage, stages, chunk) <= SMEM_PER_BLOCK:
+            return -(-H // span)
+    return 0
+
+
+def cluster_ring(S: int, H: int, N: int, adaptive: bool) -> Tuple[int, int]:
+    """The streamed ring's (stages, scenarios a stage) of a body: the first
+    of CLUSTER_RINGS whose plan a cluster holds ((0, 0) where none)."""
+    for stages, chunk in CLUSTER_RINGS:
+        if cluster_size(S, H, N, adaptive, "streamed", stages, chunk):
+            return stages, chunk
+    return 0, 0
+
+
+def cluster_storage(S: int, H: int, N: int) -> str:
+    """Where the cluster kernels keep a problem's scenario returns: resident
+    where the adaptive body's resident plan takes no more CTAs than its
+    streamed one (as ``wide_storage``: no fewer problems in flight), else
+    streamed."""
+    res = cluster_size(S, H, N, True, "resident")
+    ring = cluster_ring(S, H, N, True)
+    streamed = cluster_size(S, H, N, True, "streamed", *ring) if ring[0] else 0
+    return "resident" if res and (not streamed or res <= streamed) \
+        else "streamed"
+
+
+def cluster_plan(S: Optional[int], H: int, N: int, adaptive: bool,
+                 storage: Optional[str] = None,
+                 ring: Optional[Tuple[int, int]] = None,
+                 ctas: Optional[int] = None) -> Tuple[int, int, int, int, int]:
+    """(CTAs C, rows a CTA, bytes a CTA, ring stages, scenarios a stage) of
+    a launch in the cluster layout: one forecast, or S scenarios in
+    ``storage`` (default ``cluster_storage``'s) through ``ring`` (default
+    ``cluster_ring``'s); C the fewest that hold the body's plan, or
+    ``ctas`` (a private launch at more CTAs than needed). C is 0 where no
+    cluster of at most CLUSTER_MAX CTAs holds it."""
+    if S is None:
+        storage, ring = "registers", (0, 1)
+    else:
+        storage = storage or cluster_storage(S, H, N)
+        ring = ring or (cluster_ring(S, H, N, adaptive)
+                        if storage == "streamed" else (0, WIDE_CHUNK))
+        if storage == "streamed" and not ring[0]:
+            return 0, 0, 0, 0, 0
+    c = ctas or cluster_size(S, H, N, adaptive, storage, *ring)
+    if not 1 <= c <= CLUSTER_MAX:
+        return 0, 0, 0, ring[0], ring[1]
+    span = -(-H // c)
+    return (c, span, cluster_cta_bytes(S, span, N, adaptive, storage, *ring),
+            ring[0], ring[1])
+
+
+def cluster_kernel_supports(S: Optional[int], H: int, N: int) -> bool:
+    """Whether the cluster kernels take a problem of this shape: the
+    adaptive body's plan (the budget is the same for every body) in a
+    cluster of at most CLUSTER_MAX CTAs of at most WIDE_MAX_H rows."""
+    return (H >= 1 and N >= 1 and (S is None or S >= 1)
+            and cluster_plan(S, H, N, True)[0] > 0)
+
+
 def storage_supports(layout: str, storage: str, S: Optional[int], H: int,
                      N: int) -> bool:
     """Whether ``layout``'s kernels take this shape with the scenario
@@ -562,6 +719,9 @@ def storage_supports(layout: str, storage: str, S: Optional[int], H: int,
                 and N > 32 * MAX_SLOTS
                 and wide_scen_plan(S, H, N, True, storage)[0]
                 <= SMEM_PER_BLOCK)
+    if layout == "cluster" and storage in ("resident", "streamed"):
+        return (S is not None and S >= 1 and H >= 1 and N >= 1
+                and cluster_plan(S, H, N, True, storage)[0] > 0)
     return False
 
 
@@ -608,6 +768,8 @@ def layout_supports(layout: str, S: Optional[int], H: int, N: int,
         return rows_kernel_supports(S, H, N)
     if layout == "wide":
         return wide_kernel_supports(S, H, N)
+    if layout == "cluster":
+        return cluster_kernel_supports(S, H, N)
     return layout == "block" and block_kernel_supports(S, H, N)
 
 
@@ -621,9 +783,11 @@ def kernel_layout(S: Optional[int], H: int, N: int,
     shared memory) where it fits and ``wide_preferred``, else ``"block"``
     (one block per problem, the iterates in shared memory), else
     ``"wide"`` where it fits (a scenario shape the block layout cannot
-    hold), else ``"global"`` (the block layout's body with its iterates in a
-    global-memory workspace: every shape, whatever S, H and N; a workspace
-    past the card's free memory raises at launch and names its bytes).
+    hold), else ``"cluster"`` (the wide-row body with the rows split over a
+    cluster of at most CLUSTER_MAX CTAs) where it fits, else ``"global"``
+    (the block layout's body with its iterates in a global-memory
+    workspace: every shape, whatever S, H and N; a workspace past the
+    card's free memory raises at launch and names its bytes).
     With ``allow_short`` (the hyperplane projection, in the block and global
     layouts only) ``"block"`` where one problem fits a block's shared
     memory, else ``"global"``. None only for S, H or N below 1. By
@@ -641,11 +805,14 @@ def kernel_layout(S: Optional[int], H: int, N: int,
         return None
     if allow_short:
         return "block" if block_kernel_supports(S, H, N) else "global"
-    for layout in LAYOUTS[:-1]:
+    for layout in ("rows", "warp", "wide", "block"):
         if layout_supports(layout, S, H, N) and (
                 layout != "wide" or wide_preferred(H, N, S)):
             return layout
-    return "wide" if layout_supports("wide", S, H, N) else "global"
+    for layout in ("wide", "cluster"):
+        if layout_supports(layout, S, H, N):
+            return layout
+    return "global"
 
 
 def _pipelined(params: MPCParams) -> bool:
@@ -1012,8 +1179,9 @@ def pdhg_log_utility_cuda(
     shape: ``pdhg_log_utility{,_scenarios}_rows`` where the row layout
     fits, else ``pdhg_log_utility{,_scenarios}_wide`` where preferred,
     else the ``..._block`` kernel, else the wide kernel where it fits, else
-    the ``..._global`` kernel; scenario returns in the storage
-    ``rows_storage`` or ``wide_storage`` gives; with ``params.adaptive``
+    the ``..._cluster`` kernel where a cluster holds the problem, else the
+    ``..._global`` kernel; scenario returns in the storage
+    ``rows_storage``, ``wide_storage`` or ``cluster_storage`` gives; with ``params.adaptive``
     the ``..._adaptive`` kernel of each, with the pipelined body
     (``pipeline_reduces``) their fixed-step kernel by a flag. With
     ``allow_short`` the block kernel where it fits, else the global one,
@@ -1050,6 +1218,8 @@ def pdhg_log_utility_cuda(
 def _storage(kernel: CudaKernel, S: int, H: int, N: int) -> str:
     """The storage routing gives a scenario kernel of the row or wide-row
     layout."""
+    if kernel in _CLUSTER:
+        return cluster_storage(S, H, N)
     rows = kernel in (PDHG_LOG_UTILITY_SCENARIOS_ROWS,
                       PDHG_LOG_UTILITY_SCENARIOS_ROWS_ADAPTIVE)
     return (rows_storage if rows else wide_storage)(S, H, N)
@@ -1114,13 +1284,44 @@ def global_workspace(nbytes: int, device, entry: str) -> torch.Tensor:
                        device=device)
 
 
+def _cluster_args(kernel: CudaKernel, r: torch.Tensor, adaptive: bool,
+                  storage: Optional[str], ctas: Optional[int],
+                  ring: Optional[Tuple[int, int]]):
+    """(returns, the cluster kernel's trailing ints) of a cluster launch:
+    the CTAs of ``cluster_plan`` (or ``ctas``), and for kernel B the ring
+    and the returns' row stride, a multiple of 4, the returns copied with
+    zero columns past N where N is not one or their rows are not 16-byte
+    aligned (a bulk copy's rows). ``ValueError`` where no cluster of at
+    most CLUSTER_MAX CTAs holds the shape."""
+    scen = r.dim() == 4
+    S, H, N = (r.shape[1] if scen else None), r.shape[-2], r.shape[-1]
+    c, span, _, stages, chunk = cluster_plan(S, H, N, adaptive, storage,
+                                             ring, ctas)
+    if c == 0 or (c - 1) * span >= H:
+        raise ValueError(f"{kernel.name}: no cluster of at most "
+                         f"{CLUSTER_MAX} CTAs ({ctas or 'fewest'}) holds "
+                         f"S={S}, H={H}, N={N}")
+    if not scen:
+        return r, (c,)
+    ldr = -(-N // 4) * 4
+    if ldr != N or r.data_ptr() % 16:
+        padded = r.new_zeros(r.shape[:-1] + (ldr,))
+        padded[..., :N] = r
+        r = padded
+    return r, (c, stages, chunk, ldr)
+
+
 def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
-            w_warm, p_warm, return_dual, return_steps, storage=None):
+            w_warm, p_warm, return_dual, return_steps, storage=None,
+            cluster_ctas=None, ring=None):
     """Launch ``kernel`` (running ``body``) on checked CUDA tensors and
-    count the launch; a scenario kernel of the row or wide-row layout keeps
-    the returns in ``storage`` (default: the one routing gives the
-    shape); a global-layout kernel runs its persistent grid (``global_grid``)
-    over a workspace of ``global_workspace_bytes``.
+    count the launch; a scenario kernel of the row, wide-row or cluster
+    layout keeps the returns in ``storage`` (default: the one routing gives
+    the shape); a global-layout kernel runs its persistent grid
+    (``global_grid``) over a workspace of ``global_workspace_bytes``; a
+    cluster kernel runs B clusters of ``cluster_plan``'s CTAs (or
+    ``cluster_ctas``) and kernel B's ring (or ``ring``), and a cluster the
+    card refuses raises ``RuntimeError`` naming the shape.
     ``allow_short`` needs a kernel of the block or global layout."""
     scen = r.dim() == 4
     B, H, N = r.shape[0], r.shape[-2], r.shape[-1]
@@ -1146,16 +1347,18 @@ def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        gmem = ()
+        gmem, cmem, rk = (), (), r
+        if kernel in _CLUSTER:
+            rk, cmem = _cluster_args(kernel, r, params.adaptive, storage,
+                                     cluster_ctas, ring)
         if kernel in _GLOBAL:
             grid = global_grid(kernel, B, (S, H, N), short, r.device)
             ws = global_workspace(
                 global_workspace_bytes(S or None, H, N, grid), r.device,
                 kernel.name)
             gmem = (ws.data_ptr(), grid)
-        kernel.launch(
-            r.device,
-            current_weights.data_ptr(), r.data_ptr(), ptr(w_warm),
+        args = (
+            current_weights.data_ptr(), rk.data_ptr(), ptr(w_warm),
             ptr(p_warm), w.data_ptr(), fp.data_ptr(), ptr(dual),
             *((ptr(steps),) if params.adaptive else ()),
             *((B, S) if scen else (B,)), H, N, params.max_iters,
@@ -1167,8 +1370,16 @@ def _launch(kernel: CudaKernel, body: str, current_weights, r, params,
             *((STORAGES.index(storage),) if kernel in _STORAGE_ARG
               else ()),
             *((int(short),) if kernel in _SHORT_ARG else ()),
-            *gmem,
+            *gmem, *cmem,
         )
+        try:
+            kernel.launch(r.device, *args)
+        except RuntimeError as e:
+            if kernel not in _CLUSTER:
+                raise
+            raise RuntimeError(
+                f"{kernel.name}: the card refused a cluster of {cmem[0]} "
+                f"CTAs for S={S or None}, H={H}, N={N} ({e})") from e
         if kernel in _STORAGE_ARG:
             key = (kernel.name, storage)
             STORAGE_LAUNCHES[key] = STORAGE_LAUNCHES.get(key, 0) + 1

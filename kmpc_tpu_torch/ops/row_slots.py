@@ -84,7 +84,14 @@ kernel A, kernel B at S=16 and kernel C with a shared covariance, each with
 a persistent grid of one and of two CTAs an SM (as far as the SM holds
 them), timed in turns (1, 2, 2, 1); each line with the CTAs an SM holds,
 the workspace's bytes at each grid and, for B, the bytes of returns read
-an iteration.
+an iteration; then kernels A and B in the cluster layout at the same shape
+and steps, timed in turns with the global kernel (global, cluster, cluster,
+global), B in each of ``CLUSTER_RINGS``' rings, with the clusters the card
+runs at once; kernel B's two storages in the cluster layout at two shapes
+both take (B=1013, S=16: H=20 N=500, where streaming takes half the CTAs,
+and H=33 N=128, where both take two); and kernel A in the cluster layout beside
+the block layout at H=60 N=64 (B=1013), a shape the block layout holds and
+routing keeps there.
 
 With ``--mv-switch``, kernel C's block and tile layouts, both bodies (200
 iterations), at ``chip_smoke.py``'s switch shapes where the two run close,
@@ -105,6 +112,7 @@ One JSON line per measurement; needs the card.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import hashlib
 import json
 import re
@@ -1111,6 +1119,94 @@ def time_global(iters: int = 400) -> None:
         print(json.dumps(line), flush=True)
 
 
+def _clusters(kernel, S, H, N, storage, plan, pipe=False) -> int:
+    """Clusters of a launch's plan the card runs at once."""
+    fn = M._library_function(kernel.name, kernel.symbol + "_clusters",
+                             [ctypes.c_int] * 8, ctypes.c_int)
+    return fn(S or 0, H, N, M.STORAGES.index(storage), plan[0], plan[3],
+              plan[4], int(pipe))
+
+
+def time_cluster(iters: int = 400) -> None:
+    """The cluster lines of ``--global`` (module docstring)."""
+    B, H, N = GLOBAL_SHAPE
+    rng = np.random.default_rng(1613)
+    p = MPCParams(sigma_scale=2.0, max_iters=iters)
+
+    def inputs(S, H, N):
+        cw = torch.as_tensor(rng.dirichlet(np.ones(N), size=B)
+                             .astype(np.float32), device="cuda")
+        shape = (B, H, N) if S is None else (B, S, H, N)
+        ys = rng.standard_normal(shape) * 0.01 + (0.0005 if S is None else 0)
+        return cw, torch.exp(torch.as_tensor(ys.astype(np.float32),
+                                             device="cuda")).contiguous()
+
+    def launcher(layout, cw, r, storage=None, ring=None):
+        S = r.shape[1] if r.dim() == 4 else None
+        kernel = M._KERNELS[(S is not None, layout, "fixed")]
+        return kernel, lambda: M._launch(kernel, "fixed", cw, r, p, None,
+                                         None, False, False, storage=storage,
+                                         ring=ring)
+
+    def turns(a, b):
+        """(ms of a, ms of b) in turns a, b, b, a after a warm launch
+        each."""
+        a(), b()
+        times = ([], [])
+        for i in (0, 1, 1, 0):
+            times[i].append(_one_launch_ms((a, b)[i]))
+        return times
+
+    for S in (None, GLOBAL_S):
+        cw, r = inputs(S, H, N)
+        kg, glob = launcher("global", cw, r)
+        rings = [None] if S is None else list(M.CLUSTER_RINGS)
+        for ring in rings:
+            storage = None if S is None else "streamed"
+            kc, clus = launcher("cluster", cw, r, storage, ring)
+            plan = M.cluster_plan(S, H, N, False, storage, ring)
+            tg, tc = turns(glob, clus)
+            line = {"phase": "cluster_layout", "kernel": kc.name, "B": B,
+                    "S": S, "H": H, "N": N, "iters": iters,
+                    "ctas": plan[0], "rows_a_cta": plan[1],
+                    "cta_bytes": plan[2], "ring": plan[3:] if S else None,
+                    "clusters_at_once": _clusters(
+                        kc, S, H, N, storage or "registers", plan),
+                    "ms": tc, "global_ms": tg,
+                    "us_per_iter": 1e3 * min(tc) / iters,
+                    "global_us_per_iter": 1e3 * min(tg) / iters}
+            if S:
+                line["returns_bytes_per_iter"] = 4 * B * S * H * N
+                line["returns_tb_per_s"] = (line["returns_bytes_per_iter"]
+                                            * iters / (min(tc) * 1e-3) / 1e12)
+            print(json.dumps(line), flush=True)
+        del r
+    # Kernel B's storages where both take the shape, and A beside the block
+    # layout at H > 32.
+    for S, h, n, a_layout, b_layout in ((GLOBAL_S, 20, 500, "cluster:resident",
+                                        "cluster:streamed"),
+                                       (GLOBAL_S, 33, 128, "cluster:resident",
+                                        "cluster:streamed"),
+                                       (None, 60, 64, "block", "cluster")):
+        cw, r = inputs(S, h, n)
+        runs = []
+        for lay in (a_layout, b_layout):
+            name, _, storage = lay.partition(":")
+            runs.append(launcher(name, cw, r, storage or None))
+        ta, tb = turns(runs[0][1], runs[1][1])
+        print(json.dumps({
+            "phase": "cluster_beside", "B": B, "S": S, "H": h, "N": n,
+            "iters": iters, "routed": M.kernel_layout(S, h, n),
+            "storage_routed": M.cluster_storage(S, h, n) if S else None,
+            "plans": {lay: M.cluster_plan(S, h, n, False, lay.partition(
+                ":")[2] or None) for lay in (a_layout, b_layout)
+                if lay.startswith("cluster")},
+            "ms": {a_layout: ta, b_layout: tb},
+            "us_per_iter": {a_layout: 1e3 * min(ta) / iters,
+                            b_layout: 1e3 * min(tb) / iters}}), flush=True)
+        del r
+
+
 # (B, H, N, shared Sigma): the switch shapes of chip_smoke.py's mv_layouts
 # where the block and tile layouts run close, and two on either side.
 MV_SWITCH = ((5, 1, 129, True), (1028, 1, 200, False), (1, 1, 200, False),
@@ -1263,6 +1359,7 @@ def main(argv=None):
         return
     if args.global_:
         time_global()
+        time_cluster()
         return
     if args.mv_switch:
         time_mv_switch()

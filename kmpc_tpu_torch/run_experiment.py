@@ -1,9 +1,10 @@
 """Backtest experiment: Koopman-MPC against buy-and-hold, Markowitz and DMD
 (and the scenario-Kelly variant), by Jacobi sweeps or the exact date scan.
 
-Port of the repository's ``run_experiment.py``: its ``--parallel`` mode is
-the default here, its default mode (the exact scan, one solve per date) is
-``--scan``. The solver's configuration, the accurate one included
+Port of the repository's ``run_experiment.py``, with its modes: by default
+the exact scan, one solve per date; ``--parallel`` the Jacobi backtest,
+``--sweeps`` sweeps of it (0, the default: as many as dates, also exact).
+The solver's configuration, the accurate one included
 (``MPC.SOLVER.ADAPTIVE``, ``ADAPT_EVERY``, ``PRECOND``, ``MAX_ITERS``, and the
 pipelined body's ``PROJ_REFRESH_EVERY`` and ``PIPELINE_REDUCES``), comes
 from the run directory's ``config.json``. With ``--path``
@@ -19,7 +20,7 @@ full width with weights drawn from ``--init_seed``, or the model and settings of
     python -m kmpc_tpu_torch.run_experiment
         [--path RUN_DIR | --torch_ckpt CHECKPOINT_PT | --init_seed S]
         [--config CONFIG_JSON] [--horizon 20] [--scenarios 16]
-        [--risk_aversion 1.0] [--sweeps 8 | --scan] [--mpc_iters N]
+        [--risk_aversion 1.0] [--parallel [--sweeps 8]] [--mpc_iters N]
         [--eager] [--cpu] [--output DIR]
 
 Runs on the CUDA device, every batched solve through its fused kernel
@@ -103,7 +104,13 @@ def build_strategies(model, mpc: MPCParams, mv_mpc: MPCParams,
     return strategies
 
 
-def main(argv: Optional[List[str]] = None) -> dict:
+def backtest_mode(args) -> tuple:
+    """("scan" or "parallel", sweeps; 0: as many as dates) of parsed
+    arguments: the exact scan unless ``--parallel``, as kmpc_tpu's CLI."""
+    return ("parallel" if args.parallel else "scan"), args.sweeps
+
+
+def parse_args(argv: Optional[List[str]] = None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     src = parser.add_mutually_exclusive_group()
     src.add_argument("--path", type=str, default=None,
@@ -133,16 +140,24 @@ def main(argv: Optional[List[str]] = None) -> dict:
     parser.add_argument("--eager", action="store_true",
                         help="solve with the eager solvers instead of the "
                              "fused kernels")
-    parser.add_argument("--sweeps", type=int, default=8,
-                        help="Jacobi sweeps (0: as many as dates, which is "
-                             "exact)")
-    parser.add_argument("--scan", action="store_true",
-                        help="the exact sequential backtest, one solve per "
-                             "date, instead of Jacobi sweeps")
+    parser.add_argument("--parallel", action="store_true",
+                        help="the Jacobi backtest instead of the exact "
+                             "scan over dates (one solve per date)")
+    parser.add_argument("--sweeps", type=int, default=0,
+                        help="Jacobi sweeps with --parallel (0: as many as "
+                             "dates, which is exact)")
     parser.add_argument("--cpu", action="store_true",
                         help="run on the CPU (plain-PyTorch solver)")
     parser.add_argument("--output", type=str, default=None)
     args = parser.parse_args(argv)
+    if (args.path or args.torch_ckpt) and args.config:
+        parser.error("--config is for fresh weights; a --path run directory "
+                     "or a checkpoint holds its own config")
+    return args
+
+
+def main(argv: Optional[List[str]] = None) -> dict:
+    args = parse_args(argv)
 
     import pandas as pd
 
@@ -159,9 +174,6 @@ def main(argv: Optional[List[str]] = None) -> dict:
     torch_ckpt = args.torch_ckpt
     if args.path and args.path.endswith(".pt"):
         torch_ckpt, args.path = args.path, None
-    if (args.path or torch_ckpt) and args.config:
-        parser.error("--config is for fresh weights; a --path run directory "
-                     "or a checkpoint holds its own config")
     device = torch.device("cpu") if args.cpu else default_device()
     if torch_ckpt:
         from kmpc_tpu_torch.utils.torch_import import (
@@ -204,10 +216,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
                                   fused=not args.eager)
     n_dates = len(range(0, fd.test.shape[0] - fd.sequence_length - bt.HORIZON,
                         bt.REBALANCE_FREQ))
-    sweeps = args.sweeps if args.sweeps > 0 else n_dates
+    mode, sweeps = backtest_mode(args)
+    sweeps = sweeps if sweeps > 0 else n_dates
     results = {}
     for name, strat in strategies.items():
-        if args.scan:
+        if mode == "scan":
             print(f"Backtesting {name} (date scan on {device})...")
             df = run_backtest(strat, fd, bt)
         else:

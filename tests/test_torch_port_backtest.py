@@ -231,7 +231,7 @@ def test_run_experiment_cli_on_the_cpu(tmp_path, monkeypatch, from_run_dir):
     from kmpc_tpu_torch.run_experiment import main
 
     monkeypatch.chdir(tmp_path)
-    argv = ["--cpu", "--mpc_iters", "20", "--sweeps", "1",
+    argv = ["--cpu", "--mpc_iters", "20", "--parallel", "--sweeps", "1",
             "--output", str(tmp_path / "out")]
     if from_run_dir:
         from kmpc_tpu.models import make_model as jmake
@@ -256,3 +256,42 @@ def test_run_experiment_cli_on_the_cpu(tmp_path, monkeypatch, from_run_dir):
                        .read_text())
     assert saved == results
     assert (tmp_path / "out" / "full_comparison_metrics.csv").exists()
+
+
+@pytest.mark.parametrize("argv", [[], ["--parallel"], ["--parallel", "--sweeps", "0"],
+                                  ["--parallel", "--sweeps", "3"], ["--sweeps", "2"]])
+def test_cli_default_mode_matches_the_jax_cli(argv, monkeypatch):
+    """Both CLIs' flags parsed, neither run: with no flag the exact scan
+    over dates, with ``--parallel`` the Jacobi backtest, ``--sweeps`` 0 (as
+    many as dates, exact) unless given; the same mode and sweep count."""
+    import argparse
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    from kmpc_tpu_torch.run_experiment import backtest_mode, parse_args
+
+    path = Path(__file__).resolve().parent.parent / "run_experiment.py"
+    spec = importlib.util.spec_from_file_location("jax_run_experiment", path)
+    root = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(root)
+
+    class Parsed(Exception):
+        pass
+
+    seen = {}
+    parse = argparse.ArgumentParser.parse_args
+
+    def capture(self, args=None, namespace=None):
+        seen["args"] = parse(self, args, namespace)
+        raise Parsed
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", capture)
+    monkeypatch.setattr(sys, "argv", ["run_experiment.py", *argv])
+    with pytest.raises(Parsed):
+        root.main()
+    monkeypatch.undo()
+    jargs = seen["args"]
+    jax_mode = ("parallel" if jargs.parallel else "scan", jargs.sweeps)
+    assert backtest_mode(parse_args(argv)) == jax_mode
+    assert backtest_mode(parse_args([]))[0] == "scan"

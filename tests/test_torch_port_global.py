@@ -98,10 +98,11 @@ REFUSED = {
 
 @pytest.mark.parametrize("group", list(REFUSED))
 def test_every_shape_the_port_refused_routes_to_a_layout(group):
-    """Each shape the port refused before routes to the global layout's
-    kernel of its body (the shape picks the layout, the parameters the
-    body), and every shape of a grid gets a layout; only S, H or N below 1
-    gets None."""
+    """Each shape the port refused before routes to the cluster layout's
+    kernel of its body where a cluster of at most 8 CTAs holds it (kernels
+    A and B), else to the global layout's (the shape picks the layout, the
+    parameters the body), and every shape of a grid gets a layout; only
+    S, H or N below 1 gets None."""
     bodies = [MPCParams(), MPCParams(adaptive=True, adapt_every=2),
               MPCParams(pipeline_reduces=True, proj_refresh_every=16)]
     for S, H, N in REFUSED[group]:
@@ -112,12 +113,15 @@ def test_every_shape_the_port_refused_routes_to_a_layout(group):
                     assert V._mv_route(H, N, p, shared, B=1028) == (
                         "global", V._MV_KERNELS[("global", p.adaptive)])
             continue
-        assert M.kernel_layout(S, H, N) == "global", (S, H, N)
+        want = "cluster" if M.cluster_kernel_supports(S, H, N) else "global"
+        assert M.kernel_layout(S, H, N) == want, (S, H, N)
         for p in bodies:
             layout, body, kernel = M._route(S, H, N, p)
-            assert layout == "global" and kernel is M._KERNELS[
-                (S is not None, "global", body)]
-            assert kernel in M._GLOBAL
+            assert layout == want and kernel is M._KERNELS[
+                (S is not None, want, body)]
+            assert kernel in (M._CLUSTER if want == "cluster" else M._GLOBAL)
+    if group == "scenarios":   # past a cluster of 8 CTAs' shared memory
+        assert M.kernel_layout(16, 252, 1000) == "global"
     for S in (None, 1, 16, 512):
         for H in (1, 5, 20, 33, 128, 252):
             for N in (1, 20, 129, 500, 1000, 2400):
@@ -312,13 +316,14 @@ REFUSED_CASES = {
 @pytest.mark.parametrize("name", list(REFUSED_CASES))
 def test_refused_log_utility_shape_matches_kmpc_tpu(name):
     """At a shape kmpc_tpu's wrapper hands to its XLA solver (its working
-    set misses VMEM) and the port's card routes to the global layout, the
-    port's packed wrapper meets the kernel-vs-XLA bars against it."""
+    set misses VMEM) and the port's card routes to the cluster layout (the
+    global layout before it), the port's packed wrapper meets the
+    kernel-vs-XLA bars against it."""
     from kmpc_tpu.ops import mpc_pallas as JP
 
     S, H, N = REFUSED_CASES[name]
     assert JP._default_tile_b_packed(H, -(-N // 8) * 8, S=S) is None
-    assert M.kernel_layout(S, H, N) == "global"
+    assert M.kernel_layout(S, H, N) == "cluster"
     _log_case(2, S, H, N, dict(max_iters=400), 1501 + N)
 
 

@@ -274,13 +274,16 @@ def test_every_shape_the_pallas_kernel_admits_routes_to_a_cuda_kernel(S):
 @pytest.mark.parametrize("S", [None, 16])
 def test_a_cuda_tensor_beyond_both_layouts_raises(S):
     """The route the CUDA wrapper takes before any launch: a shape beyond
-    every shared-memory layout's budget (which raised until the global
-    layout took it) routes to the global layout's kernel of the body."""
-    H, N = 20, 2000
-    assert M.kernel_layout(S, H, N) == "global"
-    for p, body in ((MPCParams(), "fixed"), (_params(ACCURATE), "adaptive")):
-        assert M._route(S, H, N, p) == (
-            "global", body, M._KERNELS[(S is not None, "global", body)])
+    every single CTA's shared memory (which raised until the global layout
+    took it) routes to the cluster layout's kernel of the body where a
+    cluster of at most 8 CTAs holds it, else to the global layout's."""
+    H = 20
+    for N, layout in ((2000, "cluster"), (5000, "global")):
+        assert M.kernel_layout(S, H, N) == layout
+        for p, body in ((MPCParams(), "fixed"),
+                        (_params(ACCURATE), "adaptive")):
+            assert M._route(S, H, N, p) == (
+                layout, body, M._KERNELS[(S is not None, layout, body)])
     # The shape picks the layout, the parameters the body.
     pipe = _params(dict(proj_refresh_every=16, **PIPE))
     assert M._route(S, 5, 20, pipe)[:2] == ("rows", "pipe")
@@ -365,7 +368,8 @@ def test_cli_takes_a_run_config_and_horizon_20(tmp_path, monkeypatch):
     monkeypatch.setattr(R, "build_strategies", spy)
     monkeypatch.chdir(tmp_path)
     results = R.main(["--cpu", "--config", str(tmp_path / "config.json"),
-                      "--horizon", "20", "--mpc_iters", "16", "--sweeps", "1",
+                      "--horizon", "20", "--mpc_iters", "16", "--parallel",
+                      "--sweeps", "1",
                       "--output", str(tmp_path / "out")])
     assert list(results) == ["BuyAndHold", "Markowitz", "DMD", "KoopmanMPC"]
     (mpc, mv_mpc), = seen

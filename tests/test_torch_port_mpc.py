@@ -239,10 +239,13 @@ def test_kernel_register_budget(S, H, N, warp, block):
                     and H >= 1)
     rows = M.rows_kernel_supports(S, H, N)
     wide = M.wide_kernel_supports(S, H, N) and M.wide_preferred(H, N)
-    # Past a block's shared memory the global layout takes the shape.
+    # Past a block's shared memory the cluster layout takes the shape where
+    # a cluster of at most 8 CTAs holds it, else the global layout.
+    cluster = M.cluster_kernel_supports(S, H, N)
     want = "rows" if rows else (
         "warp" if warp else ("wide" if wide else (
-            "block" if block else ("global" if H >= 1 else None))))
+            "block" if block else ("cluster" if cluster else (
+                "global" if H >= 1 else None)))))
     assert M.kernel_layout(S, H, N) == want
 
 

@@ -153,7 +153,8 @@ def test_rows_layout_takes_only_four_slots_and_32_rows():
     storage meets at any S, and every shape it takes routes there; the
     others go to the wide-row layout where it fits and is preferred, else
     to the block layout, else to the wide-row layout where it fits, else
-    to the global layout; the warp layout is reached by no shape."""
+    to the cluster layout where a cluster holds it, else to the global
+    layout; the warp layout is reached by no shape."""
     for S in (None, 1, 16, 64, 113, 512, 4096):
         for H in (1, 2, 5, 8, 9, 17, 20, 21, 32, 33):
             for N in (1, 20, 32, 33, 64, 100, 128, 129, 500):
@@ -165,7 +166,9 @@ def test_rows_layout_takes_only_four_slots_and_32_rows():
                 want = "rows" if fits else (
                     "wide" if wide and M.wide_preferred(H, N, S) else
                     "block" if M.block_kernel_supports(S, H, N) else
-                    "wide" if wide else "global")
+                    "wide" if wide else
+                    "cluster" if M.cluster_kernel_supports(S, H, N) else
+                    "global")
                 assert M.kernel_layout(S, H, N) == want
 
 

@@ -71,9 +71,10 @@ def test_any_number_of_scenarios_has_a_kernel_where_one_forecast_does(S):
     """At H <= 32 a scenario shape has a kernel wherever one forecast of the
     same H and N has one, but where one forecast itself takes the block
     layout (the wide plan too large: 20 rows of 500 assets) and the block
-    layout cannot hold S scenarios' returns, where the global layout takes
-    it (and every shape one forecast takes there); no shape goes to the
-    warp layout; at N <= 128 the row layout takes every S."""
+    layout cannot hold S scenarios' returns, where the cluster layout takes
+    it (the global layout where no cluster of at most 8 CTAs holds it), as
+    it takes every such shape one forecast takes there; no shape goes to
+    the warp layout; at N <= 128 the row layout takes every S."""
     refused = []
     for H in ROUTING_H:
         for N in ROUTING_N:
@@ -81,12 +82,15 @@ def test_any_number_of_scenarios_has_a_kernel_where_one_forecast_does(S):
             assert got != "warp", (S, H, N)
             if H <= 32 and N <= 128:
                 assert got == "rows", (S, H, N)
-            if H <= 32 and one != "global" and got == "global":
+            if H <= 32 and one not in ("cluster", "global") and got in (
+                    "cluster", "global"):
                 assert one == "block" and not M.layout_supports(
                     "wide", S, H, N) and not M.block_kernel_supports(S, H, N)
+                assert got == ("cluster" if M.cluster_kernel_supports(
+                    S, H, N) else "global"), (S, H, N)
                 refused.append((H, N))
-            if one == "global":
-                assert got == "global", (S, H, N)
+            if one in ("cluster", "global"):
+                assert got in ("cluster", "global"), (S, H, N)
     assert refused == ([] if S == 1 else [(20, 500)])
 
 

@@ -514,7 +514,8 @@ def test_run_experiment_cli_runs_all_five_strategies(tmp_path, monkeypatch,
     from kmpc_tpu_torch.run_experiment import main
 
     monkeypatch.chdir(tmp_path)
-    argv = ["--cpu", "--mpc_iters", "10", "--sweeps", "1", "--scenarios", "3",
+    argv = ["--cpu", "--mpc_iters", "10", "--parallel", "--sweeps", "1",
+            "--scenarios", "3",
             "--risk_aversion", "2.0", "--output", str(tmp_path / "out")]
     results = main(argv + (["--eager"] if eager else []))
     assert list(results) == NAMES
@@ -534,9 +535,10 @@ def test_run_experiment_cli_runs_all_five_strategies(tmp_path, monkeypatch,
 
 def test_run_experiment_cli_scan_and_exact_sweeps(tmp_path, monkeypatch,
                                                   capsys):
-    """``--scan`` walks the dates; ``--sweeps 0`` is as many sweeps as
-    dates. A test split cut to a few dates keeps both small; both give the
-    same table (the Jacobi path is then exact)."""
+    """With no mode flag the CLI walks the dates (the exact scan, as
+    kmpc_tpu's); ``--parallel --sweeps 0`` is as many sweeps as dates. A
+    test split cut to a few dates keeps both small; both give the same
+    table (the Jacobi path is then exact)."""
     import kmpc_tpu_torch.data.finance as F
     from kmpc_tpu_torch.run_experiment import main
 
@@ -552,10 +554,10 @@ def test_run_experiment_cli_scan_and_exact_sweeps(tmp_path, monkeypatch,
     monkeypatch.chdir(tmp_path)
     argv = ["--cpu", "--mpc_iters", "15", "--scenarios", "2",
             "--output", str(tmp_path / "out")]
-    scan = main(argv + ["--scan"])
+    scan = main(argv)
     out = capsys.readouterr().out
     assert "date scan on cpu" in out and "sweeps on" not in out
-    exact = main(argv + ["--sweeps", "0"])
+    exact = main(argv + ["--parallel", "--sweeps", "0"])
     assert "(6 sweeps on cpu)" in capsys.readouterr().out
     assert list(scan) == list(exact) == NAMES
     for name in NAMES:

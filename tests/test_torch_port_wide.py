@@ -87,8 +87,9 @@ def test_routing_grid(S):
     warps share an SM (H a CTA times the CTAs whose adaptive plans fit an
     SM's 228 KB, each reserving 1 KB: the measured boundary); a scenario
     shape the block layout cannot hold goes to the wide layout wherever it
-    fits, and every other shape to the global layout."""
-    before = ("rows", "warp", "block", "wide", "global")
+    fits, and every other shape to the cluster layout where a cluster
+    holds it, else to the global layout."""
+    before = ("rows", "warp", "block", "wide", "cluster", "global")
     reached = dict.fromkeys(M.LAYOUTS + (None,), 0)
     for H in range(1, 41):
         for N in range(1, 2731):
@@ -104,7 +105,8 @@ def test_routing_grid(S):
             got = M.kernel_layout(S, H, N)
             assert got == want, (S, H, N, got, want)
             reached[got] += 1
-    assert M.LAYOUTS == ("rows", "warp", "wide", "block", "global")
+    assert M.LAYOUTS == ("rows", "warp", "wide", "block", "cluster",
+                         "global")
     if S is None:
         assert reached["wide"] > 0 and reached["block"] > 0
         assert M.kernel_layout(S, 5, 500) == M.kernel_layout(S, 5, 150) \
