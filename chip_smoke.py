@@ -6,11 +6,11 @@
 Phases (each prints JSON lines; any failure raises and exits non-zero):
 
 1. ``build``: the card, torch and CUDA versions, the build of the
-   thirty-seven kernel sources (one nvcc per source, started together, from
+   thirty-nine kernel sources (one nvcc per source, started together, from
    the sources in this checkout) with each build's seconds, registers and
    spills (every instantiation but the ladder's), the wrappers' copies
-   of the block, global, cluster, tile, lane, ladder, row and wide-row
-   layouts' plans
+   of the block, global, cluster (A and B's, and C's), tile, lane, ladder,
+   row and wide-row layouts' plans
    (the
    tile layout's problems a CTA, the row and wide-row layouts' scenario
    storages and rings) against the built kernels', and the one-forecast
@@ -76,12 +76,16 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    block and global layouts' hyperplane projection (``allow_short``) of
    A, B and C (``global_cases``); the global layout's persistent loop,
    a batch past its grid beside the block layout, for the same bits on
-   every problem (``global_past_grid``); and the cluster layout of A and B
+   every problem (``global_past_grid``); the cluster layout of A and B
    (the wide body over a thread-block cluster, B's returns streamed by
    TMA) beside the wide layout at its shapes, launched at two to five CTAs
    a problem, every body and option and both storages, where it must give
    the wide kernel's bits, and at the shapes routing gives it
-   (``cluster_cases``);
+   (``cluster_cases``); and kernel C's cluster layout (the block body's
+   asset columns over a cluster of up to 16 CTAs) beside the block layout
+   at one and three rows and beside the global layout at its shapes, at
+   one to three cluster sizes, every body and option, where it must give
+   their bits (``mv_cluster_cases``);
    every rung of the MV ladder (Sigma's rows in registers and in shared
    memory; ``proj`` in both sweeps up to 32 assets); then ``layouts``:
    every layout of kernels
@@ -100,8 +104,11 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    warp, tile and block layouts) at the Markowitz path's shape (H=1, N=20) at B=1028 and
    B=1, bench.py's H=1, N=30 at B=4096 and 65536 (the sweep's switch; the
    lane layout's two sweeps alone at 65536), at
-   H=5, N=30 at B=1028 and B=1, and at
-   the five ``mv_long_wide`` shapes at 200 iterations, the routed layout
+   H=5, N=30 at B=1028 and B=1, at
+   the five ``mv_long_wide`` shapes at 200 iterations, and at the cluster
+   layout's shapes (``MV_CLUSTER_LAYOUT_SHAPES``: one row past the block
+   layout's staging with a covariance per problem, H=20 N=1000 and H=33
+   N=500) beside the block, tile and global layouts, the routed layout
    required to be the fastest;
 3. ``nan_row``, ``probe``, ``probe_accurate``: a NaN forecast holds the
    weights; accuracy on the 64 bench probe instances against the float64
@@ -187,13 +194,15 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    then ``global_path`` (``phase_global_path``): the comparison on a
    universe of 1000 synthetic names at H=20 with 16 scenarios (observation
    20000), one sweep a strategy, Koopman-MPC and DMD through kernel A's
-   cluster layout, scenario Kelly through B's, Markowitz (H=1) through C's
-   block layout, the cluster kernels held against their plain versions on
-   the first and last 32 dates, the global kernels of the same bodies
-   pinned on those dates and held beside them; the packed entry points on
-   the first 32 dates at the accurate configuration (A and B adaptive in
-   the cluster layout and, pinned, the global one, by their spread) and
-   kernel C at H=20 (fixed, per-date covariances; adaptive, one shared),
+   cluster layout, scenario Kelly through B's, Markowitz (H=1, a
+   covariance per date) through C's, the cluster kernels held against
+   their plain versions on the first and last 32 dates, the global kernels
+   of the same bodies (C's block kernel, which must give the cluster
+   kernel's bits) pinned on those dates and held beside them; the packed
+   entry points on the first 32 dates at the accurate configuration (A and
+   B adaptive in the cluster layout and, pinned, the global one, by their
+   spread) and kernel C at H=20 (fixed, per-date covariances; adaptive,
+   one shared) in the cluster layout with the global one pinned beside,
    one launch each of the routed kernels; and ``MPC.ALLOW_SHORT`` at the main path's
    shape through the block layout's hyperplane projection (Koopman-MPC,
    DMD, scenario Kelly, Markowitz), every row checked for its sum and
@@ -236,7 +245,7 @@ Phases (each prints JSON lines; any failure raises and exits non-zero):
    references cached in bench_probe_cache.json;
 12. ``verify_path``: the verification stack. The float64 polished path
    (``ops/mpc_polish.py``, its batched float64 stages on the card) on the
-   first 16 cached instances of each family of parity_cache/, every
+   first 12 cached instances of each family of parity_cache/, every
    certified record reproduced (certified, weights within 1e-7), the same
    path on the host CPU after it (the same certified set, weights within
    1e-7), the native host solver against
@@ -1128,7 +1137,7 @@ def adaptive_agreement(label, steps_k, steps_p, dw, dp, dobj, w_tol,
 
 def compare_mv_case(label, B, H, N, params, seed, shared=False,
                     scale=0.05, time_reps=3, time_plain=True, layout=None,
-                    problems=None, sweep=None):
+                    problems=None, sweep=None, ctas=None):
     """The mean-variance kernel and its plain version on the same card
     inputs, through the same finalisation."""
     cw_np, mu_np, sig_np = mv_instance(B, H, N, seed, shared, scale)
@@ -1136,19 +1145,21 @@ def compare_mv_case(label, B, H, N, params, seed, shared=False,
     mu = torch.as_tensor(mu_np, device="cuda")
     sig = torch.as_tensor(sig_np, device="cuda")
     return compare_mv_tensors(label, cw, mu, sig, params, time_reps,
-                              time_plain, layout, problems, sweep)
+                              time_plain, layout, problems, sweep, ctas)
 
 
 def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
                        time_plain=True, layout=None, problems=None,
-                       sweep=None):
+                       sweep=None, ctas=None):
     """``compare_mv_case`` on given card tensors: current weights [B, N],
     mu [B, H, N] and a covariance [B, N, N] or [N, N]. The kernel routing
     gives the shape, through the entry point; or, with ``layout``, that
     layout's kernel launched privately (``_mv_launch``: a layout routing
     does not give this shape, a tile plan's edge with ``problems``
-    problems a CTA, or the lane layout with the sweep ``sweep``). A block-,
-    tile- or lane-layout kernel runs twice and must give the same bits."""
+    problems a CTA, the lane layout with the sweep ``sweep``, or the
+    cluster layout at ``ctas`` CTAs a problem). A block-, tile-, lane-,
+    global- or cluster-layout kernel runs twice and must give the same
+    bits."""
     from kmpc_tpu_torch.ops import mv_cuda as V
 
     B, H, N = mu.shape
@@ -1168,7 +1179,7 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
         def run(ret=steps):
             return V._mv_launch(kernel, cw, mu, sig, params,
                                 return_steps=ret, problems=problems,
-                                sweep=sweep)
+                                sweep=sweep, cluster_ctas=ctas)
     out_k = mv_kernel_twice(label, layout, run)
     out_p, plain_ms = timed_once(lambda: V.pdhg_mean_variance_plain(
         cw, mu, sig, params, return_steps=steps))
@@ -1183,6 +1194,11 @@ def compare_mv_tensors(label, cw, mu, sig, params, time_reps=3,
             B, H, N, shared, params.adaptive)
     if layout == "lanes":
         res["sweep"] = sweep or V.mv_lanes_sweep(B, N)
+    if layout == "cluster":
+        res["ctas"] = ctas or V.mv_cluster_launch_ctas(
+            kernel, H, N, params.adaptive, mu.device, B)
+        res["rows_staged"] = V.mv_cluster_plan(H, N, res["ctas"],
+                                               params.adaptive)[3]
     hold_mv(label, cw, mu, sig, params, out_k, out_p, res)
     res["bound_ms"], res["bound_by"] = mv_bound(B, H, N, params, shared)
     if time_reps:
@@ -1198,7 +1214,7 @@ def mv_kernel_twice(label, layout, run):
     stage sums, the rows' exchanges or the broadcast vectors in shared
     memory: a missing barrier shows as a run-to-run difference)."""
     out = run()
-    if layout in ("block", "tile", "lanes", "global"):
+    if layout in ("block", "tile", "lanes", "global", "cluster"):
         again = run()
         torch.cuda.synchronize()
         assert all(torch.equal(x, y) for x, y in zip(out, again)), \
@@ -1223,7 +1239,7 @@ def hold_mv(label, cw, mu, sig, params, out_k, out_p, res):
     dw_all = (wk_f - wp_f).abs().amax(dim=(1, 2))
     dobj_all = ik["objective"] - ip["objective"]
     if any(x in res.get("kernel", "")
-           for x in ("block", "tile", "lanes", "global")):
+           for x in ("block", "tile", "lanes", "global", "cluster")):
         res["deterministic"] = True
     rest = torch.ones_like(dw_all, dtype=torch.bool)
     held = rest.clone()
@@ -1501,6 +1517,7 @@ def phase_build():
     check_mv_block_plan()
     check_global_plan()
     check_cluster_plan()
+    check_mv_cluster_plan()
     check_mv_tile_plan()
     check_mv_lanes_plan()
     check_rows_plan()
@@ -1711,6 +1728,38 @@ def check_cluster_plan():
     assert not wrong, \
         f"the wrapper's cluster plan differs from the kernels': {wrong[:5]}"
     emit("cluster_plan", shapes=checked, agree=True)
+
+
+def check_mv_cluster_plan():
+    """The wrapper's copy of kernel C's cluster plan (``mv_cluster_plan``:
+    whether a cluster size takes a shape, a CTA's bytes and the rows of
+    Sigma it stages) against the plan the built kernels launch with, as the
+    library reports it, at every size of 1 to 17 CTAs, both bodies, over
+    the staging's and the iterates' edges."""
+    import ctypes
+
+    from kmpc_tpu_torch._build import library_path
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    lib = ctypes.CDLL(str(library_path("pdhg_mean_variance_cluster")))
+    nbytes, rows = lib.kmpc_mv_cluster_bytes, lib.kmpc_mv_cluster_rows
+    nbytes.argtypes, nbytes.restype = [ctypes.c_int] * 4, ctypes.c_longlong
+    rows.argtypes, rows.restype = [ctypes.c_int] * 4, ctypes.c_int
+    checked, wrong = 0, []
+    for H in (1, 2, 5, 20, 33, 60, 252):
+        for N in (33, 240, 300, 500, 513, 1000, 1112, 2400):
+            for C in range(1, V.MV_CLUSTER_MAX + 2):
+                for adaptive in (False, True):
+                    plan = V.mv_cluster_plan(H, N, C, adaptive)
+                    want = (plan[4], plan[3]) if plan else (0, 0)
+                    got = (nbytes(H, N, C, int(adaptive)),
+                           rows(H, N, C, int(adaptive)))
+                    checked += 1
+                    if want != got:
+                        wrong.append((H, N, C, adaptive, want, got))
+    assert not wrong, \
+        f"the wrapper's mv cluster plan differs from the kernel's: {wrong[:5]}"
+    emit("mv_cluster_plan", shapes=checked, agree=True)
 
 
 def check_mv_tile_plan():
@@ -2061,6 +2110,75 @@ def cluster_cases(record):
                                         **kw_case).items():
             same += int(res.get("bits_equal_wide", False))
             record(res, S=S)
+    return same
+
+
+# Kernel C's cluster layout (the block body's columns over a thread-block
+# cluster): (label, B, H, N, shared, params, seed, the layout whose bits it
+# must give, cluster sizes). Beside the block layout at one row (N=300 at
+# 2, 5 and 10 CTAs; N=301, w's rows padded to 304; N=1000 and N=1100, two
+# and three columns a thread, its Sigma partly staged) and at H=3, and
+# beside the global layout at its shapes (H=20 N=1000, H=33 N=500), every
+# body and option (refresh 8 and 16, cold projections, over-relaxation,
+# adapt_every 1 and 2, shared and per problem): the first size held against
+# the plain version (run twice for the same bits), every size the bits of
+# the layout beside it.
+MV_CLUSTER_CASES = (
+    ("mv_cluster_H1N300_refresh16", 5, 1, 300, False, dict(
+        proj_refresh_every=16), 1701, "block", (5, 2, 10)),
+    ("mv_cluster_H1N300_adaptive_k2", 5, 1, 300, False, dict(
+        adaptive=True, adapt_every=2), 1702, "block", (10, 5)),
+    ("mv_cluster_H1N301_shared_over_relax", 4, 1, 301, True, dict(
+        over_relax=1.5), 1703, "block", (5, 2)),
+    ("mv_cluster_H1N1000_cold_proj", 3, 1, 1000, False, dict(
+        proj_warm_iters=0), 1704, "block", (16, 4)),
+    ("mv_cluster_H1N1000_shared_adaptive_k1", 3, 1, 1000, True, dict(
+        adaptive=True, adapt_every=1), 1705, "block", (16, 8)),
+    ("mv_cluster_H3N150_adaptive_over_relax", 4, 3, 150, False, dict(
+        adaptive=True, adapt_every=2, over_relax=1.5), 1706, "block", (5,)),
+    ("mv_cluster_H1N1100_refresh8", 3, 1, 1100, False, dict(
+        proj_refresh_every=8), 1707, "block", (16, 8)),
+    ("mv_cluster_H20N1000", 3, 20, 1000, False, {}, 1711, "global",
+     (16, 8)),
+    ("mv_cluster_H20N1000_shared_adaptive", 3, 20, 1000, True, dict(
+        adaptive=True, adapt_every=2), 1712, "global", (16,)),
+    ("mv_cluster_H33N500_shared_refresh16", 3, 33, 500, True, dict(
+        proj_refresh_every=16), 1713, "global", (8, 16)),
+)
+
+
+def mv_cluster_cases(record):
+    """The ``kernels`` cases of kernel C's cluster layout
+    (MV_CLUSTER_CASES): the first cluster size against the plain version
+    (twice for the same bits), then the layout beside it and every size
+    launched on the same inputs for the same bits (weights, fixed-point
+    residuals, steps). ``record(res)`` takes each case; returns the count
+    of cases with the bits of the layout beside."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    same = 0
+    for label, B, H, N, shared, kw, seed, beside, sizes in MV_CLUSTER_CASES:
+        p = _params(**{"max_iters": 300, "gamma": 5.0, **kw})
+        res = compare_mv_case(label, B, H, N, p, seed, shared=shared,
+                              scale=0.01, time_reps=0, time_plain=False,
+                              layout="cluster", ctas=sizes[0])
+        cw, mu, sig = (torch.as_tensor(x, device="cuda") for x in
+                       mv_instance(B, H, N, seed, shared, 0.01))
+        sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+        ref = V._mv_launch(V._MV_KERNELS[(beside, p.adaptive)], cw, mu, sig,
+                           p, return_steps=p.adaptive)
+        for c in sizes:
+            out = V._mv_launch(V._MV_KERNELS[("cluster", p.adaptive)], cw,
+                               mu, sig, p, return_steps=p.adaptive,
+                               cluster_ctas=c)
+            torch.cuda.synchronize()
+            eq = [torch.equal(x, y) for x, y in zip(out, ref)]
+            assert all(eq), f"{label}: the cluster kernel at {c} CTAs " \
+                f"differs from the {beside} kernel (weights, fp, steps " \
+                f"equal: {eq})"
+        res.update(bits_equal_beside=beside, sizes=list(sizes))
+        same += 1
+        record(res)
     return same
 
 
@@ -2753,6 +2871,8 @@ def phase_kernel_vs_plain():
     global_past_grid()
     emit("cluster_cases", cases=len(CLUSTER_CASES),
          bits_equal_wide=cluster_cases(record))
+    emit("mv_cluster_cases", cases=len(MV_CLUSTER_CASES),
+         bits_equal_beside=mv_cluster_cases(record))
 
     # The MV ladder: every variant, chains and unroll, on a batch that is no
     # multiple of the chains; two and four slots per lane.
@@ -3063,6 +3183,16 @@ MV_SWITCH_SHAPES = (
     (264, 2, 300, False), (264, 3, 300, False), (5, 5, 300, False),
     (1, 1, 960, True), (132, 1, 960, True), (264, 1, 960, True),
     (5, 5, 320, True))
+# Kernel C's cluster layout at the shapes routing gives it (B, H, N,
+# shared): one row with a covariance per problem past the block layout's
+# staging (N=1000 at B=32, 132 and the global path's 1013; N=500 at B=132),
+# and past a block's shared memory (H=20 N=1000 at B=32, per problem and
+# shared; H=33 N=500 at B=132, shared), beside the block, tile and global
+# layouts where they take it.
+MV_CLUSTER_LAYOUT_SHAPES = (
+    (32, 1, 1000, False), (132, 1, 1000, False), (1013, 1, 1000, False),
+    (132, 1, 500, False), (32, 20, 1000, False), (32, 20, 1000, True),
+    (132, 33, 500, True))
 # Where the routed layout is measured slower than another, the rule kept
 # for its simplicity: (B, H, N, shared, body) -> the largest routed-over-
 # fastest ratio allowed (PERF.md section 6).
@@ -3084,7 +3214,9 @@ def mv_layout_shapes():
     B=1028 and B=1; the
     switches (``MV_SWITCH_SHAPES``, "switch" up to 128 assets, else "wide");
     the five MV_LONG_WIDE shapes at 200 iterations of bench.py's settings
-    (``mv_long_wide`` times them at 1000); each in one round of 3."""
+    (``mv_long_wide`` times them at 1000); the cluster layout's
+    (``MV_CLUSTER_LAYOUT_SHAPES``, "cluster", bench.py's settings at 200
+    iterations); each in one round of 3."""
     return ((1028, 1, 20, False, 410, "path", 1),
             (1, 1, 20, False, 724, "path", 1),
             (4096, 1, 30, False, 414, "bench", 1),
@@ -3094,7 +3226,9 @@ def mv_layout_shapes():
         (B, H, N, shared, 940 + i, "switch" if N <= 128 else "wide", 1)
         for i, (B, H, N, shared) in enumerate(MV_SWITCH_SHAPES)) + tuple(
         (B, H, N, shared, 900 + i, "wide", 1)
-        for i, (_, B, H, N, shared) in enumerate(MV_LONG_WIDE))
+        for i, (_, B, H, N, shared) in enumerate(MV_LONG_WIDE)) + tuple(
+        (B, H, N, shared, 1720 + i, "cluster", 1)
+        for i, (B, H, N, shared) in enumerate(MV_CLUSTER_LAYOUT_SHAPES))
 
 
 def mv_layout_bodies(which):
@@ -3111,14 +3245,15 @@ def mv_layout_bodies(which):
                                       adaptive=True, adapt_every=2,
                                       precond=True)}
     bodies = mv_settings()
-    if which == "wide":
+    if which in ("wide", "cluster"):
         bodies = {k: replace(p, max_iters=200) for k, p in bodies.items()}
     return bodies
 
 
 def mv_layouts():
     """Every layout of kernel C that takes the shape (lanes in each sweep
-    compiled for N, warp, tile, block), at each of ``mv_layout_shapes`` and body,
+    compiled for N, warp, tile, block; global and cluster at the cluster
+    layout's shapes), at each of ``mv_layout_shapes`` and body,
     launched in it (``_mv_launch``), timed in its rounds of 3, the layouts
     alternating (twice where the routed layout is measured slower,
     ``confirmed_times``); the layouts' weights
@@ -3134,8 +3269,12 @@ def mv_layouts():
 
     slower = []
     for B, H, N, shared, seed, which, rounds in mv_layout_shapes():
-        cw, mu, sig = (torch.as_tensor(x, device="cuda") for x in mv_instance(
-            B, H, N, seed, shared, scale=0.01))
+        if which == "cluster" and not shared:
+            # Up to 1013 covariances of 1000 assets: made on the card.
+            cw, mu, sig = mv_instance_cuda(B, H, N, seed)
+        else:
+            cw, mu, sig = (torch.as_tensor(x, device="cuda") for x in
+                           mv_instance(B, H, N, seed, shared, scale=0.01))
         sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
         for body, p in mv_layout_bodies(which).items():
             routed, _ = V._mv_route(H, N, p, shared, B)
@@ -3150,6 +3289,12 @@ def mv_layouts():
                      and (lay != "warp" or V.mv_kernel_supports(H, N))
                      and (lay != "tile"
                           or V.mv_tile_problems(B, H, N, shared, p.adaptive))}
+            if which == "cluster" or routed == "cluster":
+                taken.update({lay: (V._MV_KERNELS[(lay, p.adaptive)], None)
+                              for lay in ("global", "cluster")})
+                taken.pop("warp", None)
+                if V.mv_block_smem_bytes(H, N) > V.SMEM_PER_BLOCK:
+                    taken.pop("block")
             if V.mv_kernel_layout(H, N, shared, p.adaptive, B) == "lanes":
                 taken.update({f"lanes:{sw}": (V._MV_KERNELS[(
                     "lanes", p.adaptive)], sw) for sw in V.mv_lanes_sweeps(N)})
@@ -3172,7 +3317,7 @@ def mv_layouts():
                 # small batch): ``mv_long_wide`` and the ``kernels`` phase
                 # hold each layout against the plain version, problem by
                 # problem.
-                if p.adaptive and which in ("switch", "wide"):
+                if p.adaptive and which in ("switch", "wide", "cluster"):
                     continue
                 assert beyond[lay] <= (BEYOND_SHARE if p.adaptive else 0.0), \
                     f"layouts C B={B} H={H} N={N} {body}: {lay} apart from " \
@@ -3562,17 +3707,75 @@ def run_strategies(ctx, cfg, sweeps, reach, horizon=None, names=None,
     return strategies, frames, timing, launches, koopman, (mpc, mv_mpc, bt)
 
 
+def held_mv_first_solves(label, cw, mu, sig, params, held, pinned_launches,
+                         first):
+    """Markowitz's first solves on a path whose kernel C is of the cluster
+    layout: the routed kernel on every date (timed once), held against the
+    plain version on the first and last ``held`` dates; the block layout's
+    kernel solves those dates alone, once, counted into
+    ``pinned_launches``, and must give the cluster kernel's bits there (its
+    case under its own name in ``first``). Returns the cluster kernel's
+    case."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    B, H, N = mu.shape
+    layout, kernel = V._mv_route(H, N, params, False, B)
+    assert layout == "cluster" and B > 2 * held, (layout, B)
+    sig = (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+    rows = torch.cat([torch.arange(held), torch.arange(B - held, B)]).to(
+        mu.device)
+    ctas = V.mv_cluster_launch_ctas(kernel, H, N, params.adaptive,
+                                    mu.device, B)
+    out_all, kernel_ms = timed_once(
+        lambda: V.pdhg_mean_variance_cuda(cw, mu, sig, params))
+    out_k = tuple(x[rows] for x in out_all)
+    cw_h, mu_h = cw[rows].contiguous(), mu[rows].contiguous()
+    sig_h = sig[rows].contiguous()
+    del out_all
+    out_p, plain_ms = timed_once(lambda: V.pdhg_mean_variance_plain(
+        cw_h, mu_h, sig_h, params))
+    res = {"case": label, "kernel": kernel.name, "B": B, "H": H, "N": N,
+           "iters": params.max_iters, "shared_sigma": False, "ctas": ctas,
+           "rows_staged": V.mv_cluster_plan(H, N, ctas, params.adaptive)[3],
+           "held_dates": [0, held, B - held, B], "plain_batch": 2 * held,
+           "kernel_ms": kernel_ms, "plain_ms": plain_ms}
+    hold_mv(label, cw_h, mu_h, sig_h, params, out_k, out_p, res)
+    res["bound_ms"], res["bound_by"] = mv_bound(B, H, N, params, False)
+    blk = V._MV_KERNELS[("block", params.adaptive)]
+    before = blk.launches
+    out_b, block_ms = timed_once(lambda: V._mv_launch(blk, cw_h, mu_h, sig_h,
+                                                      params))
+    pinned_launches[blk.name] = pinned_launches.get(blk.name, 0) \
+        + blk.launches - before
+    torch.cuda.synchronize()
+    same = [torch.equal(x, y) for x, y in zip(out_b, out_k)]
+    assert all(same), f"{label}: the block kernel's bits differ from the " \
+        f"cluster kernel's on the held dates (weights, fp equal: {same})"
+    bres = {"case": label, "kernel": blk.name, "B": 2 * held, "H": H, "N": N,
+            "iters": params.max_iters, "shared_sigma": False,
+            "pinned": True, "held_dates": res["held_dates"],
+            "kernel_ms": block_ms, "plain_ms": plain_ms,
+            "bits_equal_cluster": True}
+    hold_mv(label, cw_h, mu_h, sig_h, params, out_b, out_p, bres)
+    bres["bound_ms"], bres["bound_by"] = mv_bound(2 * held, H, N, params,
+                                                  False)
+    res["bits_equal_block"] = True
+    first[f"{blk.name}:pinned"] = bres
+    return res
+
+
 def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label, reach,
                  scenarios=SCENARIOS, held=None, pinned_launches=None):
     """The path's first solves (pre-trade guess 1/N on every date) of the
     named strategies, by each kernel and by its plain version on the same
     card inputs: {kernel name (``reach``): the case}. With ``held`` (the
-    log-utility strategies of a path whose kernel is of the cluster
-    layout), the kernel solves every date once more, timed once, and the
-    plain version the first ``held`` and the last ``held`` dates; the global
-    layout's kernel of the same body solves those dates alone, once counted
-    into ``pinned_launches`` and then held beside it against the same plain
-    run (its case under its own name)."""
+    strategies of a path whose kernels are of the cluster layout), the
+    kernel solves every date once more, timed once, and the plain version
+    the first ``held`` and the last ``held`` dates; the global layout's
+    kernel of the same body (kernel C's block layout: Markowitz,
+    ``held_mv_first_solves``) solves those dates alone, once counted into
+    ``pinned_launches`` and then held beside it against the same plain run
+    (its case under its own name)."""
     from kmpc_tpu_torch.ops import mpc_cuda as M
 
     fd = ctx["fd"]
@@ -3584,8 +3787,14 @@ def first_solves(ctx, strategies, mpc, mv_mpc, bt, names, label, reach,
         aux = strategies[name].precompute(fd, bt.HORIZON)
         if name == "Markowitz":
             mu = aux["mu"][:n_dates, None, :].contiguous()
-            res = compare_mv_tensors(label, cw, mu, aux["sigma"][:n_dates],
-                                     mv_mpc, time_reps=5)
+            if held:
+                res = held_mv_first_solves(label, cw, mu,
+                                           aux["sigma"][:n_dates], mv_mpc,
+                                           held, pinned_launches, first)
+            else:
+                res = compare_mv_tensors(label, cw, mu,
+                                         aux["sigma"][:n_dates], mv_mpc,
+                                         time_reps=5)
         else:
             key = ("scenario_log_returns" if name == "ScenarioKelly"
                    else "pred_log_returns")
@@ -4216,7 +4425,7 @@ GLOBAL_ASSETS = 1000
 GLOBAL_HORIZON = 20
 GLOBAL_HELD_DATES = 32
 GLOBAL_MV_ITERS = 400
-GLOBAL_REACH = {"Markowitz": "pdhg_mean_variance_block",
+GLOBAL_REACH = {"Markowitz": "pdhg_mean_variance_cluster",
                 "DMD": "pdhg_log_utility_cluster",
                 "KoopmanMPC": "pdhg_log_utility_cluster",
                 "ScenarioKelly": "pdhg_log_utility_scenarios_cluster"}
@@ -4254,18 +4463,21 @@ def phase_global_path(seed, ctx):
     weights from ``seed`` (observation GLOBAL_ASSETS x EMBEDDING_DIM), the
     five strategies one sweep each, DMD and Koopman-MPC through kernel A's
     cluster layout, scenario Kelly through B's (its returns streamed by
-    TMA), Markowitz (H=1) through C's block layout; launches asserted,
-    every weight row feasible; Koopman-MPC's and scenario Kelly's first
-    solves on every date, held against the plain versions on the first and
-    the last GLOBAL_HELD_DATES dates, and the global layout's kernels of the
-    same bodies pinned on those dates (one counted launch each) and held
-    beside them. (2) The packed entry points on the first dates' forecasts
-    at the accurate configuration (A and B adaptive: the cluster layout's
-    adaptive kernels, and the global layout's pinned beside them, held by
-    their spread past SPREAD_N assets) and kernel C at H=20 (the Markowitz
-    path's per-date covariances, fixed steps; one shared covariance,
-    adaptive; GLOBAL_MV_ITERS iterations): one launch of each routed
-    kernel, then each held (timed once). (3) ``MPC.ALLOW_SHORT`` at the main path's shape (``ctx``:
+    TMA), Markowitz (H=1, a covariance per date) through C's; launches
+    asserted, every weight row feasible; Koopman-MPC's, scenario Kelly's
+    and Markowitz's first solves on every date, held against the plain
+    versions on the first and the last GLOBAL_HELD_DATES dates, and the
+    global layout's kernels of the same bodies (C's block layout for
+    Markowitz, which must give the cluster kernel's bits) pinned on those
+    dates (one counted launch each) and held beside them. (2) The packed
+    entry points on the first dates' forecasts at the accurate
+    configuration (A and B adaptive: the cluster layout's adaptive kernels,
+    and the global layout's pinned beside them, held by their spread past
+    SPREAD_N assets) and kernel C at H=20 (the Markowitz path's per-date
+    covariances, fixed steps; one shared covariance, adaptive;
+    GLOBAL_MV_ITERS iterations; the cluster layout's kernels, the global
+    layout's pinned beside them): one launch of each routed kernel, then
+    each held (timed once). (3) ``MPC.ALLOW_SHORT`` at the main path's shape (``ctx``:
     H=5, N=20): Koopman-MPC, DMD, scenario Kelly and Markowitz one sweep
     each through the block layout's hyperplane projection, every row
     checked for its sum and turnover (not its sign), the first solves held.
@@ -4299,12 +4511,12 @@ def phase_global_path(seed, ctx):
     launches = {k: n for k, n in launched.items() if n}
     pinned_global = {}
     first = first_solves(big, strategies, mpc, mv_mpc, bt,
-                         ("KoopmanMPC", "ScenarioKelly"), "global_path",
-                         GLOBAL_REACH, held=GLOBAL_HELD_DATES,
+                         ("KoopmanMPC", "ScenarioKelly", "Markowitz"),
+                         "global_path", GLOBAL_REACH, held=GLOBAL_HELD_DATES,
                          pinned_launches=pinned_global)
     assert pinned_global == {"pdhg_log_utility_global": 1,
-                             "pdhg_log_utility_scenarios_global": 1}, \
-        pinned_global
+                             "pdhg_log_utility_scenarios_global": 1,
+                             "pdhg_mean_variance_block": 1}, pinned_global
     for name, res in first.items():
         emit("global_path_first_solve", **dict(res, kernel=name))
     table = pd.DataFrame({k: calculate_metrics(v)
@@ -4315,8 +4527,9 @@ def phase_global_path(seed, ctx):
     n, N, H = GLOBAL_HELD_DATES, GLOBAL_ASSETS, GLOBAL_HORIZON
     acc = backtest_settings(accurate_config(cfg), horizon=H)[1]
     # Kernel C at H=20 at the Markowitz settings cut to GLOBAL_MV_ITERS
-    # iterations (each CTA streams its 4 MB covariance three times an
-    # iteration: 2000 iterations took 4.4 s a launch).
+    # iterations (the global layout, pinned beside the cluster kernels,
+    # streams each 4 MB covariance three times an iteration: 2000
+    # iterations took 4.4 s a launch).
     mv_fixed = replace(mv_mpc, max_iters=GLOBAL_MV_ITERS)
     mv_acc = replace(markowitz_settings(accurate_config(cfg)),
                      max_iters=GLOBAL_MV_ITERS)
@@ -4345,14 +4558,19 @@ def phase_global_path(seed, ctx):
     assert entry_launches == {
         "pdhg_log_utility_cluster_adaptive": 1,
         "pdhg_log_utility_scenarios_cluster_adaptive": 1,
-        "pdhg_mean_variance_global": 1,
-        "pdhg_mean_variance_global_adaptive": 1}, entry_launches
-    # The global layout's adaptive kernels on the same problems.
+        "pdhg_mean_variance_cluster": 1,
+        "pdhg_mean_variance_cluster_adaptive": 1}, entry_launches
+    # The global layout's kernels on the same problems.
     r_a, r_b = torch.exp(y), torch.exp(ys).contiguous()
     for r_e in (r_a, r_b):
         glob = pinned_kernel("global", r_e, acc)
         before = glob.launches
         pinned("global", cw, r_e, acc)
+        pinned_global[glob.name] = glob.launches - before
+    for s_e, p_e in ((sig, mv_fixed), (shared, mv_acc)):
+        glob = V._MV_KERNELS[("global", p_e.adaptive)]
+        before = glob.launches
+        V._mv_launch(glob, cw, y, s_e, p_e)
         pinned_global[glob.name] = glob.launches - before
     both = [compare_layouts(f"global_path_entry_{k}_adaptive", cw, r_e, acc,
                             time_reps=1, spread=True,
@@ -4361,6 +4579,12 @@ def phase_global_path(seed, ctx):
     for cases in both:
         first.setdefault(cases["global"]["kernel"], cases["global"])
         emit("global_path_entry_solve", **cases["global"])
+    for label, s_e, p_e in (("C", sig, mv_fixed),
+                            ("C_shared_adaptive", shared, mv_acc)):
+        res = compare_mv_tensors(f"global_path_entry_{label}_global", cw, y,
+                                 s_e, p_e, time_reps=1, layout="global")
+        first.setdefault(res["kernel"], res)
+        emit("global_path_entry_solve", **res)
     held = [both[0]["cluster"], both[1]["cluster"],
             compare_mv_tensors("global_path_entry_C", cw, y, sig, mv_fixed,
                                time_reps=1),
@@ -4374,8 +4598,8 @@ def phase_global_path(seed, ctx):
             FEAS_TOL, 2.0 * res.get("plain_simplex_error", 0.0)))
         emit("global_path_entry_solve", **res)
         first.setdefault(res["kernel"], res)
-    launches.update(entry_launches)
-    launches.update(pinned_global)
+    for k, n in (*entry_launches.items(), *pinned_global.items()):
+        launches[k] = launches.get(k, 0) + n
 
     # allow_short at the main path's shape.
     names = ("KoopmanMPC", "DMD", "ScenarioKelly", "Markowitz")
@@ -6235,7 +6459,7 @@ def phase_parallel_path(seed: int):
 # continuation in the realistic family, whose eager loop takes a minute or
 # more on a CPU for each of its 100k-iteration chunks: the host run takes
 # the positions after it.
-VERIFY_N = 32
+VERIFY_N = 12
 VERIFY_HOST = range(1, 5)
 VERIFY_HOST_TAG = "VERIFY_HOST_RESULT "
 VERIFY_HOST_TIMEOUT = 420
@@ -6552,6 +6776,12 @@ KERNELS = {
                                            _PALLAS + ":226"),
     "pdhg_log_utility_scenarios_cluster_adaptive": (
         _LOG + "_scenarios_cluster_adaptive.cu", _PALLAS + ":593"),
+    # Kernel C's cluster layout (the block body's columns over a
+    # thread-block cluster): the fixed body on ``global_path``'s Markowitz
+    # sweep, the adaptive one on its shared entry-point run.
+    "pdhg_mean_variance_cluster": (_MV + "_cluster.cu", _PALLAS + ":1089"),
+    "pdhg_mean_variance_cluster_adaptive": (_MV + "_cluster_adaptive.cu",
+                                            _PALLAS + ":1196"),
     # The block layout's hyperplane projection (``allow_short``), a line
     # each, on ``global_path``'s allow_short comparison.
     "pdhg_log_utility_block:short": (_LOG + "_block.cu", _PALLAS + ":226"),
@@ -6667,8 +6897,8 @@ def main():
             (comparison_launches, {}), (accurate_launches, accurate_first),
             (long_launches, long_first), (warp_launches, warp_first),
             (block_launches, block_first), (scen_launches, scen_first),
-            (global_launches, global_first),
             (mv_launches, mv_first),
+            (global_launches, global_first),
             ({"mv_ladder": ladder_launches}, {"mv_ladder": ladder_case}),
             (mk_launches, mk_first)):
         for name, n in phase_launches.items():
@@ -6718,7 +6948,10 @@ def main():
         if "global" in name:
             entry["bits_equal_block_cases"] = sum(
                 1 for c in every if c.get("bits_equal_block"))
-        if "cluster" in name:
+        if "mean_variance_cluster" in name:
+            entry["bits_equal_beside_cases"] = sum(
+                1 for c in every if c.get("bits_equal_beside"))
+        elif "cluster" in name:
             entry["bits_equal_wide_cases"] = sum(
                 1 for c in every if c.get("bits_equal_wide"))
         if name.endswith(":short"):

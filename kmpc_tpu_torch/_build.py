@@ -84,6 +84,9 @@ SOURCES = {
         "pdhg_log_utility_scenarios_cluster.cu",
     "pdhg_log_utility_scenarios_cluster_adaptive":
         "pdhg_log_utility_scenarios_cluster_adaptive.cu",
+    "pdhg_mean_variance_cluster": "pdhg_mean_variance_cluster.cu",
+    "pdhg_mean_variance_cluster_adaptive":
+        "pdhg_mean_variance_cluster_adaptive.cu",
 }
 
 

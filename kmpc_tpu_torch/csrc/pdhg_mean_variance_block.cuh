@@ -52,8 +52,11 @@
 // FP32 operations beside it; inputs are read once. The product is bound by
 // the shared-memory pipe (a broadcast w_t[j] and a Sigma[j][i] load per
 // FMA, eight rows sharing each Sigma load) or, with Sigma in global
-// memory, by L2 bandwidth (N^2 * 4 bytes per problem-iteration); small
-// shapes by the latency of the reduce chain. Never by HBM.
+// memory, by L2 bandwidth (N^2 * 4 bytes per problem-iteration) where the
+// covariances in flight fit the 50 MB L2 (a shared one), else by HBM: at
+// H=1 N=1000 with a covariance per problem, hundreds of problems in flight
+// read 4 MB each an iteration from device memory (2.34 TB/s measured);
+// small shapes by the latency of the reduce chain.
 
 #pragma once
 

@@ -130,6 +130,16 @@ PDHG_MEAN_VARIANCE_LANES = CudaKernel(
 PDHG_MEAN_VARIANCE_LANES_ADAPTIVE = CudaKernel(
     "pdhg_mean_variance_lanes_adaptive",
     "kmpc_pdhg_mean_variance_lanes_adaptive", [_P] * 6 + _TILE_ARGTYPES)
+# The cluster layout, with the block kernels' C interfaces less
+# ``allow_short``, and the cluster's CTAs before the stream.
+_CLUSTER_ARGTYPES = _ARGTYPES[:-1] + [_I, _P]
+PDHG_MEAN_VARIANCE_CLUSTER = CudaKernel(
+    "pdhg_mean_variance_cluster", "kmpc_pdhg_mean_variance_cluster",
+    [_P] * 5 + _CLUSTER_ARGTYPES)
+PDHG_MEAN_VARIANCE_CLUSTER_ADAPTIVE = CudaKernel(
+    "pdhg_mean_variance_cluster_adaptive",
+    "kmpc_pdhg_mean_variance_cluster_adaptive",
+    [_P] * 6 + _CLUSTER_ARGTYPES)
 # (layout, adaptive) -> kernel
 _MV_KERNELS = {
     ("warp", False): PDHG_MEAN_VARIANCE,
@@ -142,9 +152,13 @@ _MV_KERNELS = {
     ("lanes", True): PDHG_MEAN_VARIANCE_LANES_ADAPTIVE,
     ("global", False): PDHG_MEAN_VARIANCE_GLOBAL,
     ("global", True): PDHG_MEAN_VARIANCE_GLOBAL_ADAPTIVE,
+    ("cluster", False): PDHG_MEAN_VARIANCE_CLUSTER,
+    ("cluster", True): PDHG_MEAN_VARIANCE_CLUSTER_ADAPTIVE,
 }
 MV_KERNELS = tuple(_MV_KERNELS.values())
 _MV_GLOBAL = (PDHG_MEAN_VARIANCE_GLOBAL, PDHG_MEAN_VARIANCE_GLOBAL_ADAPTIVE)
+_MV_CLUSTER = (PDHG_MEAN_VARIANCE_CLUSTER,
+               PDHG_MEAN_VARIANCE_CLUSTER_ADAPTIVE)
 # The kernels that take the ``allow_short`` flag.
 _MV_SHORT_ARG = (PDHG_MEAN_VARIANCE_BLOCK,
                  PDHG_MEAN_VARIANCE_BLOCK_ADAPTIVE) + _MV_GLOBAL
@@ -275,6 +289,97 @@ def mv_global_workspace_bytes(H: int, N: int, grid: int) -> int:
     return 4 * floats * grid
 
 
+# The cluster layout (csrc/pdhg_mean_variance_cluster.cuh): the block
+# layout's body with one problem's asset columns split over a thread-block
+# cluster of C CTAs (C divides the block's warps, at most MV_CLUSTER_MAX, a
+# non-portable size past 8), each CTA holding w whole, its own columns of
+# the other iterates and the first rows of its own columns of Sigma.
+MV_CLUSTER_MAX = 16
+
+
+def mv_cluster_plan(
+        H: int, N: int, C: int,
+        adaptive: bool) -> Optional[Tuple[int, int, int, int, int]]:
+    """(C, threads a CTA, local column slots a CTA, rows of Sigma staged,
+    bytes of shared memory a CTA) of the cluster layout with C CTAs
+    (``mv_cluster_plan`` in csrc/pdhg_mean_variance_cluster.cuh, whose
+    values the built library reports as ``kmpc_mv_cluster_bytes`` and
+    ``kmpc_mv_cluster_rows``), or None where C is below 2, does not divide
+    the block's warps, passes MV_CLUSTER_MAX, or the iterates do not fit:
+    w [H][ceil4(N)] (every column), the own columns of p, mu, the
+    projection input and (adaptive) the dual input [H][LW] (LW = ceil(N /
+    T) T / C, T = ``block_threads(N)``), the own current weights [LW], the
+    thresholds [H], four residual slots and two reduce stagings [T / 32][2
+    H], rounded up to four floats; then Sigma's own columns column-major,
+    [LW][S]: every row where the rest of a block's shared memory holds them
+    (S the least stride of at least N that is 4 mod 8), else as many rows
+    as the largest such stride the rest holds."""
+    T = block_threads(N)
+    NW = T // 32
+    if H < 1 or N < 1 or not 2 <= C <= MV_CLUSTER_MAX or NW % C:
+        return None
+    Tc = T // C
+    LW = -(-N // T) * Tc
+    floats = (H * (-(-N // 4) * 4) + (4 if adaptive else 3) * H * LW + LW
+              + H + 4 + 2 * NW * 2 * H)
+    floats = -(-floats // 4) * 4
+    room = SMEM_PER_BLOCK // 4 - floats
+    if room < 0:
+        return None
+    most = room // LW
+    s4 = most - (most - 4) % 8 if most >= 4 else 0
+    rows, stride = (N, N + (4 - N) % 8) if N <= s4 else (s4, s4)
+    return C, Tc, LW, rows, 4 * (floats + stride * LW)
+
+
+def mv_cluster_sizes(H: int, N: int, adaptive: bool) -> Tuple[int, ...]:
+    """The cluster sizes (2 up to MV_CLUSTER_MAX) whose plan takes the
+    shape."""
+    return tuple(c for c in range(2, MV_CLUSTER_MAX + 1)
+                 if mv_cluster_plan(H, N, c, adaptive) is not None)
+
+
+# The cluster size routing asks for, as measured (``row_slots.py
+# --mv-cluster``, 200 iterations at one row and 100 past it, 50 at B=1013;
+# NVIDIA H100 80GB HBM3, 700 W; us an iteration, fixed body, a covariance
+# per problem unless named). Two CTAs, the most problems in flight, nearly
+# everywhere: one row N=1000 B=132 195 (4 CTAs 235, 8 215, 16 238), B=1013
+# 1513 (1684, 1618, 1814), N=500 B=132 34 (40, 57, 52), B=1013 249 (270,
+# 426, 353); H=20 N=1000 B=32 395 (585, 776, 909), shared 312 (470, 652,
+# 906), B=1013 6894 (12125, 19710, 27039); H=33 N=500 B=132 476 (689, 589,
+# 1311). Sixteen at one row past 512 assets for at most
+# MV_CLUSTER_FEW_B problems, each problem's chain the shortest (N=1000
+# B=32: 63 against 76 at two); four up to 256 assets (N=240 B=1013: 68
+# against 91 at two and 72 at eight). The adaptive plan takes no two CTAs
+# at H=20 N=1000, so four there.
+MV_CLUSTER_FEW_B = 32
+
+
+def mv_cluster_ctas(H: int, N: int, adaptive: bool, B: int = 1) -> int:
+    """The cluster size routing launches for B problems: the size the
+    measurements above name (16 at one row past 512 assets for at most
+    MV_CLUSTER_FEW_B problems, 4 at one row up to 256 assets, else 2), or
+    where the plan refuses it the largest size below it that the plan
+    takes, else the least; 0 where no size takes the shape."""
+    sizes = mv_cluster_sizes(H, N, adaptive)
+    if not sizes:
+        return 0
+    want = 2
+    if H == 1 and N > 512 and B <= MV_CLUSTER_FEW_B:
+        want = 16
+    elif H == 1 and N <= 256:
+        want = 4
+    below = [c for c in sizes if c <= want]
+    return below[-1] if below else sizes[0]
+
+
+def mv_cluster_supports(H: int, N: int) -> bool:
+    """Whether the cluster kernels take this shape: a cluster of 2 to
+    MV_CLUSTER_MAX CTAs holds the adaptive body's iterates (the larger
+    plan)."""
+    return bool(mv_cluster_sizes(H, N, True))
+
+
 # The tile layout's plan (``mv_tile_layout`` and ``mv_tile_problems`` in
 # csrc/pdhg_mean_variance_tile.cuh, whose values the built library reports
 # as ``kmpc_mv_tile_smem_bytes``, ``kmpc_mv_tile_ring_rows`` and
@@ -390,6 +495,25 @@ def mv_tile_streams(H: int, N: int, adaptive: bool) -> bool:
     return plan is None or plan[1] > 0
 
 
+def mv_cluster_first(H: int, N: int, shared: bool) -> bool:
+    """Whether routing takes the cluster layout where another layout also
+    takes the shape: one horizon row with a covariance per problem past
+    the block layout's staging (``mv_sigma_staged``), where the block
+    layout streams each problem's Sigma from device memory every
+    iteration (measured, us an iteration, the cluster layout at
+    ``mv_cluster_ctas``' size against the block layout, fixed / adaptive:
+    N=1000 B=32 63 / 81 against 306 / 320, B=132 195 / 205 against 335 /
+    349, B=1013 1513 / 1592 against 1725 / 1752; N=500 B=132 34 / 38
+    against 86 / 89, B=1013 249 / 284 against 438 / 446; N=240 B=132 12 /
+    14 against 22 / 25, B=1013 68 / 80 against 107 / 110). A shared Sigma
+    stays in the block and tile layouts (the cluster layout at two CTAs
+    measured 2-4x faster than the block layout up to 132 problems, and
+    the tile layout 3-4x faster than it at B=1013: a routing change of
+    its own)."""
+    return (H == 1 and not shared and not mv_sigma_staged(H, N)
+            and mv_cluster_supports(H, N))
+
+
 def mv_kernel_layout(H: int, N: int, shared: bool = False,
                      adaptive: bool = False, B: int = 1,
                      allow_short: bool = False) -> Optional[str]:
@@ -409,7 +533,15 @@ def mv_kernel_layout(H: int, N: int, shared: bool = False,
     global-memory workspace: every shape). With ``allow_short`` (the
     hyperplane projection, in the block and global layouts only)
     ``"block"`` where one problem's iterates fit a block's shared memory,
-    else ``"global"``. None only for H or N below 1."""
+    else ``"global"``. ``"cluster"`` (``mv_cluster_first``) before the
+    block and tile layouts at one row with a covariance per problem past
+    the block layout's staging, and in place of the global layout wherever
+    a cluster holds the shape (H=20 N=1000, us an iteration, fixed /
+    adaptive: B=32 395 / 615 against 2194 / 2278, shared 312 / 500 against
+    1398 / 1410; B=1013 6894 / 12710 against 9929 / 19003, shared 5020 /
+    8827 against 8230 / 12948; H=33 N=500 B=132 476 / 560 against 1004 /
+    1071, shared 414 / 468 against 679 / 717). None only for H or N below
+    1."""
     if H < 1 or N < 1:
         return None
     block = mv_block_smem_bytes(H, N) <= SMEM_PER_BLOCK
@@ -417,6 +549,8 @@ def mv_kernel_layout(H: int, N: int, shared: bool = False,
         return "block" if block else "global"
     if H == 1 and mv_lanes_plan(N, shared) is not None:
         return "lanes"
+    if mv_cluster_first(H, N, shared):
+        return "cluster"
     few, rows = B <= TILE_SMS, H >= TILE_STREAM_H
     if block and N > BLOCK_FIRST_N and (
             few and rows if adaptive else few or not (shared or rows)):
@@ -427,7 +561,43 @@ def mv_kernel_layout(H: int, N: int, shared: bool = False,
         return "tile"
     if block:
         return "block"
-    return "tile" if tile else "global"
+    if tile:
+        return "tile"
+    return "cluster" if mv_cluster_supports(H, N) else "global"
+
+
+_CLUSTERS: Dict[tuple, int] = {}
+
+
+def mv_cluster_clusters(kernel: CudaKernel, H: int, N: int, C: int,
+                        device) -> int:
+    """Clusters of C CTAs of ``kernel`` at this shape that the card runs at
+    once (cudaOccupancyMaxActiveClusters, asked of the built library; 0
+    where it runs none or refuses the size)."""
+    key = (kernel.name, H, N, C, str(device))
+    if key not in _CLUSTERS:
+        fn = mpc_cuda._library_function(
+            kernel.name, kernel.symbol + "_clusters", [_I] * 3, ctypes.c_int)
+        with torch.cuda.device(device):
+            _CLUSTERS[key] = max(fn(H, N, C), 0)
+    return _CLUSTERS[key]
+
+
+def mv_cluster_launch_ctas(kernel: CudaKernel, H: int, N: int,
+                           adaptive: bool, device, B: int = 1) -> int:
+    """The cluster size a routed launch of B problems takes:
+    ``mv_cluster_ctas``' where the card runs it, else the largest other
+    size of ``mv_cluster_sizes`` that it runs; 0 where it runs none
+    (routing then takes the global layout, before any launch)."""
+    first = mv_cluster_ctas(H, N, adaptive, B)
+    if not first:
+        return 0
+    rest = sorted(set(mv_cluster_sizes(H, N, adaptive)) - {first},
+                  reverse=True)
+    for c in (first, *rest):
+        if mv_cluster_clusters(kernel, H, N, c, device) >= 1:
+            return c
+    return 0
 
 
 def _is_shared(cov: torch.Tensor) -> bool:
@@ -581,13 +751,20 @@ def pdhg_mean_variance_cuda(
             f"expected Sigma [N, N] or [B, N, N] with B={B}, N={N}, got "
             f"{tuple(Sigma.shape)}")
     _require_cuda_f32(current_weights=current_weights, mu=mu, Sigma=Sigma)
-    _, kernel = _mv_route(H, N, params, shared, B)
+    layout, kernel = _mv_route(H, N, params, shared, B)
+    ctas = None
+    if layout == "cluster":
+        ctas = mv_cluster_launch_ctas(kernel, H, N, params.adaptive,
+                                      mu.device, B)
+        if not ctas:
+            kernel = _MV_KERNELS[("global", params.adaptive)]
     return _mv_launch(kernel, current_weights, mu, Sigma, params,
-                      return_steps)
+                      return_steps, cluster_ctas=ctas)
 
 
 def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
-               return_steps=False, problems=None, sweep=None):
+               return_steps=False, problems=None, sweep=None,
+               cluster_ctas=None):
     """Launch ``kernel`` (any of ``MV_KERNELS`` whose body matches
     ``params.adaptive``) on checked CUDA tensors and count the launch; a
     tile kernel takes the problems a CTA its library chooses for the batch
@@ -595,7 +772,11 @@ def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
     a check); a lane kernel the sweep ``mv_lanes_sweep`` gives the batch,
     or ``sweep`` (one of ``mv_lanes_sweeps(N)``) where given; a global
     kernel its persistent grid (``mpc_cuda.global_grid``) over a workspace
-    of ``mv_global_workspace_bytes``. ``allow_short`` needs a kernel of the block or global layout."""
+    of ``mv_global_workspace_bytes``; a cluster kernel B clusters of
+    ``cluster_ctas`` CTAs (default ``mv_cluster_ctas``), where its plan
+    takes that size (else ``ValueError``) and the card runs it (else
+    ``RuntimeError``). ``allow_short`` needs a kernel of the block or global
+    layout."""
     B, H, N = mu.shape
     shared = int(Sigma.dim() == 2)
     short = params.allow_short
@@ -630,6 +811,15 @@ def _mv_launch(kernel: CudaKernel, current_weights, mu, Sigma, params,
         ws = mpc_cuda.global_workspace(mv_global_workspace_bytes(H, N, grid),
                                        mu.device, kernel.name)
         tail = (int(short), ws.data_ptr(), grid)
+    elif kernel in _MV_CLUSTER:
+        C = cluster_ctas or mv_cluster_ctas(H, N, params.adaptive, B)
+        if mv_cluster_plan(H, N, C, params.adaptive) is None:
+            raise ValueError(f"{kernel.name}: no plan of {C} CTAs a cluster "
+                             f"holds H={H}, N={N}")
+        if mv_cluster_clusters(kernel, H, N, C, mu.device) < 1:
+            raise RuntimeError(f"{kernel.name}: the card runs no cluster of "
+                               f"{C} CTAs at H={H}, N={N}")
+        tail = (C,)
     else:
         tail = (int(short),) if kernel in _MV_SHORT_ARG else ()
     kernel.launch(

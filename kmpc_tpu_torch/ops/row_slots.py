@@ -101,10 +101,23 @@ counts (whole function and each loop); run as ``PYTHONPATH=<an earlier checkout>
 kmpc_tpu_torch/ops/row_slots.py --mv-switch`` it times and reads that
 checkout's kernels by the same launches.
 
+With ``--mv-cluster``, kernel C's cluster layout: its bits against the
+block or global kernel of the same body at every cluster size its plan
+takes (``MV_CLUSTER_BITS``), then its time an iteration at 2, 4, 8 and 16
+CTAs beside the block, tile and global layouts (both bodies, in turns) at
+one row past the block layout's staging and at the global layout's shapes
+(``MV_CLUSTER_SHAPES``), with the clusters the card runs at once, the rows
+of Sigma staged and the rate the rest is read at; the measurements that
+set ``mv_cuda``'s cluster routing and sizes. With ``--mv-cluster-cuts``,
+copies of its fixed-step kernel with one part cut out at a time (the rows
+of Sigma read from global memory, the staged rows, the whole product, the
+remote writes of w), timed at the global path's Markowitz shape with three
+Michelot sweeps an iteration and with none: where an iteration goes.
+
     python -m kmpc_tpu_torch.ops.row_slots [--layouts warp,rows] [--wide]
         [--boundary 1,2,3:1024,1056] [--mv] [--scen]
         [--digest [--busy SECONDS]] [--plain-replay] [--global]
-        [--mv-switch]
+        [--mv-switch] [--mv-cluster] [--mv-cluster-cuts]
 
 One JSON line per measurement; needs the card.
 """
@@ -1252,6 +1265,228 @@ def time_mv_switch(iters: int = 200) -> None:
             r"(Lb0E)?E")), flush=True)
 
 
+# --mv-cluster: kernel C's cluster layout. The bits first, at small
+# batches: (B, H, N, shared, the layout of the same body whose bits it must
+# give). Then the times: (B, H, N, shared) at one row past the block
+# layout's staging (N = 240, 500, 1000 at B = 32, 132, 1013) and at the
+# global layout's shapes (H=20 N=1000 at B = 32 and 1013, H=33 N=500).
+MV_CLUSTER_BITS = ((5, 1, 300, False, "block"), (4, 1, 1000, True, "block"),
+                   (3, 20, 1000, False, "global"),
+                   (3, 33, 500, True, "global"), (5, 3, 150, False, "block"))
+MV_CLUSTER_SHAPES = tuple(
+    (B, 1, N, shared) for N in (240, 500, 1000) for B in (32, 132, 1013)
+    for shared in (False, True)) + (
+    (32, 20, 1000, False), (32, 20, 1000, True), (1013, 20, 1000, False),
+    (1013, 20, 1000, True), (132, 33, 500, False), (132, 33, 500, True))
+
+
+def _mv_cluster_inputs(B, H, N, shared, seed):
+    """Current weights, mu and a symmetric covariance made on the card
+    (chip_smoke.py's ``mv_instance_cuda`` distribution, scale 0.01)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    e = torch.empty((B, N), device="cuda").exponential_(generator=g)
+    cw = e / e.sum(-1, keepdim=True)
+    mu = torch.randn((B, H, N), generator=g, device="cuda") * 0.01
+    A = torch.randn((N, N) if shared else (B, N, N), generator=g,
+                    device="cuda") * 0.01
+    sig = A @ A.transpose(-1, -2) + 1e-4 * torch.eye(N, device="cuda")
+    del A
+    return cw, mu, (0.5 * (sig + sig.transpose(-1, -2))).contiguous()
+
+
+def mv_cluster_bits() -> None:
+    """The cluster kernels at every size their plan takes, against the
+    block or global kernel of the same body on the same inputs: one line
+    a case with whether the bits are equal (weights, fixed-point residuals,
+    steps) and the largest weight difference."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    for B, H, N, shared, other in MV_CLUSTER_BITS:
+        cw, mu, sig = _mv_cluster_inputs(B, H, N, shared, 17 * N + H)
+        for adaptive in (False, True):
+            p = MPCParams(sigma_scale=2.0, gamma=5.0, max_iters=300,
+                          adaptive=adaptive, adapt_every=2,
+                          proj_refresh_every=0 if adaptive else 16)
+            ref = V._mv_launch(V._MV_KERNELS[(other, adaptive)], cw, mu,
+                               sig, p, return_steps=adaptive)
+            for C in V.mv_cluster_sizes(H, N, adaptive):
+                line = {"phase": "mv_cluster_bits", "B": B, "H": H, "N": N,
+                        "shared": shared, "adaptive": adaptive, "C": C,
+                        "against": other,
+                        "plan": V.mv_cluster_plan(H, N, C, adaptive)}
+                try:
+                    out = V._mv_launch(V._MV_KERNELS[("cluster", adaptive)],
+                                       cw, mu, sig, p, return_steps=adaptive,
+                                       cluster_ctas=C)
+                    torch.cuda.synchronize()
+                    line["bits_equal"] = all(
+                        torch.equal(x, y) for x, y in zip(out, ref))
+                    line["max_abs_dw"] = (out[0] - ref[0]).abs().max().item()
+                    line["max_abs_dfp"] = (out[1] - ref[1]).abs().max().item()
+                except (RuntimeError, ValueError) as e:
+                    line["error"] = str(e)
+                print(json.dumps(line), flush=True)
+
+
+def time_mv_cluster(iters: int = 200) -> None:
+    """``--mv-cluster``: the bits (``mv_cluster_bits``), then one line a
+    shape and body: each layout that takes it (block, tile, global, and the
+    cluster layout at each of 2, 4, 8 and 16 CTAs its plan takes), timed
+    in turns
+    (two rounds after a warm launch each), with the routed layout, each
+    cluster size's clusters at once, rows of Sigma staged, and the bytes of
+    Sigma read from L2 an iteration (the rows past the staged ones, once
+    per eight horizon rows) with the rate the fastest cluster launch read
+    them at."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    mv_cluster_bits()
+    for B, H, N, shared in MV_CLUSTER_SHAPES:
+        cw, mu, sig = _mv_cluster_inputs(B, H, N, shared, B + N + H)
+        it = iters if H == 1 else iters // 2 if B <= 132 else iters // 4
+        for adaptive in (False, True):
+            p = MPCParams(sigma_scale=2.0, gamma=1.0, max_iters=it,
+                          adaptive=adaptive, adapt_every=2)
+            runs = {}
+            for layout in ("block", "tile", "global"):
+                if layout == "block" and V.mv_block_smem_bytes(H, N) > \
+                        V.SMEM_PER_BLOCK:
+                    continue
+                if layout == "tile" and not V.mv_tile_problems(
+                        B, H, N, shared, adaptive):
+                    continue
+                kernel = V._MV_KERNELS[(layout, adaptive)]
+                runs[layout] = (lambda k=kernel: V._mv_launch(
+                    k, cw, mu, sig, p))
+            kc = V._MV_KERNELS[("cluster", adaptive)]
+            info = {}
+            for C in V.mv_cluster_sizes(H, N, adaptive):
+                if C not in (2, 4, 8, 16) or V.mv_cluster_clusters(
+                        kc, H, N, C, "cuda") < 1:
+                    continue
+                plan = V.mv_cluster_plan(H, N, C, adaptive)
+                runs[f"cluster:{C}"] = (lambda C=C: V._mv_launch(
+                    kc, cw, mu, sig, p, cluster_ctas=C))
+                info[C] = {"clusters_at_once": V.mv_cluster_clusters(
+                    kc, H, N, C, "cuda"), "rows_staged": plan[3],
+                    "l2_bytes_per_problem_iter": 4 * (N - plan[3]) * N
+                    * -(-H // 8)}
+            for run in runs.values():
+                run()
+            times = {k: [] for k in runs}
+            for _ in range(2):
+                for k, run in runs.items():
+                    times[k].append(_one_launch_ms(run))
+            best = {k: min(t) for k, t in times.items()}
+            for C, d in info.items():
+                t = best[f"cluster:{C}"] * 1e-3
+                d["l2_tb_per_s"] = (d["l2_bytes_per_problem_iter"] * B * it
+                                    / t / 1e12)
+            print(json.dumps({
+                "phase": "mv_cluster", "B": B, "H": H, "N": N,
+                "shared": shared, "adaptive": adaptive, "iters": it,
+                "routed": V.mv_kernel_layout(H, N, shared, adaptive, B),
+                "routed_ctas": V.mv_cluster_ctas(H, N, adaptive, B),
+                "ms": times, "us_per_iter": {
+                    k: 1e3 * v / it for k, v in best.items()},
+                "fastest": min(best, key=best.get), "cluster": info}),
+                flush=True)
+        del cw, mu, sig
+        torch.cuda.empty_cache()
+
+
+# --mv-cluster-cuts: the cluster kernel's fixed body with one part cut out
+# (its outputs wrong, its time the point): name -> (text of
+# csrc/pdhg_mean_variance_cluster.cuh, its replacement). The rows of Sigma
+# read from global memory, the staged rows, the whole product, the remote
+# writes of w.
+MV_CLUSTER_CUTS = {
+    "no_remainder": (
+        "  for (int j0 = js; j0 < N; j0 += 2 * G) {\n",
+        "  for (int j0 = N; j0 < N; j0 += 2 * G) {\n"),
+    "no_staged": (
+        "  for (int j = 0; j < jv; j += V) {\n",
+        "  for (int j = 0; j < 0; j += V) {\n"),
+    "no_product": ("    mv_cluster_rows<KS, RB>(ra);\n", ""),
+    "no_publish": (
+        "    for (int k = 0; k < P.C; ++k)\n"
+        "      if (k != rank) cl.map_shared_rank(w, k)[e] = x;\n", ""),
+}
+# (B, C, iterations): one wave of the global path's Markowitz shape (H=1,
+# N=1000, a covariance per problem) at 16 and 8 CTAs, then its 1013 dates
+# at 16, 8 and 2.
+MV_CLUSTER_CUT_SHAPES = ((7, 16, 200), (15, 8, 200), (1013, 16, 20),
+                         (1013, 8, 20), (1013, 2, 20))
+
+
+def mv_cluster_cut(name: str):
+    """The fixed-step cluster kernel's function built from a copy of the
+    sources (in the build directory) with ``MV_CLUSTER_CUTS[name]`` applied
+    (none for "full"), bound as the package binds it."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+
+    kernel = V.PDHG_MEAN_VARIANCE_CLUSTER
+    out = BUILD_DIR / f"lib{kernel.name}_cut_{name}.so"
+    src = BUILD_DIR / f"cut_src_{name}"
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(CSRC, src)
+    if name != "full":
+        header = src / "pdhg_mean_variance_cluster.cuh"
+        text = header.read_text()
+        cut, by = MV_CLUSTER_CUTS[name]
+        assert text.count(cut) == 1, f"{name}: the cut's text not found"
+        header.write_text(text.replace(cut, by))
+    return subprocess.Popen(
+        [find_nvcc(), *NVCC_FLAGS, "-o", str(out),
+         str(src / SOURCES[kernel.name])],
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL), out
+
+
+def time_mv_cluster_cuts() -> None:
+    """``--mv-cluster-cuts``: one line a (B, C) of ``MV_CLUSTER_CUT_SHAPES``
+    with the us an iteration of the whole kernel and of each cut
+    (``MV_CLUSTER_CUTS``), at the fixed body's three warm Michelot sweeps
+    an iteration and at none (the threshold carried unchanged): where an
+    iteration of the cluster layout goes."""
+    from kmpc_tpu_torch.ops import mv_cuda as V
+    from kmpc_tpu_torch.ops.mpc_cuda import _sweep_budgets
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    builds = {n: mv_cluster_cut(n) for n in ("full", *MV_CLUSTER_CUTS)}
+    fns = {}
+    for n, (proc, out) in builds.items():
+        assert proc.wait() == 0, f"{n}: nvcc failed"
+        fn = getattr(ctypes.CDLL(str(out)),
+                     V.PDHG_MEAN_VARIANCE_CLUSTER.symbol)
+        fn.argtypes = V.PDHG_MEAN_VARIANCE_CLUSTER.argtypes
+        fn.restype = ctypes.c_int
+        fns[n] = fn
+    H, N = 1, 1000
+    for B, C, it in MV_CLUSTER_CUT_SHAPES:
+        cw, mu, sig = _mv_cluster_inputs(B, H, N, False, 7)
+        p = MPCParams(sigma_scale=2.0, gamma=1.0, max_iters=it)
+        _, _, cold = _sweep_budgets(p, N)
+        w, fp = torch.empty_like(mu), torch.empty(B, device="cuda")
+        us = {}
+        for sweeps in (p.proj_warm_iters, 0):
+            for n, fn in fns.items():
+                def run(fn=fn, sweeps=sweeps):
+                    e = fn(cw.data_ptr(), mu.data_ptr(), sig.data_ptr(),
+                           w.data_ptr(), fp.data_ptr(), B, H, N, 0, it, 0,
+                           sweeps, cold, p.cost_coeff, p.gamma, p.over_relax,
+                           p.step_scale, p.sigma_scale, 1, C,
+                           torch.cuda.current_stream().cuda_stream)
+                    assert e == 0, e
+                run()
+                us[f"{n}:sweeps{sweeps}"] = 1e3 * min(
+                    _one_launch_ms(run) for _ in range(2)) / it
+        print(json.dumps({"phase": "mv_cluster_cuts", "B": B, "H": H,
+                          "N": N, "C": C, "iters": it,
+                          "us_per_iter": us}), flush=True)
+        del cw, mu, sig, w
+        torch.cuda.empty_cache()
+
+
 def plain_replay_bits() -> None:
     """``--plain-replay``: one JSON line (module docstring)."""
     from kmpc_tpu_torch.ops import mv_cuda as V
@@ -1340,6 +1575,13 @@ def main(argv=None):
     parser.add_argument("--mv-switch", action="store_true",
                         help="kernel C's block and tile layouts at the "
                              "switch shapes where they run close")
+    parser.add_argument("--mv-cluster", action="store_true",
+                        help="kernel C's cluster layout: its bits against "
+                             "the block and global kernels, its times "
+                             "beside theirs at the cluster's shapes")
+    parser.add_argument("--mv-cluster-cuts", action="store_true",
+                        help="kernel C's cluster layout with one part cut "
+                             "out at a time: where an iteration goes")
     parser.add_argument("--busy", type=float, metavar="SECONDS",
                         help="with --digest: the digests with a NaN-filled "
                              "allocator, then for SECONDS beside two "
@@ -1349,7 +1591,7 @@ def main(argv=None):
         raise SystemExit("row_slots: CUDA is not available")
     if args.wide or args.boundary or args.mv or args.scen or args.digest \
             or args.h1 or args.plain_replay or args.global_ \
-            or args.mv_switch:
+            or args.mv_switch or args.mv_cluster or args.mv_cluster_cuts:
         print(json.dumps({"phase": "device", "smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
              "--format=csv,noheader"], capture_output=True, text=True,
@@ -1363,6 +1605,12 @@ def main(argv=None):
         return
     if args.mv_switch:
         time_mv_switch()
+        return
+    if args.mv_cluster:
+        time_mv_cluster()
+        return
+    if args.mv_cluster_cuts:
+        time_mv_cluster_cuts()
         return
     if args.digest:
         print(json.dumps({"phase": "wide_digest", **wide_digests()}),

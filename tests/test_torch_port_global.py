@@ -100,18 +100,20 @@ REFUSED = {
 def test_every_shape_the_port_refused_routes_to_a_layout(group):
     """Each shape the port refused before routes to the cluster layout's
     kernel of its body where a cluster of at most 8 CTAs holds it (kernels
-    A and B), else to the global layout's (the shape picks the layout, the
-    parameters the body), and every shape of a grid gets a layout; only
-    S, H or N below 1 gets None."""
+    A and B) or of up to 16 CTAs (kernel C), else to the global layout's
+    (the shape
+    picks the layout, the parameters the body), and every shape of a grid
+    gets a layout; only S, H or N below 1 gets None."""
     bodies = [MPCParams(), MPCParams(adaptive=True, adapt_every=2),
               MPCParams(pipeline_reduces=True, proj_refresh_every=16)]
     for S, H, N in REFUSED[group]:
         if group == "mean_variance":
+            want = "cluster" if V.mv_cluster_supports(H, N) else "global"
             for shared in (False, True):
-                assert V.mv_kernel_layout(H, N, shared) == "global"
+                assert V.mv_kernel_layout(H, N, shared) == want
                 for p in bodies[:2]:
                     assert V._mv_route(H, N, p, shared, B=1028) == (
-                        "global", V._MV_KERNELS[("global", p.adaptive)])
+                        want, V._MV_KERNELS[(want, p.adaptive)])
             continue
         want = "cluster" if M.cluster_kernel_supports(S, H, N) else "global"
         assert M.kernel_layout(S, H, N) == want, (S, H, N)
@@ -130,7 +132,7 @@ def test_every_shape_the_port_refused_routes_to_a_layout(group):
                     M.SHORT_LAYOUTS
                 if S is None:
                     assert V.mv_kernel_layout(H, N) in (
-                        "lanes", "tile", "block", "global")
+                        "lanes", "tile", "block", "global", "cluster")
     assert M.kernel_layout(None, 0, 20) is None
     assert V.mv_kernel_layout(5, 0) is None
     with pytest.raises(ValueError, match="at least 1"):
@@ -331,9 +333,11 @@ def test_refused_log_utility_shape_matches_kmpc_tpu(name):
 def test_refused_mean_variance_shape_matches_kmpc_tpu(shared):
     """Kernel C at H=20 N=1000, a covariance per problem and one shared:
     kmpc_tpu's wrapper hands it to its XLA solver, the port's card to the
-    global layout; the port's packed wrapper meets the bars against it."""
+    cluster layout (the global layout before it); the port's packed
+    wrapper meets the bars against it."""
     H, N = 20, 1000
-    assert V.mv_kernel_layout(H, N, shared) == "global"
+    assert V.mv_kernel_layout(H, N, shared) == "cluster"
+    assert V.mv_kernel_layout(H, N, shared, B=1013) == "cluster"
     _mv_case(2, H, N, shared, dict(max_iters=400), 1601 + int(shared))
 
 

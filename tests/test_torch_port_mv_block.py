@@ -246,19 +246,26 @@ def test_block_shared_memory_plan(H, N, floats, staged):
 def test_a_cuda_solve_beyond_both_layouts_raises():
     """The route the CUDA wrapper takes before any launch: a shape whose
     iterates exceed a block's shared memory (and the tile plan's), which
-    raised until the global layout took it, routes to the global layout;
-    the shape picks the layout, the parameters the body."""
+    raised until the global layout took it, routes to the cluster layout
+    (where a cluster holds it, else the global layout); one row with a
+    covariance per problem past the block layout's staging routes to the
+    cluster layout; the shape picks the layout, the parameters the
+    body."""
     H, N = 20, 800
-    assert V.mv_kernel_layout(H, N) == "global"
-    assert V.mv_kernel_layout(H, N, shared=True) == "global"
+    assert V.mv_kernel_layout(H, N) == "cluster"
+    assert V.mv_kernel_layout(H, N, shared=True) == "cluster"
     assert V._mv_route(H, N, MPCParams()) == (
+        "cluster", V.PDHG_MEAN_VARIANCE_CLUSTER)
+    assert V._mv_route(H, N, MPCParams(), B=1013) == (
+        "cluster", V.PDHG_MEAN_VARIANCE_CLUSTER)
+    assert V._mv_route(252, 1000, MPCParams()) == (
         "global", V.PDHG_MEAN_VARIANCE_GLOBAL)
     assert V._mv_route(1, 20, MPCParams()) == (
         "lanes", V.PDHG_MEAN_VARIANCE_LANES)
     assert V._mv_route(20, 30, MPCParams(adaptive=True)) == (
         "tile", V.PDHG_MEAN_VARIANCE_TILE_ADAPTIVE)
     assert V._mv_route(1, 1112, MPCParams()) == (
-        "block", V.PDHG_MEAN_VARIANCE_BLOCK)
+        "cluster", V.PDHG_MEAN_VARIANCE_CLUSTER)
     assert V._mv_route(1, 1112, MPCParams(), shared=True) == (
         "block", V.PDHG_MEAN_VARIANCE_BLOCK)
     assert V._mv_route(1, 1112, MPCParams(), shared=True, B=1028) == (

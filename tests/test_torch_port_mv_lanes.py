@@ -143,7 +143,9 @@ def test_ladder_refuses_an_unknown_sweep():
 def test_routing_at_one_row(shared, adaptive):
     """At H=1 every N the lane plan takes (up to 128 assets: the shapes
     of the warp layout, ``mv_kernel_supports``) routes to the lane layout,
-    for any batch; past it the tile or block layout; the lane kernel of the
+    for any batch; past it the tile or block layout, or with a covariance
+    per problem past the block layout's staging the cluster layout; the
+    lane kernel of the
     body; the sweep in every lane up to LANES_INLANE_MAX_B problems, by
     the butterfly past it."""
     p = MPCParams(adaptive=adaptive)
@@ -155,6 +157,8 @@ def test_routing_at_one_row(shared, adaptive):
             if layout == "lanes":
                 assert V._mv_route(1, N, p, shared, B) == (
                     "lanes", V._MV_KERNELS[("lanes", adaptive)])
+            elif not shared and not V.mv_sigma_staged(1, N):
+                assert layout == "cluster", (B, N, layout)
             else:
                 assert layout in ("tile", "block"), (B, N, layout)
         want = "inlane" if B <= V.LANES_INLANE_MAX_B else "butterfly"
@@ -183,9 +187,12 @@ def test_the_markowitz_path_and_headline_route_to_the_lane_kernels():
 
 def test_routing_error_names_the_lane_budget():
     """A shape past every shared-memory plan (which raised, naming the lane
-    layout's budget, before the global layout) routes to the global layout;
-    only a shape below one row or asset raises."""
+    layout's budget, before the global layout) routes to the cluster layout
+    where a cluster holds it, else to the global layout; only a shape
+    below one row or asset raises."""
     assert V._mv_route(20, 800, MPCParams()) == (
+        "cluster", V.PDHG_MEAN_VARIANCE_CLUSTER)
+    assert V._mv_route(252, 1000, MPCParams()) == (
         "global", V.PDHG_MEAN_VARIANCE_GLOBAL)
     with pytest.raises(ValueError, match="at least 1"):
         V._mv_route(0, 800, MPCParams())

@@ -165,7 +165,10 @@ def test_routing_grid(shared, adaptive):
     at H >= TILE_STREAM_H or, shared, for more than TILE_SMS problems; else
     the block layout where one problem fits a block; else the tile layout
     where its plan takes the batch; else the global layout (None before
-    it). ``_mv_route`` names the body's kernel of that layout."""
+    it); the cluster layout at one row with a covariance per problem past
+    the block layout's staging, and in place of the global layout where a
+    cluster holds the shape.
+    ``_mv_route`` names the body's kernel of that layout."""
     p = MPCParams(adaptive=adaptive)
     seen = set()
     for B in (1, 1028):
@@ -176,8 +179,12 @@ def test_routing_grid(shared, adaptive):
                 streams = V.mv_tile_streams(H, N, adaptive)
                 block = V.mv_block_smem_bytes(H, N) <= V.SMEM_PER_BLOCK
                 few, rows = B <= V.TILE_SMS, H >= V.TILE_STREAM_H
+                cluster = V.mv_cluster_supports(H, N)
                 if H == 1 and N <= 128:
                     want = "lanes"
+                elif (H == 1 and not shared and not V.mv_sigma_staged(H, N)
+                      and cluster):
+                    want = "cluster"
                 elif block and N > V.BLOCK_FIRST_N and (
                         (few and rows) if adaptive
                         else (few or not (shared or rows))):
@@ -187,12 +194,14 @@ def test_routing_grid(shared, adaptive):
                     want = "tile"
                 elif V.mv_block_smem_bytes(H, N) <= V.SMEM_PER_BLOCK:
                     want = "block"
+                elif tile:
+                    want = "tile"
                 else:
-                    want = "tile" if tile else "global"
+                    want = "cluster" if cluster else "global"
                 assert layout == want, (B, H, N)
                 assert (layout == "lanes") == V.mv_kernel_supports(H, N)
                 if H > V.TILE_MAX_WARPS:
-                    assert layout in ("block", "global"), (H, N)
+                    assert layout in ("block", "global", "cluster"), (H, N)
                 seen.add(layout)
                 assert V._mv_route(H, N, p, shared, B) == (
                     layout, V._MV_KERNELS[(layout, adaptive)])
@@ -217,8 +226,9 @@ def test_routing_grid(shared, adaptive):
     (1028, 1, 200, False, ("block", "tile")),
     # A per-problem Sigma streamed: block below three rows (the tile 4-5x
     # slower at one row of 250), tile from three rows past 132 problems,
-    # block below them.
-    (528, 1, 250, False, "block"), (264, 2, 300, False, "block"),
+    # block below them; at one row the cluster layout since it came (at
+    # N=240 1.6x the block layout's speed at B=132 and 1013).
+    (528, 1, 250, False, "cluster"), (264, 2, 300, False, "block"),
     (264, 3, 300, False, "tile"), (5, 5, 300, False, "block"),
     # A shared Sigma streamed at one row: block up to 132 problems, tile
     # past them; block at H=5 up to 132 problems.
@@ -256,7 +266,7 @@ def test_chip_smoke_times_each_side_of_every_switch():
     # Both sides of each switch are timed: some routed to each layout.
     routed = {V.mv_kernel_layout(H, N, sh, False, B)
               for B, H, N, sh in C.MV_SWITCH_SHAPES}
-    assert routed == {"lanes", "tile", "block"}
+    assert routed == {"lanes", "tile", "block", "cluster"}
 
 
 # ---------------------------------------------------------------------------
